@@ -3,31 +3,43 @@
 
     python3 chip_smoke.py            # on a machine with one CUDA card
 
-Drives the port's main path on the card — the flagship 1 kHz -> 1 Hz
-zero-phase low-pass + decimation through ``LFProc.process_time_range``
-over a synthetic int16 tdas spool at the north-star width of 10,000
-channels — and holds the hand-written CUDA kernel against its plain
-PyTorch version at every stage shape that path gives it.  Phases, each
-printing one JSON line:
+Drives the port's two main paths on the card at the north-star width
+of 10,000 channels over a synthetic int16 tdas spool (1 kHz -> 1 Hz):
+the batch low-pass (``LFProc.process_time_range``) and the real-time
+loop (``run_lowpass_realtime``, stateful, carry saved and resumed), and
+holds each hand-written CUDA kernel against its plain PyTorch version
+at the shapes those paths give it.  Phases, each printing JSON lines:
 
 1. environment (versions, card, power limit, optional packages);
-2. build of ``tpudas_torch/csrc/fir_decimate.cu`` with nvcc (sm_90a);
-3. kernel vs plain at the flagship stage shapes of a 60 s window at
-   10,000 and 2,048 channels, float32 and int16, plus a ragged case, a
-   long-tap case and all-zero input; per-channel relative error must be
-   <= 1e-5 and zeros exact; kernel, plain and ``conv1d`` times from
-   CUDA events, with the bound of each case;
-4. ``LFProc`` over 180 s x 10,000 channels of int16 tdas: every window
-   on the CUDA kernel, ``fir_decimate.launches == 4 x windows``, the
-   output tiles the 1 Hz grid, and the synthetic LF component is
-   recovered within 0.01.
+2. build of ``tpudas_torch/csrc/*.cu`` with nvcc (sm_90a), one nvcc per
+   source, all started together;
+3. the strided-FIR kernel vs plain at the flagship stage shapes of a
+   60 s window at 10,000 and 2,048 channels, float32 and int16, plus a
+   ragged case, a long-tap case and all-zero input;
+3b. the fused-cascade kernel vs plain on stream blocks of 60, 8 and 1
+   outputs at 10,000 channels (int16, f32), 60 at 2,048, a ragged
+   width, an uneven block sequence (outputs and every carry leaf), a
+   NaN gap (the kernel's NaN set within the plain one's) and all-zero
+   input; with the per-stage kernel chain and a ``conv1d`` chain timed
+   beside it;
+4. ``LFProc`` over 180 s x 10,000 channels: every window on the CUDA
+   kernel, ``fir_decimate.launches == 4 x windows``, the output tiles
+   the 1 Hz grid, the synthetic LF component is recovered within 0.01;
+5. ``run_lowpass_realtime`` over the same spool: engine="fused" over
+   files 1-2, then a second call that resumes from the saved carry over
+   file 3; every block launches the fused kernel; an engine="auto"
+   control (per-stage kernel on every stage, 4 launches a block) gives
+   the same names and data within 1e-5; the stream equals phase 4's
+   batch output within 1e-4 on the common interior.
 
-Then the kernel summary line, the card's name and power limit, and the
-last line ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero.  Without a CUDA card it exits 2 before any phase.
-``--rehearse`` runs the same phases on the CPU at a small width with
-the plain stages (no kernel, no timings worth reading) and exits 3: a
-dry run of the control flow, never a result.
+Per-channel relative errors are held to 1e-5 (same f32 products, other
+order) and zeros must be exact; times come from CUDA events, each with
+its bound.  Then the kernel summary line, the card's name and power
+limit, and the last line ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero.  Without a CUDA card it exits 2
+before any phase.  ``--rehearse`` runs the same phases on the CPU at a
+64-channel width with the plain versions (no kernel, no timings worth
+reading) and exits 3: a dry run of the control flow, never a result.
 """
 
 from __future__ import annotations
@@ -251,12 +263,262 @@ def phase_kernels(device, widths, timer):
     return plan, main
 
 
-def phase_main_path(device, n_ch, seconds, workdir):
+def cascade_bound_ms(plan, T, C, in_bytes):
+    """Least time for one fused step: the block read once, the output
+    and the new carry written once, the old carry read once; flops over
+    the true taps of every stage."""
+    from tpudas_torch.ops.fir import stream_carry_sizes
+
+    n_out = T // plan.ratio
+    carry = sum(stream_carry_sizes(plan))
+    by = T * C * in_bytes + n_out * C * 4 + 2 * carry * C * 4
+    flops, rows = 0.0, T
+    for R, h in plan.stages:
+        rows //= int(R)
+        flops += 2.0 * len(h) * rows * C
+    t_b, t_o = by / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def warm_blocks(plan, n_list, C, device, seed, quantized, warm=30):
+    """Consecutive blocks of ``n_list`` outputs of one synthetic stream,
+    and the carry a plain step leaves after ``warm`` outputs of it: the
+    state a running stream holds (every carry leaf nonzero)."""
+    from tpudas_torch.ops.fir import cascade_stream_init, stream_carry_sizes
+    from tpudas_torch.ops.fused_kernel import fused_cascade_plain
+
+    rows = [n * plan.ratio for n in (warm, *n_list)]
+    x = synthetic_window(sum(rows), C, device, seed, quantized)
+    parts = list(torch.split(x, rows))
+    qs = QSCALE if quantized else None
+    _y, carry = fused_cascade_plain(
+        parts[0].contiguous(), cascade_stream_init(plan, C, device),
+        plan.stages, stream_carry_sizes(plan), qscale=qs)
+    return [b.contiguous() for b in parts[1:]], carry
+
+
+def conv1d_chain(plan, x, carry, qscale):
+    """The yardstick the port never calls: the cascade as one
+    ``conv1d`` per stage over the carry-extended input."""
+    u = x.to(torch.float32)
+    if qscale is not None:
+        u = u * qscale
+    for (R, h), buf in zip(plan.stages, carry):
+        k = u.shape[0] // int(R)
+        z = torch.cat([buf, u], dim=0).t()[:, None, :]
+        w = torch.from_numpy(np.asarray(h, np.float32)).to(x.device)
+        u = torch.nn.functional.conv1d(z, w[None, None, :],
+                                       stride=int(R))[:, 0, :k].t()
+    return u
+
+
+def compare_fused(timer, plan, blocks, carry, qscale, label,
+                  with_time=True):
+    """B3 vs its plain version over consecutive blocks from one carry:
+    the outputs (stacked per channel) and every final carry leaf
+    per-channel within REL_TOL.  Timed on the first block: the kernel,
+    the plain version, the per-stage B1 chain and the conv1d chain."""
+    from tpudas_torch.ops.fir import cascade_decimate_stream, stream_carry_sizes
+    from tpudas_torch.ops.fused_kernel import fused_cascade, fused_cascade_plain
+
+    sizes = stream_carry_sizes(plan)
+    ck = cp = carry
+    ys, rys = [], []
+    for x in blocks:
+        y, ck = fused_cascade(x, ck, plan.stages, sizes, qscale=qscale)
+        ry, cp = fused_cascade_plain(x, cp, plan.stages, sizes, qscale=qscale)
+        ys.append(y)
+        rys.append(ry)
+    y, ry = torch.cat(ys), torch.cat(rys)
+    timer.sync()
+    if not bool(torch.isfinite(y).all()):
+        fail(f"{label}: fused kernel output not finite")
+    rel, abs_err = per_channel_rel(y, ry)
+    leaf_rel = [per_channel_rel(a, b)[0] for a, b in zip(ck, cp) if a.numel()]
+    x = blocks[0]
+    T, C = x.shape
+    bound, bound_by = cascade_bound_ms(plan, T, C, x.element_size())
+    rec = {"case": label, "T": T, "C": C, "blocks": len(blocks),
+           "n_out": T // plan.ratio, "dtype": str(x.dtype).split(".")[-1],
+           "max_rel_err": rel, "max_abs_err": abs_err,
+           "carry_max_rel_err": max(leaf_rel), "bound_ms": bound,
+           "bound_by": bound_by}
+    if with_time:
+        kern = lambda: fused_cascade(x, carry, plan.stages, sizes,  # noqa: E731
+                                     qscale=qscale)
+        plain = lambda: fused_cascade_plain(x, carry, plan.stages,  # noqa: E731
+                                            sizes, qscale=qscale)
+        chain = lambda: cascade_decimate_stream(x, carry, plan,  # noqa: E731
+                                                "auto", qscale=qscale)
+        conv = lambda: conv1d_chain(plan, x, carry, qscale)  # noqa: E731
+        rec["conv1d_chain_max_abs_err"] = float((conv() - rys[0]).abs().max())
+        fns = (kern, plain, chain, conv)
+        reps = [timer.reps_for(f) for f in fns]
+        # turns: kernel, plain, chain, conv, conv, chain, plain, kernel
+        first = [timer(f, r) for f, r in zip(fns, reps)]
+        second = [timer(f, r) for f, r in zip(fns[::-1], reps[::-1])][::-1]
+        keys = ("ms", "plain_ms", "b1_chain_ms", "conv1d_chain_ms")
+        for key, a, b in zip(keys, first, second):
+            rec[key] = (a + b) / 2
+            rec[key + "_turns"] = [a, b]
+    if rel > REL_TOL or max(leaf_rel) > REL_TOL:
+        emit(rec)
+        fail(f"{label}: fused kernel vs plain per-channel rel err "
+             f"{max(rel, *leaf_rel):.3e} > {REL_TOL:g}")
+    return rec
+
+
+def phase_fused_kernel(device, widths, timer):
+    """Phase 3b: B3 (csrc/fused_cascade.cu) against fused_cascade_plain
+    at the flagship stream blocks, a narrower width, a ragged width, an
+    uneven block sequence, a NaN gap and all-zero input."""
+    from tpudas_torch.ops.fir import (
+        cascade_stream_init, design_cascade, stream_carry_sizes,
+    )
+    from tpudas_torch.ops.fused_kernel import fused_cascade, fused_cascade_plain
+    from tpudas_torch.proc.lfproc import output_corner
+
+    plan = design_cascade(1000.0, 1000, output_corner(1.0))
+    ratio, sizes = plan.ratio, stream_carry_sizes(plan)
+    main = {}
+    for C in widths:
+        for quantized in (True, False):
+            # a 1-output block is compared over 20 consecutive blocks,
+            # so every channel has a series to scale its error by
+            cases = ((60, [60]), (8, [8]), (1, [1] * 20))
+            for n, n_list in (cases if C == widths[0] else cases[:1]):
+                blocks, carry = warm_blocks(plan, n_list, C, device,
+                                            seed=n + C, quantized=quantized)
+                label = (f"fused {n} out {'int16' if quantized else 'f32'} "
+                         f"{C}ch")
+                rec = compare_fused(timer, plan, blocks, carry,
+                                    QSCALE if quantized else None, label)
+                emit(rec)
+                main[(C, quantized, n)] = rec
+                del blocks, carry
+    # ragged: C not a multiple of 32
+    blocks, carry = warm_blocks(plan, [8, 8], 1000, device, seed=3,
+                                quantized=False)
+    emit(compare_fused(timer, plan, blocks, carry, None,
+                       "fused ragged C=1000 f32", with_time=False))
+    # an uneven block sequence through both, carried from zeros:
+    # outputs and every carry leaf
+    C = 1000
+    carry_k = carry_p = cascade_stream_init(plan, C, device)
+    ys_k, ys_p = [], []
+    for i, n in enumerate((50, 13, 1, 27, 40)):
+        x = synthetic_window(n * ratio, C, device, seed=20 + i,
+                             quantized=True)
+        y, carry_k = fused_cascade(x, carry_k, plan.stages, sizes, QSCALE)
+        yp, carry_p = fused_cascade_plain(x, carry_p, plan.stages, sizes,
+                                          QSCALE)
+        ys_k.append(y)
+        ys_p.append(yp)
+    timer.sync()
+    rel = per_channel_rel(torch.cat(ys_k), torch.cat(ys_p))[0]
+    leaf = [per_channel_rel(a, b)[0] for a, b in zip(carry_k, carry_p)]
+    emit({"case": "fused block sequence (50,13,1,27,40) int16 1000ch",
+          "max_rel_err": rel, "carry_max_rel_err": leaf})
+    if max(rel, *leaf) > REL_TOL:
+        fail(f"block sequence: rel err {max(rel, *leaf):.3e} > {REL_TOL:g}")
+    # NaN gap: the kernel's NaN set is a subset of the plain version's
+    (x,), carry = warm_blocks(plan, [40], C, device, seed=31,
+                              quantized=False)
+    x[ratio : 2 * ratio, 2] = float("nan")
+    x[-ratio // 2 :, 0] = float("nan")
+    y, nc = fused_cascade(x, carry, plan.stages, sizes)
+    yp, ncp = fused_cascade_plain(x, carry, plan.stages, sizes)
+    timer.sync()
+    nan_k, nan_p = torch.isnan(y), torch.isnan(yp)
+    both = ~nan_k & ~nan_p
+    scale = float(yp[both].abs().max())
+    err = float((y[both] - yp[both]).abs().max()) / scale
+    rec = {"case": "fused NaN gap f32 1000ch", "nan_kernel": int(nan_k.sum()),
+           "nan_plain": int(nan_p.sum()), "finite_max_rel_err": err}
+    emit(rec)
+    if not bool(nan_p.any()) or bool((nan_k & ~nan_p).any()):
+        fail("NaN gap: the kernel's NaN set is not a subset of the plain "
+             "version's")
+    if err > REL_TOL:
+        fail(f"NaN gap: finite samples differ by {err:.3e}")
+    # all-zero input and carry give exact zeros
+    for dt in (torch.float32, torch.int16):
+        z = torch.zeros((20 * ratio, 777), dtype=dt, device=device)
+        y, nc = fused_cascade(z, cascade_stream_init(plan, 777, device),
+                              plan.stages, sizes,
+                              QSCALE if dt == torch.int16 else None)
+        timer.sync()
+        nz = int(torch.count_nonzero(y)) + sum(
+            int(torch.count_nonzero(b)) for b in nc)
+        emit({"case": f"fused zeros {str(dt).split('.')[-1]}", "nonzero": nz})
+        if nz:
+            fail(f"all-zero {dt} block gave {nz} nonzero values")
+    return main
+
+
+def lfproc_class(force_tdas=False):
+    """``LFProc``, or — where h5py is missing (the card's host) or a
+    rehearsal asks for the card's path — a subclass that writes each
+    output patch as tdas under the ``LFDAS_`` stem."""
+    from tpudas_torch.io.tdas import write_tdas
+    from tpudas_torch.proc.lfproc import LFProc
+
+    if importlib.util.find_spec("h5py") is not None and not force_tdas:
+        return LFProc
+
+    class TdasOutputLFProc(LFProc):
+        """Writes each output patch as tdas under the LFDAS_ stem."""
+
+        def _write_output(self, patch, path):
+            write_tdas(patch, os.path.splitext(path)[0] + ".tdas")
+
+    return TdasOutputLFProc
+
+
+def lf_fit(patch, bg):
+    """(max per-channel LF fit residual, max amplitude error): each
+    channel regressed on the synthetic 0.05 Hz sine, whose amplitude is
+    the known ramp over distance."""
+    times = patch.coords["time"]
+    data = patch.host_data()
+    dists = patch.coords["distance"]
+    s = np.sin(2 * np.pi * LF_FREQ * (
+        (times - bg).astype("timedelta64[ns]").astype(np.int64) / 1e9))
+    a = (data * s[:, None]).sum(0) / (s @ s)  # per-channel regression
+    resid = np.abs(data - s[:, None] * a[None, :]).max(0) / np.abs(a)
+    truth_amp = 1.0 + dists / (dists.max() + 1.0)  # the synthetic ramp
+    amp_err = np.abs(a - truth_amp) / truth_amp
+    return float(resid.max()), float(amp_err.max())
+
+
+def grid_checks(out, what):
+    """The merged output of ``out``: one patch on a gap-free 1 Hz grid
+    under LFDAS_ names.  Returns (patch, sorted names)."""
+    from tpudas_torch.io.spool import spool
+
+    names = sorted(os.listdir(out))
+    names = [n for n in names if not n.startswith(".")]
+    merged = spool(out).update().chunk(time=None)
+    if len(merged) != 1:
+        fail(f"{what}: output does not merge into one patch ({len(merged)})")
+    p = merged[0]
+    steps = np.diff(p.coords["time"].astype("datetime64[ns]").astype(np.int64))
+    if not all(n.startswith("LFDAS_") for n in names):
+        fail(f"{what}: output names are not all LFDAS_")
+    if not bool(np.all(steps == 1_000_000_000)):
+        fail(f"{what}: output grid is not a gap-free 1 Hz grid")
+    if not bool(np.isfinite(p.host_data()).all()):
+        fail(f"{what}: output not finite")
+    return p, names
+
+
+def phase_main_path(device, n_ch, seconds, workdir, cls):
+    """Phase 4: the batch path.  Leaves its spool (``workdir/src``) and
+    output (``workdir/out``) for phase 5."""
     from tpudas_torch.core.timeutils import build_time_grid
     from tpudas_torch.io.spool import spool
-    from tpudas_torch.io.tdas import write_tdas
     from tpudas_torch.ops.fir_kernel import fir_decimate
-    from tpudas_torch.proc.lfproc import LFProc, schedule_windows
+    from tpudas_torch.proc.lfproc import schedule_windows
     from tpudas_torch.proc.naming import get_filename
     from tpudas_torch.testing import make_synthetic_spool
 
@@ -272,15 +534,6 @@ def phase_main_path(device, n_ch, seconds, workdir):
         write_kwargs={"dtype": "int16", "scale": QSCALE},
     )
     setup_s = time.perf_counter() - t0
-    have_h5py = importlib.util.find_spec("h5py") is not None
-
-    class TdasOutputLFProc(LFProc):
-        """Writes each output patch as tdas under the LFDAS_ stem."""
-
-        def _write_output(self, patch, path):
-            write_tdas(patch, os.path.splitext(path)[0] + ".tdas")
-
-    cls = LFProc if have_h5py else TdasOutputLFProc
     lfp = cls(spool(src).sort("time").update(), device=device)
     lfp.update_processing_parameter(
         output_sample_interval=1.0, process_patch_size=60, edge_buff_size=10,
@@ -303,40 +556,26 @@ def phase_main_path(device, n_ch, seconds, workdir):
     wall = time.perf_counter() - t0
     launches = fir_decimate.launches
     windows = sum(lfp.engine_counts.values())
-    names = sorted(os.listdir(out))
-    merged = spool(out).update().chunk(time=None)
-    if len(merged) != 1:
-        fail(f"output does not merge into one patch ({len(merged)})")
-    p = merged[0]
-    times = p.coords["time"]
-    steps = np.diff(times.astype("datetime64[ns]").astype(np.int64))
-    data = p.host_data()
-    dists = p.coords["distance"]
-    s = np.sin(2 * np.pi * LF_FREQ * (
-        (times - bg).astype("timedelta64[ns]").astype(np.int64) / 1e9))
-    a = (data * s[:, None]).sum(0) / (s @ s)  # per-channel regression
-    resid = np.abs(data - s[:, None] * a[None, :]).max(0) / np.abs(a)
-    truth_amp = 1.0 + dists / (dists.max() + 1.0)  # the synthetic ramp
-    amp_err = np.abs(a - truth_amp) / truth_amp
+    p, names = grid_checks(out, "main path")
+    resid, amp_err = lf_fit(p, bg)
     res = {
         "phase": "main_path", "channels": n_ch, "seconds": n_files * file_sec,
         "fs": 1000.0, "payload": "int16 tdas", "setup_s": setup_s,
-        "output_format": "dasdae" if have_h5py else "tdas (no h5py)",
+        "output_format": ("tdas (no h5py)" if cls.__name__ != "LFProc"
+                          else "dasdae"),
         "windows": windows, "expected_windows": expect_windows,
         "engine_counts": lfp.engine_counts,
         "quantized_windows": lfp.quantized_windows,
         "fir_decimate_launches": launches, "wall_s": wall,
         "s_per_window": wall / max(windows, 1), "timings": lfp.timings,
         "realtime_factor": n_files * file_sec / wall,
-        "outputs": len(names), "output_rows": int(data.shape[0]),
-        "lf_fit_max_resid": float(resid.max()),
-        "lf_amp_max_rel_err": float(amp_err.max()),
-        "finite": bool(np.isfinite(data).all()),
+        "outputs": len(names), "output_rows": int(p.host_data().shape[0]),
+        "lf_fit_max_resid": resid, "lf_amp_max_rel_err": amp_err,
     }
     emit(res)
-    if not have_h5py:
-        print("main path: h5py is missing, so outputs were written as tdas "
-              "under the LFDAS_ stem", flush=True)
+    if cls.__name__ != "LFProc":
+        print("main path: outputs were written as tdas under the LFDAS_ "
+              "stem (no h5py on this host, or a rehearsal)", flush=True)
     ran = "cascade-cuda" if device.type == "cuda" else "cascade-torch"
     want_launches = 4 * windows if device.type == "cuda" else 0
     checks = [
@@ -344,20 +583,177 @@ def phase_main_path(device, n_ch, seconds, workdir):
         (lfp.engine_counts[ran] == windows, f"every window ran {ran}"),
         (lfp.quantized_windows == windows, "every window shipped int16"),
         (launches == want_launches, f"launches {launches} != {want_launches}"),
-        (all(n.startswith("LFDAS_") for n in names), "LFDAS_ names"),
-        (bool(np.all(steps == 1_000_000_000)), "1 Hz grid without gaps"),
         ([os.path.splitext(n)[0] for n in names] == expect_stems,
          "output names follow the window schedule"),
-        (int(data.shape[0]) == wins[-1][3] - wins[0][2],
+        (int(p.host_data().shape[0]) == wins[-1][3] - wins[0][2],
          "output rows cover the schedule"),
-        (res["finite"], "finite output"),
-        (res["lf_fit_max_resid"] < 0.01, "LF fit residual < 0.01"),
-        (res["lf_amp_max_rel_err"] < 0.01, "LF amplitude error < 0.01"),
+        (resid < 0.01, "LF fit residual < 0.01"),
+        (amp_err < 0.01, "LF amplitude error < 0.01"),
     ]
     for ok, what in checks:
         if not ok:
             fail(f"main path check failed: {what}")
-    shutil.rmtree(workdir, ignore_errors=True)
+    return res
+
+
+def phase_realtime(device, workdir, cls):
+    """Phase 5: the real-time path over phase 4's spool.  A fused run
+    (engine="fused") sees files 1-2, saves its carry and ends; a second
+    call sees file 3 and resumes from that carry.  The control
+    (engine="auto", one uninterrupted call, the same feed: files 1-2,
+    then 3) runs the per-stage chain.  Both are held to each other and
+    to phase 4's batch output."""
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.proc.stream import CARRY_FILENAME
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+    from tpudas_torch.utils.logging import set_log_handler
+    from tpudas_torch.utils.profiling import Counters
+
+    src_all = os.path.join(workdir, "src")
+    files = sorted(os.listdir(src_all))
+    rt = os.path.join(workdir, "rt")
+    shutil.rmtree(rt, ignore_errors=True)
+    cuda = device.type == "cuda"
+
+    def link(src, upto):
+        os.makedirs(src, exist_ok=True)
+        for name in files[:upto]:
+            if not os.path.exists(os.path.join(src, name)):
+                os.link(os.path.join(src_all, name), os.path.join(src, name))
+
+    def new_run():
+        return {"calls": 0, "rounds": 0, "blocks": {}, "wall_s": 0.0,
+                "timings": {}, "counters": Counters(), "events": []}
+
+    def drive(run, src, out, engine, feed=()):
+        """One driver call; each poll's sleep links up to the next file
+        count of ``feed``."""
+        feed = list(feed)
+
+        def sleep(_):
+            if feed:
+                link(src, feed.pop(0))
+
+        def on_round(_rnd, lfp):
+            run["rounds"] += 1
+            for k, v in lfp.stream_blocks.items():
+                run["blocks"][k] = run["blocks"].get(k, 0) + v
+            for k, v in lfp.timings.items():
+                run["timings"][k] = run["timings"].get(k, 0.0) + v
+
+        set_log_handler(run["events"].append)
+        t0 = time.perf_counter()
+        try:
+            n = run_lowpass_realtime(
+                src, out, T0, output_sample_interval=1.0, edge_buffer=10.0,
+                process_patch_size=60, poll_interval=0.0, sleep_fn=sleep,
+                on_round=on_round, engine=engine, stateful=True,
+                counters=run["counters"], device=device)
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            set_log_handler(None)
+        run["wall_s"] += time.perf_counter() - t0
+        run["calls"] += 1
+        return n
+
+    # the runner builds an LFProc every round: on a host without h5py
+    # it must be the one that writes tdas
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    try:
+        fused, ctrl = new_run(), new_run()
+        src_f, out_f = os.path.join(rt, "src_fused"), os.path.join(rt, "fused")
+        link(src_f, 2)
+        fused_cascade.launches = 0
+        fir_decimate.launches = 0
+        r1 = drive(fused, src_f, out_f, "fused")
+        carry_saved = os.path.isfile(os.path.join(out_f, CARRY_FILENAME))
+        resumes_1 = sum(e["event"] == "stream_resume" for e in fused["events"])
+        link(src_f, 3)
+        r2 = drive(fused, src_f, out_f, "fused")
+        fused_launches = fused_cascade.launches
+        fused_fir_launches = fir_decimate.launches
+        resumes = sum(e["event"] == "stream_resume" for e in fused["events"])
+
+        src_c, out_c = os.path.join(rt, "src_ctrl"), os.path.join(rt, "ctrl")
+        link(src_c, 2)
+        fused_cascade.launches = 0
+        fir_decimate.launches = 0
+        rc = drive(ctrl, src_c, out_c, "auto", feed=[3])
+        ctrl_launches = fir_decimate.launches
+        ctrl_fused_launches = fused_cascade.launches
+    finally:
+        fleet_engine.LFProc = saved_cls
+
+    bg = np.datetime64(T0, "ns")
+    p_f, names_f = grid_checks(out_f, "realtime fused")
+    p_c, names_c = grid_checks(out_c, "realtime control")
+    p_b, _ = grid_checks(os.path.join(workdir, "out"), "batch")
+    ctrl_rel = per_channel_rel(torch.from_numpy(p_f.host_data()),
+                               torch.from_numpy(p_c.host_data()))[0]
+    lo = max(p_f.coords["time"][0], p_b.coords["time"][0])
+    hi = min(p_f.coords["time"][-1], p_b.coords["time"][-1])
+    fv = p_f.select(time=(lo, hi)).host_data()
+    bv = p_b.select(time=(lo, hi)).host_data()
+    batch_rel = (float(np.abs(fv - bv).max() / np.abs(bv).max())
+                 if fv.shape == bv.shape and fv.size else float("inf"))
+    resid, amp_err = lf_fit(p_f, bg)
+    rounds = [e for e in fused["events"] if e["event"] == "realtime_round"]
+    fused_eng = "fused-cuda" if cuda else "fused-torch"
+    chain_eng = "cascade-cuda" if cuda else "cascade-torch"
+    n_fused = sum(fused["blocks"].values())
+    n_ctrl = sum(ctrl["blocks"].values())
+    ctr = fused["counters"]
+    res = {
+        "phase": "realtime", "channels": int(p_f.host_data().shape[1]),
+        "seconds": ctr.data_seconds, "payload": "int16 tdas",
+        "fused": {"calls": fused["calls"], "rounds": fused["rounds"],
+                  "resumes": resumes, "blocks": fused["blocks"],
+                  "fused_cascade_launches": fused_launches,
+                  "fir_decimate_launches": fused_fir_launches,
+                  "wall_s": fused["wall_s"], "timings": fused["timings"],
+                  "realtime_factor": ctr.realtime_factor,
+                  "head_lag_s": rounds[-1]["head_lag_seconds"] if rounds
+                  else None,
+                  "outputs": len(names_f)},
+        "control": {"rounds": ctrl["rounds"], "blocks": ctrl["blocks"],
+                    "fir_decimate_launches": ctrl_launches,
+                    "fused_cascade_launches": ctrl_fused_launches,
+                    "wall_s": ctrl["wall_s"], "timings": ctrl["timings"],
+                    "realtime_factor": ctrl["counters"].realtime_factor},
+        "fused_vs_control_max_rel_err": ctrl_rel,
+        "fused_vs_batch_interior_rel_err": batch_rel,
+        "output_rows": int(p_f.host_data().shape[0]),
+        "lf_fit_max_resid": resid, "lf_amp_max_rel_err": amp_err,
+    }
+    emit(res)
+    checks = [
+        ((r1, r2, rc) == (1, 1, 2), f"rounds {(r1, r2, rc)} != (1, 1, 2)"),
+        (carry_saved, "the first fused call saved its carry"),
+        (resumes_1 == 0 and resumes == 1,
+         "the second fused call resumed from the saved carry"),
+        (set(fused["blocks"]) == {fused_eng} and n_fused > 0,
+         f"every fused block ran {fused_eng}"),
+        (fused_launches == (n_fused if cuda else 0),
+         f"fused_cascade launches {fused_launches} != blocks {n_fused}"),
+        (fused_fir_launches == 0, "the fused run launched no per-stage kernel"),
+        (set(ctrl["blocks"]) == {chain_eng} and n_ctrl > 0,
+         f"every control block ran {chain_eng}"),
+        (ctrl_launches == (4 * n_ctrl if cuda else 0),
+         f"control fir_decimate launches {ctrl_launches} != 4 x {n_ctrl}"),
+        (ctrl_fused_launches == 0, "the control launched no fused kernel"),
+        (names_f == names_c, "fused and control output names differ"),
+        (ctrl_rel <= REL_TOL, f"fused vs control rel err {ctrl_rel:.3e}"),
+        (batch_rel <= 1e-4, f"fused vs batch interior {batch_rel:.3e}"),
+        (resid < 0.01, "LF fit residual < 0.01"),
+        (amp_err < 0.01, "LF amplitude error < 0.01"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"realtime check failed: {what}")
     return res
 
 
@@ -369,6 +765,9 @@ def main(argv=None):
     if args.rehearse:
         device = torch.device("cpu")
         widths, n_ch = (64, 48), 64
+        # 64 channels make every stream block smaller than the fused
+        # size threshold; clear it so phase 5 runs the fused step
+        os.environ["TPUDAS_FUSED_MIN_ELEMS"] = "0"
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -389,20 +788,25 @@ def main(argv=None):
         "pandas": importlib.util.find_spec("pandas") is not None,
     })
 
-    from tpudas_torch.ops import fir_kernel
-    from tpudas_torch.ops._build import build_info
+    from tpudas_torch.ops._build import build_info, build_libraries
 
     if device.type == "cuda":
+        # every kernel at once: one nvcc per source, started together
         t0 = time.perf_counter()
-        fir_kernel._kernel_lib()
-        info = build_info("fir_decimate")
-        emit({"phase": "build", "wall_s": time.perf_counter() - t0, **info})
+        build_libraries(["fir_decimate", "fused_cascade"])
+        emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+              "libraries": {n: build_info(n)
+                            for n in ("fir_decimate", "fused_cascade")}})
 
     timer = Timer(device)
     plan, main_cases = phase_kernels(device, widths, timer)
-    res = phase_main_path(device, n_ch, MAIN_PATH_SECONDS,
-                          os.path.join(os.path.dirname(os.path.abspath(
-                              __file__)), "build", "chip_smoke"))
+    fused_cases = phase_fused_kernel(device, widths, timer)
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    cls = lfproc_class(force_tdas=args.rehearse)
+    res = phase_main_path(device, n_ch, MAIN_PATH_SECONDS, workdir, cls)
+    rt = phase_realtime(device, workdir, cls)
+    shutil.rmtree(workdir, ignore_errors=True)
 
     recs = main_cases[(widths[0], True)]  # the main path's shapes
     kernel = {
@@ -420,8 +824,32 @@ def main(argv=None):
         "library_ms": sum(r["library_ms"] for r in recs),
         "shape": (f"the 4 flagship stages of one 60 s window, "
                   f"{widths[0]} ch int16"),
+        "realtime_control_launches": rt["control"]["fir_decimate_launches"],
     }
-    emit({"kernels": [kernel]})
+    # B3 at the main path's full block: 60 outputs, int16, full width
+    full = fused_cases[(widths[0], True, 60)]
+    mains = [r for (c, q, _n), r in fused_cases.items()
+             if c == widths[0] and q]
+    fused = {
+        "name": "fused_cascade",
+        "route": "cuda",
+        "source": "tpudas_torch/csrc/fused_cascade.cu",
+        "replaces": "tpudas/ops/pallas_fir.py:576",
+        "launches": rt["fused"]["fused_cascade_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in mains),
+        "ms": full["ms"],
+        "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"],
+        # no single PyTorch call computes the stateful cascade step
+        "library_ms": None,
+        "b1_chain_ms": full["b1_chain_ms"],
+        "conv1d_chain_ms": full["conv1d_chain_ms"],
+        "ms_by_block": {f"{n} out": fused_cases[(widths[0], True, n)]["ms"]
+                        for n in (60, 8, 1)},
+        "shape": f"one 60-output stream block, {widths[0]} ch int16",
+    }
+    emit({"kernels": [kernel, fused]})
     if args.rehearse:
         print("chip_smoke: CPU rehearsal finished; no result", flush=True)
         return 3

@@ -121,3 +121,97 @@ def test_lfproc_on_card_matches_cpu(cuda_device, tmp_path):
     assert np.array_equal(a.coords["time"], b.coords["time"])
     assert _rel(torch.from_numpy(a.host_data()),
                 torch.from_numpy(b.host_data())) <= REL_TOL
+
+
+# -- the fused cascade kernel (B3) ------------------------------------------
+
+
+def _stream_blocks(plan, n_list, C, seed, int16):
+    """Consecutive blocks of one synthetic stream, on the card."""
+    x = _window(sum(n_list) * plan.ratio, C, seed=seed, int16=int16)
+    cuts = np.cumsum([0] + [n * plan.ratio for n in n_list])
+    return [torch.from_numpy(np.ascontiguousarray(x[a:b])).cuda()
+            for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def _run_fused(step, plan, blocks, carry, qscale):
+    sizes = fir.stream_carry_sizes(plan)
+    ys = []
+    for x in blocks:
+        y, carry = step(x, carry, plan.stages, sizes, qscale=qscale)
+        ys.append(y)
+    return torch.cat(ys), carry
+
+
+@pytest.mark.parametrize("int16", [False, True], ids=["f32", "int16"])
+def test_fused_kernel_matches_plain_on_flagship_blocks(cuda_device, int16):
+    from tpudas_torch.ops.fused_kernel import fused_cascade, fused_cascade_plain
+
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    qs = 1e-4 if int16 else None
+    # block sizes of the stream's power-of-two split, ragged width
+    blocks = _stream_blocks(plan, [60, 8, 1, 1, 27, 3], 1000, 5, int16)
+    carry = fir.cascade_stream_init(plan, 1000, cuda_device)
+    before = fused_cascade.launches
+    y, ck = _run_fused(fused_cascade, plan, blocks, carry, qs)
+    assert fused_cascade.launches == before + len(blocks)
+    ry, cp = _run_fused(fused_cascade_plain, plan, blocks, carry, qs)
+    assert _rel(y, ry) <= REL_TOL
+    for a, b in zip(ck, cp):
+        assert _rel(a, b) <= REL_TOL
+
+
+def test_fused_kernel_nan_set_within_plain(cuda_device):
+    from tpudas_torch.ops.fused_kernel import fused_cascade, fused_cascade_plain
+
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    (x,) = _stream_blocks(plan, [40], 300, 6, False)
+    x[plan.ratio : 2 * plan.ratio, 2] = float("nan")
+    x[-plan.ratio // 2 :, 0] = float("nan")
+    carry = fir.cascade_stream_init(plan, 300, cuda_device)
+    y, _ = _run_fused(fused_cascade, plan, [x], carry, None)
+    ry, _ = _run_fused(fused_cascade_plain, plan, [x], carry, None)
+    nk, npl = torch.isnan(y), torch.isnan(ry)
+    assert bool(npl.any()) and not bool((nk & ~npl).any())
+    both = ~nk & ~npl
+    err = (y[both] - ry[both]).abs().max() / ry[both].abs().max()
+    assert float(err) <= REL_TOL
+
+
+def test_fused_kernel_carry_round_trip(cuda_device, tmp_path):
+    """A kernel carry saved to disk and loaded resumes on the kernel as
+    if the stream had never stopped, and crosses to the per-stage
+    chain."""
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.proc.stream import StreamCarry, load_carry, save_carry
+
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    blocks = _stream_blocks(plan, [20, 13, 7], 500, 7, True)
+    carry = fir.cascade_stream_init(plan, 500, cuda_device)
+    y_all, _ = _run_fused(fused_cascade, plan, blocks, carry, 1e-4)
+    y1, c1 = _run_fused(fused_cascade, plan, blocks[:1], carry, 1e-4)
+    save_carry(StreamCarry(0, 10**9, 1.0, 10, 4, "fused", 60, bufs=c1),
+               str(tmp_path))
+    loaded = load_carry(str(tmp_path)).bufs  # numpy leaves, as on resume
+    before = fused_cascade.launches
+    y2, c2 = fir.cascade_decimate_stream(blocks[1], loaded, plan,
+                                         "fused-cuda", qscale=1e-4)
+    assert fused_cascade.launches == before + 1
+    y3, _ = fir.cascade_decimate_stream(blocks[2], c2, plan, "auto",
+                                        qscale=1e-4)
+    assert _rel(torch.cat([y1, y2, y3]), y_all) <= REL_TOL
+
+
+def test_fused_kernel_refuses_a_plan_it_cannot_hold(cuda_device):
+    """Stage 0's taps beyond the kernel's staged rows: the wrapper
+    raises instead of running another engine."""
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    h = np.full(300, 1.0 / 300, np.float32)
+    stages, sizes = [(2, h)], (298,)
+    x = torch.zeros((20, 64), device=cuda_device)
+    carry = (torch.zeros((298, 64), device=cuda_device),)
+    before = fused_cascade.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_cascade(x, carry, stages, sizes)
+    assert fused_cascade.launches == before

@@ -41,8 +41,19 @@ def _top(name):
 
 def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
     res = _probe()
-    assert "tpudas_torch.ops.fir_kernel" in res["mods"]
-    assert "tpudas_torch.proc.lfproc" in res["mods"]
+    for mod in (
+        "tpudas_torch.ops.fir_kernel",
+        "tpudas_torch.ops.fused_kernel",
+        "tpudas_torch.proc.lfproc",
+        "tpudas_torch.proc.stream",
+        "tpudas_torch.proc.ingest",
+        "tpudas_torch.proc.streaming",
+        "tpudas_torch.fleet.config",
+        "tpudas_torch.fleet.engine",
+        "tpudas_torch.integrity.checksum",
+        "tpudas_torch.utils.profiling",
+    ):
+        assert mod in res["mods"]
     loaded = res["loaded"]
     # exact-name/prefix check: "tpudas_torch" itself starts with "tpudas"
     assert [n for n in loaded if _top(n) in ("jax", "jaxlib")] == []

@@ -1,0 +1,297 @@
+"""tpudas_torch's real-time low-pass path against the JAX package's.
+
+Small spools (100 Hz x 6 channels, 30 s files; dasdae and int16 tdas)
+are written once by the JAX package's ``make_synthetic_spool`` and
+hard-linked into each run's source folder, a few files at a time, so a
+run sees its spool grow between polls.  The port runs on the CPU (plain
+PyTorch stages).  Output file names must be identical; data agree
+within 1e-5 of each channel's scale (same f32 products, other order),
+and stream against batch within 1e-4 of the global maximum on the
+common interior (the bound of ``tests/test_stream_state.py``).  The
+carry file crosses between the packages in both directions.
+"""
+
+import os
+
+import jax  # noqa: F401  (conftest pins JAX to the CPU)
+import numpy as np
+import pytest
+import torch
+
+from tpudas.proc.streaming import run_lowpass_realtime as jax_realtime
+from tpudas.testing import make_synthetic_spool
+from tpudas_torch.io.spool import spool as tspool
+from tpudas_torch.proc import stream as tstream
+from tpudas_torch.proc.lfproc import LFProc
+from tpudas_torch.proc.streaming import run_lowpass_realtime
+from tpudas_torch.utils.logging import set_log_handler
+from tpudas_torch.utils.profiling import Counters
+
+FS = 100.0
+FILE_SEC = 30.0
+NCH = 6
+T0 = "2023-03-22T00:00:00"
+REL_TOL = 1e-5
+PARAMS = dict(output_sample_interval=1.0, edge_buffer=8.0,
+              process_patch_size=40)
+
+FORMATS = {
+    "dasdae": ("dasdae", None),
+    "tdas-int16": ("tdas", {"dtype": "int16", "scale": 1e-4}),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(FORMATS))
+def pool(request, tmp_path_factory):
+    """Five contiguous files; each run links the first few of them."""
+    fmt, wk = FORMATS[request.param]
+    d = tmp_path_factory.mktemp(f"pool-{request.param}")
+    make_synthetic_spool(d, n_files=5, file_duration=FILE_SEC, fs=FS,
+                         n_ch=NCH, noise=0.01, format=fmt, write_kwargs=wk)
+    return str(d)
+
+
+@pytest.fixture
+def fused_env(monkeypatch):
+    """The spools are tiny: clear the fused size threshold (in both
+    packages) so engine='fused' really runs the fused step."""
+    monkeypatch.setenv("TPUDAS_FUSED_MIN_ELEMS", "0")
+
+
+def _link(pool, src, upto):
+    os.makedirs(src, exist_ok=True)
+    for name in sorted(os.listdir(pool))[:upto]:
+        if not os.path.exists(os.path.join(src, name)):
+            os.link(os.path.join(pool, name), os.path.join(src, name))
+
+
+def _drive(driver, pool, src, out, first=3, then=None, **kw):
+    """Link ``first`` files, run the driver; each sleep links up to the
+    next count in ``then`` (one more round each)."""
+    _link(pool, src, first)
+    feeds = list(then or [])
+
+    def sleep(_):
+        if feeds:
+            _link(pool, src, feeds.pop(0))
+
+    kw.setdefault("stateful", True)
+    if driver is run_lowpass_realtime:
+        kw.setdefault("device", "cpu")
+    else:
+        kw.setdefault("flight", False)
+    return driver(source=src, output_folder=out, start_time=T0,
+                  poll_interval=0.0, file_duration=0.0, sleep_fn=sleep,
+                  **PARAMS, **kw)
+
+
+def _products(out):
+    return sorted(n for n in os.listdir(out) if n.startswith("LFDAS_"))
+
+
+def _merged(out):
+    merged = tspool(out).update().chunk(time=None)
+    assert len(merged) == 1, "the stream output has a seam"
+    return merged[0]
+
+
+def _assert_same_stream(out_a, out_b):
+    """Identical names and time grid, data within REL_TOL per channel."""
+    assert _products(out_a) == _products(out_b)
+    assert _products(out_a)
+    a, b = _merged(out_a), _merged(out_b)
+    assert np.array_equal(a.coords["time"], b.coords["time"])
+    da, db = a.host_data(), b.host_data()
+    scale = np.abs(db).max(axis=0)
+    assert (np.abs(da - db).max(axis=0) <= REL_TOL * scale).all()
+
+
+def _common_interior(a, b):
+    lo = max(a.coords["time"][0], b.coords["time"][0])
+    hi = min(a.coords["time"][-1], b.coords["time"][-1])
+    av = a.select(time=(lo, hi)).host_data()
+    bv = b.select(time=(lo, hi)).host_data()
+    assert av.shape == bv.shape and av.size > 0
+    return av, bv
+
+
+def _port_lfp(src, out, delete=True):
+    lfp = LFProc(tspool(src).sort("time").update(), device="cpu")
+    lfp.update_processing_parameter(output_sample_interval=1.0,
+                                    process_patch_size=40, edge_buff_size=8)
+    lfp.set_output_folder(out, delete_existing=delete)
+    return lfp
+
+
+def test_increments_match_batch(pool, tmp_path):
+    src = str(tmp_path / "src")
+    _link(pool, src, 3)
+    batch = _port_lfp(src, str(tmp_path / "batch"))
+    tmax = np.datetime64(T0) + np.timedelta64(90, "s")
+    batch.process_time_range(np.datetime64(T0), tmax)
+    ref = _merged(str(tmp_path / "batch"))
+    lfp = _port_lfp(src, str(tmp_path / "stream"))
+    carry = lfp.open_stream(np.datetime64(T0))
+    for t2 in (np.datetime64(T0) + np.timedelta64(35, "s"),
+               np.datetime64(T0) + np.timedelta64(61, "s"), tmax):
+        lfp.process_stream_increment(carry, t2)
+    assert carry.kind == "cascade"
+    assert lfp.stream_blocks and set(lfp.stream_blocks) == {"cascade-torch"}
+    for leaf in carry.bufs:
+        assert isinstance(leaf, torch.Tensor) and leaf.dtype == torch.float32
+    av, bv = _common_interior(_merged(str(tmp_path / "stream")), ref)
+    assert np.abs(av - bv).max() / np.abs(bv).max() < 1e-4
+
+
+@pytest.mark.parametrize("engine", ["auto", "fused"])
+def test_driver_matches_jax(pool, tmp_path, engine, fused_env):
+    blocks = {}
+
+    def count(_rnd, lfp):
+        for k, v in lfp.stream_blocks.items():
+            blocks[k] = blocks.get(k, 0) + v
+
+    port_out, jax_out = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert _drive(run_lowpass_realtime, pool, str(tmp_path / "s1"), port_out,
+                  then=[5], engine=engine, on_round=count) == 2
+    assert _drive(jax_realtime, pool, str(tmp_path / "s2"), jax_out,
+                  then=[5], engine=engine) == 2
+    _assert_same_stream(port_out, jax_out)
+    want = "fused-torch" if engine == "fused" else "cascade-torch"
+    assert set(blocks) == {want} and blocks[want] > 0
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_carry_resumes_across_packages(pool, tmp_path, first):
+    """A carry written by one package resumes under the other; the
+    resumed run equals an uninterrupted JAX run."""
+    one, two = ((jax_realtime, run_lowpass_realtime) if first == "jax"
+                else (run_lowpass_realtime, jax_realtime))
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    assert _drive(one, pool, src, out) == 1
+    assert os.path.isfile(os.path.join(out, tstream.CARRY_FILENAME))
+    saved = tstream.load_carry(out)
+    assert saved is not None and saved.kind == "cascade"
+    if "tdas" in os.path.basename(pool):
+        assert saved.residual.dtype == np.int16
+    _link(pool, src, 5)
+    assert _drive(two, pool, src, out, first=5) == 1
+    ctrl = str(tmp_path / "ctrl")
+    assert _drive(jax_realtime, pool, str(tmp_path / "csrc"), ctrl,
+                  then=[5]) == 2
+    _assert_same_stream(out, ctrl)
+
+
+def test_stateful_matches_rewind(pool, tmp_path):
+    outs, ctr = {}, {}
+    for mode, flag in (("rewind", False), ("stateful", True)):
+        ctr[mode] = Counters()
+        out = str(tmp_path / mode)
+        assert _drive(run_lowpass_realtime, pool, str(tmp_path / f"s{mode}"),
+                      out, then=[5], stateful=flag,
+                      counters=ctr[mode]) == 2
+        outs[mode] = _merged(out)
+    assert ctr["rewind"].samples_redundant > 0
+    assert ctr["stateful"].samples_redundant == 0
+    assert ctr["stateful"].realtime_factor > 0
+    av, bv = _common_interior(outs["stateful"], outs["rewind"])
+    assert np.abs(av - bv).max() / np.abs(bv).max() < 1e-4
+
+
+def test_crash_between_write_and_carry_save_reconciles(pool, tmp_path,
+                                                        monkeypatch):
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    assert _drive(run_lowpass_realtime, pool, src, out) == 1
+    before = tstream.load_carry(out)
+
+    def crash(*_a, **_k):
+        raise RuntimeError("killed before the carry save")
+
+    _link(pool, src, 5)
+    with monkeypatch.context() as m:
+        m.setattr(tstream, "save_carry", crash)
+        with pytest.raises(RuntimeError, match="killed"):
+            _drive(run_lowpass_realtime, pool, src, out, first=5)
+    # the round's outputs reached the disk, its carry did not
+    stale = tstream.load_carry(out)
+    assert stale.last_emit_ns == before.last_emit_ns
+    newest = max(_products(out))
+    events = []
+    set_log_handler(events.append)
+    try:
+        assert _drive(run_lowpass_realtime, pool, src, out, first=5) == 1
+    finally:
+        set_log_handler(None)
+    assert [e for e in events if e["event"] == "stream_reconcile_removed"]
+    assert newest in _products(out)  # regenerated under its own name
+    # the control rounds see the same files: 3, then 5
+    ctrl = str(tmp_path / "ctrl")
+    assert _drive(run_lowpass_realtime, pool, str(tmp_path / "csrc"), ctrl,
+                  then=[5]) == 2
+    _assert_same_stream(out, ctrl)
+
+
+def test_changed_configuration_is_rejected(pool, tmp_path):
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    assert _drive(run_lowpass_realtime, pool, src, out) == 1
+    _link(pool, src, 4)
+    with pytest.raises(ValueError, match="different start_time"):
+        run_lowpass_realtime(
+            source=src, output_folder=out,
+            start_time="2023-03-22T00:00:30", poll_interval=0.0,
+            sleep_fn=lambda _: None, stateful=True, device="cpu", **PARAMS)
+    with pytest.raises(ValueError, match="different start_time"):
+        run_lowpass_realtime(
+            source=src, output_folder=out, start_time=T0,
+            poll_interval=0.0, sleep_fn=lambda _: None, stateful=True,
+            device="cpu", output_sample_interval=1.0, edge_buffer=5.0,
+            process_patch_size=40)
+
+
+@pytest.mark.parametrize("keyword,value", [
+    ("mesh", 2), ("window_dp", 2), ("rolling_output_folder", "roll"),
+    ("rolling_window", 1.0), ("rolling_step", 1.0), ("health", True),
+    ("pyramid", True), ("detect", True), ("detect_operators", ["sta_lta"]),
+    ("live", True), ("flight", True),
+])
+def test_unported_keywords_raise(tmp_path, keyword, value):
+    with pytest.raises(NotImplementedError, match=keyword):
+        run_lowpass_realtime(
+            source=str(tmp_path / "src"), output_folder=str(tmp_path / "o"),
+            start_time=T0, sleep_fn=lambda _: None, device="cpu",
+            **{keyword: value}, **PARAMS)
+    assert not os.path.exists(tmp_path / "o")
+
+
+def test_inert_keywords_and_device_default(tmp_path, monkeypatch, pool):
+    """fault_policy and quarantine are accepted (errors propagate);
+    without a card and without device='cpu' the driver raises."""
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    assert _drive(run_lowpass_realtime, pool, src, out, fault_policy="retry",
+                  quarantine=False, mesh=None, flight=False) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_lowpass_realtime(source=src, output_folder=str(tmp_path / "o2"),
+                             start_time=T0, sleep_fn=lambda _: None,
+                             **PARAMS)
+
+
+def test_single_sample_tdas_round_trips(tmp_path):
+    """A stream emits one-sample blocks; written as tdas (the card's
+    host has no h5py) they keep their step and merge with their
+    neighbours."""
+    from tpudas_torch.io.tdas import write_tdas
+    from tpudas_torch.testing import synthetic_patch
+
+    p = synthetic_patch(t0=np.datetime64(T0), duration=5.0, fs=1.0, n_ch=4)
+    step = np.timedelta64(1, "s")
+    for lo, hi in ((0, 2), (2, 3), (3, 5)):
+        part = p.select(time=(p.coords["time"][lo], p.coords["time"][hi - 1]))
+        part = part.update_attrs(d_time=1.0)
+        write_tdas(part, str(tmp_path / f"LFDAS_{lo}.tdas"))
+    one = tspool(str(tmp_path / "LFDAS_2.tdas"))[0]
+    assert one.attrs["time_step"] == step
+    merged = tspool(str(tmp_path)).update().chunk(time=None)
+    assert len(merged) == 1
+    np.testing.assert_array_equal(merged[0].coords["time"], p.coords["time"])
+    np.testing.assert_allclose(merged[0].host_data(), p.host_data())

@@ -1,0 +1,542 @@
+"""The round engine: one stream's polling loop as an object.
+
+The port's counterpart of the low-pass half of :mod:`tpudas.fleet.engine`.
+A runner's :meth:`StreamRunner.step` is one poll of the realtime loop —
+index update, processing round, carry commit — and returns a
+:class:`StepResult` saying what happened and how long to wait before
+the next poll.  ``step`` never sleeps: the caller waits (the
+single-stream :func:`drive` loop here; a multi-stream scheduler is a
+later slice of the port).
+
+A runner holds no durable state of its own: kill the process anywhere
+and a new runner over the same folders resumes where the persisted
+stream carry says (:mod:`tpudas_torch.proc.stream`).
+
+Not ported in this slice: the per-round fault boundary and quarantine
+(errors propagate to the caller), the startup integrity audit, resource
+shedding, the flight recorder and health files, the tile pyramid,
+detection, the live plane, device telemetry and phase timing, the
+batched fleet executor, the rolling runner, and the backfill clamps
+(``time_range``, ``ingest_limit_sec``).  :class:`LowpassStreamRunner`
+raises ``NotImplementedError`` when its configuration turns on one of
+those features (see :data:`UNPORTED_FIELDS`).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time as _time
+import zlib
+from dataclasses import dataclass
+
+import numpy as np
+
+from tpudas_torch.core.timeutils import to_datetime64, to_timedelta64
+from tpudas_torch.device import resolve_device
+from tpudas_torch.fleet.config import StreamSpec
+from tpudas_torch.io.spool import spool as make_spool
+from tpudas_torch.proc.lfproc import LFProc
+from tpudas_torch.utils.logging import log_event
+from tpudas_torch.utils.profiling import Counters
+
+__all__ = [
+    "POLL_FLOOR_SEC",
+    "UNPORTED_FIELDS",
+    "LowpassStreamRunner",
+    "PollJitter",
+    "StepResult",
+    "StreamRunner",
+    "build_runner",
+    "check_unported",
+    "clamp_poll_interval",
+    "drive",
+]
+
+# lowpass configuration fields whose features the port does not have
+# yet; each must stay at its off value (None or False)
+UNPORTED_FIELDS = (
+    "mesh",
+    "window_dp",
+    "rolling_output_folder",
+    "rolling_window",
+    "rolling_step",
+    "health",
+    "pyramid",
+    "detect",
+    "detect_operators",
+    "live",
+    "flight",
+)
+
+
+def check_unported(values: dict) -> None:
+    """Raise ``NotImplementedError`` for any :data:`UNPORTED_FIELDS`
+    entry of ``values`` that is not at its off value (None or False)."""
+    for name in UNPORTED_FIELDS:
+        v = values.get(name)
+        if v is not None and v is not False:
+            raise NotImplementedError(
+                f"{name}={v!r}: this feature of the realtime driver is not "
+                "ported to tpudas_torch yet"
+            )
+
+
+@dataclass
+class StepResult:
+    """What one :meth:`StreamRunner.step` did.
+
+    ``status`` is ``"processed"`` (a round completed), ``"empty"`` (the
+    poll saw no files) or ``"terminate"`` (the spool stopped growing:
+    the stream is done — the caller then calls
+    :meth:`StreamRunner.finish`).  ``delay`` is the advisory wait before
+    the next ``step``."""
+
+    status: str
+    delay: float = 0.0
+
+
+class PollJitter:
+    """Deterministic per-stream poll jitter: a tiny LCG seeded by the
+    stream id.  ``stretch()`` returns a factor in ``[1, 1 + fraction)``
+    and advances the LCG once."""
+
+    def __init__(self, stream_id, fraction: float):
+        self.fraction = max(float(fraction or 0.0), 0.0)
+        # crc32 folds any id into a stable 32-bit seed; "or 1" keeps the
+        # LCG out of the zero fixed point
+        self._state = zlib.crc32(str(stream_id).encode()) & 0x7FFFFFFF or 1
+
+    def next_unit(self) -> float:
+        self._state = (1103515245 * self._state + 12345) % (1 << 31)
+        return self._state / float(1 << 31)
+
+    def stretch(self) -> float:
+        if not self.fraction:
+            return 1.0
+        return 1.0 + self.fraction * self.next_unit()
+
+
+def resolve_poll_jitter(poll_jitter) -> float:
+    """The explicit fraction, else ``TPUDAS_POLL_JITTER``, else 0."""
+    if poll_jitter is None:
+        raw = os.environ.get("TPUDAS_POLL_JITTER", "")
+        poll_jitter = float(raw) if raw else 0.0
+    return max(float(poll_jitter), 0.0)
+
+
+def _head_lag_seconds(t2, lfp, carry) -> float | None:
+    """Stream-seconds between the fiber head (newest indexed input,
+    ``t2``) and the newest emitted output.  None before the first
+    output."""
+    if carry is not None and carry.last_emit_ns is not None:
+        t_out_ns = int(carry.last_emit_ns)
+    else:
+        try:
+            t_out_ns = int(
+                to_datetime64(lfp.get_last_processed_time())
+                .astype("datetime64[ns]").astype(np.int64)
+            )
+        except (FileNotFoundError, IndexError):
+            return None
+    return (int(np.datetime64(t2, "ns").astype(np.int64)) - t_out_ns) / 1e9
+
+
+def _finite(value) -> float:
+    """An index cell as a finite float (0.0 for None/NaN/junk)."""
+    try:
+        v = float(value)
+    except (TypeError, ValueError):
+        return 0.0
+    return v if math.isfinite(v) else 0.0
+
+
+def _covered_workload(rows, t1, t2):
+    """(data_seconds, channel_samples) present in the index records
+    ``rows`` (a spool's ``contents()``) within [t1, t2), accounted per
+    file, so round metrics stay honest across gaps and rewinds."""
+    lo = to_datetime64(t1).astype("datetime64[ns]")
+    hi = to_datetime64(t2).astype("datetime64[ns]")
+    data_ns = 0.0
+    samples = 0.0
+    for row in rows:
+        f_lo = np.datetime64(row["time_min"], "ns")
+        f_hi = np.datetime64(row["time_max"], "ns")
+        span_ns = (f_hi - f_lo) / np.timedelta64(1, "ns")
+        ov_ns = (min(hi, f_hi) - max(lo, f_lo)) / np.timedelta64(1, "ns")
+        if ov_ns <= 0:
+            continue
+        data_ns += ov_ns
+        n_time = _finite(row.get("ntime"))
+        if span_ns > 0 and n_time > 1:
+            fs = (n_time - 1) / (span_ns / 1e9)
+            samples += ov_ns / 1e9 * fs * _finite(row.get("ndistance"))
+    return data_ns / 1e9, samples
+
+
+POLL_FLOOR_SEC = 125.0
+
+
+def clamp_poll_interval(requested, file_duration, edge_buffer):
+    """The reference's cadence guard (low_pass_dascore_edge.ipynb:165-173):
+    ``max(125 s, file duration, 3 * edge buffer)``, never faster than
+    requested.  Tests inject ``sleep_fn`` rather than lowering it."""
+    return max(
+        float(requested),
+        POLL_FLOOR_SEC,
+        float(file_duration),
+        3.0 * float(edge_buffer),
+    )
+
+
+class StreamRunner:
+    """Base: identity, jitter and the step bookkeeping every kind
+    shares.  Subclasses implement :meth:`step`."""
+
+    kind = "?"
+
+    def __init__(self, spec: StreamSpec, output_folder: str):
+        self.spec = spec
+        self.stream_id = str(spec.stream_id)
+        self.source = spec.source
+        self.output_folder = str(output_folder)
+        self.rounds = 0
+        self.polls = 0
+        self.jitter = PollJitter(
+            self.stream_id, resolve_poll_jitter(spec.config.poll_jitter)
+        )
+        self.interval = 0.0  # subclasses set the clamped poll cadence
+
+    def poll_delay(self) -> float:
+        """The clamped interval stretched by this stream's jitter."""
+        return self.interval * self.jitter.stretch()
+
+    def step(self) -> StepResult:
+        raise NotImplementedError
+
+    def finish(self) -> None:
+        """Clean-termination flush (never called on a crash path)."""
+
+    def record_fatal(self, exc: BaseException) -> None:
+        """Called just before a round's exception propagates."""
+
+
+class LowpassStreamRunner(StreamRunner):
+    """One low-pass stream: the ``run_lowpass_realtime`` round loop.
+    See that driver's docstring for every knob's semantics."""
+
+    kind = "lowpass"
+
+    def __init__(
+        self,
+        spec: StreamSpec,
+        output_folder: str,
+        counters: Counters | None = None,
+        on_round=None,
+        device=None,
+    ):
+        super().__init__(spec, output_folder)
+        cfg = spec.config
+        if cfg.kind != "lowpass":
+            raise ValueError(
+                f"LowpassStreamRunner needs kind='lowpass', got {cfg.kind!r}"
+            )
+        check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS})
+        self.device = resolve_device(device)
+        self.on_round = on_round
+        self.d_t = float(cfg.output_sample_interval)
+        self.edge_buffer = float(cfg.edge_buffer)
+        self.buff_out = int(np.ceil(self.edge_buffer / self.d_t))
+        self.process_patch_size = int(cfg.process_patch_size)
+        self.interval = clamp_poll_interval(
+            125.0 if cfg.poll_interval is None else cfg.poll_interval,
+            0.0 if cfg.file_duration is None else cfg.file_duration,
+            self.edge_buffer,
+        )
+        self.start_time = to_datetime64(cfg.start_time)
+        self.distance = cfg.distance
+        self.extra = {
+            k: v
+            for k, v in (
+                ("engine", cfg.engine),
+                ("on_gap", cfg.on_gap),
+                ("filter_order", cfg.filter_order),
+                ("data_gap_tolerance", cfg.data_gap_tolerance),
+            )
+            if v is not None
+        }
+        self.counters = counters if counters is not None else Counters()
+        # carry and outputs live in the output folder
+        os.makedirs(self.output_folder, exist_ok=True)
+        stateful = cfg.stateful
+        if stateful is None:
+            stateful = os.environ.get("TPUDAS_STREAM_STATEFUL", "1") != "0"
+        self.stateful = bool(stateful)
+        carry_save_every = cfg.carry_save_every
+        if carry_save_every is None:
+            carry_save_every = int(
+                os.environ.get("TPUDAS_CARRY_SAVE_EVERY", "") or 1
+            )
+        self.carry_save_every = max(1, int(carry_save_every))
+        self.carry = None  # the cross-round filter state (stateful)
+        self.carry_unsaved = 0  # rounds since the last carry save
+        self.carry_checked = False  # disk/legacy resolution, once
+        self.carry_resumes = 0
+        self.rewind_wrote = False  # the first rewind write drops any carry
+        # the first processing round starts at start_time, however many
+        # empty polls precede it
+        self.processed_once = False
+        self.prev_t2 = None  # previous round's head (redundancy metric)
+        self.len_last = None  # spool size at the previous poll
+        self.round_rt = 0.0  # last round's realtime factor
+        self.head_lag = None
+
+    # -- one poll -------------------------------------------------------
+    def step(self) -> StepResult:
+        self.polls += 1
+        sp = make_spool(self.source).update()
+        sub = sp.select(distance=self.distance) if self.distance is not None else sp
+        n_now = len(sub)
+        if self.len_last is not None and n_now == self.len_last:
+            log_event(
+                "stream_terminated", stream=self.stream_id,
+                rounds=self.rounds, polls=self.polls,
+            )
+            return StepResult("terminate")
+        status = "empty"
+        if n_now > 0:
+            status = "processed"
+            self._process_round(sub)
+        # every poll sets the growth baseline: the next poll without
+        # growth terminates (the reference's loop ends when the spool
+        # stops growing, low_pass_dascore_edge.ipynb:205-207)
+        self.len_last = n_now
+        return StepResult(status, self.poll_delay())
+
+    def _mode(self) -> str:
+        return "stateful" if self.stateful else "rewind"
+
+    def _process_round(self, sub) -> None:
+        lfp = LFProc(sub, device=self.device)
+        lfp.update_processing_parameter(
+            output_sample_interval=self.d_t,
+            process_patch_size=self.process_patch_size,
+            edge_buff_size=self.buff_out,
+            **self.extra,
+        )
+        lfp.set_output_folder(self.output_folder, delete_existing=False)
+        rnd = self.rounds + 1
+        log_event("round_start", round=rnd, stream=self.stream_id)
+        if self.stateful and not self.carry_checked:
+            self._resolve_carry(lfp)
+        # the newest timestamp from the index — no file data is read
+        rows = sub.contents()
+        t2 = max(np.datetime64(r["time_max"], "ns") for r in rows)
+        redundant = 0.0
+        if self.stateful:
+            # carried state: only NEW samples are read and filtered
+            t1 = (
+                np.datetime64(int(self.carry.next_ingest_ns), "ns")
+                if self.carry.next_ingest_ns is not None
+                else self.start_time
+            )
+            data_sec, ch_samples = _covered_workload(rows, t1, t2)
+            with self.counters.measure(int(ch_samples), data_sec):
+                lfp.process_stream_increment(self.carry, t2)
+            from tpudas_torch.proc.stream import save_carry
+
+            # saved AFTER the outputs: the carry is never ahead of the
+            # files (resume reconciles the rest)
+            self.carry_unsaved += 1
+            if self.carry_unsaved >= self.carry_save_every:
+                save_carry(self.carry, self.output_folder)
+                self.carry_unsaved = 0
+        else:
+            resumed_stateful = False
+            if not self.rewind_wrote:
+                # a persisted carry means the folder head came from the
+                # stateful mode; this rewind write would break the
+                # carry's no-newer-outputs invariant, so drop it and
+                # continue from the folder head
+                self.rewind_wrote = True
+                from tpudas_torch.proc.stream import discard_carry
+
+                if discard_carry(self.output_folder):
+                    resumed_stateful = True
+            if not self.processed_once and not resumed_stateful:
+                t1 = self.start_time
+            else:
+                try:
+                    t_last = lfp.get_last_processed_time()
+                except IndexError:
+                    # no output yet (the stream is still shorter than
+                    # the edge trim): restart from the beginning
+                    t_last = None
+                if t_last is None:
+                    t1 = self.start_time
+                else:
+                    # rewind (ceil(edge/dt) - 1) output steps, on the
+                    # output grid: the resumed run's first emitted
+                    # sample is t_last + d_t
+                    rewind_sec = (
+                        math.ceil(self.edge_buffer / self.d_t) - 1
+                    ) * self.d_t
+                    t1 = t_last - to_timedelta64(rewind_sec)
+            data_sec, ch_samples = _covered_workload(rows, t1, t2)
+            if self.prev_t2 is not None and t1 < self.prev_t2:
+                # full-rate samples re-read only to rebuild the filter's
+                # transient state (what the stateful mode removes)
+                _, redundant = _covered_workload(
+                    rows, t1, min(self.prev_t2, t2)
+                )
+                self.counters.add_redundant(int(redundant))
+            with self.counters.measure(int(ch_samples), data_sec):
+                lfp.process_time_range(t1, t2)
+        self.prev_t2 = t2
+        self.rounds = rnd
+        self.round_rt = (
+            data_sec / self.counters.last_wall if self.counters.last_wall
+            else 0.0
+        )
+        self.head_lag = (
+            _head_lag_seconds(t2, lfp, self.carry) if self.stateful else None
+        )
+        log_event(
+            "realtime_round",
+            round=rnd,
+            upto=str(t2),
+            mode=self._mode(),
+            data_seconds=round(data_sec, 3),
+            redundant_samples=int(redundant),
+            wall_seconds=round(self.counters.last_wall, 4),
+            realtime_factor=round(self.round_rt, 2),
+            head_lag_seconds=self.head_lag,
+            engine=lfp.parameters["engine"],
+            engine_counts=dict(lfp.engine_counts),
+            stream_blocks=dict(lfp.stream_blocks),
+        )
+        if self.on_round is not None:
+            self.on_round(rnd, lfp)
+        self.processed_once = True
+
+    def _resolve_carry(self, lfp) -> None:
+        """One-time disk resolution: resume a persisted carry, or
+        continue a folder that has outputs but no carry in rewind mode
+        (its resume point is only expressible as a rewind)."""
+        self.carry_checked = True
+        from tpudas_torch.proc.stream import (
+            carry_matches,
+            load_carry,
+            reconcile_outputs,
+            save_carry,
+        )
+
+        carry = load_carry(self.output_folder)
+        if carry is not None and not carry_matches(carry, lfp, self.start_time):
+            raise ValueError(
+                f"persisted stream carry in {self.output_folder} was "
+                "produced under a different start_time or processing "
+                "parameters; delete it (or the folder) to change "
+                "configuration"
+            )
+        if carry is not None:
+            # patch size only shapes chunking: honor the live setting
+            carry.patch_out = self.process_patch_size
+            # a compatible engine change (the cascade <-> fused
+            # crossover shares the carry layout) is honored mid-stream
+            live_engine = str(lfp.parameters["engine"])
+            if carry.engine_req != live_engine:
+                log_event(
+                    "stream_engine_crossover",
+                    was=carry.engine_req, now=live_engine,
+                )
+                carry.engine_req = live_engine
+            reconcile_outputs(self.output_folder, carry)
+            log_event("stream_resume", emitted=carry.emitted)
+            self.carry_resumes += 1
+            self.carry = carry
+            return
+        try:
+            lfp.get_last_processed_time()
+            has_outputs = True
+        except (FileNotFoundError, IndexError) as exc:
+            # the two expected "no outputs yet" signals (new or empty
+            # folder); any other error propagates
+            has_outputs = False
+            log_event(
+                "stream_no_prior_outputs",
+                reason=f"{type(exc).__name__}: {str(exc)[:120]}",
+            )
+        if has_outputs:
+            self.stateful = False
+            print(
+                "Existing output folder has no stream carry; continuing "
+                "in rewind mode"
+            )
+            log_event("stream_legacy_rewind")
+        else:
+            self.carry = lfp.open_stream(self.start_time)
+            # persisted BEFORE the first outputs: a crash mid-round-1
+            # still reads as a stateful folder (reconcile + resume)
+            save_carry(self.carry, self.output_folder)
+
+    # -- terminal paths -------------------------------------------------
+    def finish(self) -> None:
+        # clean termination: flush a deferred carry save (cadence > 1)
+        # so the next process resumes from the true head
+        if self.stateful and self.carry is not None and self.carry_unsaved:
+            from tpudas_torch.proc.stream import save_carry
+
+            save_carry(self.carry, self.output_folder)
+            self.carry_unsaved = 0
+        log_event(
+            "stream_finish", stream=self.stream_id, rounds=self.rounds,
+            polls=self.polls,
+        )
+
+    def record_fatal(self, exc: BaseException) -> None:
+        log_event(
+            "stream_fatal", stream=self.stream_id, polls=self.polls,
+            error=f"{type(exc).__name__}: {str(exc)[:300]}",
+        )
+
+
+def build_runner(
+    spec: StreamSpec,
+    root=None,
+    counters: Counters | None = None,
+    on_round=None,
+    device=None,
+) -> StreamRunner:
+    """The runner for ``spec`` (output folder created; the carry is
+    resolved on the first round).  Only the ``lowpass`` kind is ported;
+    ``device`` defaults to the CUDA card."""
+    folder = spec.resolve_output_folder(root if root is not None else ".")
+    if spec.config.kind != "lowpass":
+        raise NotImplementedError(
+            f"the {spec.config.kind!r} stream runner is not ported to "
+            "tpudas_torch yet"
+        )
+    return LowpassStreamRunner(
+        spec, folder, counters=counters, on_round=on_round, device=device
+    )
+
+
+def drive(runner: StreamRunner, max_rounds=None, sleep_fn=_time.sleep):
+    """The single-stream driver loop: step, honor the ``max_rounds``
+    poll cap, sleep the advisory delay, flush on clean termination.
+    Returns the number of rounds that processed data.  A round's error
+    propagates (after :meth:`StreamRunner.record_fatal`)."""
+    try:
+        while True:
+            res = runner.step()
+            if res.status == "terminate":
+                break
+            if max_rounds is not None and runner.polls >= max_rounds:
+                break
+            sleep_fn(res.delay)
+    except Exception as exc:
+        runner.record_fatal(exc)
+        raise
+    runner.finish()
+    return runner.rounds

@@ -75,9 +75,17 @@ def write_tdas(patch, path, dtype="float32", scale=None, **_):
     """Write a 2-D (time, distance) Patch. ``dtype="int16"`` quantizes
     by ``scale`` (default: max|x|/32000, stored in the header)."""
     taxis = np.asarray(patch.coords["time"]).astype("datetime64[ns]")
-    if taxis.size < 2:
-        raise ValueError("tdas requires >= 2 time samples")
-    steps = np.diff(taxis.astype(np.int64))
+    step = patch.attrs.get("time_step")
+    if taxis.size == 1 and step is not None:
+        # one sample has no spacing of its own (a stream emits single
+        # output samples): the patch's time step gives the header's
+        steps = np.array([np.timedelta64(step, "ns").astype(np.int64)])
+    elif taxis.size < 2:
+        raise ValueError(
+            "tdas requires >= 2 time samples, or one with a time step"
+        )
+    else:
+        steps = np.diff(taxis.astype(np.int64))
     if not np.all(steps == steps[0]):
         raise ValueError("tdas requires a uniform time axis")
     dist = np.asarray(patch.coords["distance"], np.float64)
@@ -195,6 +203,9 @@ def _patch_from_block(hdr, block, t_lo, c_lo):
         data=block,
         coords={"time": taxis, "distance": dist},
         dims=("time", "distance"),
+        # the header's step: a one-sample patch has no spacing to
+        # derive it from, and merging needs it
+        attrs={"time_step": np.timedelta64(hdr["dt_ns"], "ns")},
     )
 
 

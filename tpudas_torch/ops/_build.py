@@ -5,7 +5,8 @@ with a plain C interface (no PyTorch headers, so a build takes seconds),
 at first use, into ``build/tpudas_torch/`` beside the package; the
 library is loaded with ``ctypes``.  The file name carries a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
-is reused.  Nothing here runs at import time: the CPU-only test
+is reused; :func:`build_libraries` compiles several sources at once,
+one nvcc process each.  Nothing here runs at import time: the CPU-only test
 environment has no ``nvcc`` and imports every module.
 """
 
@@ -20,7 +21,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_library", "build_info"]
+__all__ = [
+    "NVCC_FLAGS", "build_dir", "build_libraries", "load_library", "build_info",
+]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,44 +58,66 @@ def _nvcc() -> str:
     )
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library.
-    Raises with the compiler's output when the build fails."""
+def _so_path(name: str) -> tuple[Path, Path]:
+    """(source, library path) of ``csrc/<name>.cu``; the library name
+    carries a hash of the source and the flags."""
+    src = _PKG / "csrc" / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return src, build_dir() / f"lib{name}-{digest}.so"
+
+
+def build_libraries(names) -> None:
+    """Compile every missing ``csrc/<name>.cu`` of ``names`` at once: one
+    nvcc process each, all started together, then waited for.  Raises
+    with the compiler's output when a build fails (after every nvcc has
+    ended)."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = _PKG / "csrc" / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out_dir = build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        so = out_dir / f"lib{name}-{digest}.so"
-        info = {"source": str(src.relative_to(_PKG.parent)), "cached": True,
-                "seconds": 0.0, "ptxas": []}
-        if not so.exists():
-            tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
+        build_dir().mkdir(parents=True, exist_ok=True)
+        started = []
+        for name in names:
+            src, so = _so_path(name)
+            _INFO.setdefault(name, {
+                "source": str(src.relative_to(_PKG.parent)), "cached": True,
+                "seconds": 0.0, "ptxas": [],
+            })
+            if name in _LIBS or so.exists():
+                continue
+            tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            started.append((name, src, so, tmp, proc, time.perf_counter()))
+        failed = []
+        for name, src, so, tmp, proc, t0 in started:
+            out, _ = proc.communicate()
+            info = _INFO[name]
             info["seconds"] = time.perf_counter() - t0
             info["cached"] = False
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed for {src.name} (rc {proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}"
-                )
+                failed.append(f"nvcc failed for {src.name} "
+                              f"(rc {proc.returncode}):\n{out}")
+                continue
             info["ptxas"] = [
-                ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                ln.strip() for ln in out.splitlines()
                 if "registers" in ln or "Compiling entry" in ln
                 or "spill" in ln
             ]
             os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        _LIBS[name] = lib
-        _INFO[name] = info
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and return the loaded library.
+    Raises with the compiler's output when the build fails."""
+    build_libraries([name])
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(str(_so_path(name)[1]))
         return lib
 
 

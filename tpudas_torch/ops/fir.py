@@ -37,6 +37,16 @@ TPU-geometry routing of the JAX package (``_pallas_stage_ok`` and the
 grid-quantum sizing of ``stage_input_rows``) has no counterpart here,
 so each stage consumes ``(k + B) * R`` rows — the JAX layout's
 ``"xla"`` rows.
+
+Streaming (:func:`cascade_decimate_stream`) carries each stage's
+trailing input rows from block to block, so every full-rate sample is
+read and filtered once.  Its engines mirror the JAX package's
+``auto | pallas | xla | fused | fused-pallas | fused-xla`` as
+``auto | cuda | torch | fused | fused-cuda | fused-torch``: the
+per-stage chain (every stage on the strided-FIR kernel on the card),
+or the whole cascade as one fused kernel (``csrc/fused_cascade.cu``).
+Both share one carry layout, so a stream may switch engines at any
+block.
 """
 
 from __future__ import annotations
@@ -64,10 +74,26 @@ __all__ = [
     "edge_support_samples",
     "butter2_mag",
     "BATCH_ENGINES",
+    "STREAM_ENGINES",
+    "stream_carry_sizes",
+    "stream_warmup_outputs",
+    "cascade_stream_init",
+    "fused_min_elems",
+    "fused_chunk_outputs",
+    "fused_intermediate_bytes",
+    "resolve_stream_engine",
+    "stream_stage_engines",
+    "cascade_decimate_stream",
 ]
 
 # engine literals the batch entry point (cascade_decimate) accepts
 BATCH_ENGINES = ("auto", "cuda", "torch")
+# engine literals the stream entry point (cascade_decimate_stream)
+# accepts: the per-stage chain, and the whole cascade as one fused
+# step.  "fused" resolves by device and the block-size threshold
+# (resolve_stream_engine); "fused-cuda"/"fused-torch" force a variant.
+STREAM_ENGINES = ("auto", "cuda", "torch", "fused", "fused-cuda",
+                  "fused-torch")
 
 
 def butter2_mag(f, corner, order):
@@ -461,6 +487,228 @@ def cascade_decimate(
         if i == 0 and scale0 is not None:
             x = x * scale0
     return x
+
+
+# ---------------------------------------------------------------------------
+# streaming: the cascade as an O(1)-state filter over consecutive blocks
+#
+# Stage i keeps its last p_i input rows, with p_i >= len(taps_i) - R_i so
+# each new block's outputs have their full look-back.  The composite
+# full-rate lag D = sum_i p_i * prod_{j<i} R_j telescopes to
+# receptive_field - ratio at the minimal sizes; stage 0's carry absorbs
+# the padding that rounds D up to a multiple of the ratio, so the
+# streamed grid stays on the decimated grid (W = D / ratio outputs of
+# warm-up).  The layout is the JAX package's byte for byte, so a carry
+# saved by either package resumes under the other.
+
+
+@functools.lru_cache(maxsize=256)
+def stream_carry_sizes(plan: CascadePlan) -> tuple:
+    """Per-stage carried trailing samples (at each stage's own input
+    rate).  Stage 0 includes the alignment pad that makes the composite
+    lag a whole number of output samples."""
+    sizes = [max(len(h) - int(R), 0) for R, h in plan.stages]
+    d = 0
+    prod = 1
+    for p, (R, _h) in zip(sizes, plan.stages):
+        d += p * prod
+        prod *= int(R)
+    sizes[0] += (-d) % plan.ratio
+    return tuple(sizes)
+
+
+def stream_warmup_outputs(plan: CascadePlan) -> int:
+    """Outputs to discard after a zero-initialized carry (the composite
+    stream lag in output samples)."""
+    d = 0
+    prod = 1
+    for p, (R, _h) in zip(stream_carry_sizes(plan), plan.stages):
+        d += p * prod
+        prod *= int(R)
+    if d % plan.ratio:
+        raise ValueError(f"stream lag {d} is not a multiple of {plan.ratio}")
+    return d // plan.ratio
+
+
+def cascade_stream_init(plan: CascadePlan, n_ch: int, device=None) -> tuple:
+    """Zero carry for :func:`cascade_decimate_stream`: one float32
+    ``(p_i, n_ch)`` tensor per stage on ``device`` (default: the CUDA
+    card)."""
+    dev = resolve_device(device)
+    return tuple(
+        torch.zeros((p, int(n_ch)), dtype=torch.float32, device=dev)
+        for p in stream_carry_sizes(plan)
+    )
+
+
+def fused_min_elems() -> int:
+    """Block elements (T*C) below which a ``fused`` request runs the
+    per-stage chain instead (the JAX package's measured crossover,
+    kept so both packages pick the same engine for the same block);
+    ``TPUDAS_FUSED_MIN_ELEMS`` overrides it, read at call time."""
+    import os
+
+    raw = os.environ.get("TPUDAS_FUSED_MIN_ELEMS", "").strip()
+    return int(raw) if raw else (1 << 23)
+
+
+def _fused_chunk_for_ratio(ratio: int, n_out: int) -> int:
+    """:func:`fused_chunk_outputs` for a cascade of total ``ratio``."""
+    import os
+
+    raw = os.environ.get("TPUDAS_FUSED_CHUNK", "").strip()
+    target = int(raw) if raw else max(1, 8192 // int(ratio))
+    n_out = int(n_out)
+    target = max(1, min(target, n_out))
+    best = 1
+    for d in range(1, target + 1):
+        if n_out % d == 0:
+            best = d
+    return best
+
+
+def fused_chunk_outputs(plan: CascadePlan, n_out: int) -> int:
+    """Output samples per chunk of the plain fused loop: the largest
+    divisor of the block's output count not above the target
+    (``TPUDAS_FUSED_CHUNK``, else sized so a full-rate chunk is ~8192
+    rows); a divisor keeps every chunk one shape, as the JAX scan
+    needs.  The CUDA kernel walks chunks of one output; this sizes only
+    :func:`~tpudas_torch.ops.fused_kernel.fused_cascade_plain`."""
+    return _fused_chunk_for_ratio(plan.ratio, n_out)
+
+
+def fused_intermediate_bytes(plan: CascadePlan, T: int, n_ch: int) -> int:
+    """Bytes of per-stage intermediates the per-stage chain writes to
+    device memory for a ``(T, n_ch)`` block and the fused step never
+    writes (each is also read back by the next stage, so the traffic
+    the fused step saves is ~2x this)."""
+    rows = int(T)
+    total = 0
+    for R, _h in plan.stages[:-1]:
+        rows //= int(R)
+        total += rows * int(n_ch) * 4
+    return total
+
+
+def resolve_stream_engine(engine: str, plan: CascadePlan = None,
+                          T: int = 0, n_ch: int = 0, device=None) -> str:
+    """The engine a stream block runs: ``auto``/``cuda``/``torch`` ->
+    the per-stage chain (:func:`resolve_cascade_engine`); ``fused`` ->
+    ``fused-cuda`` on a CUDA device, ``fused-torch`` on the CPU, unless
+    the block is smaller than :func:`fused_min_elems` (then the chain);
+    ``fused-cuda``/``fused-torch`` are forced.  On the card ``fused``
+    does not look at the plan: a plan the kernel cannot take raises
+    when the kernel is launched, rather than switching engine."""
+    if engine not in STREAM_ENGINES:
+        raise ValueError(
+            f"stream engine must be one of {STREAM_ENGINES}, got {engine!r}"
+        )
+    dev = resolve_device(device)
+    if engine in BATCH_ENGINES:
+        return resolve_cascade_engine(engine, dev)
+    if engine == "fused":
+        if plan is not None and int(T) * int(n_ch) < fused_min_elems():
+            return resolve_cascade_engine("auto", dev)
+        return "fused-cuda" if dev.type == "cuda" else "fused-torch"
+    if engine == "fused-cuda" and dev.type != "cuda":
+        raise ValueError(
+            f"engine='fused-cuda' needs a CUDA tensor, got device {dev}"
+        )
+    return engine
+
+
+def stream_stage_engines(plan: CascadePlan, T: int, n_ch: int,
+                         engine: str = "auto", device=None) -> list:
+    """Which engine each stage of a stream block of ``T`` rows runs
+    under (the decision :func:`cascade_decimate_stream` makes).  Under a
+    fused variant every stage runs inside the one fused step."""
+    eng = resolve_stream_engine(engine, plan, T, n_ch, device)
+    return [eng for _ in plan.stages]
+
+
+def _carry_leaf(b, dev):
+    """A carry leaf as a float32 tensor on ``dev`` (a resumed carry
+    arrives as numpy arrays from the ``.npz``)."""
+    if isinstance(b, torch.Tensor):
+        return b.to(device=dev, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(dev)
+
+
+def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
+                            qscale=None, device=None):
+    """One stateful streaming step of the cascade.
+
+    ``x`` is a (T, C) block, T a multiple of ``plan.ratio`` (a tensor,
+    whose device is used, or a numpy array moved to ``device``, default
+    the CUDA card); ``carry`` comes from :func:`cascade_stream_init`, a
+    previous step, or a loaded carry (numpy leaves are moved to the
+    block's device).  Returns ``(y (T/ratio, C), new_carry)``, fresh
+    float32 tensors on that device.
+
+    ``engine`` is any :data:`STREAM_ENGINES` literal.  The per-stage
+    chain concatenates each stage's carry before its input and runs the
+    strided-FIR stage on ``len(input) // R`` outputs (the kernel on the
+    card, the plain stage on the CPU); the fused variants run
+    :func:`~tpudas_torch.ops.fused_kernel.fused_cascade`.  The carry
+    layout is shared, so the engine may change between steps.
+
+    ``qscale`` accepts a raw int16 block; the result equals feeding
+    ``x.float() * qscale``.  The chain dequantizes the block first; the
+    fused kernel dequantizes as it reads (bit-equal).  The carry stays
+    float32 either way.
+    """
+    if isinstance(x, torch.Tensor):
+        dev = x.device
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"x is on {dev}, device={device!r}")
+    else:
+        dev = resolve_device(device)
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    _check_quantized(x, qscale)
+    T, n_ch = int(x.shape[0]), int(x.shape[1])
+    if T % plan.ratio:
+        raise ValueError(
+            f"stream block length {T} is not a multiple of the "
+            f"decimation ratio {plan.ratio}"
+        )
+    sizes = stream_carry_sizes(plan)
+    if len(carry) != len(sizes) or any(
+        int(np.shape(b)[0]) != p for b, p in zip(carry, sizes)
+    ):
+        raise ValueError(
+            "carry does not match this plan's stream_carry_sizes "
+            f"({[int(np.shape(b)[0]) for b in carry]} vs {list(sizes)})"
+        )
+    if any(int(np.shape(b)[1]) != n_ch for b in carry):
+        raise ValueError(
+            f"carry channel widths {[np.shape(b)[1] for b in carry]} do not "
+            f"match the block's {n_ch}"
+        )
+    eng = resolve_stream_engine(engine, plan, T, n_ch, dev)
+    bufs = tuple(_carry_leaf(b, dev) for b in carry)
+    x = x.contiguous()
+    if eng.startswith("fused"):
+        from tpudas_torch.ops.fused_kernel import (
+            fused_cascade,
+            fused_cascade_plain,
+        )
+
+        step = fused_cascade if eng == "fused-cuda" else fused_cascade_plain
+        return step(x, bufs, plan.stages, sizes, qscale=qscale)
+    from tpudas_torch.ops.fir_kernel import fir_decimate, fir_decimate_plain
+
+    stage = fir_decimate if eng == "cuda" else fir_decimate_plain
+    if qscale is not None:
+        x = x.to(torch.float32) * torch.tensor(np.float32(qscale), device=dev)
+    else:
+        x = x.to(torch.float32)
+    new_carry = []
+    for (R, hb), p, buf in zip(blocked_taps(plan, dev), sizes, bufs):
+        xc = torch.cat([buf, x], dim=0) if p else x
+        k = x.shape[0] // R
+        new_carry.append(xc[xc.shape[0] - p :].clone())
+        x = stage(xc, hb, R, k)
+    return x, tuple(new_carry)
 
 
 # ---------------------------------------------------------------------------

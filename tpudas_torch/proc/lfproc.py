@@ -17,6 +17,13 @@ filter support, needs the FFT engine, which is a later slice of the
 port: under ``engine="auto"`` such a window raises
 ``NotImplementedError`` instead of falling back.  A kernel fault
 raises; there is no fallback chain.
+
+Beside the window path, :meth:`LFProc.open_stream` and
+:meth:`LFProc.process_stream_increment` run the stateful stream
+(:mod:`tpudas_torch.proc.stream`): each input sample is filtered once
+through a carried per-stage state.  ``engine="fused"`` runs that stream
+through the fused cascade kernel; batch windows under ``"fused"`` run
+the ordinary cascade.
 """
 
 from __future__ import annotations
@@ -154,7 +161,7 @@ class LFProc:
     there is none) is where the windows are filtered.
     """
 
-    _ENGINES = ("auto", "cascade")
+    _ENGINES = ("auto", "cascade", "fused")
     _GAP_MODES = ("raise", "skip", "split")
 
     def __init__(self, sp=None, device=None):
@@ -162,10 +169,14 @@ class LFProc:
         self.device = resolve_device(device)
         self._para = self._default_process_parameters()
         self._output_folder = None
-        # per-window count of the engine that ran: "cascade-cuda" when
+        # per-emission count of the engine that ran: "cascade-cuda" when
         # the stages ran the CUDA kernel, "cascade-torch" for the plain
-        # PyTorch stages (CPU)
+        # PyTorch stages (CPU); the stream adds "fused-cuda" and
+        # "fused-torch" when the fused step ran
         self.engine_counts = {"cascade-cuda": 0, "cascade-torch": 0}
+        # stream blocks dispatched, by engine (a warm-up block emits
+        # nothing, so this can exceed engine_counts)
+        self.stream_blocks = {}
         # windows whose raw int16 payload went to the device undecoded
         self.quantized_windows = 0
         # cumulative per-phase wall seconds: assemble = window read,
@@ -187,7 +198,8 @@ class LFProc:
             # "split" the grid at gaps and run overlap-save per segment
             "on_gap": "raise",
             "filter_order": 4,
-            # "auto"/"cascade": the polyphase FIR cascade
+            # "auto"/"cascade": the polyphase FIR cascade; "fused": the
+            # cascade, with the stream run through the fused kernel
             "engine": "auto",
         }
 
@@ -202,13 +214,8 @@ class LFProc:
         for key, value in kwargs.items():
             if key not in self._para:
                 print(f"{key} is not default parameter key")
-            elif key == "engine" and value in ("fft", "fused"):
-                raise NotImplementedError(
-                    f"engine={value!r}: {_FFT_SLICE}"
-                    if value == "fft"
-                    else "engine='fused' (the streaming kernel) is not "
-                    "ported to tpudas_torch yet"
-                )
+            elif key == "engine" and value == "fft":
+                raise NotImplementedError(f"engine='fft': {_FFT_SLICE}")
             elif key == "engine" and value not in self._ENGINES:
                 raise ValueError(
                     f"engine must be one of {self._ENGINES}, got {value!r}"
@@ -242,6 +249,33 @@ class LFProc:
         files (crash-only design, lf_das.py:214-217)."""
         out_sp = make_spool(self._output_folder).sort("time").update()
         return out_sp[-1].attrs["time_max"]
+
+    # stateful streaming ----------------------------------------------
+    def open_stream(self, start_time):
+        """A fresh :class:`tpudas_torch.proc.stream.StreamCarry` for this
+        engine's parameters, anchored at ``start_time``: the resumable
+        alternative to the window path, whose carry holds each filter
+        stage's O(1) trailing state."""
+        from tpudas_torch.proc.stream import open_stream
+
+        return open_stream(self, start_time)
+
+    def process_stream_increment(self, carry, edtime):
+        """Process all NEW data up to ``edtime`` through the carried
+        filter state, writing output files and advancing ``carry`` in
+        place.  Returns the number of output samples emitted.  Matches
+        :meth:`process_time_range` over the same span on the interior
+        (the batch path is the oracle).  Ingest is pipelined
+        (``TPUDAS_INGEST_PREFETCH``, default 2) and int16 payloads go to
+        the device undecoded."""
+        if self._output_folder is None:
+            raise Exception("Please setup output folder first")
+        from tpudas_torch.proc.stream import process_increment
+
+        return process_increment(self, carry, edtime)
+
+    def _count_block(self, ran: str) -> None:
+        self.stream_blocks[ran] = self.stream_blocks.get(ran, 0) + 1
 
     # the engine -------------------------------------------------------
     def _load_window(self, t_lo, t_hi, on_gap):
@@ -484,9 +518,9 @@ class LFProc:
         engine = self._para.get("engine", "auto")
         align = self._cascade_alignment(taxis, target_times, d_sec, dt)
         if align is None:
-            if engine == "cascade":
+            if engine in ("cascade", "fused"):
                 raise ValueError(
-                    "engine='cascade' requires the output grid to land "
+                    f"engine={engine!r} requires the output grid to land "
                     "on input samples with an integer small-prime "
                     "decimation ratio"
                 )
@@ -506,7 +540,7 @@ class LFProc:
                 "cascade_halo_too_small", support=supp, phase=phase,
                 tail=int(tail),
             )
-            if engine != "cascade":
+            if engine not in ("cascade", "fused"):
                 raise NotImplementedError(
                     f"edge_buff_size halo is smaller than the cascade "
                     f"filter support ({supp} input samples): {_FFT_SLICE}"
@@ -539,7 +573,7 @@ class LFProc:
         """Shared tail of window processing: observability, coords,
         attrs, and the output write."""
         ax = window_patch.axis_of("time")
-        self.engine_counts[ran] += 1
+        self.engine_counts[ran] = self.engine_counts.get(ran, 0) + 1
         log_event(
             "window_engine", engine=ran, rows=rows,
             emitted=int(target_times.size),
