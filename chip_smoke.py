@@ -3,16 +3,27 @@
 
     python3 chip_smoke.py            # on a machine with one CUDA card
 
-Drives the port's two main paths on the card at the north-star width
-of 10,000 channels over a synthetic int16 tdas spool (1 kHz -> 1 Hz):
-the batch low-pass (``LFProc.process_time_range``) and the real-time
-loop (``run_lowpass_realtime``, stateful, carry saved and resumed), and
+Drives the port's paths on the card at the north-star width of 10,000
+channels over a synthetic int16 tdas spool (1 kHz -> 1 Hz): the batch
+low-pass (``LFProc.process_time_range``), the real-time loop
+(``run_lowpass_realtime``, stateful, carry saved and resumed), both on
+the cascade and on the FFT engine, and the HBM read probes
+(``python -m tpudas_torch.tools.probe_pipeline`` / ``probe_dma``); and
 holds each hand-written CUDA kernel against its plain PyTorch version
 at the shapes those paths give it.  Phases, each printing JSON lines:
 
 1. environment (versions, card, power limit, optional packages);
 2. build of ``tpudas_torch/csrc/*.cu`` with nvcc (sm_90a), one nvcc per
    source, all started together;
+3c. (run first) the HBM read probes P1-P3 (``csrc/hbm_probe.cu``) vs
+   their plain versions at 4,096 x 256 and at the tools' 129,024 x 2,048
+   f32 (P1/P2 bit-equal, P3 within 1e-6 of the sum of |terms|); then
+   the tools' sweeps through their entry points (every geometry of
+   their lists, ``torch.sum`` and ``copy_`` beside them, CUDA events,
+   resident windows) and the best P1 geometry on a 60,000 x 10,000 f32
+   stream block; prints the achieved read rate, and every bound of
+   phases 3 and 3b gets a second value at that rate
+   (``bound_ms_measured``);
 3. the strided-FIR kernel vs plain at the flagship stage shapes of a
    60 s window at 10,000 and 2,048 channels, float32 and int16, plus a
    ragged case, a long-tap case and all-zero input;
@@ -30,7 +41,13 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    file 3; every block launches the fused kernel; an engine="auto"
    control (per-stage kernel on every stage, 4 launches a block) gives
    the same names and data within 1e-5; the stream equals phase 4's
-   batch output within 1e-4 on the common interior.
+   batch output within 1e-4 on the common interior;
+6. the FFT engine over the same spool: ``LFProc(engine="fft")`` (4
+   windows, all "fft", no FIR launch, the 1 Hz grid, LF recovery);
+   ``engine="auto"`` on a 1.1 s grid (ratio 1100 = 2^2 5^2 11: every
+   window routes to the FFT engine); ``run_lowpass_realtime(engine=
+   "fft")`` over files 1-2, then resumed over file 3 from its "fft"
+   carry, equal to the FFT batch output within 1e-4 on the interior.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -50,7 +67,6 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import time
 
@@ -76,18 +92,6 @@ def emit(obj):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def nvidia_smi_line():
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30,
-        )
-    except (OSError, subprocess.TimeoutExpired) as exc:
-        return f"nvidia-smi unavailable: {exc}"
-    return (out.stdout.strip().splitlines() or ["nvidia-smi: no output"])[0]
 
 
 class Timer:
@@ -132,11 +136,25 @@ def per_channel_rel(got, ref):
     return float((err / scale.clamp_min(floor)).max()), float(err.max())
 
 
+# the best HBM read rate phase 3c achieved on this card (bytes/s); the
+# bounds of phases 3 and 3b get a second value at this rate
+MEASURED = {"read_bytes_per_s": None}
+
+
+def bound_at_measured(by, ops):
+    """The bound at the measured read rate (None before phase 3c)."""
+    rate = MEASURED["read_bytes_per_s"]
+    if not rate:
+        return None
+    return max(by / rate, ops / F32_FLOPS_PER_S) * 1e3
+
+
 def stage_bound_ms(T, C, in_bytes, n_out, taps):
     by = T * C * in_bytes + n_out * C * 4
     ops = 2.0 * taps * n_out * C
     t_b, t_o = by / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"),
+            bound_at_measured(by, ops))
 
 
 def synthetic_window(T, C, device, seed, quantized):
@@ -166,10 +184,11 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True):
         fail(f"{label}: kernel output not finite")
     rel, abs_err = per_channel_rel(got, ref)
     T, C = x.shape
-    bound, bound_by = stage_bound_ms(T, C, x.element_size(), k, taps)
+    bound, bound_by, bound_m = stage_bound_ms(T, C, x.element_size(), k, taps)
     rec = {"case": label, "T": T, "C": C, "dtype": str(x.dtype).split(".")[-1],
            "R": R, "taps": taps, "n_out": k, "max_rel_err": rel,
-           "max_abs_err": abs_err, "bound_ms": bound, "bound_by": bound_by}
+           "max_abs_err": abs_err, "bound_ms": bound, "bound_by": bound_by,
+           "bound_ms_measured": bound_m}
     if with_time:
         h = hb.reshape(-1)[None, None, :]
 
@@ -277,7 +296,8 @@ def cascade_bound_ms(plan, T, C, in_bytes):
         rows //= int(R)
         flops += 2.0 * len(h) * rows * C
     t_b, t_o = by / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"),
+            bound_at_measured(by, flops))
 
 
 def warm_blocks(plan, n_list, C, device, seed, quantized, warm=30):
@@ -337,12 +357,12 @@ def compare_fused(timer, plan, blocks, carry, qscale, label,
     leaf_rel = [per_channel_rel(a, b)[0] for a, b in zip(ck, cp) if a.numel()]
     x = blocks[0]
     T, C = x.shape
-    bound, bound_by = cascade_bound_ms(plan, T, C, x.element_size())
+    bound, bound_by, bound_m = cascade_bound_ms(plan, T, C, x.element_size())
     rec = {"case": label, "T": T, "C": C, "blocks": len(blocks),
            "n_out": T // plan.ratio, "dtype": str(x.dtype).split(".")[-1],
            "max_rel_err": rel, "max_abs_err": abs_err,
            "carry_max_rel_err": max(leaf_rel), "bound_ms": bound,
-           "bound_by": bound_by}
+           "bound_by": bound_by, "bound_ms_measured": bound_m}
     if with_time:
         kern = lambda: fused_cascade(x, carry, plan.stages, sizes,  # noqa: E731
                                      qscale=qscale)
@@ -456,6 +476,175 @@ def phase_fused_kernel(device, widths, timer):
     return main
 
 
+PROBE_T, PROBE_C = 129024, 2048  # the tools' size: 1.057 GB f32
+STREAM_SHAPE = (60000, 10000)  # one 60 s stream block at 10,000 ch (2.4 GB)
+# the small check: T = 4,096 x C = 256 and geometries that fit it
+SMALL_P1 = ((256, 64, False), (256, 64, True), (512, 128, False),
+            (128, 256, True))
+SMALL_P2 = ((1, 512, 64), (2, 512, 64), (3, 512, 64), (4, 256, 128))
+SMALL_P3 = ((256, 4), (128, 8), (512, 2))
+
+
+def check_probes(device, T, C, p1, p2, p3, seed):
+    """Each probe kernel against its plain version on one seeded (T, C)
+    window: P1/P2 bit-equal, P3 within 1e-6 of the sum of |terms|.
+    Returns the largest absolute error of each probe."""
+    from tpudas_torch.ops.hbm_probe import (
+        copy_heads, copy_heads_plain, copy_heads_pstream,
+        copy_heads_pstream_plain, ring_reader, ring_reader_plain,
+    )
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((T, C), generator=g, device=device)
+    err = {"copy_heads": 0.0, "copy_heads_pstream": 0.0, "ring_reader": 0.0}
+    for rows, cb, kf in p1:
+        got, ref = copy_heads(x, rows, cb, kf), copy_heads_plain(x, rows, cb, kf)
+        err["copy_heads"] = max(err["copy_heads"],
+                                float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            fail(f"P1 rows={rows} cb={cb} k_fastest={kf} at {T}x{C}: kernel "
+                 "is not bit-equal to plain")
+    for P, rows, cb in p2:
+        got = copy_heads_pstream(x, P, rows, cb)
+        ref = copy_heads_pstream_plain(x, P, rows, cb)
+        err["copy_heads_pstream"] = max(err["copy_heads_pstream"],
+                                        float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            fail(f"P2 P={P} rows={rows} cb={cb} at {T}x{C}: kernel is not "
+                 "bit-equal to plain")
+    for rows, nbuf in p3:
+        got = float(ring_reader(x, rows, nbuf))
+        ref = float(ring_reader_plain(x, rows, nbuf))
+        n = T // rows
+        terms = float(x[0 : n * rows : rows].abs().sum(dtype=torch.float64))
+        err["ring_reader"] = max(err["ring_reader"], abs(got - ref))
+        if abs(got - ref) > 1e-6 * terms:
+            fail(f"P3 rows={rows} nbuf={nbuf} at {T}x{C}: |{got} - {ref}| > "
+                 f"1e-6 x {terms}")
+    return err
+
+
+def nearest_divisor(C, want):
+    """The divisor of C that is a multiple of 4 and closest to ``want``
+    (a stream block's 10,000 channels are not a multiple of 2,048)."""
+    divs = [d for d in range(4, C + 1, 4) if C % d == 0]
+    return min(divs, key=lambda d: (abs(d - want), -d))
+
+
+def phase_hbm_probe(device, rehearse):
+    """Phase 3c: the HBM read probes.  Returns the kernel entries of
+    P1-P3 for the kernels line; sets ``MEASURED``."""
+    from tpudas_torch.ops.hbm_probe import (
+        copy_heads, copy_heads_plain, copy_heads_pstream,
+        copy_heads_pstream_plain, ring_reader, ring_reader_plain,
+    )
+    from tpudas_torch.tools import probe_dma, probe_pipeline
+    from tpudas_torch.tools.harness import measure
+    from tpudas_torch.tools.probe_pipeline import card_line
+
+    T, C = (8192, PROBE_C) if rehearse else (PROBE_T, PROBE_C)
+    iters = 6 if rehearse else 96
+    dev_arg = "cpu" if rehearse else None
+    t0 = time.perf_counter()
+    check_probes(device, 4096, 256, SMALL_P1, SMALL_P2, SMALL_P3, seed=1)
+    err = check_probes(device, T, C, probe_pipeline.P1_GEOMETRIES,
+                       probe_pipeline.P2_GEOMETRIES, probe_dma.P3_GEOMETRIES,
+                       seed=2)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    # the probe path: the tools' entry points, counts from 0
+    copy_heads.launches = copy_heads_pstream.launches = 0
+    ring_reader.launches = 0
+    argv = ["--T", str(T), "--C", str(C), "--iters", str(iters)]
+    if rehearse:
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    recs = probe_pipeline.main(argv) + probe_dma.main(argv)
+    sweep_s = time.perf_counter() - t0
+    launches = {"copy_heads": copy_heads.launches,
+                "copy_heads_pstream": copy_heads_pstream.launches,
+                "ring_reader": ring_reader.launches}
+    by = {k: [r for r in recs if r["probe"] == k]
+          for k in ("P1", "P2", "P3", "torch.sum", "copy_")}
+    best = {k: max(v, key=lambda r: r["read_bytes_per_s"])
+            for k, v in by.items() if k in ("P1", "P2", "P3")}
+    lib_sum, lib_copy = by["torch.sum"][0], by["copy_"][0]
+    rate_from = max([*best.values(), lib_sum],
+                    key=lambda r: r["read_bytes_per_s"])
+    rate = rate_from["read_bytes_per_s"]
+    # plain versions at each probe's best geometry (not counted)
+    b1, b2, b3 = best["P1"], best["P2"], best["P3"]
+    plain = {
+        "P1": measure(lambda x: copy_heads_plain(x, b1["rows"], b1["cb"],
+                                                 b1["k_fastest"]),
+                      T, C, iters, device=dev_arg) * 1e3,
+        "P2": measure(lambda x: copy_heads_pstream_plain(x, b2["P"], b2["rows"],
+                                                         b2["cb"]),
+                      T, C, iters, device=dev_arg) * 1e3,
+        "P3": measure(lambda x: ring_reader_plain(x, b3["rows"], b3["nbuf"]),
+                      T, C, iters, device=dev_arg) * 1e3,
+    }
+    # the best P1 geometry on a stream block's shape (cb adjusted to
+    # divide its channels), beside torch.sum on the same array
+    sT, sC = (4000, 1000) if rehearse else STREAM_SHAPE
+    s_cb = nearest_divisor(sC, b1["cb"])
+    s_ms = measure(lambda x: copy_heads(x, b1["rows"], s_cb, b1["k_fastest"]),
+                   sT, sC, iters, device=dev_arg) * 1e3
+    s_sum = measure(torch.sum, sT, sC, iters, device=dev_arg) * 1e3
+    s_read = (sT // b1["rows"]) * b1["rows"] * sC * 4
+    stream = {"T": sT, "C": sC, "rows": b1["rows"], "cb": s_cb,
+              "k_fastest": b1["k_fastest"], "ms": s_ms,
+              "read_bytes_per_s": s_read / (s_ms / 1e3),
+              "torch_sum_ms": s_sum,
+              "torch_sum_read_bytes_per_s": sT * sC * 4 / (s_sum / 1e3)}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    MEASURED["read_bytes_per_s"] = rate
+    res = {
+        "phase": "hbm_probe", "read_bytes_per_s": rate,
+        "read_rate_from": {k: rate_from[k] for k in
+                           ("probe", "rows", "cb", "P", "nbuf", "k_fastest")
+                           if k in rate_from},
+        "share_of_3.35TBps": rate / HBM_BYTES_PER_S,
+        "shape": f"{T}x{C} f32", "launches": launches,
+        "best": best, "plain_ms": plain, "torch_sum": lib_sum,
+        "copy_": lib_copy, "stream_block": stream,
+        "max_abs_err": err, "check_s": check_s, "sweep_s": sweep_s,
+        "card": card_line() if device.type == "cuda" else "cpu rehearsal",
+    }
+    emit(res)
+    for name, n in launches.items():
+        if n == 0:
+            if device.type == "cuda":
+                fail(f"the probe path launched {name} no time")
+        elif device.type != "cuda":
+            fail(f"{name} launched on the CPU")
+
+    def entry(name, replaces, probe, err_key):
+        r = best[probe]
+        bound_m = (r["read_bytes"] + r["written_bytes"]) / rate * 1e3
+        return {
+            "name": name, "route": "cuda",
+            "source": "tpudas_torch/csrc/hbm_probe.cu", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err[err_key],
+            "ms": r["ms"], "plain_ms": plain[probe], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": lib_sum["ms"],
+            "bound_ms_measured": bound_m, "copy_ms": lib_copy["ms"],
+            "read_bytes_per_s": r["read_bytes_per_s"],
+            "geometry": {k: r[k] for k in ("rows", "cb", "P", "nbuf",
+                                           "k_fastest") if k in r},
+            "shape": f"{T}x{C} f32 ({probe}'s best geometry of its sweep)",
+        }
+
+    return [entry("copy_heads", "tools/probe_pipeline.py:32", "P1",
+                  "copy_heads"),
+            entry("copy_heads_pstream", "tools/probe_pipeline.py:70", "P2",
+                  "copy_heads_pstream"),
+            entry("ring_reader", "tools/probe_dma.py:45", "P3",
+                  "ring_reader")]
+
+
 def lfproc_class(force_tdas=False):
     """``LFProc``, or — where h5py is missing (the card's host) or a
     rehearsal asks for the card's path — a subclass that writes each
@@ -491,9 +680,10 @@ def lf_fit(patch, bg):
     return float(resid.max()), float(amp_err.max())
 
 
-def grid_checks(out, what):
-    """The merged output of ``out``: one patch on a gap-free 1 Hz grid
-    under LFDAS_ names.  Returns (patch, sorted names)."""
+def grid_checks(out, what, step_ns=1_000_000_000):
+    """The merged output of ``out``: one patch on a gap-free grid of
+    ``step_ns`` (1 Hz by default) under LFDAS_ names.  Returns (patch,
+    sorted names)."""
     from tpudas_torch.io.spool import spool
 
     names = sorted(os.listdir(out))
@@ -505,8 +695,8 @@ def grid_checks(out, what):
     steps = np.diff(p.coords["time"].astype("datetime64[ns]").astype(np.int64))
     if not all(n.startswith("LFDAS_") for n in names):
         fail(f"{what}: output names are not all LFDAS_")
-    if not bool(np.all(steps == 1_000_000_000)):
-        fail(f"{what}: output grid is not a gap-free 1 Hz grid")
+    if not bool(np.all(steps == step_ns)):
+        fail(f"{what}: output grid is not a gap-free {step_ns / 1e9:g} s grid")
     if not bool(np.isfinite(p.host_data()).all()):
         fail(f"{what}: output not finite")
     return p, names
@@ -515,11 +705,7 @@ def grid_checks(out, what):
 def phase_main_path(device, n_ch, seconds, workdir, cls):
     """Phase 4: the batch path.  Leaves its spool (``workdir/src``) and
     output (``workdir/out``) for phase 5."""
-    from tpudas_torch.core.timeutils import build_time_grid
-    from tpudas_torch.io.spool import spool
     from tpudas_torch.ops.fir_kernel import fir_decimate
-    from tpudas_torch.proc.lfproc import schedule_windows
-    from tpudas_torch.proc.naming import get_filename
     from tpudas_torch.testing import make_synthetic_spool
 
     src = os.path.join(workdir, "src")
@@ -534,26 +720,10 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
         write_kwargs={"dtype": "int16", "scale": QSCALE},
     )
     setup_s = time.perf_counter() - t0
-    lfp = cls(spool(src).sort("time").update(), device=device)
-    lfp.update_processing_parameter(
-        output_sample_interval=1.0, process_patch_size=60, edge_buff_size=10,
-    )
-    lfp.set_output_folder(out, delete_existing=True)
     bg = np.datetime64(T0, "ns")
-    ed = bg + np.timedelta64(int(n_files * file_sec), "s")
-    grid = build_time_grid(bg, ed, 1.0)
-    wins = schedule_windows(len(grid), 60, 10)
-    expect_windows = len(wins)
-    expect_stems = sorted(
-        os.path.splitext(get_filename(grid[el], grid[eh - 1]))[0]
-        for _, _, el, eh in wins
-    )
     fir_decimate.launches = 0
-    t0 = time.perf_counter()
-    lfp.process_time_range(bg, ed)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    lfp, wall, wins, expect_stems = run_lfproc(device, cls, src, out)
+    expect_windows = len(wins)
     launches = fir_decimate.launches
     windows = sum(lfp.engine_counts.values())
     p, names = grid_checks(out, "main path")
@@ -596,6 +766,73 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
     return res
 
 
+def interior_rel(p_a, p_b):
+    """max |a - b| / max |b| on the two patches' common time span."""
+    lo = max(p_a.coords["time"][0], p_b.coords["time"][0])
+    hi = min(p_a.coords["time"][-1], p_b.coords["time"][-1])
+    av = p_a.select(time=(lo, hi)).host_data()
+    bv = p_b.select(time=(lo, hi)).host_data()
+    if av.shape != bv.shape or not av.size:
+        return float("inf")
+    return float(np.abs(av - bv).max() / np.abs(bv).max())
+
+
+def new_run():
+    """Accumulators of one real-time run over one or more driver calls."""
+    return {"calls": 0, "rounds": 0, "blocks": {}, "wall_s": 0.0,
+            "timings": {}, "counters": None, "events": []}
+
+
+def link_files(src_all, src, upto):
+    """Hard-link the first ``upto`` files of ``src_all`` into ``src``."""
+    os.makedirs(src, exist_ok=True)
+    for name in sorted(os.listdir(src_all))[:upto]:
+        if not os.path.exists(os.path.join(src, name)):
+            os.link(os.path.join(src_all, name), os.path.join(src, name))
+
+
+def drive_realtime(run, src_all, src, out, engine, device, feed=(), **para):
+    """One ``run_lowpass_realtime`` call at the flagship parameters
+    (``para`` overrides them); each poll's sleep links up to the next
+    file count of ``feed``."""
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+    from tpudas_torch.utils.logging import set_log_handler
+    from tpudas_torch.utils.profiling import Counters
+
+    feed = list(feed)
+    if run["counters"] is None:
+        run["counters"] = Counters()
+
+    def sleep(_):
+        if feed:
+            link_files(src_all, src, feed.pop(0))
+
+    def on_round(_rnd, lfp):
+        run["rounds"] += 1
+        for k, v in lfp.stream_blocks.items():
+            run["blocks"][k] = run["blocks"].get(k, 0) + v
+        for k, v in lfp.timings.items():
+            run["timings"][k] = run["timings"].get(k, 0.0) + v
+
+    kw = dict(output_sample_interval=1.0, edge_buffer=10.0,
+              process_patch_size=60)
+    kw.update(para)
+    set_log_handler(run["events"].append)
+    t0 = time.perf_counter()
+    try:
+        n = run_lowpass_realtime(
+            src, out, T0, poll_interval=0.0, sleep_fn=sleep,
+            on_round=on_round, engine=engine, stateful=True,
+            counters=run["counters"], device=device, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        set_log_handler(None)
+    run["wall_s"] += time.perf_counter() - t0
+    run["calls"] += 1
+    return n
+
+
 def phase_realtime(device, workdir, cls):
     """Phase 5: the real-time path over phase 4's spool.  A fused run
     (engine="fused") sees files 1-2, saves its carry and ends; a second
@@ -607,57 +844,17 @@ def phase_realtime(device, workdir, cls):
     from tpudas_torch.ops.fir_kernel import fir_decimate
     from tpudas_torch.ops.fused_kernel import fused_cascade
     from tpudas_torch.proc.stream import CARRY_FILENAME
-    from tpudas_torch.proc.streaming import run_lowpass_realtime
-    from tpudas_torch.utils.logging import set_log_handler
-    from tpudas_torch.utils.profiling import Counters
 
     src_all = os.path.join(workdir, "src")
-    files = sorted(os.listdir(src_all))
     rt = os.path.join(workdir, "rt")
     shutil.rmtree(rt, ignore_errors=True)
     cuda = device.type == "cuda"
 
     def link(src, upto):
-        os.makedirs(src, exist_ok=True)
-        for name in files[:upto]:
-            if not os.path.exists(os.path.join(src, name)):
-                os.link(os.path.join(src_all, name), os.path.join(src, name))
-
-    def new_run():
-        return {"calls": 0, "rounds": 0, "blocks": {}, "wall_s": 0.0,
-                "timings": {}, "counters": Counters(), "events": []}
+        link_files(src_all, src, upto)
 
     def drive(run, src, out, engine, feed=()):
-        """One driver call; each poll's sleep links up to the next file
-        count of ``feed``."""
-        feed = list(feed)
-
-        def sleep(_):
-            if feed:
-                link(src, feed.pop(0))
-
-        def on_round(_rnd, lfp):
-            run["rounds"] += 1
-            for k, v in lfp.stream_blocks.items():
-                run["blocks"][k] = run["blocks"].get(k, 0) + v
-            for k, v in lfp.timings.items():
-                run["timings"][k] = run["timings"].get(k, 0.0) + v
-
-        set_log_handler(run["events"].append)
-        t0 = time.perf_counter()
-        try:
-            n = run_lowpass_realtime(
-                src, out, T0, output_sample_interval=1.0, edge_buffer=10.0,
-                process_patch_size=60, poll_interval=0.0, sleep_fn=sleep,
-                on_round=on_round, engine=engine, stateful=True,
-                counters=run["counters"], device=device)
-            if cuda:
-                torch.cuda.synchronize()
-        finally:
-            set_log_handler(None)
-        run["wall_s"] += time.perf_counter() - t0
-        run["calls"] += 1
-        return n
+        return drive_realtime(run, src_all, src, out, engine, device, feed)
 
     # the runner builds an LFProc every round: on a host without h5py
     # it must be the one that writes tdas
@@ -694,12 +891,7 @@ def phase_realtime(device, workdir, cls):
     p_b, _ = grid_checks(os.path.join(workdir, "out"), "batch")
     ctrl_rel = per_channel_rel(torch.from_numpy(p_f.host_data()),
                                torch.from_numpy(p_c.host_data()))[0]
-    lo = max(p_f.coords["time"][0], p_b.coords["time"][0])
-    hi = min(p_f.coords["time"][-1], p_b.coords["time"][-1])
-    fv = p_f.select(time=(lo, hi)).host_data()
-    bv = p_b.select(time=(lo, hi)).host_data()
-    batch_rel = (float(np.abs(fv - bv).max() / np.abs(bv).max())
-                 if fv.shape == bv.shape and fv.size else float("inf"))
+    batch_rel = interior_rel(p_f, p_b)
     resid, amp_err = lf_fit(p_f, bg)
     rounds = [e for e in fused["events"] if e["event"] == "realtime_round"]
     fused_eng = "fused-cuda" if cuda else "fused-torch"
@@ -757,6 +949,146 @@ def phase_realtime(device, workdir, cls):
     return res
 
 
+def run_lfproc(device, cls, src, out, **para):
+    """One ``LFProc.process_time_range`` over the whole spool at the
+    flagship parameters (``para`` overrides them); returns (lfp, wall
+    seconds, schedule: windows and expected LFDAS_ stems)."""
+    from tpudas_torch.core.timeutils import build_time_grid
+    from tpudas_torch.io.spool import spool
+    from tpudas_torch.proc.lfproc import schedule_windows
+    from tpudas_torch.proc.naming import get_filename
+
+    kw = dict(output_sample_interval=1.0, process_patch_size=60,
+              edge_buff_size=10)
+    kw.update(para)
+    lfp = cls(spool(src).sort("time").update(), device=device)
+    lfp.update_processing_parameter(**kw)
+    lfp.set_output_folder(out, delete_existing=True)
+    bg = np.datetime64(T0, "ns")
+    ed = bg + np.timedelta64(int(MAIN_PATH_SECONDS), "s")
+    grid = build_time_grid(bg, ed, kw["output_sample_interval"])
+    wins = schedule_windows(len(grid), kw["process_patch_size"],
+                            kw["edge_buff_size"])
+    stems = sorted(os.path.splitext(get_filename(grid[el], grid[eh - 1]))[0]
+                   for _, _, el, eh in wins)
+    t0 = time.perf_counter()
+    lfp.process_time_range(bg, ed)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return lfp, time.perf_counter() - t0, wins, stems
+
+
+def phase_fft(device, workdir, cls):
+    """Phase 6: the FFT engine over phase 4's spool.  (a) the batch path
+    under engine="fft"; (b) engine="auto" on a 1.1 s grid, which the
+    cascade cannot serve (ratio 1100 = 2^2 5^2 11), so every window
+    routes to the FFT engine; (c) the real-time path under engine="fft"
+    over files 1-2, resumed over file 3 from its "fft" carry, held to
+    (a) on the common interior."""
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.proc.stream import load_carry
+
+    src_all = os.path.join(workdir, "src")
+    fdir = os.path.join(workdir, "fft")
+    shutil.rmtree(fdir, ignore_errors=True)
+    bg = np.datetime64(T0, "ns")
+    checks = []
+
+    def kernels_quiet():
+        fir_decimate.launches = fused_cascade.launches = 0
+
+    # (a) engine="fft", 1 s grid
+    kernels_quiet()
+    out_a = os.path.join(fdir, "batch")
+    lfp_a, wall_a, wins_a, stems_a = run_lfproc(device, cls, src_all, out_a,
+                                                engine="fft")
+    fir_a = fir_decimate.launches + fused_cascade.launches
+    p_a, names_a = grid_checks(out_a, "fft batch")
+    resid_a, amp_a = lf_fit(p_a, bg)
+    a = {"windows": len(wins_a), "engine_counts": lfp_a.engine_counts,
+         "fir_launches": fir_a, "wall_s": wall_a, "timings": lfp_a.timings,
+         "realtime_factor": MAIN_PATH_SECONDS / wall_a,
+         "quantized_windows": lfp_a.quantized_windows,
+         "lf_fit_max_resid": resid_a, "lf_amp_max_rel_err": amp_a}
+    checks += [
+        (len(wins_a) == 4 and lfp_a.engine_counts.get("fft") == 4,
+         f"(a) 4 windows, all fft: {lfp_a.engine_counts}"),
+        (sum(lfp_a.engine_counts.values()) == 4, "(a) only fft windows"),
+        (fir_a == 0, f"(a) {fir_a} FIR launches"),
+        ([os.path.splitext(n)[0] for n in names_a] == stems_a,
+         "(a) output names follow the window schedule"),
+        (resid_a < 0.01 and amp_a < 0.01, "(a) LF recovery < 0.01"),
+    ]
+    # (b) engine="auto" on a 1.1 s grid
+    kernels_quiet()
+    out_b = os.path.join(fdir, "auto_1p1")
+    lfp_b, wall_b, wins_b, stems_b = run_lfproc(
+        device, cls, src_all, out_b, engine="auto",
+        output_sample_interval=1.1)
+    fir_b = fir_decimate.launches + fused_cascade.launches
+    p_b, names_b = grid_checks(out_b, "auto 1.1 s", step_ns=1_100_000_000)
+    resid_b, amp_b = lf_fit(p_b, bg)
+    b = {"windows": len(wins_b), "engine_counts": lfp_b.engine_counts,
+         "fir_launches": fir_b, "wall_s": wall_b, "timings": lfp_b.timings,
+         "lf_fit_max_resid": resid_b, "lf_amp_max_rel_err": amp_b}
+    checks += [
+        (len(wins_b) > 0 and lfp_b.engine_counts.get("fft") == len(wins_b)
+         and sum(lfp_b.engine_counts.values()) == len(wins_b),
+         f"(b) every window routed to fft: {lfp_b.engine_counts}"),
+        (fir_b == 0, f"(b) {fir_b} FIR launches"),
+        ([os.path.splitext(n)[0] for n in names_b] == stems_b,
+         "(b) output names follow the window schedule"),
+        (resid_b < 0.01 and amp_b < 0.01, "(b) LF recovery < 0.01"),
+    ]
+    # (c) the real-time path under engine="fft", resumed once
+    run = new_run()
+    src_c, out_c = os.path.join(fdir, "src_rt"), os.path.join(fdir, "rt")
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    try:
+        kernels_quiet()
+        link_files(src_all, src_c, 2)
+        r1 = drive_realtime(run, src_all, src_c, out_c, "fft", device)
+        carry = load_carry(out_c)
+        link_files(src_all, src_c, 3)
+        r2 = drive_realtime(run, src_all, src_c, out_c, "fft", device)
+        fir_c = fir_decimate.launches + fused_cascade.launches
+    finally:
+        fleet_engine.LFProc = saved_cls
+    resumes = sum(e["event"] == "stream_resume" for e in run["events"])
+    p_c, names_c = grid_checks(out_c, "fft realtime")
+    resid_c, amp_c = lf_fit(p_c, bg)
+    rel_c = interior_rel(p_c, p_a)
+    ctr = run["counters"]
+    c = {"calls": run["calls"], "rounds": run["rounds"], "resumes": resumes,
+         "carry_kind": None if carry is None else carry.kind,
+         "edge_in": None if carry is None else carry.edge_in,
+         "blocks": run["blocks"], "fir_launches": fir_c,
+         "wall_s": run["wall_s"], "timings": run["timings"],
+         "seconds": ctr.data_seconds, "realtime_factor": ctr.realtime_factor,
+         "outputs": len(names_c), "vs_batch_interior_rel_err": rel_c,
+         "lf_fit_max_resid": resid_c, "lf_amp_max_rel_err": amp_c}
+    checks += [
+        ((r1, r2) == (1, 1), f"(c) rounds {(r1, r2)} != (1, 1)"),
+        (carry is not None and carry.kind == "fft",
+         "(c) the first call saved an fft carry"),
+        (resumes == 1, f"(c) {resumes} stream_resume events, not 1"),
+        (set(run["blocks"]) == {"fft"}, f"(c) blocks {run['blocks']}"),
+        (fir_c == 0, f"(c) {fir_c} FIR launches"),
+        (rel_c <= 1e-4, f"(c) stream vs batch interior {rel_c:.3e} > 1e-4"),
+        (resid_c < 0.01 and amp_c < 0.01, "(c) LF recovery < 0.01"),
+    ]
+    emit({"phase": "fft", "channels": int(p_a.host_data().shape[1]),
+          "payload": "int16 tdas", "batch_fft": a, "auto_1.1s": b,
+          "realtime_fft": c})
+    for ok, what in checks:
+        if not ok:
+            fail(f"fft check failed: {what}")
+    return {"batch_fft": a, "auto_1.1s": b, "realtime_fft": c}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -777,7 +1109,9 @@ def main(argv=None):
         widths, n_ch = (10000, 2048), 10000
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi_line() if device.type == "cuda" else "cpu rehearsal"
+    from tpudas_torch.tools.probe_pipeline import card_line
+
+    smi = card_line() if device.type == "cuda" else "cpu rehearsal"
     emit({
         "phase": "environment", "python": sys.version.split()[0],
         "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -793,12 +1127,13 @@ def main(argv=None):
     if device.type == "cuda":
         # every kernel at once: one nvcc per source, started together
         t0 = time.perf_counter()
-        build_libraries(["fir_decimate", "fused_cascade"])
+        libs = ("fir_decimate", "fused_cascade", "hbm_probe")
+        build_libraries(libs)
         emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-              "libraries": {n: build_info(n)
-                            for n in ("fir_decimate", "fused_cascade")}})
+              "libraries": {n: build_info(n) for n in libs}})
 
     timer = Timer(device)
+    probes = phase_hbm_probe(device, args.rehearse)
     plan, main_cases = phase_kernels(device, widths, timer)
     fused_cases = phase_fused_kernel(device, widths, timer)
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -806,6 +1141,7 @@ def main(argv=None):
     cls = lfproc_class(force_tdas=args.rehearse)
     res = phase_main_path(device, n_ch, MAIN_PATH_SECONDS, workdir, cls)
     rt = phase_realtime(device, workdir, cls)
+    phase_fft(device, workdir, cls)
     shutil.rmtree(workdir, ignore_errors=True)
 
     recs = main_cases[(widths[0], True)]  # the main path's shapes
@@ -821,6 +1157,7 @@ def main(argv=None):
         "bound_ms": sum(r["bound_ms"] for r in recs),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in recs)
                      else "operations"),
+        "bound_ms_measured": sum(r["bound_ms_measured"] for r in recs),
         "library_ms": sum(r["library_ms"] for r in recs),
         "shape": (f"the 4 flagship stages of one 60 s window, "
                   f"{widths[0]} ch int16"),
@@ -841,6 +1178,7 @@ def main(argv=None):
         "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],
+        "bound_ms_measured": full["bound_ms_measured"],
         # no single PyTorch call computes the stateful cascade step
         "library_ms": None,
         "b1_chain_ms": full["b1_chain_ms"],
@@ -849,7 +1187,7 @@ def main(argv=None):
                         for n in (60, 8, 1)},
         "shape": f"one 60-output stream block, {widths[0]} ch int16",
     }
-    emit({"kernels": [kernel, fused]})
+    emit({"kernels": [kernel, fused, *probes]})
     if args.rehearse:
         print("chip_smoke: CPU rehearsal finished; no result", flush=True)
         return 3

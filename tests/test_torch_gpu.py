@@ -1,5 +1,6 @@
-"""tpudas_torch on the CUDA card: the kernel against its plain version,
-the cascade and LFProc on the card against the same port on the CPU.
+"""tpudas_torch on the CUDA card: each kernel against its plain version,
+the cascade, the FFT engine and LFProc on the card against the same
+port on the CPU.
 
 Every test here carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX
@@ -111,7 +112,8 @@ def test_lfproc_on_card_matches_cpu(cuda_device, tmp_path):
                                np.datetime64("2023-03-22T00:03:00"))
         outs[name] = (lfp, fir_decimate.launches - before)
     lfp, launches = outs["cuda"]
-    assert lfp.engine_counts == {"cascade-cuda": 4, "cascade-torch": 0}
+    assert lfp.engine_counts == {"cascade-cuda": 4, "cascade-torch": 0,
+                                 "fft": 0}
     assert launches == 4 * 4 and outs["cpu"][1] == 0
     assert sorted(os.listdir(tmp_path / "cuda")) == sorted(
         os.listdir(tmp_path / "cpu")
@@ -215,3 +217,84 @@ def test_fused_kernel_refuses_a_plan_it_cannot_hold(cuda_device):
     with pytest.raises(ValueError, match="does not fit"):
         fused_cascade(x, carry, stages, sizes)
     assert fused_cascade.launches == before
+
+
+# -- the HBM read probes (P1-P3) ----------------------------------------------
+
+
+@pytest.mark.parametrize("rows,cb,k_fastest", [
+    (256, 64, False), (256, 64, True), (512, 256, False), (1024, 128, True),
+    (64, 2048, False),
+])
+def test_copy_heads_kernel_bit_equal_to_plain(cuda_device, rows, cb, k_fastest):
+    from tpudas_torch.ops.hbm_probe import copy_heads, copy_heads_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows + cb)
+    x = torch.randn((4096 + 3 * rows // 2, 2048), generator=g,
+                    device=cuda_device)
+    before = copy_heads.launches
+    got = copy_heads(x, rows, cb, k_fastest)
+    torch.cuda.synchronize()
+    assert copy_heads.launches == before + 1
+    assert torch.equal(got, copy_heads_plain(x, rows, cb, k_fastest))
+
+
+@pytest.mark.parametrize("P,rows,cb", [
+    (1, 512, 64), (2, 512, 64), (3, 512, 64), (4, 256, 128), (8, 128, 256),
+])
+def test_copy_heads_pstream_kernel_bit_equal_to_plain(cuda_device, P, rows, cb):
+    from tpudas_torch.ops.hbm_probe import (
+        copy_heads_pstream,
+        copy_heads_pstream_plain,
+    )
+
+    g = torch.Generator(device=cuda_device).manual_seed(P)
+    x = torch.randn((4096, 256), generator=g, device=cuda_device)
+    before = copy_heads_pstream.launches
+    got = copy_heads_pstream(x, P, rows, cb)
+    torch.cuda.synchronize()
+    assert copy_heads_pstream.launches == before + 1
+    assert torch.equal(got, copy_heads_pstream_plain(x, P, rows, cb))
+
+
+@pytest.mark.parametrize("rows,nbuf", [(256, 4), (128, 8), (512, 2), (7, 3)])
+def test_ring_reader_kernel_matches_plain(cuda_device, rows, nbuf):
+    from tpudas_torch.ops.hbm_probe import ring_reader, ring_reader_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn((40960, 256), generator=g, device=cuda_device)
+    before = ring_reader.launches
+    got = ring_reader(x, rows, nbuf)
+    torch.cuda.synchronize()
+    assert ring_reader.launches == before + 1
+    n = x.shape[0] // rows
+    terms = float(x[0 : n * rows : rows].abs().sum(dtype=torch.float64))
+    assert abs(float(got) - float(ring_reader_plain(x, rows, nbuf))) <= (
+        1e-6 * terms
+    )
+
+
+def test_probe_kernel_refuses_misaligned_geometry(cuda_device):
+    from tpudas_torch.ops.hbm_probe import copy_heads
+
+    x = torch.zeros((1024, 258), device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        copy_heads(x, 256, 6)
+
+
+# -- the FFT engine --------------------------------------------------------------
+
+
+def test_fft_engine_on_card_matches_cpu(cuda_device):
+    from tpudas_torch.ops.resample import interp_indices_weights
+    from tpudas_torch.proc.lfproc import lowpass_resample
+
+    x = _window(60001, 300, seed=21, int16=True)
+    t = np.datetime64("2023-03-22T00:00:00", "ns") + np.arange(60001).astype(
+        "timedelta64[ms]")
+    idx, w = interp_indices_weights(t, t[5000:55000:1100])
+    got = lowpass_resample(x, 1e-3, 0.409, idx, w, qscale=1e-4,
+                           device=cuda_device)
+    ref = lowpass_resample(x, 1e-3, 0.409, idx, w, qscale=1e-4, device="cpu")
+    assert got.device.type == "cuda"
+    assert _rel(got, ref) <= REL_TOL

@@ -44,6 +44,15 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
     for mod in (
         "tpudas_torch.ops.fir_kernel",
         "tpudas_torch.ops.fused_kernel",
+        "tpudas_torch.ops.hbm_probe",
+        "tpudas_torch.ops.fftlen",
+        "tpudas_torch.ops.filter",
+        "tpudas_torch.ops.resample",
+        "tpudas_torch.tools",
+        "tpudas_torch.tools.harness",
+        "tpudas_torch.tools.probe_pipeline",
+        "tpudas_torch.tools.probe_dma",
+        "tpudas_torch.proc.edge",
         "tpudas_torch.proc.lfproc",
         "tpudas_torch.proc.stream",
         "tpudas_torch.proc.ingest",

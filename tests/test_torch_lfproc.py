@@ -88,7 +88,8 @@ def test_lfproc_matches_jax(src, tmp_path):
         assert np.array_equal(a.coords["time"], b.coords["time"])
         assert np.array_equal(a.coords["distance"], b.coords["distance"])
         _assert_close(a, b)
-    assert port.engine_counts == {"cascade-cuda": 0, "cascade-torch": 5}
+    assert port.engine_counts == {"cascade-cuda": 0, "cascade-torch": 5,
+                                  "fft": 0}
     int16 = "tdas" in os.path.basename(src)
     assert port.quantized_windows == (5 if int16 else 0)
 
@@ -153,46 +154,96 @@ def test_gap_raises_like_the_reference(tmp_path):
                                np.datetime64("2023-03-22T00:03:00"))
 
 
-def test_non_aligned_grid_under_auto_needs_the_fft_slice(tmp_path):
+def test_fft_engine_matches_jax(src, tmp_path):
+    """engine="fft": every window through the FFT engine, in both
+    packages; same names and grid, data within 1e-5 per channel (the
+    same float32 response, two FFT libraries)."""
+    port = _run_port(src, tmp_path / "port", engine="fft")
+    _run_jax(src, tmp_path / "jax", engine="fft")
+    names_t, pt = _outputs(tmp_path / "port")
+    names_j, pj = _outputs(tmp_path / "jax")
+    assert names_t == names_j and len(names_t) == 5
+    for a, b in zip(pt, pj):
+        assert np.array_equal(a.coords["time"], b.coords["time"])
+        _assert_close(a, b)
+    assert port.engine_counts == {"cascade-cuda": 0, "cascade-torch": 0,
+                                  "fft": 5}
+    int16 = "tdas" in os.path.basename(src)
+    assert port.quantized_windows == (5 if int16 else 0)
+
+
+def _auto_both(tmp_path, t2, n_files, **para):
     d = tmp_path / "src"
-    make_synthetic_spool(d, n_files=1, file_duration=30.0, fs=200.0, n_ch=4)
-    lfp = LFProc(tspool(str(d)).sort("time").update(), device="cpu")
-    # a 12 ms grid over 5 ms samples: ratio 2.4, not sample-aligned
-    lfp.update_processing_parameter(
-        output_sample_interval=0.012, process_patch_size=400,
-        edge_buff_size=50,
+    make_synthetic_spool(d, n_files=n_files, file_duration=30.0, fs=200.0,
+                         n_ch=4, noise=0.02)
+    lfps = []
+    for name, cls, sp, kw in (
+        ("port", LFProc, tspool(str(d)).sort("time").update(), {"device": "cpu"}),
+        ("jax", JLFProc, jspool(str(d)).sort("time").update(), {}),
+    ):
+        lfp = cls(sp, **kw)
+        lfp.update_processing_parameter(**para)
+        lfp.set_output_folder(str(tmp_path / name))
+        lfp.process_time_range(np.datetime64(T1), np.datetime64(t2))
+        lfps.append(lfp)
+    names_t, pt = _outputs(tmp_path / "port")
+    names_j, pj = _outputs(tmp_path / "jax")
+    assert names_t == names_j and names_t
+    for a, b in zip(pt, pj):
+        assert np.array_equal(a.coords["time"], b.coords["time"])
+        _assert_close(a, b)
+    return lfps[0], len(names_t)
+
+
+def test_non_aligned_grid_under_auto_needs_the_fft_slice(tmp_path):
+    """A 12 ms grid over 5 ms samples (ratio 2.4, not sample-aligned)
+    under engine="auto": every window routes to the FFT engine, as in
+    the JAX package."""
+    port, n = _auto_both(
+        tmp_path, "2023-03-22T00:00:20", 1, output_sample_interval=0.012,
+        process_patch_size=400, edge_buff_size=50,
     )
-    lfp.set_output_folder(str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="FFT engine"):
-        lfp.process_time_range(np.datetime64(T1),
-                               np.datetime64("2023-03-22T00:00:20"))
+    assert port.engine_counts["fft"] == n and n >= 2
+    assert port.engine_counts["cascade-torch"] == 0
 
 
 def test_small_halo_under_auto_needs_the_fft_slice(tmp_path):
-    d = tmp_path / "src"
-    make_synthetic_spool(d, n_files=2, file_duration=30.0, fs=200.0, n_ch=4)
-    lfp = LFProc(tspool(str(d)).sort("time").update(), device="cpu")
-    lfp.update_processing_parameter(
-        output_sample_interval=1.0, process_patch_size=20, edge_buff_size=1,
+    """A 1-sample halo is smaller than the cascade's support: under
+    engine="auto" the windows route to the FFT engine, as in the JAX
+    package."""
+    port, n = _auto_both(
+        tmp_path, TMID, 2, output_sample_interval=1.0, process_patch_size=20,
+        edge_buff_size=1,
     )
-    lfp.set_output_folder(str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="filter support"):
-        lfp.process_time_range(np.datetime64(T1), np.datetime64(TMID))
+    assert port.engine_counts["fft"] == n and n >= 2
+    assert port.engine_counts["cascade-torch"] == 0
 
 
 @pytest.mark.parametrize("engine", ["fft", "fused"])
 def test_unported_engines_raise(engine):
-    """The FFT engine is a later slice of the port and raises; "fused"
-    (the stream kernel) is ported and accepted, as the reference does."""
+    """Every engine of the reference is ported and accepted: "fft" (the
+    FFT engine) and "fused" (the stream kernel); an unknown name raises
+    as the reference does."""
     lfp = LFProc(device="cpu")
-    if engine == "fft":
-        with pytest.raises(NotImplementedError):
-            lfp.update_processing_parameter(engine=engine)
-    else:
-        lfp.update_processing_parameter(engine=engine)
-        assert lfp.parameters["engine"] == "fused"
+    lfp.update_processing_parameter(engine=engine)
+    assert lfp.parameters["engine"] == engine
+    assert engine in LFProc._ENGINES
     with pytest.raises(ValueError, match="engine"):
         lfp.update_processing_parameter(engine="bogus")
+
+
+def test_cascade_request_on_a_non_aligned_grid_raises(tmp_path):
+    d = tmp_path / "src"
+    make_synthetic_spool(d, n_files=1, file_duration=30.0, fs=200.0, n_ch=4)
+    lfp = LFProc(tspool(str(d)).sort("time").update(), device="cpu")
+    lfp.update_processing_parameter(
+        output_sample_interval=0.012, process_patch_size=400,
+        edge_buff_size=50, engine="cascade",
+    )
+    lfp.set_output_folder(str(tmp_path / "out"))
+    with pytest.raises(ValueError, match="use engine='auto' or 'fft'"):
+        lfp.process_time_range(np.datetime64(T1),
+                               np.datetime64("2023-03-22T00:00:20"))
 
 
 def test_lfproc_without_cuda_and_without_device_raises(monkeypatch):

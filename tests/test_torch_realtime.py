@@ -143,7 +143,7 @@ def test_increments_match_batch(pool, tmp_path):
     assert np.abs(av - bv).max() / np.abs(bv).max() < 1e-4
 
 
-@pytest.mark.parametrize("engine", ["auto", "fused"])
+@pytest.mark.parametrize("engine", ["auto", "fused", "fft"])
 def test_driver_matches_jax(pool, tmp_path, engine, fused_env):
     blocks = {}
 
@@ -157,7 +157,7 @@ def test_driver_matches_jax(pool, tmp_path, engine, fused_env):
     assert _drive(jax_realtime, pool, str(tmp_path / "s2"), jax_out,
                   then=[5], engine=engine) == 2
     _assert_same_stream(port_out, jax_out)
-    want = "fused-torch" if engine == "fused" else "cascade-torch"
+    want = {"fused": "fused-torch", "fft": "fft"}.get(engine, "cascade-torch")
     assert set(blocks) == {want} and blocks[want] > 0
 
 
@@ -180,6 +180,69 @@ def test_carry_resumes_across_packages(pool, tmp_path, first):
     assert _drive(jax_realtime, pool, str(tmp_path / "csrc"), ctrl,
                   then=[5]) == 2
     _assert_same_stream(out, ctrl)
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_fft_carry_resumes_across_packages(pool, tmp_path, first):
+    """An FFT-kind carry written by one package resumes under the other
+    (engine="fft"); the resumed run equals an uninterrupted JAX run."""
+    one, two = ((jax_realtime, run_lowpass_realtime) if first == "jax"
+                else (run_lowpass_realtime, jax_realtime))
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    assert _drive(one, pool, src, out, engine="fft") == 1
+    saved = tstream.load_carry(out)
+    assert saved is not None and saved.kind == "fft"
+    assert saved.edge_in == 800 and len(saved.bufs) == 2
+    assert saved.bufs[0].shape == (1600, NCH) and saved.bufs[1].shape == (1, NCH)
+    if "tdas" in os.path.basename(pool):
+        assert saved.residual.dtype == np.int16
+    _link(pool, src, 5)
+    assert _drive(two, pool, src, out, first=5, engine="fft") == 1
+    ctrl = str(tmp_path / "ctrl")
+    assert _drive(jax_realtime, pool, str(tmp_path / "csrc"), ctrl,
+                  then=[5], engine="fft") == 2
+    _assert_same_stream(out, ctrl)
+
+
+def test_fft_carry_crossover_rule(pool, tmp_path):
+    """An FFT carry resumes under "auto" (and "fft"), never under a
+    cascade-only request, in both packages."""
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    assert _drive(run_lowpass_realtime, pool, src, out, engine="fft") == 1
+    carry = tstream.load_carry(out)
+    assert carry.engine_req == "fft"
+    assert tstream._engines_compatible("auto", "auto", "fft")
+    assert not tstream._engines_compatible("auto", "cascade", "fft")
+    assert not tstream._engines_compatible("fft", "fused", "fft")
+    _link(pool, src, 4)
+    with pytest.raises(ValueError, match="different start_time"):
+        _drive(run_lowpass_realtime, pool, src, out, first=4, engine="cascade")
+
+
+def test_auto_on_a_non_aligned_grid_streams_fft(pool, tmp_path):
+    """A 1.1 s grid over 100 Hz samples (ratio 110 = 2*5*11, a prime
+    factor above 8): under "auto" both packages open the FFT stream and
+    emit the same files."""
+    blocks = {}
+
+    def count(_rnd, lfp):
+        for k, v in lfp.stream_blocks.items():
+            blocks[k] = blocks.get(k, 0) + v
+
+    kw = dict(PARAMS, output_sample_interval=1.1)
+    port_out, jax_out = str(tmp_path / "port"), str(tmp_path / "jax")
+    for driver, src, out in ((run_lowpass_realtime, "s1", port_out),
+                             (jax_realtime, "s2", jax_out)):
+        _link(pool, str(tmp_path / src), 5)
+        extra = {"device": "cpu", "on_round": count} if (
+            driver is run_lowpass_realtime) else {"flight": False}
+        assert driver(source=str(tmp_path / src), output_folder=out,
+                      start_time=T0, poll_interval=0.0, file_duration=0.0,
+                      sleep_fn=lambda _: None, stateful=True, **kw,
+                      **extra) == 1
+    assert tstream.load_carry(port_out).kind == "fft"
+    assert set(blocks) == {"fft"}
+    _assert_same_stream(port_out, jax_out)
 
 
 def test_stateful_matches_rewind(pool, tmp_path):

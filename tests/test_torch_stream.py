@@ -4,7 +4,9 @@ The same numpy blocks (the uneven schedule of ``tests/test_fused.py``,
 5 channels, the three plans it uses) go through
 ``tpudas.ops.fir.cascade_decimate_stream`` and the port's on the CPU.
 Outputs and every carry leaf must agree within 1e-5 of each channel's
-scale: the two sum the same f32 products in different orders.  Within
+scale: the two sum the same f32 products in different orders.  The FFT
+stream step (``fft_pass_filter_stream``) is held to the same 1e-5 over
+an uneven block sequence, float32 and raw int16.  Within
 the port, the plain fused step must equal the per-stage chain byte for
 byte, as the reference's ``fused-xla`` scan equals its chain.
 """
@@ -14,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from tpudas.ops import filter as jfilter
 from tpudas.ops import fir as jfir
+from tpudas_torch.ops import filter as tfilter
 from tpudas_torch.ops import fir
 from tpudas_torch.ops.fused_kernel import fused_cascade, fused_cascade_plain
 
@@ -285,3 +289,53 @@ def test_fused_wrapper_on_cpu_runs_plain_without_launching():
         fused_cascade(x, tuple(c[:, :2] for c in carry), plan.stages, sizes)
     with pytest.raises(TypeError, match="float32 or int16"):
         fused_cascade(x.double(), carry, plan.stages, sizes)
+
+
+def _stream(mod, blocks, edge, qscale=None, **kw):
+    carry = mod.fft_stream_init(edge, blocks[0].shape[1])
+    outs = []
+    for b in blocks:
+        y, carry = mod.fft_pass_filter_stream(b, carry, 0.01, high=5.0,
+                                              order=4, qscale=qscale, **kw)
+        outs.append(np.asarray(y))
+    return np.concatenate(outs), np.asarray(carry)
+
+
+@pytest.mark.parametrize("int16", [False, True], ids=["f32", "int16"])
+def test_fft_stream_matches_jax_over_uneven_blocks(int16):
+    rng = np.random.default_rng(10)
+    sizes = (900, 512, 777, 1, 1200)
+    if int16:
+        blocks = [(rng.standard_normal((n, 4)) * 3000).astype(np.int16)
+                  for n in sizes]
+        qs = 1e-4
+    else:
+        blocks = [rng.standard_normal((n, 4)).astype(np.float32)
+                  for n in sizes]
+        qs = None
+    ref, rc = _stream(jfilter, blocks, 400, qscale=qs)
+    got, gc = _stream(tfilter, blocks, 400, qscale=qs, device="cpu")
+    _assert_close(got, ref)
+    _assert_close(gc, rc)
+    if int16:
+        # the dequantizing step equals feeding the dequantized block
+        deq = [(torch.from_numpy(b).float() * torch.tensor(np.float32(qs)))
+               .numpy() for b in blocks]
+        f32, fc = _stream(tfilter, deq, 400, device="cpu")
+        np.testing.assert_array_equal(got, f32)
+        np.testing.assert_array_equal(gc, fc)
+
+
+def test_fft_stream_rejects_bad_input():
+    carry = tfilter.fft_stream_init(10, 3)
+    with pytest.raises(ValueError, match="qscale"):
+        tfilter.fft_pass_filter_stream(np.zeros((50, 3), np.float32), carry,
+                                       0.01, high=5.0, qscale=1e-4,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="2\\*edge"):
+        tfilter.fft_pass_filter_stream(np.zeros((50, 3), np.float32),
+                                       carry[:-1], 0.01, high=5.0,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="does not match"):
+        tfilter.fft_pass_filter_stream(np.zeros((50, 4), np.float32), carry,
+                                       0.01, high=5.0, device="cpu")

@@ -9,10 +9,11 @@ attrs are a :class:`~tpudas_torch.core.attrs.PatchAttrs` with the
 three-generation alias map.
 
 IO hangs off the ``.io`` accessor as in the reference call sites
-(``patch.io.write(path, "dasdae")`` — lf_das.py:232).  The compute
-methods of the JAX Patch (``pass_filter``, ``interpolate``,
-``rolling``, ``median_filter``) and the ``.viz`` waterfall belong to
-later slices of the port and are not here yet.
+(``patch.io.write(path, "dasdae")`` — lf_das.py:232).  ``pass_filter``
+and ``interpolate`` run the port's FFT engine and gather-lerp on the
+card (``device="cpu"`` on request).  The JAX Patch's ``rolling``,
+``median_filter`` and the ``.viz`` waterfall belong to later slices of
+the port and are not here yet.
 """
 
 from __future__ import annotations
@@ -235,6 +236,25 @@ class Patch:
             data=data, coords=coords, dims=self._dims,
             attrs=self._attrs.to_dict(),
         )
+
+    # compute (dispatch to tpudas_torch.ops) ---------------------------
+    def pass_filter(self, order: int = 4, engine=None, device=None,
+                    **kwargs) -> "Patch":
+        """Zero-phase band filtering along a named dimension:
+        ``pass_filter(time=(None, corner_hz))`` (lf_das.py:40, :223), on
+        ``device`` (default the CUDA card)."""
+        from tpudas_torch.ops.filter import patch_pass_filter
+
+        return patch_pass_filter(self, order=order, engine=engine,
+                                 device=device, **kwargs)
+
+    def interpolate(self, engine=None, device=None, **kwargs) -> "Patch":
+        """Linear resample onto a new axis:
+        ``interpolate(time=new_axis)`` (lf_das.py:42, :223-225), on
+        ``device`` (default the CUDA card)."""
+        from tpudas_torch.ops.resample import patch_interpolate
+
+        return patch_interpolate(self, engine=engine, device=device, **kwargs)
 
     # convenience ------------------------------------------------------
     def time_seconds(self) -> np.ndarray:

@@ -11,12 +11,12 @@ to the device as one tensor, runs the polyphase FIR cascade
 (:func:`tpudas_torch.ops.fir.cascade_decimate` — the hand-written CUDA
 kernel on the card), and writes the decimated interior.
 
-This slice runs the cascade engine only.  A window whose output grid
-is not sample-aligned, or whose halo is smaller than the cascade's
-filter support, needs the FFT engine, which is a later slice of the
-port: under ``engine="auto"`` such a window raises
-``NotImplementedError`` instead of falling back.  A kernel fault
-raises; there is no fallback chain.
+A window whose output grid is not sample-aligned, or whose halo is
+smaller than the cascade's filter support, runs the FFT engine under
+``engine="auto"`` (:func:`lowpass_resample`: rfft -> Butterworth^2 ->
+irfft -> gather-lerp, plain ``torch.fft`` and tensor ops, as the JAX
+package leaves it to XLA); ``engine="fft"`` runs every window there.
+A kernel fault raises; there is no fallback chain.
 
 Beside the window path, :meth:`LFProc.open_stream` and
 :meth:`LFProc.process_stream_increment` run the stateful stream
@@ -46,16 +46,11 @@ from tpudas_torch.io.spool import spool as make_spool
 from tpudas_torch.proc.naming import get_filename
 from tpudas_torch.utils.logging import log_event
 
-__all__ = ["LFProc", "check_merge", "output_corner", "resolve_gap_tolerance",
-           "schedule_windows"]
+__all__ = ["LFProc", "check_merge", "lowpass_resample", "output_corner",
+           "resolve_gap_tolerance", "schedule_windows"]
 
 
 _GAP_ALIAS_WARNED = False  # the deprecated spelling warns once per process
-
-_FFT_SLICE = (
-    "the FFT engine (non-aligned output grids, halos smaller than the "
-    "cascade's filter support) is not ported to tpudas_torch yet"
-)
 
 
 def resolve_gap_tolerance(correct=None, legacy=None):
@@ -151,6 +146,31 @@ def schedule_windows(n_grid: int, patch_size: int, buff_size: int):
     return windows
 
 
+def lowpass_resample(data, d_sec, corner, idx, w, order=4, qscale=None,
+                     device=None):
+    """The FFT window engine: zero-phase low-pass + gather-lerp decimate
+    (the JAX package's ``lowpass_resample``, tpudas/proc/lfproc.py:198-240).
+
+    data: (T, C) float32, or raw int16 with ``qscale`` (crosses to the
+    device as int16 and is dequantized there, ``float(x) * qscale``); a
+    tensor (its device is used) or numpy (moved to ``device``, default
+    the CUDA card).  idx/w: the (K,) gather plan into the filtered rows
+    (:func:`tpudas_torch.ops.resample.interp_indices_weights`).  Returns
+    a (K, C) float32 tensor: rfft over the JAX package's 5-smooth nfft,
+    the float32 Butterworth^2 response, irfft, then the lerp.
+    """
+    from tpudas_torch.ops.filter import _as_tensor, _filter_rows
+    from tpudas_torch.ops.fir import _check_quantized
+    from tpudas_torch.ops.resample import gather_lerp
+
+    x = _as_tensor(data, device)
+    _check_quantized(x, qscale)
+    x = x.to(torch.float32)
+    if qscale is not None:
+        x = x * torch.tensor(np.float32(qscale), device=x.device)
+    return gather_lerp(_filter_rows(x, d_sec, None, corner, order), idx, w)
+
+
 class LFProc:
     """Low-frequency processing engine over a source spool.
 
@@ -161,7 +181,7 @@ class LFProc:
     there is none) is where the windows are filtered.
     """
 
-    _ENGINES = ("auto", "cascade", "fused")
+    _ENGINES = ("auto", "fft", "cascade", "fused")
     _GAP_MODES = ("raise", "skip", "split")
 
     def __init__(self, sp=None, device=None):
@@ -171,9 +191,9 @@ class LFProc:
         self._output_folder = None
         # per-emission count of the engine that ran: "cascade-cuda" when
         # the stages ran the CUDA kernel, "cascade-torch" for the plain
-        # PyTorch stages (CPU); the stream adds "fused-cuda" and
-        # "fused-torch" when the fused step ran
-        self.engine_counts = {"cascade-cuda": 0, "cascade-torch": 0}
+        # PyTorch stages (CPU), "fft" for the FFT engine; the stream adds
+        # "fused-cuda" and "fused-torch" when the fused step ran
+        self.engine_counts = {"cascade-cuda": 0, "cascade-torch": 0, "fft": 0}
         # stream blocks dispatched, by engine (a warm-up block emits
         # nothing, so this can exceed engine_counts)
         self.stream_blocks = {}
@@ -198,7 +218,9 @@ class LFProc:
             # "split" the grid at gaps and run overlap-save per segment
             "on_gap": "raise",
             "filter_order": 4,
-            # "auto"/"cascade": the polyphase FIR cascade; "fused": the
+            # "auto": the polyphase FIR cascade when the target grid is
+            # sample-aligned and the ratio factors, the FFT engine
+            # otherwise; "fft"/"cascade" force one path; "fused": the
             # cascade, with the stream run through the fused kernel
             "engine": "auto",
         }
@@ -214,8 +236,6 @@ class LFProc:
         for key, value in kwargs.items():
             if key not in self._para:
                 print(f"{key} is not default parameter key")
-            elif key == "engine" and value == "fft":
-                raise NotImplementedError(f"engine='fft': {_FFT_SLICE}")
             elif key == "engine" and value not in self._ENGINES:
                 raise ValueError(
                     f"engine must be one of {self._ENGINES}, got {value!r}"
@@ -481,7 +501,9 @@ class LFProc:
         return ratio, phase
 
     def _process_window(self, window_patch, target_times, dt, corner, order):
-        """Device side: cascade filter+decimate, then write the interior."""
+        """Device side: filter + decimate (the cascade, or the FFT engine
+        where the cascade cannot serve the window), then write the
+        interior."""
         if target_times.size == 0:
             return
         host, qs = self._time_major_payload(window_patch)
@@ -509,60 +531,63 @@ class LFProc:
                 "skipping (on_gap)"
             )
             return
-        from tpudas_torch.ops.fir import (
-            cascade_decimate,
-            design_cascade,
-            edge_support_samples,
-        )
-
         engine = self._para.get("engine", "auto")
-        align = self._cascade_alignment(taxis, target_times, d_sec, dt)
-        if align is None:
-            if engine in ("cascade", "fused"):
+        align = None
+        if engine in ("auto", "cascade", "fused"):
+            align = self._cascade_alignment(taxis, target_times, d_sec, dt)
+            if align is None and engine in ("cascade", "fused"):
                 raise ValueError(
                     f"engine={engine!r} requires the output grid to land "
                     "on input samples with an integer small-prime "
-                    "decimation ratio"
+                    "decimation ratio; use engine='auto' or 'fft'"
                 )
-            raise NotImplementedError(
-                f"this window's output grid is not sample-aligned: "
-                f"{_FFT_SLICE}"
-            )
-        ratio, phase = align
-        plan = design_cascade(1.0 / d_sec, ratio, corner, int(order))
-        # the edge halo must cover the cascade's (tol-thresholded)
-        # filter support on both sides, or the emitted interior
-        # carries edge artifacts (lf_das.py:79-85)
-        supp = edge_support_samples(plan, 1e-3)
-        tail = host.shape[0] - (phase + (target_times.size - 1) * ratio)
-        if supp > phase or supp >= tail:
-            log_event(
-                "cascade_halo_too_small", support=supp, phase=phase,
-                tail=int(tail),
-            )
-            if engine not in ("cascade", "fused"):
-                raise NotImplementedError(
-                    f"edge_buff_size halo is smaller than the cascade "
-                    f"filter support ({supp} input samples): {_FFT_SLICE}"
+        if align is not None:
+            from tpudas_torch.ops.fir import design_cascade, edge_support_samples
+
+            ratio, phase = align
+            plan = design_cascade(1.0 / d_sec, ratio, corner, int(order))
+            # the edge halo must cover the cascade's (tol-thresholded)
+            # filter support on both sides, or the emitted interior
+            # carries edge artifacts (lf_das.py:79-85)
+            supp = edge_support_samples(plan, 1e-3)
+            tail = host.shape[0] - (phase + (target_times.size - 1) * ratio)
+            if supp > phase or supp >= tail:
+                log_event(
+                    "cascade_halo_too_small", support=supp, phase=phase,
+                    tail=int(tail),
                 )
-            print(
-                "Warning: edge_buff_size halo is smaller than the "
-                f"cascade filter support ({supp} input samples); "
-                "emitted edges may carry artifacts"
-            )
+                if engine in ("cascade", "fused"):
+                    print(
+                        "Warning: edge_buff_size halo is smaller than the "
+                        f"cascade filter support ({supp} input samples); "
+                        "emitted edges may carry artifacts"
+                    )
+                else:
+                    align = None  # auto: the FFT engine takes the window
         n_out = int(target_times.size)
         t_dev0 = time.perf_counter()
         # quantized windows ship the raw int16 payload: half the
-        # transfer bytes, and the first kernel reads int16
+        # transfer bytes, dequantized on the device
         payload = host if qs is not None else host.astype(np.float32, copy=False)
         x = torch.from_numpy(np.ascontiguousarray(payload)).to(self.device)
-        out = cascade_decimate(x, plan, phase, n_out, "auto", qscale=qs)
+        if align is not None:
+            from tpudas_torch.ops.fir import cascade_decimate
+
+            out = cascade_decimate(x, plan, phase, n_out, "auto", qscale=qs)
+            ran = ("cascade-cuda" if self.device.type == "cuda"
+                   else "cascade-torch")
+        else:
+            from tpudas_torch.ops.resample import interp_indices_weights
+
+            idx, w = interp_indices_weights(taxis, target_times)
+            out = lowpass_resample(x, d_sec, corner, idx, w, order=order,
+                                   qscale=qs)
+            ran = "fft"
         out = out.cpu().numpy()  # host sync
         t_dev = time.perf_counter() - t_dev0
         self.timings["device_s"] += t_dev
         if qs is not None:
             self.quantized_windows += 1
-        ran = "cascade-cuda" if self.device.type == "cuda" else "cascade-torch"
         self._emit_window_output(
             window_patch, target_times, dt, out, ran,
             rows=int(host.shape[0]), t_dev=t_dev,

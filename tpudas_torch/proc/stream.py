@@ -36,12 +36,16 @@ point covered by data and discards the first ``edge_buff_size`` outputs
 warm-up (:func:`tpudas_torch.ops.fir.stream_warmup_outputs`).  After
 that every emitted output has its full filter support.
 
-This slice ports the cascade stream only.  An output grid the cascade
-cannot serve (not sample-aligned, or a decimation ratio with a prime
-factor above 8) needs the FFT stream engine, which is a later slice: it
-raises ``NotImplementedError``, and so does resuming a carry the JAX
-package opened with the FFT engine.  A kernel fault raises; there is
-no fallback engine.
+An output grid the cascade cannot serve (not sample-aligned, or a
+decimation ratio with a prime factor above 8), or ``engine="fft"``,
+opens the FFT stream engine instead: an overlap-save carry of the last
+``2 * edge_in`` raw input rows on the device
+(:func:`tpudas_torch.ops.filter.fft_pass_filter_stream`) plus a one-row
+lerp seam on the host, emitted onto the output grid by a host lerp —
+the JAX package's ``_consume_fft``, with the same ``edge_in``,
+``skip_left`` and emit schedule and the same ``.npz`` carry, so an FFT
+carry also resumes across the packages.  A kernel fault raises; there
+is no fallback engine.
 """
 
 from __future__ import annotations
@@ -74,12 +78,6 @@ CARRY_FILENAME = ".stream_carry.npz"
 CARRY_SIDECAR = ".stream_carry.json"
 _VERSION = 1
 
-_FFT_STREAM = (
-    "the FFT stream engine (output grids that are not sample-aligned, or "
-    "decimation ratios with a prime factor above 8) is not ported to "
-    "tpudas_torch yet"
-)
-
 
 @dataclass
 class StreamCarry:
@@ -98,14 +96,15 @@ class StreamCarry:
     dt_out: float  # output_sample_interval seconds
     buff_out: int  # edge_buff_size (output samples discarded cold)
     order: int
-    engine_req: str  # "auto" | "cascade" | "fused"
+    engine_req: str  # "auto" | "fft" | "cascade" | "fused"
     patch_out: int  # process_patch_size (stream chunk sizing)
     # engine state (None/zero until the stream sees data)
-    kind: str | None = None  # "cascade" (the JAX package also has "fft")
+    kind: str | None = None  # "cascade" | "fft"
     d_ns: int | None = None  # input sample step
     n_ch: int | None = None
     ratio: int | None = None
-    edge_in: int | None = None  # fft only (kept for format identity)
+    edge_in: int | None = None  # fft only: input rows of filter support
+    # cascade: one leaf per stage; fft: (overlap-save rows, lerp seam)
     bufs: tuple = ()
     residual: np.ndarray | None = None  # read-but-unconsumed rows
     # dequant scale of the rows held in ``residual`` (None = float32
@@ -550,10 +549,6 @@ def _feed_patch(lfp, carry: StreamCarry, patch, on_gap, pipe,
         d_sec = patch.get_sample_step("time")
         i0 = _open_engine(lfp, carry, host, t_ns, float(d_sec), qs)
     else:
-        if carry.kind != "cascade":
-            raise NotImplementedError(
-                f"resuming a {carry.kind!r} stream carry: {_FFT_STREAM}"
-            )
         if host.shape[1] != carry.n_ch:
             raise ValueError(
                 f"stream channel count changed: {host.shape[1]} vs "
@@ -585,7 +580,10 @@ def _feed_patch(lfp, carry: StreamCarry, patch, on_gap, pipe,
     if new.shape[0] == 0:
         return
     carry.next_ingest_ns = int(new_t[-1]) + carry.d_ns
-    _consume_cascade(lfp, carry, patch, new, qs, pipe)
+    if carry.kind == "cascade":
+        _consume_cascade(lfp, carry, patch, new, qs, pipe)
+    else:
+        _consume_fft(lfp, carry, patch, new, int(new_t[0]), qs, pipe)
 
 
 def _grid_ceil(carry: StreamCarry, t_ns: int) -> int:
@@ -595,18 +593,12 @@ def _grid_ceil(carry: StreamCarry, t_ns: int) -> int:
 
 
 def _open_engine(lfp, carry: StreamCarry, host, t_ns, d_sec, qs=None) -> int:
-    """Initialize the cascade engine at the stream's first data.
+    """Choose and initialize the engine at the stream's first data.
     Returns the index of the first input row to feed.  ``qs`` is the
-    payload's dequant scale: the warm-up prepad is made in the
+    payload's dequant scale: the cascade's warm-up prepad is made in the
     payload's own dtype, so a quantized stream's pool stays raw int16
     (int16 zeros dequantize to exact 0.0)."""
-    from tpudas_torch.ops.fir import (
-        cascade_stream_init,
-        design_cascade,
-        edge_support_samples,
-        factor_ratio,
-        stream_warmup_outputs,
-    )
+    from tpudas_torch.ops.fir import factor_ratio
 
     d_ns = int(round(d_sec * 1e9))
     if d_ns <= 0:
@@ -622,19 +614,50 @@ def _open_engine(lfp, carry: StreamCarry, host, t_ns, d_sec, qs=None) -> int:
             factor_ratio(ratio)
         except ValueError:
             aligned = False
-    if not aligned:
-        if carry.engine_req in ("cascade", "fused"):
-            raise ValueError(
-                f"engine={carry.engine_req!r} requires the output grid to "
-                "land on input samples with an integer small-prime "
-                "decimation ratio; use engine='auto'"
-            )
-        raise NotImplementedError(
-            f"this stream's output grid needs the FFT engine: {_FFT_STREAM}"
+    if carry.engine_req == "fft":
+        aligned = False
+    if not aligned and carry.engine_req in ("cascade", "fused"):
+        raise ValueError(
+            f"engine={carry.engine_req!r} requires the output grid to "
+            "land on input samples with an integer small-prime "
+            "decimation ratio; use engine='auto' or 'fft'"
         )
     carry.d_ns = d_ns
     carry.n_ch = n_ch
-    plan = design_cascade(1e9 / d_ns, int(ratio), _corner(carry.dt_out),
+    if aligned:
+        i0 = _open_cascade(lfp, carry, host, t0, g_e, d_ns, int(ratio), qs)
+    else:
+        from tpudas_torch.ops.filter import fft_stream_init
+
+        carry.kind = "fft"
+        carry.edge_in = int(-(-carry.buff_out * step // d_ns))
+        carry.next_emit_ns = g_e + carry.buff_out * step
+        carry.bufs = (
+            fft_stream_init(carry.edge_in, n_ch),
+            np.zeros((0, n_ch), np.float32),  # last-row lerp seam
+        )
+        carry.residual = None
+        i0 = 0
+    log_event(
+        "stream_open", kind=carry.kind, ratio=carry.ratio,
+        edge_in=carry.edge_in, skip_left=carry.skip_left,
+        first_emit=str(np.datetime64(int(carry.next_emit_ns), "ns")),
+    )
+    return i0
+
+
+def _open_cascade(lfp, carry, host, t0, g_e, d_ns, ratio, qs) -> int:
+    """Initialize the cascade engine; returns the first row to feed."""
+    from tpudas_torch.ops.fir import (
+        cascade_stream_init,
+        design_cascade,
+        edge_support_samples,
+        stream_warmup_outputs,
+    )
+
+    step = carry.step_ns
+    n_ch = int(host.shape[1])
+    plan = design_cascade(1e9 / d_ns, ratio, _corner(carry.dt_out),
                           carry.order)
     supp = edge_support_samples(plan, 1e-3)
     if carry.buff_out * step < supp * d_ns:
@@ -645,7 +668,7 @@ def _open_engine(lfp, carry: StreamCarry, host, t_ns, d_sec, qs=None) -> int:
         )
         log_event("stream_halo_small", support=supp)
     carry.kind = "cascade"
-    carry.ratio = int(ratio)
+    carry.ratio = ratio
     carry.skip_left = stream_warmup_outputs(plan) + carry.buff_out
     carry.next_emit_ns = g_e + carry.buff_out * step
     carry.bufs = cascade_stream_init(plan, n_ch, lfp.device)
@@ -656,16 +679,9 @@ def _open_engine(lfp, carry: StreamCarry, host, t_ns, d_sec, qs=None) -> int:
     carry.residual_scale = qs
     if t_feed0 < t0:
         carry.residual = np.zeros(((t0 - t_feed0) // d_ns, n_ch), res_dtype)
-        i0 = 0
-    else:
-        carry.residual = np.zeros((0, n_ch), res_dtype)
-        i0 = int((t_feed0 - t0) // d_ns)
-    log_event(
-        "stream_open", kind=carry.kind, ratio=carry.ratio,
-        skip_left=carry.skip_left,
-        first_emit=str(np.datetime64(int(carry.next_emit_ns), "ns")),
-    )
-    return i0
+        return 0
+    carry.residual = np.zeros((0, n_ch), res_dtype)
+    return int((t_feed0 - t0) // d_ns)
 
 
 def _emit(lfp, carry: StreamCarry, patch, out, rows, ran, t_dev) -> None:
@@ -771,5 +787,86 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
 
         pipe.push(_flush)
         off += rows
+    carry.residual = np.ascontiguousarray(pool[usable:])
+    carry.residual_scale = pool_qs
+
+
+# FFT stream feed quantum (input samples): block sizes are multiples of
+# this, power-of-two decomposed, so the stream sees a bounded set of
+# block shapes; up to QUANTUM-1 samples wait in the residual until the
+# next feed
+_FFT_QUANTUM = 128
+
+
+def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
+                 pipe) -> None:
+    """Feed ``new`` rows through the overlap-save FFT filter and emit
+    every output grid point the filtered rows now cover (a host lerp
+    between the two rows around it; the last filtered row of each block
+    is kept as the next block's left seam)."""
+    from tpudas_torch.ops.filter import fft_pass_filter_stream
+
+    d = carry.d_ns
+    corner = _corner(carry.dt_out)
+    q = _FFT_QUANTUM
+    pool, pool_qs = _pool_with_residual(carry, new, qs)
+    t_pool0_ns = t_new0_ns - (pool.shape[0] - new.shape[0]) * d
+    usable = pool.shape[0] - pool.shape[0] % q
+    cap_units = max(1, carry.patch_out * max(1, carry.step_ns // d) // q)
+    dev = lfp.device
+    off = 0
+    for n_units in _pow2_blocks(usable // q, cap_units):
+        blk = pool[off : off + n_units * q]
+        blk_rows = int(blk.shape[0])
+        # dispatch the filter now: the overlap-save carry chains on the
+        # device (bufs[0]), so the next block's dispatch never waits on
+        # this block's host sync; the one-row lerp seam (bufs[1], host)
+        # is updated at flush, before the next flush reads it (FIFO)
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
+        filt_dev, fcarry = fft_pass_filter_stream(
+            x, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
+            qscale=pool_qs,
+        )
+        t_disp = time.perf_counter() - t0
+        carry.bufs = (fcarry, carry.bufs[1])
+        lfp._count_block("fft")
+        # row j of the flushed block is the filtered stream edge_in
+        # samples behind its input; the stored tail row extends the seam
+        # left
+        t_blk0 = t_pool0_ns + off * d - carry.edge_in * d
+        off += blk_rows
+
+        def _flush(filt_dev=filt_dev, blk_rows=blk_rows, t_blk0=t_blk0,
+                   t_disp=t_disp):
+            t1 = time.perf_counter()
+            filt = filt_dev.cpu().numpy()
+            t_dev = t_disp + time.perf_counter() - t1
+            lfp.timings["device_s"] += t_dev
+            tail = carry.bufs[1]
+            rows = np.concatenate([tail, filt], axis=0) if tail.size else filt
+            t_row0 = t_blk0 - tail.shape[0] * d
+            t_last = t_row0 + (rows.shape[0] - 1) * d
+            carry.bufs = (carry.bufs[0], rows[-1:].copy())
+            carry.consumed += blk_rows
+            if t_last < carry.next_emit_ns or rows.shape[0] < 2:
+                return
+            n = int((t_last - carry.next_emit_ns) // carry.step_ns) + 1
+            g = carry.next_emit_ns + carry.step_ns * np.arange(n, dtype=np.int64)
+            offs = g - t_row0
+            idx = offs // d
+            w = (offs - idx * d) / float(d)
+            sel = idx >= rows.shape[0] - 1
+            idx[sel] = rows.shape[0] - 2
+            w[sel] = 1.0
+            out = rows[idx] * (1.0 - w[:, None]).astype(np.float32) + rows[
+                idx + 1
+            ] * w[:, None].astype(np.float32)
+            s = min(carry.skip_left, out.shape[0])
+            carry.skip_left -= s
+            _emit(lfp, carry, patch, out[s:].astype(np.float32, copy=False),
+                  rows=blk_rows, ran="fft", t_dev=t_dev)
+
+        pipe.push(_flush)
     carry.residual = np.ascontiguousarray(pool[usable:])
     carry.residual_scale = pool_qs

@@ -88,13 +88,15 @@ def run_lowpass_realtime(
 
     The signature is the JAX package's, plus ``device`` (default: the
     CUDA card; ``"cpu"`` runs the plain PyTorch versions of the
-    kernels).  ``engine`` (``"auto"``, ``"cascade"`` or ``"fused"``),
-    ``on_gap``, ``filter_order`` and ``data_gap_tolerance`` (its
-    misspelled alias ``data_gap_tolorance`` warns once) go to
-    :class:`~tpudas_torch.proc.lfproc.LFProc`.  Under ``"fused"`` every
-    stream block at least ``TPUDAS_FUSED_MIN_ELEMS`` elements large
-    (default 2**23) runs the fused cascade kernel; ``"auto"`` runs the
-    per-stage chain, every stage on the strided-FIR kernel.
+    kernels).  ``engine`` (``"auto"``, ``"fft"``, ``"cascade"`` or
+    ``"fused"``), ``on_gap``, ``filter_order`` and
+    ``data_gap_tolerance`` (its misspelled alias ``data_gap_tolorance``
+    warns once) go to :class:`~tpudas_torch.proc.lfproc.LFProc`.  Under
+    ``"fused"`` every stream block at least ``TPUDAS_FUSED_MIN_ELEMS``
+    elements large (default 2**23) runs the fused cascade kernel;
+    ``"auto"`` runs the per-stage chain, every stage on the strided-FIR
+    kernel, and the FFT stream engine where the cascade cannot serve the
+    output grid; ``"fft"`` always runs the FFT stream engine.
 
     ``stateful`` (default on; ``TPUDAS_STREAM_STATEFUL=0`` turns it
     off) carries the filter state across rounds and persists it beside
