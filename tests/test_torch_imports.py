@@ -1,7 +1,9 @@
 """The port stands alone: importing every tpudas_torch module pulls in
 neither JAX nor any module of the JAX package, and the processing path
-imports without h5py and pandas (both optional on the card's host)."""
+imports without h5py and pandas (both optional on the card's host);
+``chip_smoke.py`` imports neither JAX nor the JAX package either."""
 
+import ast
 import json
 import os
 import subprocess
@@ -60,6 +62,9 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.fleet.config",
         "tpudas_torch.fleet.engine",
         "tpudas_torch.integrity.checksum",
+        "tpudas_torch.obs.registry",
+        "tpudas_torch.resilience.faults",
+        "tpudas_torch.resilience.quarantine",
         "tpudas_torch.utils.profiling",
     ):
         assert mod in res["mods"]
@@ -69,3 +74,22 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
     assert [n for n in loaded if _top(n) == "tpudas"] == []
     assert [n for n in loaded if _top(n) in ("h5py", "pandas")] == []
     assert "torch" in loaded
+
+
+def _imported_modules(path):
+    """Every module name an ``import`` or ``from ... import`` in the
+    file at ``path`` names, at any depth of its syntax tree."""
+    tree = ast.parse(open(path).read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_jax_no_tpudas():
+    names = _imported_modules(os.path.join(REPO, "chip_smoke.py"))
+    assert "tpudas_torch" in {_top(n) for n in names}
+    assert [n for n in names if _top(n) in ("jax", "jaxlib", "tpudas")] == []

@@ -327,11 +327,16 @@ def test_unported_keywords_raise(tmp_path, keyword, value):
 
 
 def test_inert_keywords_and_device_default(tmp_path, monkeypatch, pool):
-    """fault_policy and quarantine are accepted (errors propagate);
-    without a card and without device='cpu' the driver raises."""
+    """fault_policy and quarantine are accepted (the fault boundary's
+    own tests are in test_torch_faults.py); the unported keywords at
+    their off values are accepted; without a card and without
+    device='cpu' the driver raises."""
+    from tpudas_torch.resilience.faults import RetryPolicy
+
     src, out = str(tmp_path / "src"), str(tmp_path / "out")
-    assert _drive(run_lowpass_realtime, pool, src, out, fault_policy="retry",
-                  quarantine=False, mesh=None, flight=False) == 1
+    assert _drive(run_lowpass_realtime, pool, src, out,
+                  fault_policy=RetryPolicy(), quarantine=False, mesh=None,
+                  flight=False) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_lowpass_realtime(source=src, output_folder=str(tmp_path / "o2"),

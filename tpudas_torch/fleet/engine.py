@@ -2,18 +2,30 @@
 
 The port's counterpart of the low-pass half of :mod:`tpudas.fleet.engine`.
 A runner's :meth:`StreamRunner.step` is one poll of the realtime loop —
-index update, processing round, carry commit — and returns a
-:class:`StepResult` saying what happened and how long to wait before
-the next poll.  ``step`` never sleeps: the caller waits (the
-single-stream :func:`drive` loop here; a multi-stream scheduler is a
-later slice of the port).
+index update, processing round, carry commit, all inside the fault
+boundary — and returns a :class:`StepResult` saying what happened and
+how long to wait before the next poll.  ``step`` never sleeps: the
+caller waits (the single-stream :func:`drive` loop here; a multi-stream
+scheduler is a later slice of the port).
+
+The fault boundary is the JAX package's
+(:mod:`tpudas_torch.resilience`): every round runs under a
+:class:`~tpudas_torch.resilience.faults.FaultBoundary` built from the
+configuration's ``fault_policy`` (default
+:class:`~tpudas_torch.resilience.faults.RetryPolicy`) and, unless
+``quarantine=False``, a
+:class:`~tpudas_torch.resilience.quarantine.QuarantineLedger` in the
+output folder.  A transient, corrupt, network or resource failure drops
+the in-memory carry (the retry re-resolves it from disk, exactly as a
+process restart would) and returns ``StepResult("retry", delay)``; a
+file that keeps failing is quarantined and the rounds go on without
+it; a fatal failure, or one past the policy's limit, propagates.
 
 A runner holds no durable state of its own: kill the process anywhere
 and a new runner over the same folders resumes where the persisted
 stream carry says (:mod:`tpudas_torch.proc.stream`).
 
-Not ported in this slice: the per-round fault boundary and quarantine
-(errors propagate to the caller), the startup integrity audit, resource
+Not ported in this slice: the startup integrity audit, resource
 shedding, the flight recorder and health files, the tile pyramid,
 detection, the live plane, device telemetry and phase timing, the
 batched fleet executor, the rolling runner, and the backfill clamps
@@ -36,7 +48,14 @@ from tpudas_torch.core.timeutils import to_datetime64, to_timedelta64
 from tpudas_torch.device import resolve_device
 from tpudas_torch.fleet.config import StreamSpec
 from tpudas_torch.io.spool import spool as make_spool
+from tpudas_torch.obs.registry import get_registry
 from tpudas_torch.proc.lfproc import LFProc
+from tpudas_torch.resilience.faults import (
+    FaultBoundary,
+    RetryPolicy,
+    fault_point,
+)
+from tpudas_torch.resilience.quarantine import QuarantineLedger
 from tpudas_torch.utils.logging import log_event
 from tpudas_torch.utils.profiling import Counters
 
@@ -87,13 +106,18 @@ class StepResult:
     """What one :meth:`StreamRunner.step` did.
 
     ``status`` is ``"processed"`` (a round completed), ``"empty"`` (the
-    poll saw no files) or ``"terminate"`` (the spool stopped growing:
+    poll saw no files), ``"terminate"`` (the spool stopped growing:
     the stream is done — the caller then calls
-    :meth:`StreamRunner.finish`).  ``delay`` is the advisory wait before
-    the next ``step``."""
+    :meth:`StreamRunner.finish`) or ``"retry"`` (the round failed and
+    the fault boundary scheduled a retry; ``kind`` is the failure's
+    class and ``attempt`` the consecutive failures so far).  ``delay``
+    is the advisory wait before the next ``step`` (the jittered poll
+    interval, or the retry backoff)."""
 
     status: str
     delay: float = 0.0
+    kind: str = ""
+    attempt: int = 0
 
 
 class PollJitter:
@@ -266,8 +290,16 @@ class LowpassStreamRunner(StreamRunner):
             if v is not None
         }
         self.counters = counters if counters is not None else Counters()
-        # carry and outputs live in the output folder
+        policy = (
+            cfg.fault_policy if cfg.fault_policy is not None
+            else RetryPolicy()
+        )
+        # carry, ledger and outputs live in the output folder
         os.makedirs(self.output_folder, exist_ok=True)
+        ledger = (
+            QuarantineLedger(self.output_folder) if cfg.quarantine else None
+        )
+        self.boundary = FaultBoundary(policy, ledger)
         stateful = cfg.stateful
         if stateful is None:
             stateful = os.environ.get("TPUDAS_STREAM_STATEFUL", "1") != "0"
@@ -294,23 +326,54 @@ class LowpassStreamRunner(StreamRunner):
     # -- one poll -------------------------------------------------------
     def step(self) -> StepResult:
         self.polls += 1
-        sp = make_spool(self.source).update()
-        sub = sp.select(distance=self.distance) if self.distance is not None else sp
-        n_now = len(sub)
-        if self.len_last is not None and n_now == self.len_last:
-            log_event(
-                "stream_terminated", stream=self.stream_id,
-                rounds=self.rounds, polls=self.polls,
+        get_registry().counter(
+            "tpudas_stream_polls_total", "source spool polls"
+        ).inc()
+        try:
+            fault_point("round.body", poll=self.polls)
+            # quarantine exclusion + index update + scan-failure strikes
+            # + slow-schedule probe bookkeeping
+            sp = self.boundary.begin_round(make_spool(self.source), self.source)
+            sub = (
+                sp.select(distance=self.distance)
+                if self.distance is not None else sp
             )
-            return StepResult("terminate")
-        status = "empty"
-        if n_now > 0:
-            status = "processed"
-            self._process_round(sub)
-        # every poll sets the growth baseline: the next poll without
-        # growth terminates (the reference's loop ends when the spool
-        # stops growing, low_pass_dascore_edge.ipynb:205-207)
-        self.len_last = n_now
+            n_now = len(sub)
+            if (
+                self.len_last is not None
+                and n_now == self.len_last
+                and self.boundary.consecutive == 0
+            ):
+                log_event(
+                    "stream_terminated", stream=self.stream_id,
+                    rounds=self.rounds, polls=self.polls,
+                )
+                return StepResult("terminate")
+            status = "empty"
+            if n_now > 0:
+                status = "processed"
+                self._process_round(sub)
+            self.boundary.on_success()
+            # every poll sets the growth baseline: the next poll without
+            # growth terminates (the reference's loop ends when the
+            # spool stops growing, low_pass_dascore_edge.ipynb:205-207)
+            self.len_last = n_now
+        except Exception as exc:
+            decision = self.boundary.on_failure(exc)
+            if decision.propagate:
+                raise
+            # crash-equivalent retry: drop the in-memory carry and
+            # re-resolve it from disk on the next attempt, so a retried
+            # round and a process restart are the same code path (the
+            # resume reconciles any partial outputs)
+            if self.stateful:
+                self.carry = None
+                self.carry_checked = False
+                self.carry_unsaved = 0
+            return StepResult(
+                "retry", decision.delay, decision.kind,
+                self.boundary.consecutive,
+            )
         return StepResult(status, self.poll_delay())
 
     def _mode(self) -> str:
@@ -495,6 +558,9 @@ class LowpassStreamRunner(StreamRunner):
         )
 
     def record_fatal(self, exc: BaseException) -> None:
+        get_registry().counter(
+            "tpudas_stream_errors_total", "realtime driver crashes",
+        ).inc()
         log_event(
             "stream_fatal", stream=self.stream_id, polls=self.polls,
             error=f"{type(exc).__name__}: {str(exc)[:300]}",
@@ -524,9 +590,11 @@ def build_runner(
 
 def drive(runner: StreamRunner, max_rounds=None, sleep_fn=_time.sleep):
     """The single-stream driver loop: step, honor the ``max_rounds``
-    poll cap, sleep the advisory delay, flush on clean termination.
-    Returns the number of rounds that processed data.  A round's error
-    propagates (after :meth:`StreamRunner.record_fatal`)."""
+    poll cap, sleep the advisory delay (the poll interval, or a retry's
+    backoff) through ``sleep_fn``, flush on clean termination.  Returns
+    the number of rounds that processed data.  An error that the fault
+    boundary lets through propagates (after
+    :meth:`StreamRunner.record_fatal`)."""
     try:
         while True:
             res = runner.step()

@@ -18,8 +18,8 @@ fsyncs the payload before the rename and the directory after it.
 A verification result is ``"ok"``, ``"unstamped"`` (no sidecar: a
 legacy artifact, accepted) or ``"mismatch"``.  A reader that rejects a
 primary and falls down its ladder reports it with :func:`count_fallback`,
-which emits a ``integrity_fallback`` log event (the port has no metrics
-registry yet).
+which emits an ``integrity_fallback`` log event; an accepted unstamped
+artifact is counted by :func:`count_unstamped`.
 """
 
 from __future__ import annotations
@@ -34,11 +34,14 @@ __all__ = [
     "CRC_KEY",
     "SIDECAR_SUFFIX",
     "count_fallback",
+    "count_unstamped",
     "crc32_hex",
+    "read_json_verified",
     "rotate_prev",
     "sidecar_path",
     "stamp_json",
     "verify_file_checksum",
+    "verify_json_obj",
     "write_bytes_checksummed",
     "write_json_checksummed",
 ]
@@ -68,6 +71,17 @@ def count_fallback(artifact: str, reason: str, path: str = "") -> None:
         reason=str(reason)[:200],
         path=str(path),
     )
+
+
+def count_unstamped(artifact: str) -> None:
+    """A legacy artifact without a checksum was accepted."""
+    from tpudas_torch.obs.registry import get_registry
+
+    get_registry().counter(
+        "tpudas_integrity_unstamped_total",
+        "checksum-less legacy artifacts accepted by verified reads",
+        labelnames=("artifact",),
+    ).inc(artifact=artifact)
 
 
 def stamp_json(obj: dict) -> dict:
@@ -107,6 +121,28 @@ def write_json_checksummed(
     """Atomically write ``obj`` with an embedded crc32 stamp."""
     text = json.dumps(stamp_json(obj), indent=indent) + "\n"
     _atomic_write(path, text.encode(), durable)
+
+
+def verify_json_obj(obj) -> str:
+    """``"ok"`` | ``"unstamped"`` | ``"mismatch"`` for a parsed JSON
+    object."""
+    if not isinstance(obj, dict) or CRC_KEY not in obj:
+        return "unstamped"
+    body = {k: v for k, v in obj.items() if k != CRC_KEY}
+    return "ok" if crc32_hex(_canonical(body)) == obj[CRC_KEY] else "mismatch"
+
+
+def read_json_verified(path: str, artifact: str) -> tuple[dict, str]:
+    """Parse and verify one JSON artifact: ``(payload without the
+    stamp, status)``.  Raises whatever ``open``/``json.load`` raise (the
+    caller's ladder treats unreadable like mismatched)."""
+    del artifact  # named for the JAX package's verify fault site
+    with open(path) as fh:
+        obj = json.load(fh)
+    status = verify_json_obj(obj)
+    if isinstance(obj, dict):
+        obj = {k: v for k, v in obj.items() if k != CRC_KEY}
+    return obj, status
 
 
 def sidecar_path(path: str) -> str:

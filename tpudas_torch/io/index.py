@@ -23,17 +23,29 @@ class DirectoryIndex:
         self.directory = os.path.abspath(str(directory))
         self._records: dict[str, dict] = {}
         self._scanned = False
+        # {basename: "Type: message"} for files whose scan failed in the
+        # last update(): the realtime driver charges them to the
+        # quarantine ledger (tpudas_torch.resilience)
+        self.scan_errors: dict[str, str] = {}
 
-    def update(self) -> "DirectoryIndex":
-        """Incrementally rescan the directory; returns self."""
+    def update(self, exclude=()) -> "DirectoryIndex":
+        """Incrementally rescan the directory; returns self.
+
+        ``exclude`` (basenames) skips those files entirely — no stat,
+        no scan, records dropped while excluded (the realtime driver
+        passes its quarantine set)."""
         from tpudas_torch.io.registry import scan_file
+        from tpudas_torch.resilience.faults import fault_point
 
+        fault_point("index.update", directory=self.directory)
         if not os.path.isdir(self.directory):
             raise FileNotFoundError(f"no such directory: {self.directory}")
         self._scanned = True
+        exclude = frozenset(exclude)
+        self.scan_errors = {}
         seen = set()
         for name in sorted(os.listdir(self.directory)):
-            if not name.lower().endswith(_SUFFIXES):
+            if not name.lower().endswith(_SUFFIXES) or name in exclude:
                 continue
             path = os.path.join(self.directory, name)
             try:
@@ -49,10 +61,11 @@ class DirectoryIndex:
             fmt = _FORMAT_BY_SUFFIX[os.path.splitext(name.lower())[1]]
             try:
                 info = scan_file(path, format=fmt)[0]
-            except (OSError, ValueError, KeyError):
-                # unreadable / foreign / partially-written file: skipped
-                # until its (mtime, size) changes; a stale record for it
+            except (OSError, ValueError, KeyError) as exc:
+                # unreadable / foreign / partially-written file: skipped,
+                # and reported in scan_errors; a stale record for it
                 # must go too (its bytes no longer match the record)
+                self.scan_errors[name] = f"{type(exc).__name__}: {str(exc)[:200]}"
                 self._records.pop(name, None)
                 continue
             info["mtime"] = st.st_mtime

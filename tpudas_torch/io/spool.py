@@ -333,7 +333,7 @@ class DirectorySpool(BaseSpool):
     _index_cache: dict[str, DirectoryIndex] = {}
 
     def __init__(self, directory, _index=None, _time=None, _distance=None,
-                 _sort_key="time"):
+                 _sort_key="time", _exclude=frozenset()):
         self.directory = os.path.abspath(str(directory))
         if _index is not None:
             self._index = _index
@@ -346,6 +346,7 @@ class DirectorySpool(BaseSpool):
         self._time = _time
         self._distance = _distance
         self._sort_key = _sort_key
+        self._exclude = frozenset(_exclude)
 
     def _clone(self, **kw):
         args = {
@@ -353,17 +354,30 @@ class DirectorySpool(BaseSpool):
             "_time": self._time,
             "_distance": self._distance,
             "_sort_key": self._sort_key,
+            "_exclude": self._exclude,
         }
         args.update(kw)
         return DirectorySpool(self.directory, **args)
 
     def update(self):
         """Re-scan the directory for new/changed files (incremental)."""
-        self._index.update()
+        self._index.update(exclude=self._exclude)
         return self._clone()
 
     def sort(self, key="time"):
         return self._clone(_sort_key=key)
+
+    def exclude(self, names):
+        """A view of this spool without the given basenames (the
+        realtime driver's quarantine): the index re-scan skips them and
+        records already indexed are hidden."""
+        return self._clone(_exclude=self._exclude | frozenset(map(str, names)))
+
+    @property
+    def scan_errors(self) -> dict:
+        """{basename: message} for files whose scan failed in the last
+        ``update()``."""
+        return dict(self._index.scan_errors)
 
     def select(self, time=None, distance=None):
         return self._clone(
@@ -375,6 +389,9 @@ class DirectorySpool(BaseSpool):
     def contents(self) -> list:
         """The index records this view selects (no payload IO)."""
         recs = self._index.ensure().records()
+        if self._exclude:
+            recs = [r for r in recs
+                    if os.path.basename(str(r["path"])) not in self._exclude]
         if self._sort_key == "time":
             recs.sort(key=lambda r: np.datetime64(r["time_min"], "ns"))
         if self._time is not None:
@@ -396,13 +413,20 @@ class DirectorySpool(BaseSpool):
 
     def _read_row(self, row) -> Patch:
         from tpudas_torch.io.registry import read_file
+        from tpudas_torch.resilience.faults import SpoolReadError, fault_point
 
-        patches = read_file(
-            row["path"],
-            format=row.get("format") or "dasdae",
-            time=self._time,
-            distance=self._distance,
-        )
+        try:
+            fault_point("spool.read", path=row["path"])
+            patches = read_file(
+                row["path"],
+                format=row.get("format") or "dasdae",
+                time=self._time,
+                distance=self._distance,
+            )
+        except Exception as exc:
+            # attribute the failure to the file, so the fault boundary
+            # can charge the quarantine ledger
+            raise SpoolReadError(row["path"], exc) from exc
         return patches[0]
 
     def _materialize(self):

@@ -174,8 +174,10 @@ def save_carry(carry: StreamCarry, folder: str) -> str:
         write_bytes_checksummed,
         write_json_checksummed,
     )
+    from tpudas_torch.resilience.faults import fault_point
 
     path = os.path.join(folder, CARRY_FILENAME)
+    fault_point("carry.save", folder=folder)
     arrays = {"meta": np.asarray(json.dumps(carry._meta()))}
     for i, b in enumerate(carry.bufs):
         arrays[f"buf_{i}"] = _host_leaf(b)

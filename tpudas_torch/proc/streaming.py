@@ -12,7 +12,8 @@ Stateful by default: each round filters only the new full-rate samples
 through the carried per-stage state and saves the O(1) carry beside the
 outputs (``.stream_carry.npz``, the JAX package's format), so a crash
 resumes without a rewind, and a carry written by either package resumes
-under the other.  ``stateful=False`` (or ``TPUDAS_STREAM_STATEFUL=0``)
+under the other.  A round that fails is retried, and a file that keeps
+failing is quarantined, as in the JAX package.  ``stateful=False`` (or ``TPUDAS_STREAM_STATEFUL=0``)
 restores the reference's rewind.
 """
 
@@ -115,8 +116,16 @@ def run_lowpass_realtime(
     ``rolling_step``, ``health``, ``pyramid``, ``detect``,
     ``detect_operators``, ``live`` and ``flight``.  The JAX package
     keeps its flight recorder on by default; here it is off.
-    ``fault_policy`` and ``quarantine`` are accepted and inert: a
-    round's error propagates to the caller (no retry, no quarantine).
+
+    Every round runs inside the JAX package's fault boundary
+    (:mod:`tpudas_torch.resilience`): ``fault_policy`` (a
+    :class:`~tpudas_torch.resilience.faults.RetryPolicy`; default
+    ``RetryPolicy()``) decides how often and after what backoff a
+    failed round is retried (the wait goes through ``sleep_fn``), and
+    ``quarantine`` (default on) keeps a ``.quarantine.json`` ledger in
+    the output folder that excludes a file after
+    ``quarantine_after`` failed reads or scans.  A fatal error, or one
+    past the policy's ``max_consecutive``, propagates to the caller.
     """
     check_unported(dict(
         mesh=mesh, window_dp=window_dp,
