@@ -27,18 +27,23 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
 3. the strided-FIR kernel vs plain at the flagship stage shapes of a
    60 s window at 10,000 and 2,048 channels, float32 and int16, plus a
    ragged case, a long-tap case and all-zero input;
-3b. the fused-cascade kernel vs plain on stream blocks of 60, 8 and 1
-   outputs at 10,000 channels (int16, f32), 60 at 2,048, a ragged
-   width, an uneven block sequence (outputs and every carry leaf), a
-   NaN gap (the kernel's NaN set within the plain one's) and all-zero
-   input; with the per-stage kernel chain and a ``conv1d`` chain timed
-   beside it;
+3b. the fused cascade step (kernel A, stages 0-1 over time tiles, then
+   kernel B, the ring walk, on its output) vs plain on stream blocks of
+   60, 8 and 1 outputs at 10,000 channels (int16, f32), 60 at 2,048, a
+   ragged width, an uneven block sequence (outputs and every carry
+   leaf), a NaN gap (the kernels' NaN set within the plain one's) and
+   all-zero input; each case times the step (``ms``) beside the
+   single-kernel step it replaced (``one_kernel_ms``: kernel B over the
+   whole cascade, also held to the plain version), and the timed cases
+   kernel A and kernel B alone, the per-stage kernel chain and a
+   ``conv1d`` chain;
 4. ``LFProc`` over 180 s x 10,000 channels: every window on the CUDA
    kernel, ``fir_decimate.launches == 4 x windows``, the output tiles
    the 1 Hz grid, the synthetic LF component is recovered within 0.01;
 5. ``run_lowpass_realtime`` over the same spool: engine="fused" over
    files 1-2, then a second call that resumes from the saved carry over
-   file 3; every block launches the fused kernel; an engine="auto"
+   file 3; every block launches the fused step (kernels A and B); an
+   engine="auto"
    control (per-stage kernel on every stage, 4 launches a block) gives
    the same names and data within 1e-5; the stream equals phase 4's
    batch output within 1e-4 on the common interior;
@@ -57,6 +62,9 @@ failure raises and exits non-zero.  Without a CUDA card it exits 2
 before any phase.  ``--rehearse`` runs the same phases on the CPU at a
 64-channel width with the plain versions (no kernel, no timings worth
 reading) and exits 3: a dry run of the control flow, never a result.
+``--only fused`` runs phases 1, 2 and 3b alone (the fused step's
+iteration loop: build, check, time) and exits 4 without the kernels
+line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -339,52 +347,81 @@ def compare_fused(timer, plan, blocks, carry, qscale, label,
     per-channel within REL_TOL.  Timed on the first block: the kernel,
     the plain version, the per-stage B1 chain and the conv1d chain."""
     from tpudas_torch.ops.fir import cascade_decimate_stream, stream_carry_sizes
-    from tpudas_torch.ops.fused_kernel import fused_cascade, fused_cascade_plain
+    from tpudas_torch.ops.fused_kernel import (
+        fused_cascade,
+        fused_cascade_one_kernel,
+        fused_cascade_plain,
+        fused_stage01,
+    )
 
     sizes = stream_carry_sizes(plan)
-    ck = cp = carry
-    ys, rys = [], []
+    ck = c1 = cp = carry
+    ys, y1s, rys = [], [], []
     for x in blocks:
         y, ck = fused_cascade(x, ck, plan.stages, sizes, qscale=qscale)
+        y1, c1 = fused_cascade_one_kernel(x, c1, plan.stages, sizes,
+                                          qscale=qscale)
         ry, cp = fused_cascade_plain(x, cp, plan.stages, sizes, qscale=qscale)
         ys.append(y)
+        y1s.append(y1)
         rys.append(ry)
-    y, ry = torch.cat(ys), torch.cat(rys)
+    y, y1, ry = torch.cat(ys), torch.cat(y1s), torch.cat(rys)
     timer.sync()
     if not bool(torch.isfinite(y).all()):
         fail(f"{label}: fused kernel output not finite")
     rel, abs_err = per_channel_rel(y, ry)
     leaf_rel = [per_channel_rel(a, b)[0] for a, b in zip(ck, cp) if a.numel()]
+    one_rel = max([per_channel_rel(y1, ry)[0]] + [
+        per_channel_rel(a, b)[0] for a, b in zip(c1, cp) if a.numel()])
     x = blocks[0]
     T, C = x.shape
     bound, bound_by, bound_m = cascade_bound_ms(plan, T, C, x.element_size())
     rec = {"case": label, "T": T, "C": C, "blocks": len(blocks),
            "n_out": T // plan.ratio, "dtype": str(x.dtype).split(".")[-1],
            "max_rel_err": rel, "max_abs_err": abs_err,
-           "carry_max_rel_err": max(leaf_rel), "bound_ms": bound,
+           "carry_max_rel_err": max(leaf_rel),
+           "one_kernel_max_rel_err": one_rel, "bound_ms": bound,
            "bound_by": bound_by, "bound_ms_measured": bound_m}
+    kern = lambda: fused_cascade(x, carry, plan.stages, sizes,  # noqa: E731
+                                 qscale=qscale)
+    one = lambda: fused_cascade_one_kernel(x, carry, plan.stages,  # noqa: E731
+                                           sizes, qscale=qscale)
     if with_time:
-        kern = lambda: fused_cascade(x, carry, plan.stages, sizes,  # noqa: E731
-                                     qscale=qscale)
         plain = lambda: fused_cascade_plain(x, carry, plan.stages,  # noqa: E731
                                             sizes, qscale=qscale)
         chain = lambda: cascade_decimate_stream(x, carry, plan,  # noqa: E731
                                                 "auto", qscale=qscale)
         conv = lambda: conv1d_chain(plan, x, carry, qscale)  # noqa: E731
         rec["conv1d_chain_max_abs_err"] = float((conv() - rys[0]).abs().max())
-        fns = (kern, plain, chain, conv)
-        reps = [timer.reps_for(f) for f in fns]
-        # turns: kernel, plain, chain, conv, conv, chain, plain, kernel
-        first = [timer(f, r) for f, r in zip(fns, reps)]
-        second = [timer(f, r) for f, r in zip(fns[::-1], reps[::-1])][::-1]
-        keys = ("ms", "plain_ms", "b1_chain_ms", "conv1d_chain_ms")
-        for key, a, b in zip(keys, first, second):
-            rec[key] = (a + b) / 2
-            rec[key + "_turns"] = [a, b]
-    if rel > REL_TOL or max(leaf_rel) > REL_TOL:
+        # kernel A alone, and kernel B alone on kernel A's output
+        a_args = (x, carry[:2], plan.stages[:2], sizes[:2], qscale)
+        u, _ = fused_stage01(*a_args)
+        b_args = (u, carry[2:], plan.stages[2:], sizes[2:])
+        ka = lambda: fused_stage01(*a_args)  # noqa: E731
+        kb = lambda: fused_cascade_one_kernel(*b_args)  # noqa: E731
+        fns = (kern, one, ka, kb, plain, chain, conv)
+        keys = ("ms", "one_kernel_ms", "kernel_a_ms", "kernel_b_ms",
+                "plain_ms", "b1_chain_ms", "conv1d_chain_ms")
+    else:
+        fns, keys = (kern, one), ("ms", "one_kernel_ms")
+    rec.update(timed_turns(timer, fns, keys))
+    if rel > REL_TOL or max(leaf_rel) > REL_TOL or one_rel > REL_TOL:
         emit(rec)
-        fail(f"{label}: fused kernel vs plain per-channel rel err "
-             f"{max(rel, *leaf_rel):.3e} > {REL_TOL:g}")
+        fail(f"{label}: fused kernels vs plain per-channel rel err "
+             f"{max(rel, one_rel, *leaf_rel):.3e} > {REL_TOL:g}")
+    return rec
+
+
+def timed_turns(timer, fns, keys):
+    """Each function timed twice, in turns (forward, then backward):
+    ``{key: mean ms, key_turns: [first, second]}``."""
+    reps = [timer.reps_for(f) for f in fns]
+    first = [timer(f, r) for f, r in zip(fns, reps)]
+    second = [timer(f, r) for f, r in zip(fns[::-1], reps[::-1])][::-1]
+    rec = {}
+    for key, a, b in zip(keys, first, second):
+        rec[key] = (a + b) / 2
+        rec[key + "_turns"] = [a, b]
     return rec
 
 
@@ -421,14 +458,26 @@ def phase_fused_kernel(device, widths, timer):
                                 quantized=False)
     emit(compare_fused(timer, plan, blocks, carry, None,
                        "fused ragged C=1000 f32", with_time=False))
+    from tpudas_torch.ops.fused_kernel import fused_cascade_one_kernel
+
+    def step_times(fn_args):
+        """(ms, one_kernel_ms) of the step and the single-kernel step
+        over the same (x, carry, qscale) calls."""
+        def run(step):
+            return lambda: [step(x, c, plan.stages, sizes, q)
+                            for x, c, q in fn_args]
+        return timed_turns(timer, (run(fused_cascade),
+                                   run(fused_cascade_one_kernel)),
+                           ("ms", "one_kernel_ms"))
     # an uneven block sequence through both, carried from zeros:
     # outputs and every carry leaf
     C = 1000
     carry_k = carry_p = cascade_stream_init(plan, C, device)
-    ys_k, ys_p = [], []
+    ys_k, ys_p, calls = [], [], []
     for i, n in enumerate((50, 13, 1, 27, 40)):
         x = synthetic_window(n * ratio, C, device, seed=20 + i,
                              quantized=True)
+        calls.append((x, carry_k, QSCALE))
         y, carry_k = fused_cascade(x, carry_k, plan.stages, sizes, QSCALE)
         yp, carry_p = fused_cascade_plain(x, carry_p, plan.stages, sizes,
                                           QSCALE)
@@ -438,7 +487,8 @@ def phase_fused_kernel(device, widths, timer):
     rel = per_channel_rel(torch.cat(ys_k), torch.cat(ys_p))[0]
     leaf = [per_channel_rel(a, b)[0] for a, b in zip(carry_k, carry_p)]
     emit({"case": "fused block sequence (50,13,1,27,40) int16 1000ch",
-          "max_rel_err": rel, "carry_max_rel_err": leaf})
+          "max_rel_err": rel, "carry_max_rel_err": leaf,
+          **step_times(calls)})
     if max(rel, *leaf) > REL_TOL:
         fail(f"block sequence: rel err {max(rel, *leaf):.3e} > {REL_TOL:g}")
     # NaN gap: the kernel's NaN set is a subset of the plain version's
@@ -454,7 +504,8 @@ def phase_fused_kernel(device, widths, timer):
     scale = float(yp[both].abs().max())
     err = float((y[both] - yp[both]).abs().max()) / scale
     rec = {"case": "fused NaN gap f32 1000ch", "nan_kernel": int(nan_k.sum()),
-           "nan_plain": int(nan_p.sum()), "finite_max_rel_err": err}
+           "nan_plain": int(nan_p.sum()), "finite_max_rel_err": err,
+           **step_times([(x, carry, None)])}
     emit(rec)
     if not bool(nan_p.any()) or bool((nan_k & ~nan_p).any()):
         fail("NaN gap: the kernel's NaN set is not a subset of the plain "
@@ -464,13 +515,15 @@ def phase_fused_kernel(device, widths, timer):
     # all-zero input and carry give exact zeros
     for dt in (torch.float32, torch.int16):
         z = torch.zeros((20 * ratio, 777), dtype=dt, device=device)
-        y, nc = fused_cascade(z, cascade_stream_init(plan, 777, device),
-                              plan.stages, sizes,
-                              QSCALE if dt == torch.int16 else None)
+        z_args = (z, cascade_stream_init(plan, 777, device),
+                  QSCALE if dt == torch.int16 else None)
+        y, nc = fused_cascade(z_args[0], z_args[1], plan.stages, sizes,
+                              z_args[2])
         timer.sync()
         nz = int(torch.count_nonzero(y)) + sum(
             int(torch.count_nonzero(b)) for b in nc)
-        emit({"case": f"fused zeros {str(dt).split('.')[-1]}", "nonzero": nz})
+        emit({"case": f"fused zeros {str(dt).split('.')[-1]}", "nonzero": nz,
+              **step_times([z_args])})
         if nz:
             fail(f"all-zero {dt} block gave {nz} nonzero values")
     return main
@@ -864,7 +917,7 @@ def phase_realtime(device, workdir, cls):
         fused, ctrl = new_run(), new_run()
         src_f, out_f = os.path.join(rt, "src_fused"), os.path.join(rt, "fused")
         link(src_f, 2)
-        fused_cascade.launches = 0
+        fused_cascade.launches = fused_cascade.kernel_launches = 0
         fir_decimate.launches = 0
         r1 = drive(fused, src_f, out_f, "fused")
         carry_saved = os.path.isfile(os.path.join(out_f, CARRY_FILENAME))
@@ -872,6 +925,7 @@ def phase_realtime(device, workdir, cls):
         link(src_f, 3)
         r2 = drive(fused, src_f, out_f, "fused")
         fused_launches = fused_cascade.launches
+        fused_kernel_launches = fused_cascade.kernel_launches
         fused_fir_launches = fir_decimate.launches
         resumes = sum(e["event"] == "stream_resume" for e in fused["events"])
 
@@ -905,6 +959,7 @@ def phase_realtime(device, workdir, cls):
         "fused": {"calls": fused["calls"], "rounds": fused["rounds"],
                   "resumes": resumes, "blocks": fused["blocks"],
                   "fused_cascade_launches": fused_launches,
+                  "fused_cascade_kernel_launches": fused_kernel_launches,
                   "fir_decimate_launches": fused_fir_launches,
                   "wall_s": fused["wall_s"], "timings": fused["timings"],
                   "realtime_factor": ctr.realtime_factor,
@@ -931,6 +986,9 @@ def phase_realtime(device, workdir, cls):
          f"every fused block ran {fused_eng}"),
         (fused_launches == (n_fused if cuda else 0),
          f"fused_cascade launches {fused_launches} != blocks {n_fused}"),
+        (fused_kernel_launches == (2 * n_fused if cuda else 0),
+         f"fused kernels A+B launches {fused_kernel_launches} != "
+         f"2 x {n_fused}"),
         (fused_fir_launches == 0, "the fused run launched no per-stage kernel"),
         (set(ctrl["blocks"]) == {chain_eng} and n_ctrl > 0,
          f"every control block ran {chain_eng}"),
@@ -1089,10 +1147,22 @@ def phase_fft(device, workdir, cls):
     return {"batch_fft": a, "auto_1.1s": b, "realtime_fft": c}
 
 
+def short_kernel_name(mangled):
+    """``stage01_kernel<int16>`` from a mangled entry name (the kernels
+    of csrc/ are templates over the block's element type)."""
+    for name in ("stage01_kernel", "fused_cascade_kernel"):
+        if name in mangled:
+            tail = mangled.split(name, 1)[1]
+            return name + ("<int16>" if tail.startswith("Is") else "<float>")
+    return mangled
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="dry run on the CPU at a small width; exits 3")
+    ap.add_argument("--only", choices=["fused"],
+                    help="run phases 1, 2 and 3b alone; exits 4")
     args = ap.parse_args(argv)
     if args.rehearse:
         device = torch.device("cpu")
@@ -1122,17 +1192,28 @@ def main(argv=None):
         "pandas": importlib.util.find_spec("pandas") is not None,
     })
 
-    from tpudas_torch.ops._build import build_info, build_libraries
+    from tpudas_torch.ops._build import (
+        build_info,
+        build_libraries,
+        kernel_resources,
+    )
 
+    resources = {}
     if device.type == "cuda":
         # every kernel at once: one nvcc per source, started together
         t0 = time.perf_counter()
         libs = ("fir_decimate", "fused_cascade", "hbm_probe")
         build_libraries(libs)
+        resources = {n: kernel_resources(n) for n in libs}
         emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-              "libraries": {n: build_info(n) for n in libs}})
+              "libraries": {n: build_info(n) for n in libs},
+              "kernels": resources})
 
     timer = Timer(device)
+    if args.only == "fused":
+        phase_fused_kernel(device, widths, timer)
+        print("chip_smoke: --only fused finished; no result", flush=True)
+        return 4
     probes = phase_hbm_probe(device, args.rehearse)
     plan, main_cases = phase_kernels(device, widths, timer)
     fused_cases = phase_fused_kernel(device, widths, timer)
@@ -1181,10 +1262,19 @@ def main(argv=None):
         "bound_ms_measured": full["bound_ms_measured"],
         # no single PyTorch call computes the stateful cascade step
         "library_ms": None,
+        "one_kernel_ms": full["one_kernel_ms"],
+        "kernel_a_ms": full["kernel_a_ms"],
+        "kernel_b_ms": full["kernel_b_ms"],
+        "kernel_launches": rt["fused"]["fused_cascade_kernel_launches"],
         "b1_chain_ms": full["b1_chain_ms"],
         "conv1d_chain_ms": full["conv1d_chain_ms"],
         "ms_by_block": {f"{n} out": fused_cases[(widths[0], True, n)]["ms"]
                         for n in (60, 8, 1)},
+        "one_kernel_ms_by_block": {
+            f"{n} out": fused_cases[(widths[0], True, n)]["one_kernel_ms"]
+            for n in (60, 8, 1)},
+        "kernels": {short_kernel_name(k): v for k, v in
+                    resources.get("fused_cascade", {}).items()},
         "shape": f"one 60-output stream block, {widths[0]} ch int16",
     }
     emit({"kernels": [kernel, fused, *probes]})

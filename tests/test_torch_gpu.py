@@ -204,6 +204,43 @@ def test_fused_kernel_carry_round_trip(cuda_device, tmp_path):
     assert _rel(torch.cat([y1, y2, y3]), y_all) <= REL_TOL
 
 
+@pytest.mark.parametrize("ratio", [1000, 40, 7])
+def test_fused_split_kernels_match_mirror_and_plain(cuda_device, ratio):
+    """Kernel A (+ kernel B for more than two stages) against the plain
+    mirror of the split and the plain step on the card, over the
+    flagship's 60/8/1-output blocks (a two- and a one-stage plan too);
+    every step launches A, and B when the plan has more than two
+    stages."""
+    from tpudas_torch.ops.fused_kernel import (
+        fused_cascade,
+        fused_cascade_plain,
+        fused_cascade_split_plain,
+        fused_stage01,
+        stage01_plain,
+    )
+
+    plan = fir.design_cascade(1000.0, ratio, 450.0 / ratio)
+    blocks = _stream_blocks(plan, [60, 8, 1], 1000, 8, True)
+    carry = fir.cascade_stream_init(plan, 1000, cuda_device)
+    steps, kernels = fused_cascade.launches, fused_cascade.kernel_launches
+    y, ck = _run_fused(fused_cascade, plan, blocks, carry, 1e-4)
+    per_step = 2 if len(plan.stages) > 2 else 1
+    assert fused_cascade.launches == steps + len(blocks)
+    assert fused_cascade.kernel_launches == kernels + per_step * len(blocks)
+    for ref in (fused_cascade_split_plain, fused_cascade_plain):
+        ry, cp = _run_fused(ref, plan, blocks, carry, 1e-4)
+        assert _rel(y, ry) <= REL_TOL
+        for a, b in zip(ck, cp):
+            assert _rel(a, b) <= REL_TOL
+    sizes = fir.stream_carry_sizes(plan)
+    args = (blocks[0], carry[:2], plan.stages[:2], sizes[:2], 1e-4)
+    u, n = fused_stage01(*args)
+    ru, rn = stage01_plain(*args)
+    assert _rel(u, ru) <= REL_TOL
+    for a, b in zip(n, rn):
+        assert _rel(a, b) <= REL_TOL
+
+
 def test_fused_kernel_refuses_a_plan_it_cannot_hold(cuda_device):
     """Stage 0's taps beyond the kernel's staged rows: the wrapper
     raises instead of running another engine."""
@@ -213,10 +250,20 @@ def test_fused_kernel_refuses_a_plan_it_cannot_hold(cuda_device):
     stages, sizes = [(2, h)], (298,)
     x = torch.zeros((20, 64), device=cuda_device)
     carry = (torch.zeros((298, 64), device=cuda_device),)
-    before = fused_cascade.launches
+    before = fused_cascade.launches, fused_cascade.kernel_launches
     with pytest.raises(ValueError, match="does not fit"):
         fused_cascade(x, carry, stages, sizes)
-    assert fused_cascade.launches == before
+    assert (fused_cascade.launches, fused_cascade.kernel_launches) == before
+    # kernel B's stages refused: neither kernel launches
+    h2 = np.full(4000, 1.0 / 4000, np.float32)
+    stages = [(2, np.ones(3, np.float32) / 3), (2, np.ones(3, np.float32) / 3),
+              (2, h2)]
+    sizes = (1, 1, 3998)
+    x = torch.zeros((40, 64), device=cuda_device)
+    carry = tuple(torch.zeros((p, 64), device=cuda_device) for p in sizes)
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_cascade(x, carry, stages, sizes)
+    assert (fused_cascade.launches, fused_cascade.kernel_launches) == before
 
 
 # -- the HBM read probes (P1-P3) ----------------------------------------------

@@ -15,6 +15,12 @@
 // of the ratio prod(R_i).  The new carry leaves are written to fresh
 // buffers: nothing here aliases its input.
 //
+// Two kernels here make one step: kernel A (stage01_kernel, below) runs
+// stages 0 and 1 in parallel over time tiles and writes the 1/(R_0 R_1)
+// rate intermediate u_2 to device memory; kernel B (fused_cascade_kernel,
+// the ring walk) runs the remaining stages on u_2.  Kernel B alone also
+// takes the whole cascade (the single-kernel step, kept for comparison).
+//
 // Replaces the TPU kernel fused_cascade_pallas (tpudas/ops/pallas_fir.py:576,
 // body _fused_kernel_body :515).  That kernel held a chunk of ~8k
 // full-rate rows and every stage's tail in VMEM; at the flagship plan
@@ -26,8 +32,8 @@
 // reaches HBM; the arithmetic (2*sum_i L_i*n_i flops, ~6 per int16 byte
 // read at the flagship) is under the card's ~20 flop/byte f32 balance.
 //
-// Design (simple and right first; wgmma, TMA and a persistent grid are
-// later work):
+// Kernel B's design (simple and right first; wgmma, TMA and a persistent
+// grid are later work):
 // - one block owns TC = 32 channels (one warp wide, so every row it reads
 //   is one coalesced segment) and walks the block's time axis in chunks
 //   of ONE final output (ratio full-rate rows); 8 warps split each
@@ -54,7 +60,36 @@
 // - a plan whose rings and staging do not fit the 227 KB opt-in shared
 //   memory is refused (the launcher returns an error; the wrapper
 //   raises).
-// The launch uses the caller's stream, does not synchronise and allocates
+//
+// Kernel A's design.  Kernel B walks its block's whole time axis one
+// final output at a time, behind a barrier per stage: at the flagship a
+// 60-output block is 60 chunks of 6 stage-0 sub-steps and 3 stage passes,
+// one serial chain per 32 channels, so its time hardly depends on the
+// width.  Stages 0 and 1 have no recurrence: stage-1 output m reads z_1
+// rows [m R_1, m R_1 + L_1), and each stage-0 output reads L_0 rows of
+// z_0, so K_1 consecutive stage-1 outputs depend on a bounded window of
+// the block.  Kernel A's grid is (time tiles) x (channel tiles):
+// - a block owns K_1 consecutive stage-1 outputs of 32 channels; it
+//   computes the stage-0 outputs they read, H_1 = L_1 - R_1 of them the
+//   previous tile computes too (the halo; 24 of 274 at the flagship,
+//   K_1 = 50), into a linear buffer of z_1 rows in shared memory; z_1
+//   rows below p_1 (the first tile's) come from carry_1;
+// - stage 0 reads z_0 from global memory in sub-steps of up to G0
+//   outputs with the register prefetch of kernel B (load the next
+//   sub-step's raw bits, convert when storing them); the dot products
+//   read the taps four at a time (one shared-memory load for four
+//   FMAs), which matters here: each stage-0 output of a warp reads L_0
+//   rows of 128 bytes from shared memory, so at the flagship kernel A is
+//   bounded by shared-memory bandwidth more than by device memory;
+// - then one pass of stage 1 over the buffer writes the tile's outputs
+//   to u_2 (or to y when the plan has at most two stages);
+// - the last tile also writes carry_0' (z_0 rows [T, T + p_0)) and
+//   carry_1' (z_1 rows [n_0, n_0 + p_1), the end of its buffer).
+// Its serial chain is one tile (about 12 sub-steps at the flagship), and
+// a 60-output block at 10,000 channels gives 30 x 313 blocks.  Sums run
+// over the true taps, as in kernel B.
+//
+// The launches use the caller's stream, do not synchronise and allocate
 // nothing; the C entry points return cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -412,9 +447,258 @@ int launch(const Tin* x, float* y, const float* const* carry,
   return static_cast<int>(cudaGetLastError());
 }
 
+// sum_{j < L} h[j] * buf[(start + j) * TC] over a linear buffer, the taps
+// read four at a time (h is 16-byte aligned in shared memory); the same
+// products and partial sums, in the same order, as dot_taps
+__device__ __forceinline__ float dot_taps4(const float* __restrict__ h,
+                                           const float* __restrict__ buf,
+                                           int start, int L) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  const float* p = buf + start * TC;
+  int j = 0;
+  for (; j + 4 <= L; j += 4) {
+    const float4 hv = *reinterpret_cast<const float4*>(h + j);
+    a0 = fmaf(hv.x, p[j * TC], a0);
+    a1 = fmaf(hv.y, p[(j + 1) * TC], a1);
+    a2 = fmaf(hv.z, p[(j + 2) * TC], a2);
+    a3 = fmaf(hv.w, p[(j + 3) * TC], a3);
+  }
+  for (; j < L; ++j) a0 = fmaf(h[j], p[j * TC], a0);
+  return (a0 + a1) + (a2 + a3);
+}
+
+struct Stage01Params {
+  const float* carry0;  // (p0, C): z_0's first rows
+  const float* carry1;  // (p1, C): z_1's first rows
+  float* new_carry0;
+  float* new_carry1;
+  const float* taps;    // h_0 (L0) then h_1 (L1)
+  int R0, L0, p0;
+  int R1, L1, p1;       // p1 = max(L1 - R1, 0)
+  int K1;               // stage-1 outputs per time tile
+  int g0;               // stage-0 outputs per sub-step
+  int tap1_off;         // float offset of h_1 in shared memory
+  int s0_off;           // float offset of the stage-0 staging rows
+  int z1_off;           // float offset of the tile's z_1 rows
+  int C;
+  long long T;
+  long long n0;         // stage-0 outputs of the block, T / R0
+  long long n1;         // stage-1 outputs of the block, n0 / R1
+  float qscale;
+};
+
+template <typename Tin>
+__global__ void __launch_bounds__(TC * NW, 2)
+stage01_kernel(const Tin* __restrict__ x, float* __restrict__ out,
+               const Stage01Params P) {
+  // float4 declaration: the taps at offsets of 4 floats are 16-byte
+  // aligned for dot_taps4
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * TC + tx;
+  const int C = P.C;
+  const int c = blockIdx.y * TC + tx;
+  const bool c_ok = c < C;
+  const float qs = P.qscale;
+  const int R0 = P.R0;
+  const int L0 = P.L0;
+  const int p0 = P.p0;
+  const int R1 = P.R1;
+  const int p1 = P.p1;
+
+  // this tile: stage-1 outputs [m0, m1), which read z_1 rows
+  // [r_lo, r_hi); z_1 row r >= p1 is stage-0 output r - p1
+  const long long m0 = static_cast<long long>(blockIdx.x) * P.K1;
+  const long long m1 = min(m0 + P.K1, P.n1);
+  const long long r_lo = m0 * R1;
+  const long long r_hi = (m1 - 1) * R1 + P.L1;
+  const long long k_lo = max(r_lo - p1, 0LL);
+  const long long k_hi = r_hi - p1;
+
+  for (int j = tid; j < L0; j += TC * NW) smem[j] = P.taps[j];
+  for (int j = tid; j < P.L1; j += TC * NW) {
+    smem[P.tap1_off + j] = P.taps[L0 + j];
+  }
+  float* z1 = smem + P.z1_off;
+  // z_1 rows below p1 are carry_1's
+  const long long c_end = min(r_hi, static_cast<long long>(p1));
+  for (long long r = r_lo + ty; r < c_end; r += NW) {
+    z1[(r - r_lo) * TC + tx] = c_ok ? P.carry1[r * C + c] : 0.f;
+  }
+
+  // stage 0 in sub-steps of up to g0 outputs, the next sub-step's rows
+  // prefetched into registers while the current one computes
+  float* s0 = smem + P.s0_off;
+  const float* h0 = smem;
+  uint32_t pre[RPT];
+  long long k0 = k_lo;
+  int g = static_cast<int>(min(static_cast<long long>(P.g0), k_hi - k0));
+  if (g > 0) {
+    load_rows(pre, x, P.carry0, k0 * R0, (g - 1) * R0 + L0, p0, C, c, c_ok,
+              ty);
+  }
+  while (g > 0) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = ty + i * NW;
+      s0[r * TC + tx] = val_z0(pre[i], k0 * R0 + r, p0, qs, x);
+    }
+    __syncthreads();
+    const long long k2 = k0 + g;
+    const int g2 =
+        static_cast<int>(min(static_cast<long long>(P.g0), k_hi - k2));
+    if (g2 > 0) {
+      load_rows(pre, x, P.carry0, k2 * R0, (g2 - 1) * R0 + L0, p0, C, c,
+                c_ok, ty);
+    }
+    float* dst = z1 + (k0 + p1 - r_lo) * TC + tx;
+    for (int kk = ty; kk < g; kk += NW) {
+      dst[kk * TC] = dot_taps4(h0, s0 + tx, kk * R0, L0);
+    }
+    __syncthreads();
+    k0 = k2;
+    g = g2;
+  }
+  __syncthreads();
+
+  // stage 1 over the tile's z_1 rows
+  const float* h1 = smem + P.tap1_off;
+  const int nm = static_cast<int>(m1 - m0);
+  for (int mm = ty; mm < nm; mm += NW) {
+    const float acc = dot_taps4(h1, z1 + tx, mm * R1, P.L1);
+    if (c_ok) out[(m0 + mm) * C + c] = acc;
+  }
+
+  if (blockIdx.x == gridDim.x - 1 && c_ok) {
+    // carry_1' = z_1 rows [n0, n0 + p1): the end of this tile's rows
+    for (int j = ty; j < p1; j += NW) {
+      P.new_carry1[static_cast<long long>(j) * C + c] =
+          z1[(P.n0 + j - r_lo) * TC + tx];
+    }
+    // carry_0' = z_0 rows [T, T + p0): a copy, kCopyBatch rows per
+    // thread in flight
+    for (int r = ty; r < p0; r += NW * kCopyBatch) {
+      uint32_t v[kCopyBatch];
+#pragma unroll
+      for (int b = 0; b < kCopyBatch; ++b) {
+        const int rr = r + b * NW;
+        v[b] = rr < p0 ? raw_z0(x, P.carry0, P.T + rr, p0, C, c) : 0u;
+      }
+#pragma unroll
+      for (int b = 0; b < kCopyBatch; ++b) {
+        const int rr = r + b * NW;
+        if (rr < p0) {
+          P.new_carry0[static_cast<long long>(rr) * C + c] =
+              val_z0(v[b], P.T + rr, p0, qs, x);
+        }
+      }
+    }
+  }
+}
+
+// Kernel A's geometry; returns the dynamic shared-memory bytes, or -1
+// when the stage pair is not one it takes.
+long long stage01_geometry(Stage01Params& P, int R0, int L0, int p0, int R1,
+                           int L1, int p1, int K1) {
+  if (R0 < 1 || L0 < 1 || R1 < 1 || L1 < 1 || K1 < 1) return -1;
+  const int H0 = L0 > R0 ? L0 - R0 : 0;
+  const int H1 = L1 > R1 ? L1 - R1 : 0;
+  // stage 0 may carry more than its halo (the alignment pad); stage 1
+  // carries exactly its halo, so the last tile's rows end at its carry
+  if (p0 < H0 || p1 != H1) return -1;
+  if (L0 > NW * RPT) return -1;
+  P.R0 = R0;
+  P.L0 = L0;
+  P.p0 = p0;
+  P.R1 = R1;
+  P.L1 = L1;
+  P.p1 = p1;
+  P.K1 = K1;
+  const int g = (NW * RPT - L0) / R0 + 1;
+  P.g0 = g < G0 ? g : G0;
+  long long floats = (L0 + 3) / 4 * 4;
+  P.tap1_off = static_cast<int>(floats);
+  floats += (L1 + 3) / 4 * 4;
+  P.s0_off = static_cast<int>(floats);
+  floats += static_cast<long long>(NW * RPT) * TC;
+  P.z1_off = static_cast<int>(floats);
+  floats += (static_cast<long long>(K1 - 1) * R1 + L1) * TC;
+  return floats * static_cast<long long>(sizeof(float));
+}
+
+template <typename Tin>
+int launch_stage01(const Tin* x, float* out, const float* carry0,
+                   const float* carry1, float* new_carry0, float* new_carry1,
+                   const float* taps, int R0, int L0, int p0, int R1, int L1,
+                   int p1, int K1, long long T, int C, float qscale,
+                   void* stream) {
+  Stage01Params P;
+  const long long smem = stage01_geometry(P, R0, L0, p0, R1, L1, p1, K1);
+  const long long ratio = static_cast<long long>(R0) * R1;
+  if (smem < 0 || smem > kMaxSmem || T < 1 || C < 1 || T % ratio != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  P.carry0 = carry0;
+  P.carry1 = carry1;
+  P.new_carry0 = new_carry0;
+  P.new_carry1 = new_carry1;
+  P.taps = taps;
+  P.C = C;
+  P.T = T;
+  P.n0 = T / R0;
+  P.n1 = P.n0 / R1;
+  P.qscale = qscale;
+  const long long tiles = (P.n1 + K1 - 1) / K1;
+  const long long cblocks = (C + TC - 1) / TC;
+  if (tiles > 2147483647LL || cblocks > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      stage01_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>(cblocks));
+  const dim3 block(TC, NW);
+  stage01_kernel<Tin><<<grid, block, static_cast<size_t>(smem),
+                        static_cast<cudaStream_t>(stream)>>>(x, out, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+int stage01_f32(const float* x, float* out, const float* carry0,
+                const float* carry1, float* new_carry0, float* new_carry1,
+                const float* taps, int R0, int L0, int p0, int R1, int L1,
+                int p1, int K1, long long T, int C, float qscale,
+                void* stream) {
+  return launch_stage01<float>(x, out, carry0, carry1, new_carry0,
+                               new_carry1, taps, R0, L0, p0, R1, L1, p1, K1,
+                               T, C, qscale, stream);
+}
+
+int stage01_i16(const int16_t* x, float* out, const float* carry0,
+                const float* carry1, float* new_carry0, float* new_carry1,
+                const float* taps, int R0, int L0, int p0, int R1, int L1,
+                int p1, int K1, long long T, int C, float qscale,
+                void* stream) {
+  return launch_stage01<int16_t>(x, out, carry0, carry1, new_carry0,
+                                 new_carry1, taps, R0, L0, p0, R1, L1, p1,
+                                 K1, T, C, qscale, stream);
+}
+
+// Kernel A's dynamic shared memory (bytes) for a stage pair and tile,
+// or -1 when it does not take the pair — the wrapper's fit check.
+long long stage01_smem_bytes(int R0, int L0, int p0, int R1, int L1, int p1,
+                             int K1) {
+  Stage01Params P;
+  return stage01_geometry(P, R0, L0, p0, R1, L1, p1, K1);
+}
+
 
 int fused_cascade_f32(const float* x, float* y, const float* const* carry,
                       float* const* new_carry, const float* taps,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +24,7 @@ from pathlib import Path
 
 __all__ = [
     "NVCC_FLAGS", "build_dir", "build_libraries", "load_library", "build_info",
+    "kernel_resources",
 ]
 
 NVCC_FLAGS = (
@@ -126,3 +128,26 @@ def build_info(name: str) -> dict:
     the library was reused from the build directory, the build's
     seconds, and ``-Xptxas -v``'s register/shared-memory lines."""
     return dict(_INFO.get(name, {}))
+
+
+def kernel_resources(name: str) -> dict:
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu``,
+    from ``-Xptxas -v`` (empty when the library was reused rather than
+    built in this process): ``{mangled entry: {"registers", "spill_stores",
+    "spill_loads"}}``."""
+    out, cur = {}, None
+    for ln in _INFO.get(name, {}).get("ptxas", []):
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([A-Za-z0-9_]+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out

@@ -9,15 +9,31 @@ counterpart of the TPU kernel ``fused_cascade_pallas``
 (tpudas/ops/pallas_fir.py:576).
 
 - :func:`fused_cascade` is the wrapper.  On a CUDA tensor it launches
-  the hand-written kernel in ``csrc/fused_cascade.cu`` (built with nvcc
-  at first use, bound with ctypes) or raises — there is no fallback,
-  and a plan that does not fit the kernel's shared memory raises too.
-  On a CPU tensor, and only there, it runs :func:`fused_cascade_plain`.
-  ``fused_cascade.launches`` counts kernel launches.
+  two hand-written kernels of ``csrc/fused_cascade.cu`` (built with nvcc
+  at first use, bound with ctypes) on the caller's stream, or raises —
+  there is no fallback, and a plan that does not fit a kernel's shared
+  memory raises too: kernel A (:func:`fused_stage01`) runs stages 0 and
+  1 in parallel over time tiles of ``K_1`` stage-1 outputs
+  (:func:`stage1_tile`) and writes the intermediate ``u_2`` at
+  1/(R_0 R_1) of the input rate; kernel B, the ring walk, runs the
+  remaining stages on ``u_2``.  A plan of one or two stages is kernel A
+  alone, writing ``y``.  On a CPU tensor, and only there, it runs
+  :func:`fused_cascade_plain`.  ``fused_cascade.launches`` counts steps
+  (one per call that launched), ``fused_cascade.kernel_launches`` the
+  kernels launched.
+- :func:`fused_cascade_one_kernel` is kernel B over the whole cascade
+  (the single-kernel step the two kernels replace), kept so a
+  measurement can time the two designs on one block.  The main path
+  never calls it.
 - :func:`fused_cascade_plain` is the plain PyTorch version: the chunked
   loop of the JAX package's ``fused-xla`` step (tpudas/ops/fir.py:989-1005)
   over :func:`tpudas_torch.ops.fir_kernel.fir_decimate_plain`, which
   replays the per-stage chain's arithmetic chunk by chunk.
+- :func:`fused_cascade_split_plain` is the plain mirror of the two-kernel
+  split: :func:`stage01_plain` walks kernel A's time tiles, halo and
+  carry writes, then :func:`fused_cascade_plain` runs the remaining
+  stages.  Tests hold it against :func:`fused_cascade_plain`, so the
+  tiling's index arithmetic is checked on the CPU.
 
 int16 blocks dequantize on read (``float(v) * qscale``, bit-equal to the
 plain ``x.float() * qscale``): carry_0 holds dequantized float32 rows in
@@ -33,7 +49,23 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["fused_cascade", "fused_cascade_plain"]
+__all__ = [
+    "fused_cascade",
+    "fused_cascade_one_kernel",
+    "fused_cascade_plain",
+    "fused_cascade_split_plain",
+    "fused_stage01",
+    "stage01_plain",
+    "stage1_tile",
+]
+
+# kernel A's tile: about this many stage-0 outputs of its own, plus the
+# stage-1 halo (K_1 = 50 stage-1 outputs, 274 stage-0 outputs at the
+# flagship's R_1 = 5, L_1 = 29)
+TILE_STAGE0_OUTPUTS = 250
+SMEM_LIMIT = 232448  # bytes of opt-in shared memory per block (sm_90)
+# stage 1 of a one-stage plan: the identity, so kernel A writes y
+_IDENTITY = (1, np.ones(1, np.float32))
 
 _LIB_NAME = "fused_cascade"
 _lib = None
@@ -59,6 +91,14 @@ def _kernel_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ]
         lib.fused_cascade_smem_bytes.restype = ctypes.c_longlong
+        args = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ]
+        for fn in (lib.stage01_f32, lib.stage01_i16):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.stage01_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.stage01_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -149,14 +189,241 @@ def fused_cascade_plain(x, carry, stages, sizes, qscale=None,
     return torch.cat(outs, dim=0), bufs
 
 
+def stage1_tile(R1: int) -> int:
+    """Kernel A's stage-1 outputs per time tile for stage-1 ratio
+    ``R1``: its halo (L_1 - R_1 stage-0 outputs) is then at most about
+    10% of a tile at the flagship."""
+    return max(1, TILE_STAGE0_OUTPUTS // int(R1))
+
+
+def _pair(stages, sizes):
+    """Stages 0 and 1 of a plan as ((R0, h0, p0), (R1, h1, p1)); a
+    one-stage plan gets the identity as stage 1."""
+    R0, h0 = stages[0]
+    if len(stages) == 1:
+        R1, h1 = _IDENTITY
+        p1 = 0
+    else:
+        (R1, h1), p1 = stages[1], sizes[1]
+    return ((int(R0), np.asarray(h0, np.float32), int(sizes[0])),
+            (int(R1), np.asarray(h1, np.float32), int(p1)))
+
+
+def stage01_plain(x, carry, stages, sizes, qscale=None, k1=None):
+    """Plain PyTorch version of kernel A: stages 0 and 1 of the plan
+    (``stages``/``sizes``/``carry`` of one or two stages; one stage gets
+    the identity as stage 1) -> ``(u, new_carry)``, ``u`` the
+    T/(R_0 R_1) stage-1 outputs.  Walks kernel A's time tiles of ``k1``
+    stage-1 outputs (default :func:`stage1_tile`): each tile computes
+    the stage-0 outputs its z_1 rows hold, halo included (rows below p_1
+    from carry_1), then its stage-1 outputs; the last tile's z_1 rows
+    end with carry_1'."""
+    from tpudas_torch.ops.fir import _block_taps
+    from tpudas_torch.ops.fir_kernel import fir_decimate_plain
+
+    if not 1 <= len(stages) <= 2:
+        raise ValueError(f"stage01_plain takes 1 or 2 stages, got {len(stages)}")
+    _check(x, carry, stages, sizes, qscale)
+    dev = x.device
+    if qscale is not None:
+        x = x.to(torch.float32) * torch.tensor(np.float32(qscale), device=dev)
+    else:
+        x = x.to(torch.float32)
+    (R0, h0, p0), (R1, h1, p1) = _pair(stages, sizes)
+    L0, L1 = h0.size, h1.size
+    if p1 != max(L1 - R1, 0) or p0 < max(L0 - R0, 0):
+        raise ValueError("stage 1 must carry exactly its halo, stage 0 at "
+                         "least its halo")
+    hb0 = torch.from_numpy(_block_taps(h0, R0)).to(dev)
+    hb1 = torch.from_numpy(_block_taps(h1, R1)).to(dev)
+    T, C = x.shape
+    n0 = T // R0
+    n1 = n0 // R1
+    z0 = torch.cat([carry[0], x], dim=0)
+    c1 = carry[1] if len(stages) == 2 else x.new_zeros((0, C))
+    if n1 == 0:
+        return x.new_zeros((0, C)), (z0[T:].clone(), c1.clone())
+    k1 = stage1_tile(R1) if k1 is None else int(k1)
+    u = x.new_empty((n1, C))
+    for m0 in range(0, n1, k1):
+        m1 = min(m0 + k1, n1)
+        r_lo, r_hi = m0 * R1, (m1 - 1) * R1 + L1  # the tile's z_1 rows
+        k_lo, k_hi = max(r_lo - p1, 0), r_hi - p1  # its stage-0 outputs
+        y0 = fir_decimate_plain(z0[k_lo * R0 : (k_hi - 1) * R0 + L0], hb0,
+                                R0, k_hi - k_lo)
+        z1 = torch.cat([c1[r_lo : min(r_hi, p1)], y0], dim=0)
+        u[m0:m1] = fir_decimate_plain(z1, hb1, R1, m1 - m0)
+    new1 = z1[n0 - r_lo : n0 - r_lo + p1].clone()
+    new = (z0[T:].clone(), new1)
+    return u, new[: len(stages)]
+
+
+def fused_cascade_split_plain(x, carry, stages, sizes, qscale=None, k1=None):
+    """The two-kernel split in plain PyTorch: :func:`stage01_plain` on
+    stages 0-1, then :func:`fused_cascade_plain` on the rest ->
+    ``(y, new_carry)``, equal to :func:`fused_cascade_plain`."""
+    _check(x, carry, stages, sizes, qscale)
+    u, new01 = stage01_plain(x, carry[:2], stages[:2], sizes[:2], qscale, k1)
+    if len(stages) <= 2:
+        return u, new01
+    y, rest = fused_cascade_plain(u, carry[2:], stages[2:], sizes[2:])
+    return y, new01 + rest
+
+
 @functools.lru_cache(maxsize=32)
 def _taps_host(key):
-    return np.concatenate([np.frombuffer(h, np.float32) for _R, h in key])
+    return np.concatenate([np.frombuffer(h, np.float32) for h in key])
 
 
-def _device_taps(stages, device):
-    key = tuple((int(R), np.asarray(h, np.float32).tobytes()) for R, h in stages)
+def _device_taps(taps, device):
+    """Tap arrays concatenated, as one float32 tensor on ``device``."""
+    key = tuple(np.asarray(h, np.float32).tobytes() for h in taps)
     return torch.from_numpy(_taps_host(key).copy()).to(device)
+
+
+def _cuda_args(x, carry):
+    if x.device.type != "cuda":
+        raise ValueError(f"the fused kernels run on cuda, not {x.device}")
+    if not (x.is_contiguous() and all(b.is_contiguous() for b in carry)):
+        raise ValueError("x and the carry leaves must be contiguous")
+
+
+def _raise_launch(what, rc, x, detail):
+    raise RuntimeError(
+        f"{what} launch failed: cudaError {rc} "
+        f"(x {tuple(x.shape)} {x.dtype}, {detail})"
+    )
+
+
+def _walk_smem(stages, sizes):
+    """(ctypes R, L, p arrays, kernel B's shared-memory bytes or -1)."""
+    lib = _kernel_lib()
+    S = len(stages)
+    ints = ctypes.c_int * S
+    R = ints(*(int(r) for r, _h in stages))
+    L = ints(*(int(np.asarray(h).size) for _r, h in stages))
+    p = ints(*(int(v) for v in sizes))
+    return R, L, p, lib.fused_cascade_smem_bytes(R, L, p, S)
+
+
+def _stage01_smem(stages, sizes):
+    """(pair, K_1, kernel A's shared-memory bytes or -1)."""
+    pair = _pair(stages, sizes)
+    (R0, h0, p0), (R1, h1, p1) = pair
+    k1 = stage1_tile(R1)
+    smem = _kernel_lib().stage01_smem_bytes(R0, h0.size, p0, R1, h1.size,
+                                            p1, k1)
+    return pair, k1, smem
+
+
+def _refuse(stages, sizes, smem, which):
+    R = [int(r) for r, _h in stages]
+    L = [int(np.asarray(h).size) for _r, h in stages]
+    raise ValueError(
+        f"plan (R={R}, taps={L}, carry={list(map(int, sizes))}) does not "
+        f"fit the fused {which} ({smem} bytes of shared memory; the limit "
+        f"is {SMEM_LIMIT}, stage 0 takes at most 256 taps, and stages "
+        "after the first must carry exactly taps - R rows)"
+    )
+
+
+def _launch_walk(x, y, carry, new, stages, sizes, qscale, smem_info=None):
+    """Kernel B (the ring walk) over ``stages``: x (T, C) -> y, new."""
+    R, L, p, smem = smem_info or _walk_smem(stages, sizes)
+    if smem < 0 or smem > SMEM_LIMIT:
+        _refuse(stages, sizes, smem, "ring-walk kernel")
+    lib = _kernel_lib()
+    S = len(stages)
+    T, C = x.shape
+    taps = _device_taps([h for _r, h in stages], x.device)
+    ptrs = ctypes.c_void_p * S
+    cin = ptrs(*(b.data_ptr() if b.numel() else None for b in carry))
+    cout = ptrs(*(b.data_ptr() if b.numel() else None for b in new))
+    qs = float(np.float32(1.0 if qscale is None else qscale))
+    fn = lib.fused_cascade_i16 if x.dtype == torch.int16 else lib.fused_cascade_f32
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), cin, cout, taps.data_ptr(), R, L,
+                p, S, T, C, qs, stream)
+    if rc != 0:
+        _raise_launch("fused ring-walk kernel", rc, x,
+                      f"R={list(R)}, taps={list(L)}, carry={list(p)}")
+    fused_cascade.kernel_launches += 1
+
+
+def _launch_stage01(x, u, carry, new, stages, sizes, qscale, info=None):
+    """Kernel A over stages 0-1 (one stage: the identity as stage 1):
+    x (T, C) -> u (T/(R0 R1), C), new carry leaves 0 (and 1)."""
+    if info is None:
+        pair, k1, smem = _stage01_smem(stages, sizes)
+        info = (*pair, k1, smem)
+    (R0, h0, p0), (R1, h1, p1), k1, smem = info
+    if smem < 0 or smem > SMEM_LIMIT:
+        _refuse(stages[:2], sizes[:2], smem, "stage-0/1 kernel")
+    lib = _kernel_lib()
+    T, C = x.shape
+    taps = _device_taps([h0, h1], x.device)
+    c1 = carry[1].data_ptr() if len(carry) > 1 and carry[1].numel() else None
+    n1 = new[1].data_ptr() if len(new) > 1 and new[1].numel() else None
+    c0 = carry[0].data_ptr() if carry[0].numel() else None
+    n0 = new[0].data_ptr() if new[0].numel() else None
+    qs = float(np.float32(1.0 if qscale is None else qscale))
+    fn = lib.stage01_i16 if x.dtype == torch.int16 else lib.stage01_f32
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), u.data_ptr(), c0, c1, n0, n1, taps.data_ptr(),
+                R0, h0.size, p0, R1, h1.size, p1, k1, T, C, qs, stream)
+    if rc != 0:
+        _raise_launch("fused stage-0/1 kernel", rc, x,
+                      f"R=({R0}, {R1}), taps=({h0.size}, {h1.size}), "
+                      f"carry=({p0}, {p1}), K1={k1}")
+    fused_cascade.kernel_launches += 1
+
+
+def _outputs(x, stages, sizes):
+    T, C = x.shape
+    y = torch.empty((T // _ratio(stages), C), dtype=torch.float32,
+                    device=x.device)
+    new = tuple(
+        torch.empty((int(p), C), dtype=torch.float32, device=x.device)
+        for p in sizes
+    )
+    return y, new
+
+
+def fused_stage01(x, carry, stages, sizes, qscale=None):
+    """Kernel A alone on a plan of one or two stages -> ``(u, new_carry)``
+    (for a measurement of kernel A; :func:`fused_cascade` calls its
+    launcher).  CUDA tensors run the kernel (or raise); CPU tensors run
+    :func:`stage01_plain`."""
+    _check(x, carry, stages, sizes, qscale)
+    if not 1 <= len(stages) <= 2:
+        raise ValueError(f"fused_stage01 takes 1 or 2 stages, got {len(stages)}")
+    if x.device.type == "cpu":
+        return stage01_plain(x, carry, stages, sizes, qscale)
+    _cuda_args(x, carry)
+    u, new = _outputs(x, stages, sizes)
+    if x.shape[0] == 0 or x.shape[1] == 0:
+        return u, tuple(b.clone() for b in carry)
+    _launch_stage01(x, u, carry, new, stages, sizes, qscale)
+    return u, new
+
+
+def fused_cascade_one_kernel(x, carry, stages, sizes, qscale=None):
+    """The single-kernel step: kernel B over the whole cascade ->
+    ``(y, new_carry)``.  Not on the main path; kept to time the design
+    it replaced (and to run kernel B alone on ``u_2``).  CUDA tensors
+    run the kernel (or raise); CPU tensors run
+    :func:`fused_cascade_plain`."""
+    _check(x, carry, stages, sizes, qscale)
+    if x.device.type == "cpu":
+        return fused_cascade_plain(x, carry, stages, sizes, qscale)
+    _cuda_args(x, carry)
+    y, new = _outputs(x, stages, sizes)
+    if x.shape[1] == 0:
+        return y, new
+    _launch_walk(x, y, carry, new, stages, sizes, qscale)
+    return y, new
 
 
 def fused_cascade(x, carry, stages, sizes, qscale=None):
@@ -164,57 +431,41 @@ def fused_cascade(x, carry, stages, sizes, qscale=None):
     ``qscale``, ``carry`` the per-stage (p_i, C) float32 leaves,
     ``stages`` the plan's ``(R, taps)`` pairs, ``sizes`` its
     :func:`~tpudas_torch.ops.fir.stream_carry_sizes` -> ``(y, new_carry)``
-    with fresh tensors.  CUDA tensors run the kernel (or raise); CPU
-    tensors run :func:`fused_cascade_plain`."""
+    with fresh tensors.  CUDA tensors run kernel A and, for three or
+    more stages, kernel B on its output (or raise; both fit checks come
+    before either launch); CPU tensors run :func:`fused_cascade_plain`."""
     _check(x, carry, stages, sizes, qscale)
     if x.device.type == "cpu":
         return fused_cascade_plain(x, carry, stages, sizes, qscale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_cascade runs on cuda or cpu, not {x.device}")
-    if not (x.is_contiguous() and all(b.is_contiguous() for b in carry)):
-        raise ValueError("x and the carry leaves must be contiguous")
-    T, C = x.shape
+    _cuda_args(x, carry)
     S = len(stages)
-    dev = x.device
-    y = torch.empty((T // _ratio(stages), C), dtype=torch.float32, device=dev)
-    new = tuple(
-        torch.empty((int(p), C), dtype=torch.float32, device=dev) for p in sizes
-    )
+    # both fit checks before either launch: a plan is refused whole
+    a_pair, k1, a_smem = _stage01_smem(stages[:2], sizes[:2])
+    if a_smem < 0 or a_smem > SMEM_LIMIT:
+        _refuse(stages[:2], sizes[:2], a_smem, "stage-0/1 kernel")
+    b_info = _walk_smem(stages[2:], sizes[2:]) if S > 2 else None
+    if b_info is not None and not 0 <= b_info[3] <= SMEM_LIMIT:
+        _refuse(stages[2:], sizes[2:], b_info[3], "ring-walk kernel")
+    y, new = _outputs(x, stages, sizes)
+    T, C = x.shape
     if C == 0:
         return y, new
-    lib = _kernel_lib()
-    ints = ctypes.c_int * S
-    R = ints(*(int(r) for r, _h in stages))
-    L = ints(*(int(np.asarray(h).size) for _r, h in stages))
-    p = ints(*(int(v) for v in sizes))
-    smem = lib.fused_cascade_smem_bytes(R, L, p, S)
-    if smem < 0 or smem > 232448:
-        raise ValueError(
-            f"plan (R={list(R)}, taps={list(L)}, carry={list(p)}) does not "
-            f"fit the fused kernel ({smem} bytes of shared memory; the "
-            "limit is 232448, and stages after the first must carry "
-            "exactly taps - R rows)"
-        )
-    taps = _device_taps(stages, dev)
-    ptrs = ctypes.c_void_p * S
-    cin = ptrs(*(b.data_ptr() if b.numel() else None for b in carry))
-    cout = ptrs(*(b.data_ptr() if b.numel() else None for b in new))
-    qs = float(np.float32(1.0 if qscale is None else qscale))
-    fn = lib.fused_cascade_i16 if x.dtype == torch.int16 else lib.fused_cascade_f32
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            x.data_ptr(), y.data_ptr(), cin, cout, taps.data_ptr(), R, L, p,
-            S, T, C, qs, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_cascade kernel launch failed: cudaError {rc} "
-            f"(x {tuple(x.shape)} {x.dtype}, R={list(R)}, taps={list(L)}, "
-            f"carry={list(p)})"
-        )
+    if T == 0:
+        return y, tuple(b.clone() for b in carry)
+    if S <= 2:
+        _launch_stage01(x, y, carry, new, stages, sizes, qscale,
+                        (*a_pair, k1, a_smem))
+    else:
+        (R0, _h0, _p0), (R1, _h1, _p1) = a_pair
+        u = torch.empty((T // (R0 * R1), C), dtype=torch.float32,
+                        device=x.device)
+        _launch_stage01(x, u, carry[:2], new[:2], stages[:2], sizes[:2],
+                        qscale, (*a_pair, k1, a_smem))
+        _launch_walk(u, y, carry[2:], new[2:], stages[2:], sizes[2:], None,
+                     b_info)
     fused_cascade.launches += 1
     return y, new
 
 
 fused_cascade.launches = 0
+fused_cascade.kernel_launches = 0
