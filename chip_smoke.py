@@ -341,7 +341,7 @@ def conv1d_chain(plan, x, carry, qscale):
 
 
 def compare_fused(timer, plan, blocks, carry, qscale, label,
-                  with_time=True):
+                  with_time=True, k1_sweep=()):
     """B3 vs its plain version over consecutive blocks from one carry:
     the outputs (stacked per channel) and every final carry leaf
     per-channel within REL_TOL.  Timed on the first block: the kernel,
@@ -402,6 +402,13 @@ def compare_fused(timer, plan, blocks, carry, qscale, label,
         fns = (kern, one, ka, kb, plain, chain, conv)
         keys = ("ms", "one_kernel_ms", "kernel_a_ms", "kernel_b_ms",
                 "plain_ms", "b1_chain_ms", "conv1d_chain_ms")
+        if k1_sweep:
+            # kernel A at other tile sizes (K_1 stage-1 outputs a tile)
+            def at(k1):
+                return lambda: fused_stage01(*a_args, k1=k1)
+            sweep = timed_turns(timer, [at(k) for k in k1_sweep],
+                                [str(k) for k in k1_sweep])
+            rec["kernel_a_ms_by_k1"] = {k: sweep[str(k)] for k in k1_sweep}
     else:
         fns, keys = (kern, one), ("ms", "one_kernel_ms")
     rec.update(timed_turns(timer, fns, keys))
@@ -423,6 +430,10 @@ def timed_turns(timer, fns, keys):
         rec[key] = (a + b) / 2
         rec[key + "_turns"] = [a, b]
     return rec
+
+
+# kernel A's tile sizes timed beside the default on the main block
+K1_SWEEP = (25, 50, 100, 200)
 
 
 def phase_fused_kernel(device, widths, timer):
@@ -448,8 +459,10 @@ def phase_fused_kernel(device, widths, timer):
                                             seed=n + C, quantized=quantized)
                 label = (f"fused {n} out {'int16' if quantized else 'f32'} "
                          f"{C}ch")
+                main_case = C == widths[0] and quantized and n == 60
                 rec = compare_fused(timer, plan, blocks, carry,
-                                    QSCALE if quantized else None, label)
+                                    QSCALE if quantized else None, label,
+                                    k1_sweep=K1_SWEEP if main_case else ())
                 emit(rec)
                 main[(C, quantized, n)] = rec
                 del blocks, carry

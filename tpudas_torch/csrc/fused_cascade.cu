@@ -75,8 +75,11 @@
 //   K_1 = 50), into a linear buffer of z_1 rows in shared memory; z_1
 //   rows below p_1 (the first tile's) come from carry_1;
 // - stage 0 reads z_0 from global memory in sub-steps of up to G0
-//   outputs with the register prefetch of kernel B (load the next
-//   sub-step's raw bits, convert when storing them); the dot products
+//   outputs; the next sub-step's rows are prefetched into registers as
+//   16-byte vectors (several threads a row) while the current one
+//   computes, and converted as they are stored (a per-channel prefetch
+//   of 32 rows, as kernel B's, needs a 64-bit address a row and spills
+//   under two blocks an SM); the dot products
 //   read the taps four at a time (one shared-memory load for four
 //   FMAs), which matters here: each stage-0 output of a warp reads L_0
 //   rows of 128 bytes from shared memory, so at the flagship kernel A is
@@ -467,6 +470,75 @@ __device__ __forceinline__ float dot_taps4(const float* __restrict__ h,
   return (a0 + a1) + (a2 + a3);
 }
 
+// Kernel A stages z_0 rows of the block with 16-byte vector loads: a row
+// of the block's 32 channels is kLanes threads of kPerVec channels, so a
+// thread holds kVecs vectors (16 of its registers for int16, 32 for
+// float32) for the NW * RPT staged rows, and needs one 64-bit address
+// per 16 bytes where a per-channel load needs one per 2 or 4 bytes.
+template <typename Tin>
+struct RowVec {
+  static constexpr int kPerVec = 16 / static_cast<int>(sizeof(Tin));
+  static constexpr int kLanes = TC / kPerVec;
+  static constexpr int kRowsPerPass = TC * NW / kLanes;
+  static constexpr int kVecs = NW * RPT / kRowsPerPass;
+};
+
+// this thread's vectors of staged rows [0, rows) of the block (x row
+// xrow0 is staged row 0), channels from cb; all rows lie in the block
+template <typename Tin>
+__device__ __forceinline__ void load_vecs(uint4 (&v)[RowVec<Tin>::kVecs],
+                                          const Tin* __restrict__ x,
+                                          long long xrow0, int rows, int C,
+                                          int cb, int tid) {
+  using V = RowVec<Tin>;
+  const int lr = tid / V::kLanes;
+  const int ch = cb + (tid % V::kLanes) * V::kPerVec;
+  const bool ok = ch < C;
+  const Tin* p = x + (xrow0 + lr) * C + ch;
+  const long long step = static_cast<long long>(V::kRowsPerPass) * C;
+#pragma unroll
+  for (int i = 0; i < V::kVecs; ++i) {
+    v[i] = (ok && lr + i * V::kRowsPerPass < rows)
+               ? __ldg(reinterpret_cast<const uint4*>(p + i * step))
+               : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// one vector into its staged row as float32: 4 floats, or 8 int16
+// dequantized as float(v) * qs (bit-equal to the per-channel path)
+__device__ __forceinline__ void store_vec(float* dst, uint4 v, float,
+                                          const float*) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
+                  __uint_as_float(v.z), __uint_as_float(v.w));
+}
+__device__ __forceinline__ float lo16(uint32_t w, float qs) {
+  return static_cast<float>(static_cast<int16_t>(w & 0xffffu)) * qs;
+}
+__device__ __forceinline__ float hi16(uint32_t w, float qs) {
+  return static_cast<float>(static_cast<int16_t>(w >> 16)) * qs;
+}
+__device__ __forceinline__ void store_vec(float* dst, uint4 v, float qs,
+                                          const int16_t*) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(
+      lo16(v.x, qs), hi16(v.x, qs), lo16(v.y, qs), hi16(v.y, qs));
+  reinterpret_cast<float4*>(dst)[1] = make_float4(
+      lo16(v.z, qs), hi16(v.z, qs), lo16(v.w, qs), hi16(v.w, qs));
+}
+
+template <typename Tin>
+__device__ __forceinline__ void store_vecs(float* s0,
+                                           const uint4 (&v)[RowVec<Tin>::kVecs],
+                                           float qs, const Tin* x, int tid) {
+  using V = RowVec<Tin>;
+  const int lr = tid / V::kLanes;
+  float* dst = s0 + lr * TC + (tid % V::kLanes) * V::kPerVec;
+#pragma unroll
+  for (int i = 0; i < V::kVecs; ++i) {
+    store_vec(dst + i * V::kRowsPerPass * TC, v[i], qs, x);
+  }
+}
+
 struct Stage01Params {
   const float* carry0;  // (p0, C): z_0's first rows
   const float* carry1;  // (p1, C): z_1's first rows
@@ -485,6 +557,7 @@ struct Stage01Params {
   long long n0;         // stage-0 outputs of the block, T / R0
   long long n1;         // stage-1 outputs of the block, n0 / R1
   float qscale;
+  int vec;              // 1: 16-byte row loads (C and x aligned for them)
 };
 
 template <typename Tin>
@@ -528,30 +601,42 @@ stage01_kernel(const Tin* __restrict__ x, float* __restrict__ out,
     z1[(r - r_lo) * TC + tx] = c_ok ? P.carry1[r * C + c] : 0.f;
   }
 
-  // stage 0 in sub-steps of up to g0 outputs, the next sub-step's rows
-  // prefetched into registers while the current one computes
+  // stage 0 in sub-steps of up to g0 outputs.  A sub-step whose rows all
+  // lie in the block (every one but the first few of the first tile)
+  // is staged from 16-byte vectors prefetched into registers while the
+  // previous sub-step computes; one that reaches into carry_0, or any
+  // sub-step when the width does not allow 16-byte loads, is staged
+  // row by row, per channel, without a prefetch.
   float* s0 = smem + P.s0_off;
   const float* h0 = smem;
-  uint32_t pre[RPT];
+  const int cb = blockIdx.y * TC;
+  uint4 pre[RowVec<Tin>::kVecs];
   long long k0 = k_lo;
   int g = static_cast<int>(min(static_cast<long long>(P.g0), k_hi - k0));
-  if (g > 0) {
-    load_rows(pre, x, P.carry0, k0 * R0, (g - 1) * R0 + L0, p0, C, c, c_ok,
-              ty);
+  bool vec = P.vec && k0 * R0 >= p0;
+  if (g > 0 && vec) {
+    load_vecs(pre, x, k0 * R0 - p0, (g - 1) * R0 + L0, C, cb, tid);
   }
   while (g > 0) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty + i * NW;
-      s0[r * TC + tx] = val_z0(pre[i], k0 * R0 + r, p0, qs, x);
+    if (vec) {
+      store_vecs(s0, pre, qs, x, tid);
+    } else {
+      const int rows = (g - 1) * R0 + L0;
+#pragma unroll 8
+      for (int r = ty; r < rows; r += NW) {
+        const long long zr = k0 * R0 + r;
+        s0[r * TC + tx] =
+            c_ok ? val_z0(raw_z0(x, P.carry0, zr, p0, C, c), zr, p0, qs, x)
+                 : 0.f;
+      }
     }
     __syncthreads();
     const long long k2 = k0 + g;
     const int g2 =
         static_cast<int>(min(static_cast<long long>(P.g0), k_hi - k2));
-    if (g2 > 0) {
-      load_rows(pre, x, P.carry0, k2 * R0, (g2 - 1) * R0 + L0, p0, C, c,
-                c_ok, ty);
+    const bool vec2 = P.vec && k2 * R0 >= p0;
+    if (g2 > 0 && vec2) {
+      load_vecs(pre, x, k2 * R0 - p0, (g2 - 1) * R0 + L0, C, cb, tid);
     }
     float* dst = z1 + (k0 + p1 - r_lo) * TC + tx;
     for (int kk = ty; kk < g; kk += NW) {
@@ -560,6 +645,7 @@ stage01_kernel(const Tin* __restrict__ x, float* __restrict__ out,
     __syncthreads();
     k0 = k2;
     g = g2;
+    vec = vec2;
   }
   __syncthreads();
 
@@ -650,6 +736,9 @@ int launch_stage01(const Tin* x, float* out, const float* carry0,
   P.n0 = T / R0;
   P.n1 = P.n0 / R1;
   P.qscale = qscale;
+  // 16-byte row loads need every row start 16-byte aligned
+  P.vec = (C % RowVec<Tin>::kPerVec == 0 &&
+           reinterpret_cast<uintptr_t>(x) % 16 == 0) ? 1 : 0;
   const long long tiles = (P.n1 + K1 - 1) / K1;
   const long long cblocks = (C + TC - 1) / TC;
   if (tiles > 2147483647LL || cblocks > 65535) {

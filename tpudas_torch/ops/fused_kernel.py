@@ -270,15 +270,23 @@ def fused_cascade_split_plain(x, carry, stages, sizes, qscale=None, k1=None):
     return y, new01 + rest
 
 
-@functools.lru_cache(maxsize=32)
-def _taps_host(key):
-    return np.concatenate([np.frombuffer(h, np.float32) for h in key])
+_DEVICE_TAPS: dict = {}
 
 
 def _device_taps(taps, device):
-    """Tap arrays concatenated, as one float32 tensor on ``device``."""
-    key = tuple(np.asarray(h, np.float32).tobytes() for h in taps)
-    return torch.from_numpy(_taps_host(key).copy()).to(device)
+    """Tap arrays concatenated, as one float32 tensor on ``device``,
+    kept for the next step: a copy from pageable host memory waits for
+    the stream, so a copy per launch would serialise host and card.
+    The kernels only read it."""
+    key = (tuple(np.asarray(h, np.float32).tobytes() for h in taps),
+           str(device))
+    t = _DEVICE_TAPS.get(key)
+    if t is None:
+        if len(_DEVICE_TAPS) >= 64:
+            _DEVICE_TAPS.clear()
+        host = np.concatenate([np.frombuffer(h, np.float32) for h in key[0]])
+        t = _DEVICE_TAPS[key] = torch.from_numpy(host.copy()).to(device)
+    return t
 
 
 def _cuda_args(x, carry):
@@ -306,11 +314,11 @@ def _walk_smem(stages, sizes):
     return R, L, p, lib.fused_cascade_smem_bytes(R, L, p, S)
 
 
-def _stage01_smem(stages, sizes):
+def _stage01_smem(stages, sizes, k1=None):
     """(pair, K_1, kernel A's shared-memory bytes or -1)."""
     pair = _pair(stages, sizes)
     (R0, h0, p0), (R1, h1, p1) = pair
-    k1 = stage1_tile(R1)
+    k1 = stage1_tile(R1) if k1 is None else int(k1)
     smem = _kernel_lib().stage01_smem_bytes(R0, h0.size, p0, R1, h1.size,
                                             p1, k1)
     return pair, k1, smem
@@ -391,21 +399,24 @@ def _outputs(x, stages, sizes):
     return y, new
 
 
-def fused_stage01(x, carry, stages, sizes, qscale=None):
+def fused_stage01(x, carry, stages, sizes, qscale=None, k1=None):
     """Kernel A alone on a plan of one or two stages -> ``(u, new_carry)``
-    (for a measurement of kernel A; :func:`fused_cascade` calls its
+    (for a measurement of kernel A, ``k1`` stage-1 outputs a tile,
+    default :func:`stage1_tile`; :func:`fused_cascade` calls its
     launcher).  CUDA tensors run the kernel (or raise); CPU tensors run
     :func:`stage01_plain`."""
     _check(x, carry, stages, sizes, qscale)
     if not 1 <= len(stages) <= 2:
         raise ValueError(f"fused_stage01 takes 1 or 2 stages, got {len(stages)}")
     if x.device.type == "cpu":
-        return stage01_plain(x, carry, stages, sizes, qscale)
+        return stage01_plain(x, carry, stages, sizes, qscale, k1)
     _cuda_args(x, carry)
     u, new = _outputs(x, stages, sizes)
     if x.shape[0] == 0 or x.shape[1] == 0:
         return u, tuple(b.clone() for b in carry)
-    _launch_stage01(x, u, carry, new, stages, sizes, qscale)
+    pair, k1, smem = _stage01_smem(stages, sizes, k1)
+    _launch_stage01(x, u, carry, new, stages, sizes, qscale,
+                    (*pair, k1, smem))
     return u, new
 
 
