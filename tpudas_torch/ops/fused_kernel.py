@@ -303,27 +303,6 @@ def _raise_launch(what, rc, x, detail):
     )
 
 
-def _walk_smem(stages, sizes):
-    """(ctypes R, L, p arrays, kernel B's shared-memory bytes or -1)."""
-    lib = _kernel_lib()
-    S = len(stages)
-    ints = ctypes.c_int * S
-    R = ints(*(int(r) for r, _h in stages))
-    L = ints(*(int(np.asarray(h).size) for _r, h in stages))
-    p = ints(*(int(v) for v in sizes))
-    return R, L, p, lib.fused_cascade_smem_bytes(R, L, p, S)
-
-
-def _stage01_smem(stages, sizes, k1=None):
-    """(pair, K_1, kernel A's shared-memory bytes or -1)."""
-    pair = _pair(stages, sizes)
-    (R0, h0, p0), (R1, h1, p1) = pair
-    k1 = stage1_tile(R1) if k1 is None else int(k1)
-    smem = _kernel_lib().stage01_smem_bytes(R0, h0.size, p0, R1, h1.size,
-                                            p1, k1)
-    return pair, k1, smem
-
-
 def _refuse(stages, sizes, smem, which):
     R = [int(r) for r, _h in stages]
     L = [int(np.asarray(h).size) for _r, h in stages]
@@ -335,11 +314,36 @@ def _refuse(stages, sizes, smem, which):
     )
 
 
-def _launch_walk(x, y, carry, new, stages, sizes, qscale, smem_info=None):
-    """Kernel B (the ring walk) over ``stages``: x (T, C) -> y, new."""
-    R, L, p, smem = smem_info or _walk_smem(stages, sizes)
-    if smem < 0 or smem > SMEM_LIMIT:
+def _walk_geometry(stages, sizes):
+    """Kernel B's ctypes (R, L, p) arrays for ``stages``; raises when it
+    does not take the plan."""
+    S = len(stages)
+    ints = ctypes.c_int * S
+    R = ints(*(int(r) for r, _h in stages))
+    L = ints(*(int(np.asarray(h).size) for _r, h in stages))
+    p = ints(*(int(v) for v in sizes))
+    smem = _kernel_lib().fused_cascade_smem_bytes(R, L, p, S)
+    if not 0 <= smem <= SMEM_LIMIT:
         _refuse(stages, sizes, smem, "ring-walk kernel")
+    return R, L, p
+
+
+def _stage01_geometry(stages, sizes, k1=None):
+    """Kernel A's (stage pair, K_1) for stages 0-1 (:func:`_pair`);
+    raises when it does not take the pair."""
+    pair = _pair(stages, sizes)
+    (R0, h0, p0), (R1, h1, p1) = pair
+    k1 = stage1_tile(R1) if k1 is None else int(k1)
+    smem = _kernel_lib().stage01_smem_bytes(R0, h0.size, p0, R1, h1.size,
+                                            p1, k1)
+    if not 0 <= smem <= SMEM_LIMIT:
+        _refuse(stages[:2], sizes[:2], smem, "stage-0/1 kernel")
+    return pair, k1
+
+
+def _launch_walk(x, y, carry, new, stages, geometry, qscale):
+    """Kernel B (the ring walk) over ``stages``: x (T, C) -> y, new."""
+    R, L, p = geometry
     lib = _kernel_lib()
     S = len(stages)
     T, C = x.shape
@@ -359,28 +363,25 @@ def _launch_walk(x, y, carry, new, stages, sizes, qscale, smem_info=None):
     fused_cascade.kernel_launches += 1
 
 
-def _launch_stage01(x, u, carry, new, stages, sizes, qscale, info=None):
+def _launch_stage01(x, u, carry, new, geometry, qscale):
     """Kernel A over stages 0-1 (one stage: the identity as stage 1):
     x (T, C) -> u (T/(R0 R1), C), new carry leaves 0 (and 1)."""
-    if info is None:
-        pair, k1, smem = _stage01_smem(stages, sizes)
-        info = (*pair, k1, smem)
-    (R0, h0, p0), (R1, h1, p1), k1, smem = info
-    if smem < 0 or smem > SMEM_LIMIT:
-        _refuse(stages[:2], sizes[:2], smem, "stage-0/1 kernel")
+    ((R0, h0, p0), (R1, h1, p1)), k1 = geometry
     lib = _kernel_lib()
     T, C = x.shape
     taps = _device_taps([h0, h1], x.device)
-    c1 = carry[1].data_ptr() if len(carry) > 1 and carry[1].numel() else None
-    n1 = new[1].data_ptr() if len(new) > 1 and new[1].numel() else None
-    c0 = carry[0].data_ptr() if carry[0].numel() else None
-    n0 = new[0].data_ptr() if new[0].numel() else None
+
+    def ptr(leaves, i):
+        ok = len(leaves) > i and leaves[i].numel()
+        return leaves[i].data_ptr() if ok else None
+
     qs = float(np.float32(1.0 if qscale is None else qscale))
     fn = lib.stage01_i16 if x.dtype == torch.int16 else lib.stage01_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), u.data_ptr(), c0, c1, n0, n1, taps.data_ptr(),
-                R0, h0.size, p0, R1, h1.size, p1, k1, T, C, qs, stream)
+        rc = fn(x.data_ptr(), u.data_ptr(), ptr(carry, 0), ptr(carry, 1),
+                ptr(new, 0), ptr(new, 1), taps.data_ptr(), R0, h0.size, p0,
+                R1, h1.size, p1, k1, T, C, qs, stream)
     if rc != 0:
         _raise_launch("fused stage-0/1 kernel", rc, x,
                       f"R=({R0}, {R1}), taps=({h0.size}, {h1.size}), "
@@ -414,9 +415,8 @@ def fused_stage01(x, carry, stages, sizes, qscale=None, k1=None):
     u, new = _outputs(x, stages, sizes)
     if x.shape[0] == 0 or x.shape[1] == 0:
         return u, tuple(b.clone() for b in carry)
-    pair, k1, smem = _stage01_smem(stages, sizes, k1)
-    _launch_stage01(x, u, carry, new, stages, sizes, qscale,
-                    (*pair, k1, smem))
+    _launch_stage01(x, u, carry, new, _stage01_geometry(stages, sizes, k1),
+                    qscale)
     return u, new
 
 
@@ -433,7 +433,8 @@ def fused_cascade_one_kernel(x, carry, stages, sizes, qscale=None):
     y, new = _outputs(x, stages, sizes)
     if x.shape[1] == 0:
         return y, new
-    _launch_walk(x, y, carry, new, stages, sizes, qscale)
+    _launch_walk(x, y, carry, new, stages, _walk_geometry(stages, sizes),
+                 qscale)
     return y, new
 
 
@@ -449,31 +450,23 @@ def fused_cascade(x, carry, stages, sizes, qscale=None):
     if x.device.type == "cpu":
         return fused_cascade_plain(x, carry, stages, sizes, qscale)
     _cuda_args(x, carry)
-    S = len(stages)
     # both fit checks before either launch: a plan is refused whole
-    a_pair, k1, a_smem = _stage01_smem(stages[:2], sizes[:2])
-    if a_smem < 0 or a_smem > SMEM_LIMIT:
-        _refuse(stages[:2], sizes[:2], a_smem, "stage-0/1 kernel")
-    b_info = _walk_smem(stages[2:], sizes[2:]) if S > 2 else None
-    if b_info is not None and not 0 <= b_info[3] <= SMEM_LIMIT:
-        _refuse(stages[2:], sizes[2:], b_info[3], "ring-walk kernel")
+    a_geom = _stage01_geometry(stages[:2], sizes[:2])
+    b_geom = _walk_geometry(stages[2:], sizes[2:]) if len(stages) > 2 else None
     y, new = _outputs(x, stages, sizes)
     T, C = x.shape
     if C == 0:
         return y, new
     if T == 0:
         return y, tuple(b.clone() for b in carry)
-    if S <= 2:
-        _launch_stage01(x, y, carry, new, stages, sizes, qscale,
-                        (*a_pair, k1, a_smem))
+    if b_geom is None:
+        _launch_stage01(x, y, carry, new, a_geom, qscale)
     else:
-        (R0, _h0, _p0), (R1, _h1, _p1) = a_pair
+        (R0, _h0, _p0), (R1, _h1, _p1) = a_geom[0]
         u = torch.empty((T // (R0 * R1), C), dtype=torch.float32,
                         device=x.device)
-        _launch_stage01(x, u, carry[:2], new[:2], stages[:2], sizes[:2],
-                        qscale, (*a_pair, k1, a_smem))
-        _launch_walk(u, y, carry[2:], new[2:], stages[2:], sizes[2:], None,
-                     b_info)
+        _launch_stage01(x, u, carry[:2], new[:2], a_geom, qscale)
+        _launch_walk(u, y, carry[2:], new[2:], stages[2:], b_geom, None)
     fused_cascade.launches += 1
     return y, new
 
