@@ -290,22 +290,28 @@ def phase_kernels(device, widths, timer):
     return plan, main
 
 
-def cascade_bound_ms(plan, T, C, in_bytes):
-    """Least time for one fused step: the block read once, the output
-    and the new carry written once, the old carry read once; flops over
-    the true taps of every stage."""
-    from tpudas_torch.ops.fir import stream_carry_sizes
-
-    n_out = T // plan.ratio
-    carry = sum(stream_carry_sizes(plan))
-    by = T * C * in_bytes + n_out * C * 4 + 2 * carry * C * 4
+def stages_bound_ms(stages, sizes, T, C, in_bytes):
+    """Least time for a stateful step of ``stages`` over T input rows:
+    the input read once, the output and the new carry written once, the
+    old carry read once; flops over the true taps of every stage.  The
+    whole cascade is B3's bound; stages 0-1 and 2-3 are kernel A's and
+    kernel B's."""
     flops, rows = 0.0, T
-    for R, h in plan.stages:
+    for R, h in stages:
         rows //= int(R)
         flops += 2.0 * len(h) * rows * C
+    by = T * C * in_bytes + rows * C * 4 + 2 * sum(sizes) * C * 4
     t_b, t_o = by / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"),
             bound_at_measured(by, flops))
+
+
+def cascade_bound_ms(plan, T, C, in_bytes):
+    """Least time for one fused step (:func:`stages_bound_ms`)."""
+    from tpudas_torch.ops.fir import stream_carry_sizes
+
+    return stages_bound_ms(plan.stages, stream_carry_sizes(plan), T, C,
+                           in_bytes)
 
 
 def warm_blocks(plan, n_list, C, device, seed, quantized, warm=30):
@@ -402,6 +408,13 @@ def compare_fused(timer, plan, blocks, carry, qscale, label,
         fns = (kern, one, ka, kb, plain, chain, conv)
         keys = ("ms", "one_kernel_ms", "kernel_a_ms", "kernel_b_ms",
                 "plain_ms", "b1_chain_ms", "conv1d_chain_ms")
+        for name, st, sz, rows, nb in (
+                ("kernel_a", plan.stages[:2], sizes[:2], T, x.element_size()),
+                ("kernel_b", plan.stages[2:], sizes[2:], u.shape[0], 4)):
+            b_ms, b_by, b_m = stages_bound_ms(st, sz, rows, C, nb)
+            rec[name + "_bound_ms"] = b_ms
+            rec[name + "_bound_by"] = b_by
+            rec[name + "_bound_ms_measured"] = b_m
         if k1_sweep:
             # kernel A at other tile sizes (K_1 stage-1 outputs a tile)
             def at(k1):
