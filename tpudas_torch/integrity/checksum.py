@@ -132,11 +132,10 @@ def verify_json_obj(obj) -> str:
     return "ok" if crc32_hex(_canonical(body)) == obj[CRC_KEY] else "mismatch"
 
 
-def read_json_verified(path: str, artifact: str) -> tuple[dict, str]:
+def read_json_verified(path: str) -> tuple[dict, str]:
     """Parse and verify one JSON artifact: ``(payload without the
     stamp, status)``.  Raises whatever ``open``/``json.load`` raise (the
     caller's ladder treats unreadable like mismatched)."""
-    del artifact  # named for the JAX package's verify fault site
     with open(path) as fh:
         obj = json.load(fh)
     status = verify_json_obj(obj)
