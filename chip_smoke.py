@@ -348,10 +348,13 @@ def conv1d_chain(plan, x, carry, qscale):
 
 def compare_fused(timer, plan, blocks, carry, qscale, label,
                   with_time=True, k1_sweep=()):
-    """B3 vs its plain version over consecutive blocks from one carry:
-    the outputs (stacked per channel) and every final carry leaf
-    per-channel within REL_TOL.  Timed on the first block: the kernel,
-    the plain version, the per-stage B1 chain and the conv1d chain."""
+    """B3 (kernels A + B) and the single-kernel step vs the plain
+    version over consecutive blocks from one carry: the outputs (stacked
+    per channel) and every final carry leaf per-channel within REL_TOL.
+    Timed on the first block: the step and the single-kernel step; with
+    ``with_time`` also kernels A and B alone (with their bounds), the
+    plain version, the per-stage B1 chain, the conv1d chain and kernel
+    A at each tile size of ``k1_sweep``."""
     from tpudas_torch.ops.fir import cascade_decimate_stream, stream_carry_sizes
     from tpudas_torch.ops.fused_kernel import (
         fused_cascade,
