@@ -62,9 +62,9 @@ failure raises and exits non-zero.  Without a CUDA card it exits 2
 before any phase.  ``--rehearse`` runs the same phases on the CPU at a
 64-channel width with the plain versions (no kernel, no timings worth
 reading) and exits 3: a dry run of the control flow, never a result.
-``--only fused`` runs phases 1, 2 and 3b alone (the fused step's
-iteration loop: build, check, time) and exits 4 without the kernels
-line or the ``ok`` line.
+``--only fir`` runs phases 1, 2 and 3 alone (the stage kernel's
+iteration loop) and ``--only fused`` phases 1, 2 and 3b (the fused
+step's); both exit 4 without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -181,36 +181,45 @@ def synthetic_window(T, C, device, seed, quantized):
     return x
 
 
-def compare_stage(timer, x, hb, R, k, taps, label, with_time=True):
-    """Kernel vs plain on one stage input; returns the case record."""
+def rows_read(T, R, B, n_out, row0):
+    """Rows of a (T, C) stage input that the stage reads: those of
+    [row0, row0 + (n_out + B) * R) inside [0, T)."""
+    return max(0, min(T, row0 + (n_out + B) * R) - max(0, row0))
+
+
+def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0):
+    """Kernel vs plain on one stage input (first row ``row0``); returns
+    the case record."""
     from tpudas_torch.ops.fir_kernel import fir_decimate, fir_decimate_plain
 
-    got = fir_decimate(x, hb, R, k)
-    ref = fir_decimate_plain(x, hb, R, k)
+    got = fir_decimate(x, hb, R, k, row0)
+    ref = fir_decimate_plain(x, hb, R, k, row0)
     timer.sync()
     if not bool(torch.isfinite(got).all()):
         fail(f"{label}: kernel output not finite")
     rel, abs_err = per_channel_rel(got, ref)
     T, C = x.shape
-    bound, bound_by, bound_m = stage_bound_ms(T, C, x.element_size(), k, taps)
+    bound, bound_by, bound_m = stage_bound_ms(
+        rows_read(T, R, hb.shape[0], k, row0), C, x.element_size(), k, taps)
     rec = {"case": label, "T": T, "C": C, "dtype": str(x.dtype).split(".")[-1],
-           "R": R, "taps": taps, "n_out": k, "max_rel_err": rel,
+           "R": R, "taps": taps, "n_out": k, "row0": row0, "max_rel_err": rel,
            "max_abs_err": abs_err, "bound_ms": bound, "bound_by": bound_by,
            "bound_ms_measured": bound_m}
     if with_time:
         h = hb.reshape(-1)[None, None, :]
 
         def lib():
-            xt = x.t().to(torch.float32)[:, None, :]
-            return torch.nn.functional.conv1d(xt, h, stride=R)
+            xt = x[max(row0, 0):].t().to(torch.float32)[:, None, :]
+            return torch.nn.functional.conv1d(xt, h, stride=R,
+                                              padding=max(-row0, 0))
 
         lib_out = lib()[:, 0, :].t()
         n = min(lib_out.shape[0], k)
         rec["library_max_abs_err"] = float(
             (lib_out[:n] - ref[:n]).abs().max()
         )
-        kern = lambda: fir_decimate(x, hb, R, k)  # noqa: E731
-        plain = lambda: fir_decimate_plain(x, hb, R, k)  # noqa: E731
+        kern = lambda: fir_decimate(x, hb, R, k, row0)  # noqa: E731
+        plain = lambda: fir_decimate_plain(x, hb, R, k, row0)  # noqa: E731
         rk, rp, rl = (timer.reps_for(f) for f in (kern, plain, lib))
         # turns: plain, kernel, library, library, kernel, plain
         p1, k1, l1 = timer(plain, rp), timer(kern, rk), timer(lib, rl)
@@ -226,9 +235,7 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True):
 
 
 def phase_kernels(device, widths, timer):
-    from tpudas_torch.ops.fir import (
-        blocked_taps, chain_layout, design_cascade, shift_to_phase,
-    )
+    from tpudas_torch.ops.fir import blocked_taps, chain_layout, design_cascade
     from tpudas_torch.ops.fir_kernel import fir_decimate, fir_decimate_plain
     from tpudas_torch.proc.lfproc import output_corner
 
@@ -243,17 +250,19 @@ def phase_kernels(device, widths, timer):
     main = {}
     for C in widths:
         for quantized in (True, False):
-            x = synthetic_window(T, C, device, seed=C, quantized=quantized)
-            cur = shift_to_phase(x, phase, plan.delay).contiguous()
-            del x
+            # stage 0 reads the window from its first row phase - delay
+            # (< 0: the left pad), as cascade_decimate's kernel path does
+            cur = synthetic_window(T, C, device, seed=C, quantized=quantized)
             recs = []
             for i, ((R, hb), (_e, k)) in enumerate(zip(stages, layout)):
+                row0 = phase - plan.delay if i == 0 else 0
                 label = (f"flagship stage {i} "
                          f"{'int16' if cur.dtype == torch.int16 else 'f32'}"
                          f" {C}ch")
-                recs.append(compare_stage(timer, cur, hb, R, k, taps[i], label))
+                recs.append(compare_stage(timer, cur, hb, R, k, taps[i], label,
+                                          row0=row0))
                 emit(recs[-1])
-                nxt = fir_decimate_plain(cur, hb, R, k)
+                nxt = fir_decimate_plain(cur, hb, R, k, row0)
                 if cur.dtype == torch.int16:
                     nxt = nxt * QSCALE
                 cur = nxt.contiguous()
@@ -271,6 +280,13 @@ def phase_kernels(device, widths, timer):
                            f"ragged C=1000 T=need-37 "
                            f"{'int16' if quantized else 'f32'}",
                            with_time=False))
+    # first rows before, at and after the window's start (the first
+    # more than one time tile of outputs before it)
+    for row0 in (-3173, -5, 0, 777):
+        x = synthetic_window(20000, 1000, device, seed=13, quantized=True)
+        emit(compare_stage(timer, x, hb, R, 2400, taps[0],
+                           f"row0={row0} int16 C=1000", with_time=False,
+                           row0=row0))
     # the longest stage the design can produce: 4095 taps (several
     # shared-memory tap chunks)
     g = torch.Generator(device=device).manual_seed(11)
@@ -787,6 +803,7 @@ def grid_checks(out, what, step_ns=1_000_000_000):
 def phase_main_path(device, n_ch, seconds, workdir, cls):
     """Phase 4: the batch path.  Leaves its spool (``workdir/src``) and
     output (``workdir/out``) for phase 5."""
+    from tpudas_torch.ops import fir as fir_mod
     from tpudas_torch.ops.fir_kernel import fir_decimate
     from tpudas_torch.testing import make_synthetic_spool
 
@@ -803,8 +820,16 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
     )
     setup_s = time.perf_counter() - t0
     bg = np.datetime64(T0, "ns")
+    # the kernel path reads each window from its first row: it makes no
+    # shifted or padded copy (shift_to_phase is the plain path's step)
+    shifts = []
+    plain_shift = fir_mod.shift_to_phase
+    fir_mod.shift_to_phase = lambda *a: shifts.append(a[1]) or plain_shift(*a)
     fir_decimate.launches = 0
-    lfp, wall, wins, expect_stems = run_lfproc(device, cls, src, out)
+    try:
+        lfp, wall, wins, expect_stems = run_lfproc(device, cls, src, out)
+    finally:
+        fir_mod.shift_to_phase = plain_shift
     expect_windows = len(wins)
     launches = fir_decimate.launches
     windows = sum(lfp.engine_counts.values())
@@ -818,7 +843,8 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
         "windows": windows, "expected_windows": expect_windows,
         "engine_counts": lfp.engine_counts,
         "quantized_windows": lfp.quantized_windows,
-        "fir_decimate_launches": launches, "wall_s": wall,
+        "fir_decimate_launches": launches, "shift_to_phase_calls": len(shifts),
+        "wall_s": wall,
         "s_per_window": wall / max(windows, 1), "timings": lfp.timings,
         "realtime_factor": n_files * file_sec / wall,
         "outputs": len(names), "output_rows": int(p.host_data().shape[0]),
@@ -835,6 +861,8 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
         (lfp.engine_counts[ran] == windows, f"every window ran {ran}"),
         (lfp.quantized_windows == windows, "every window shipped int16"),
         (launches == want_launches, f"launches {launches} != {want_launches}"),
+        (len(shifts) == (0 if device.type == "cuda" else windows),
+         f"shift_to_phase ran {len(shifts)} times"),
         ([os.path.splitext(n)[0] for n in names] == expect_stems,
          "output names follow the window schedule"),
         (int(p.host_data().shape[0]) == wins[-1][3] - wins[0][2],
@@ -1190,8 +1218,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="dry run on the CPU at a small width; exits 3")
-    ap.add_argument("--only", choices=["fused"],
-                    help="run phases 1, 2 and 3b alone; exits 4")
+    ap.add_argument("--only", choices=["fir", "fused"],
+                    help="run phases 1, 2 and 3 (fir) or 3b (fused) "
+                    "alone; exits 4")
     args = ap.parse_args(argv)
     if args.rehearse:
         device = torch.device("cpu")
@@ -1239,6 +1268,10 @@ def main(argv=None):
               "kernels": resources})
 
     timer = Timer(device)
+    if args.only == "fir":
+        phase_kernels(device, widths, timer)
+        print("chip_smoke: --only fir finished; no result", flush=True)
+        return 4
     if args.only == "fused":
         phase_fused_kernel(device, widths, timer)
         print("chip_smoke: --only fused finished; no result", flush=True)

@@ -68,6 +68,20 @@ def test_kernel_matches_plain_at_every_flagship_stage(cuda_device, int16):
         assert _rel(got, ref) <= REL_TOL
 
 
+@pytest.mark.parametrize("row0", [-3173, -5, 0, 777])
+@pytest.mark.parametrize("int16", [False, True], ids=["f32", "int16"])
+def test_kernel_first_row_matches_plain(cuda_device, int16, row0):
+    """A first row before the window (more than one time tile of
+    outputs before it), at it and inside it: rows below 0 read as
+    zero."""
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    R, hb = fir.blocked_taps(plan, cuda_device)[0]
+    x = torch.from_numpy(_window(20000, 1000, seed=5, int16=int16)).to(
+        cuda_device)
+    got = fir_decimate(x, hb, R, 2400, row0)
+    assert _rel(got, fir_decimate_plain(x, hb, R, 2400, row0)) <= REL_TOL
+
+
 def test_refused_launch_raises_without_fallback(cuda_device):
     # R = 64 with 256+ taps needs > 227 KB of shared memory: the launcher
     # refuses it and the wrapper raises instead of running the plain stage

@@ -1,10 +1,12 @@
 // Strided (decimating) causal FIR along the time axis, for Hopper (sm_90a).
 //
-//     y[k, c] = sum_{j < L} h[j] * x[k*R + j, c]      k in [0, n_out)
+//     y[k, c] = sum_{j < L} h[j] * x[row0 + k*R + j, c]      k in [0, n_out)
 //
 // x is a (T, C) row-major window (channels contiguous), float32 or raw
-// int16; rows at or past T read as zero (the implicit right pad of the
-// TPU kernel).  h is the frame-blocked tap matrix (B, R) flattened to
+// int16; rows below 0 or at or past T read as zero (the implicit right
+// pad of the TPU kernel; a negative first row row0 stands for the left
+// pad that aligns a window's first output with its phase, so no padded
+// copy of the window is made).  h is the frame-blocked tap matrix (B, R) flattened to
 // L = B*R taps (zero-padded past the true tap count).  y is (n_out, C)
 // float32.
 //
@@ -44,12 +46,15 @@
 
 namespace {
 
+constexpr int kMaxSmem = 232448;  // per-block opt-in limit on sm_90
+
+namespace v1 {
+
 constexpr int TC = 32;        // channels per block (one warp)
 constexpr int TY = 8;         // warps per block
 constexpr int KPT = 8;        // outputs per thread
 constexpr int K = TY * KPT;   // output frames per block
 constexpr int JC = 256;       // taps per shared-memory chunk
-constexpr int kMaxSmem = 232448;  // per-block opt-in limit on sm_90
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(int16_t v) { return static_cast<float>(v); }
@@ -58,7 +63,7 @@ template <typename Tin>
 __global__ void __launch_bounds__(TC * TY)
 fir_decimate_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
                     float* __restrict__ y, long long T, int C, int R, int L,
-                    long long n_out) {
+                    long long n_out, long long row0) {
   extern __shared__ float smem[];
   float* s_taps = smem;       // [JC]
   float* s_x = smem + JC;     // [rows][TC]
@@ -77,13 +82,13 @@ fir_decimate_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
   for (int j0 = 0; j0 < L; j0 += JC) {
     const int jn = min(JC, L - j0);
     const int rows = (K - 1) * R + jn;
-    const long long r0 = k0 * R + j0;
+    const long long r0 = row0 + k0 * R + j0;
     __syncthreads();  // the previous chunk's readers are done
     for (int j = tid; j < jn; j += TC * TY) s_taps[j] = taps[j0 + j];
     for (int r = ty; r < rows; r += TY) {
       const long long row = r0 + r;
       float v = 0.f;
-      if (c_ok && row < T) v = to_f32(x[row * C + c]);
+      if (c_ok && row >= 0 && row < T) v = to_f32(x[row * C + c]);
       s_x[r * TC + tx] = v;
     }
     __syncthreads();
@@ -118,7 +123,7 @@ int smem_bytes(int R, int L) {
 
 template <typename Tin>
 int launch(const Tin* x, const float* taps, float* y, long long T, int C,
-           int R, int L, long long n_out, void* stream) {
+           int R, int L, long long n_out, long long row0, void* stream) {
   if (T < 0 || C < 1 || R < 1 || L < 1 || n_out < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -137,23 +142,26 @@ int launch(const Tin* x, const float* taps, float* y, long long T, int C,
   const dim3 block(TC, TY);
   fir_decimate_kernel<Tin><<<grid, block, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      x, taps, y, T, C, R, L, n_out);
+      x, taps, y, T, C, R, L, n_out, row0);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace v1
 
 }  // namespace
 
 extern "C" {
 
-int fir_decimate_f32(const float* x, const float* taps, float* y, long long T,
-                     int C, int R, int L, long long n_out, void* stream) {
-  return launch<float>(x, taps, y, T, C, R, L, n_out, stream);
+int fir_decimate_v1_f32(const float* x, const float* taps, float* y,
+                        long long T, int C, int R, int L, long long n_out,
+                        long long row0, void* stream) {
+  return v1::launch<float>(x, taps, y, T, C, R, L, n_out, row0, stream);
 }
 
-int fir_decimate_i16(const int16_t* x, const float* taps, float* y,
-                     long long T, int C, int R, int L, long long n_out,
-                     void* stream) {
-  return launch<int16_t>(x, taps, y, T, C, R, L, n_out, stream);
+int fir_decimate_v1_i16(const int16_t* x, const float* taps, float* y,
+                        long long T, int C, int R, int L, long long n_out,
+                        long long row0, void* stream) {
+  return v1::launch<int16_t>(x, taps, y, T, C, R, L, n_out, row0, stream);
 }
 
 }  // extern "C"

@@ -413,7 +413,9 @@ def shift_to_phase(x, phase: int, delay: int):
     """Align a (T, C) tensor so causal cascade output ``k`` lands on
     zero-phase full-rate index ``phase + k*ratio``: drop
     ``phase - delay`` leading rows, or left-pad with zeros when the
-    requested phase precedes the filter delay."""
+    requested phase precedes the filter delay.  The plain path's step;
+    the kernel path passes ``phase - delay`` to stage 0 as its first
+    row instead."""
     shift = int(phase) - int(delay)
     if shift >= 0:
         return x[shift:]
@@ -425,13 +427,29 @@ def _blocked_taps_host(plan: CascadePlan):
     return tuple((int(R), _block_taps(np.asarray(h), R)) for R, h in plan.stages)
 
 
+_DEVICE_TAPS: dict = {}
+
+
 def blocked_taps(plan: CascadePlan, device) -> list:
     """``[(R, hb), ...]``: each stage's frame-blocked (B, R) float32
-    taps as a tensor on ``device``."""
+    taps as a tensor on ``device``.  CUDA copies are kept per (plan,
+    device): a copy from pageable host memory waits for the stream, so
+    a copy per window would serialise host and card.  Callers only read
+    them."""
     dev = torch.device(device)
-    return [
-        (R, torch.from_numpy(hb).to(dev)) for R, hb in _blocked_taps_host(plan)
-    ]
+    if dev.type != "cuda":
+        return [(R, torch.from_numpy(hb).to(dev))
+                for R, hb in _blocked_taps_host(plan)]
+    key = (plan, str(dev))
+    taps = _DEVICE_TAPS.get(key)
+    if taps is None:
+        if len(_DEVICE_TAPS) >= 64:
+            _DEVICE_TAPS.clear()
+        taps = _DEVICE_TAPS[key] = [
+            (R, torch.from_numpy(hb).to(dev))
+            for R, hb in _blocked_taps_host(plan)
+        ]
+    return list(taps)
 
 
 def cascade_decimate(
@@ -470,22 +488,26 @@ def cascade_decimate(
     _check_quantized(x, qscale)
     from tpudas_torch.ops.fir_kernel import fir_decimate, fir_decimate_plain
 
-    stage = fir_decimate if eng == "cuda" else fir_decimate_plain
     layout, _rows = chain_layout(plan, n_out, eng, dev)
-    scale0 = None
-    if qscale is not None:
-        qs = torch.tensor(np.float32(qscale), device=dev)
-        if eng == "cuda":
-            scale0 = qs  # applied to stage 0's decimated output
-        else:
+    taps = blocked_taps(plan, dev)
+    if eng != "cuda":
+        if qscale is not None:
+            qs = torch.tensor(np.float32(qscale), device=dev)
             x = x.to(torch.float32) * qs
-    elif x.dtype != torch.float32:
+        x = shift_to_phase(x.to(torch.float32), phase, plan.delay)
+        for (R, hb), (_e, k) in zip(taps, layout):
+            x = fir_decimate_plain(x.contiguous(), hb, R, k)
+        return x
+    # the kernel reads stage 0 from row phase - delay, rows below 0 as
+    # zero: no shifted or padded copy of the window; the scale (a host
+    # float32, no copy to the card) multiplies stage 0's output
+    if qscale is None and x.dtype != torch.float32:
         x = x.to(torch.float32)
-    x = shift_to_phase(x, phase, plan.delay).contiguous()
-    for i, ((R, hb), (_e, k)) in enumerate(zip(blocked_taps(plan, dev), layout)):
-        x = stage(x, hb, R, k)
-        if i == 0 and scale0 is not None:
-            x = x * scale0
+    x = x.contiguous()
+    for i, ((R, hb), (_e, k)) in enumerate(zip(taps, layout)):
+        x = fir_decimate(x, hb, R, k, int(phase) - plan.delay if i == 0 else 0)
+        if i == 0 and qscale is not None:
+            x = x * float(np.float32(qscale))
     return x
 
 

@@ -2,9 +2,11 @@
 
 For a (T, C) window ``x`` and frame-blocked taps ``hb`` (B, R)::
 
-    y[k, c] = sum_{b, r} hb[b, r] * x[(k + b) * R + r, c],   k < n_out
+    y[k, c] = sum_{b, r} hb[b, r] * x[row0 + (k + b) * R + r, c],   k < n_out
 
-with rows at or past T reading as zero.  This is the port's counterpart
+with rows below 0 or at or past T reading as zero.  A negative first
+row ``row0`` is the left pad that aligns a batch window with its phase
+(:func:`tpudas_torch.ops.fir.shift_to_phase`), without a padded copy.  This is the port's counterpart
 of the TPU kernel ``fir_decimate_pallas`` (tpudas/ops/pallas_fir.py:324;
 its v1 form at :269 computes the same function): one stage of the
 polyphase cascade in :mod:`tpudas_torch.ops.fir`.
@@ -31,7 +33,7 @@ import ctypes
 
 import torch
 
-__all__ = ["fir_decimate", "fir_decimate_plain"]
+__all__ = ["fir_decimate", "fir_decimate_plain", "fir_decimate_v1"]
 
 _LIB_NAME = "fir_decimate"
 _lib = None
@@ -47,9 +49,9 @@ def _kernel_lib():
         args = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
         ]
-        for fn in (lib.fir_decimate_f32, lib.fir_decimate_i16):
+        for fn in (lib.fir_decimate_v1_f32, lib.fir_decimate_v1_i16):
             fn.argtypes = args
             fn.restype = ctypes.c_int
         _lib = lib
@@ -78,16 +80,23 @@ def _check(x, hb, R, n_out):
         raise ValueError("x and taps must be contiguous")
 
 
-def fir_decimate_plain(x, hb, R: int, n_out: int):
+def fir_decimate_plain(x, hb, R: int, n_out: int, row0: int = 0):
     """Plain PyTorch stage on any device: (T, C) -> (n_out, C) float32.
 
-    The einsum contracts the tap phase ``r`` for every frame at once
+    ``row0`` drops leading rows or left-pads with zeros as
+    :func:`~tpudas_torch.ops.fir.shift_to_phase` does, so the numbers
+    are those of the stage on the shifted window.  The einsum contracts the tap phase ``r`` for every frame at once
     (``u[b, m] = <x frame m, hb[b]>``); the b-loop then sums the B
     shifted frame products in order — the formulation of
     ``_polyphase_stage_xla``.
     """
     B = hb.shape[0]
     need = (n_out + B) * R
+    row0 = int(row0)
+    if row0 < 0:
+        x = torch.nn.functional.pad(x, (0, 0, -row0, 0))
+    else:
+        x = x[row0:]
     x = x.to(torch.float32)
     T = x.shape[0]
     if need > T:
@@ -100,36 +109,62 @@ def fir_decimate_plain(x, hb, R: int, n_out: int):
     return y
 
 
-def fir_decimate(x, hb, R: int, n_out: int):
-    """One decimating FIR stage: x (T, C) float32 or int16, hb (B, R)
-    float32 -> (n_out, C) float32.  CUDA tensors run the kernel (or
-    raise); CPU tensors run :func:`fir_decimate_plain`."""
-    R, n_out = int(R), int(n_out)
-    _check(x, hb, R, n_out)
-    if x.device.type == "cpu":
-        return fir_decimate_plain(x, hb, R, n_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"fir_decimate runs on cuda or cpu, not {x.device}")
+def _launch(what, fn, x, hb, R, n_out, row0, *geometry):
+    """Run one kernel entry point of the library on CUDA tensors ->
+    (n_out, C) float32; raises when the launcher refuses."""
     T, C = x.shape
     y = torch.empty((n_out, C), dtype=torch.float32, device=x.device)
     if n_out == 0 or C == 0:
-        return y
-    lib = _kernel_lib()
-    fn = lib.fir_decimate_i16 if x.dtype == torch.int16 else lib.fir_decimate_f32
+        return y, False
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(
-            x.data_ptr(), hb.data_ptr(), y.data_ptr(), T, C, R,
-            hb.shape[0] * R, n_out, stream,
-        )
+        rc = fn(x.data_ptr(), hb.data_ptr(), y.data_ptr(), T, C, R,
+                *geometry, n_out, row0, stream)
     if rc != 0:
         raise RuntimeError(
-            f"fir_decimate kernel launch failed: cudaError {rc} "
+            f"{what} kernel launch failed: cudaError {rc} "
             f"(x {tuple(x.shape)} {x.dtype}, taps {tuple(hb.shape)}, "
-            f"R={R}, n_out={n_out})"
+            f"R={R}, n_out={n_out}, row0={row0})"
         )
-    fir_decimate.launches += 1
+    return y, True
+
+
+def _cuda_only(x, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+
+
+def fir_decimate(x, hb, R: int, n_out: int, row0: int = 0):
+    """One decimating FIR stage: x (T, C) float32 or int16, hb (B, R)
+    float32 -> (n_out, C) float32, the first output reading from row
+    ``row0`` (negative rows read as zero).  CUDA tensors run the kernel
+    (or raise); CPU tensors run :func:`fir_decimate_plain`."""
+    R, n_out, row0 = int(R), int(n_out), int(row0)
+    _check(x, hb, R, n_out)
+    if x.device.type == "cpu":
+        return fir_decimate_plain(x, hb, R, n_out, row0)
+    _cuda_only(x, "fir_decimate")
+    lib = _kernel_lib()
+    fn = (lib.fir_decimate_v1_i16 if x.dtype == torch.int16
+          else lib.fir_decimate_v1_f32)
+    y, ran = _launch("fir_decimate", fn, x, hb, R, n_out, row0,
+                     hb.shape[0] * R)
+    fir_decimate.launches += ran
     return y
 
 
 fir_decimate.launches = 0
+
+
+def fir_decimate_v1(x, hb, R: int, n_out: int, row0: int = 0):
+    """The same stage on the first kernel (``fir_decimate_v1_*``), CUDA
+    tensors only.  Nothing on a path calls it: ``chip_smoke.py`` times
+    it beside :func:`fir_decimate` in the same run."""
+    R, n_out, row0 = int(R), int(n_out), int(row0)
+    _check(x, hb, R, n_out)
+    _cuda_only(x, "fir_decimate_v1")
+    lib = _kernel_lib()
+    fn = (lib.fir_decimate_v1_i16 if x.dtype == torch.int16
+          else lib.fir_decimate_v1_f32)
+    return _launch("fir_decimate_v1", fn, x, hb, R, n_out, row0,
+                   hb.shape[0] * R)[0]
