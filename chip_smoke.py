@@ -130,6 +130,52 @@ class Timer:
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
 
+    def cold(self, fn, reps=20):
+        """Milliseconds per call with the 50 MB L2 flushed (a 128 MB
+        write) before each launch; each launch timed alone."""
+        if not self.cuda:
+            return self(fn, reps)
+        flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+        fn()
+        pairs = []
+        for _ in range(reps):
+            flush.fill_(1.0)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    def graphed(self, fn, calls=10, reps=5):
+        """Milliseconds per call of the device work alone: ``calls``
+        calls captured in one CUDA graph, replayed ``reps`` times, so no
+        host time of the wrapper stands between launches."""
+        if not self.cuda:
+            return self(fn, reps)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            g.replay()
+        b.record()
+        b.synchronize()
+        del g
+        return a.elapsed_time(b) / (reps * calls)
+
     def reps_for(self, fn, budget_ms=150.0):
         once = self(fn, 1)
         return int(min(50, max(3, math.ceil(budget_ms / max(once, 1e-3)))))
@@ -187,10 +233,24 @@ def rows_read(T, R, B, n_out, row0):
     return max(0, min(T, row0 + (n_out + B) * R) - max(0, row0))
 
 
-def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0):
+def stage_v1(device):
+    """The first stage kernel (timed beside the path's kernel); its
+    plain version stands in for it in a CPU rehearsal."""
+    from tpudas_torch.ops.fir_kernel import fir_decimate_plain, fir_decimate_v1
+
+    return fir_decimate_v1 if device.type == "cuda" else fir_decimate_plain
+
+
+def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0,
+                  cold=False):
     """Kernel vs plain on one stage input (first row ``row0``); returns
-    the case record."""
-    from tpudas_torch.ops.fir_kernel import fir_decimate, fir_decimate_plain
+    the case record.  With ``with_time``: the kernel, the first kernel
+    (v1, also held to plain), plain and the library call in turns, and
+    with ``cold`` the two kernels again with L2 flushed before each
+    launch."""
+    from tpudas_torch.ops.fir_kernel import (
+        copy_width, fir_decimate, fir_decimate_plain,
+    )
 
     got = fir_decimate(x, hb, R, k, row0)
     ref = fir_decimate_plain(x, hb, R, k, row0)
@@ -202,10 +262,13 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0):
     bound, bound_by, bound_m = stage_bound_ms(
         rows_read(T, R, hb.shape[0], k, row0), C, x.element_size(), k, taps)
     rec = {"case": label, "T": T, "C": C, "dtype": str(x.dtype).split(".")[-1],
-           "R": R, "taps": taps, "n_out": k, "row0": row0, "max_rel_err": rel,
+           "R": R, "taps": taps, "n_out": k, "row0": row0,
+           "copy_width": copy_width(x), "max_rel_err": rel,
            "max_abs_err": abs_err, "bound_ms": bound, "bound_by": bound_by,
            "bound_ms_measured": bound_m}
     if with_time:
+        v1 = stage_v1(x.device)
+        rec["v1_max_rel_err"] = per_channel_rel(v1(x, hb, R, k, row0), ref)[0]
         h = hb.reshape(-1)[None, None, :]
 
         def lib():
@@ -219,18 +282,69 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0):
             (lib_out[:n] - ref[:n]).abs().max()
         )
         kern = lambda: fir_decimate(x, hb, R, k, row0)  # noqa: E731
+        old = lambda: v1(x, hb, R, k, row0)  # noqa: E731
         plain = lambda: fir_decimate_plain(x, hb, R, k, row0)  # noqa: E731
-        rk, rp, rl = (timer.reps_for(f) for f in (kern, plain, lib))
-        # turns: plain, kernel, library, library, kernel, plain
-        p1, k1, l1 = timer(plain, rp), timer(kern, rk), timer(lib, rl)
-        l2, k2, p2 = timer(lib, rl), timer(kern, rk), timer(plain, rp)
-        rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                   library_ms=(l1 + l2) / 2, ms_turns=[k1, k2],
-                   plain_ms_turns=[p1, p2], library_ms_turns=[l1, l2])
+        rec.update(timed_turns(timer, (kern, old, plain, lib),
+                               ("ms", "v1_ms", "plain_ms", "library_ms")))
+        d1, e1 = timer.graphed(kern), timer.graphed(old)
+        e2, d2 = timer.graphed(old), timer.graphed(kern)
+        rec.update(device_ms=(d1 + d2) / 2, v1_device_ms=(e1 + e2) / 2,
+                   device_ms_turns=[d1, d2], v1_device_ms_turns=[e1, e2])
+        if cold:
+            k1, o1 = timer.cold(kern), timer.cold(old)
+            o2, k2 = timer.cold(old), timer.cold(kern)
+            rec.update(cold_ms=(k1 + k2) / 2, v1_cold_ms=(o1 + o2) / 2,
+                       cold_ms_turns=[k1, k2], v1_cold_ms_turns=[o1, o2])
+        if rec["v1_max_rel_err"] > REL_TOL:
+            emit(rec)
+            fail(f"{label}: v1 kernel vs plain per-channel rel err "
+                 f"{rec['v1_max_rel_err']:.3e} > {REL_TOL:g}")
     if rel > REL_TOL:
         emit(rec)
         fail(f"{label}: kernel vs plain per-channel rel err {rel:.3e} > "
              f"{REL_TOL:g}")
+    return rec
+
+
+def window_paths(timer, plan, x, phase, n_out, label):
+    """One batch window's device path, both ways, on the same window:
+    v1, ``shift_to_phase`` (the padded copy) then the four stages on
+    the first kernel; v2, ``cascade_decimate`` (the four stages on the
+    path's kernel, stage 0 from its first row).  Outputs held to each
+    other; times in turns."""
+    from tpudas_torch.ops.fir import (
+        blocked_taps, cascade_decimate, chain_layout, shift_to_phase,
+    )
+
+    v1 = stage_v1(x.device)
+    qs = QSCALE if x.dtype == torch.int16 else None
+    layout = chain_layout(plan, n_out, "torch", "cpu")[0]
+    taps = blocked_taps(plan, x.device)
+
+    def old():
+        u = shift_to_phase(x, phase, plan.delay).contiguous()
+        for i, ((R, hb), (_e, k)) in enumerate(zip(taps, layout)):
+            u = v1(u, hb, R, k)
+            if i == 0 and qs is not None:
+                u = u * qs
+        return u
+
+    def new():
+        return cascade_decimate(x, plan, phase, n_out, qscale=qs)
+
+    rel = per_channel_rel(new(), old())[0]
+    d1, e1 = timer.graphed(new), timer.graphed(old)
+    e2, d2 = timer.graphed(old), timer.graphed(new)
+    rec = {"case": label, "T": x.shape[0], "C": x.shape[1], "max_rel_err": rel,
+           **timed_turns(timer, (new, old),
+                         ("window_path_ms", "window_path_v1_ms")),
+           "window_path_device_ms": (d1 + d2) / 2,
+           "window_path_v1_device_ms": (e1 + e2) / 2,
+           "window_path_device_ms_turns": [d1, d2],
+           "window_path_v1_device_ms_turns": [e1, e2]}
+    if rel > REL_TOL:
+        emit(rec)
+        fail(f"{label}: window paths differ by {rel:.3e}")
     return rec
 
 
@@ -247,31 +361,49 @@ def phase_kernels(device, widths, timer):
     # phase 10 s, 40 outputs
     T, phase, n_out = 60001, 10000, 40
     layout, _rows = chain_layout(plan, n_out, "torch", "cpu")
-    main = {}
+    main, paths = {}, {}
     for C in widths:
         for quantized in (True, False):
             # stage 0 reads the window from its first row phase - delay
             # (< 0: the left pad), as cascade_decimate's kernel path does
-            cur = synthetic_window(T, C, device, seed=C, quantized=quantized)
-            recs = []
+            x = synthetic_window(T, C, device, seed=C, quantized=quantized)
+            cur, recs = x, []
             for i, ((R, hb), (_e, k)) in enumerate(zip(stages, layout)):
                 row0 = phase - plan.delay if i == 0 else 0
                 label = (f"flagship stage {i} "
                          f"{'int16' if cur.dtype == torch.int16 else 'f32'}"
                          f" {C}ch")
                 recs.append(compare_stage(timer, cur, hb, R, k, taps[i], label,
-                                          row0=row0))
+                                          row0=row0, cold=True))
                 emit(recs[-1])
                 nxt = fir_decimate_plain(cur, hb, R, k, row0)
                 if cur.dtype == torch.int16:
                     nxt = nxt * QSCALE
                 cur = nxt.contiguous()
             main[(C, quantized)] = recs
-            del cur
+            if quantized:  # the main path's payload
+                paths[C] = window_paths(timer, plan, x, phase, n_out,
+                                        f"window path int16 {C}ch")
+                emit(paths[C])
+            del cur, x
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-    # ragged: C not a multiple of 32, T short of (n_out + B) * R
+    # the narrower copy widths: row pitches (and one address) that 16
+    # bytes do not divide
     R, hb = stages[0]
+    for C, quantized, offset in ((1002, False, 0), (1004, True, 0),
+                                 (333, False, 0), (778, True, 0),
+                                 (777, True, 0), (2048, True, 1)):
+        x = synthetic_window(6000, C, device, seed=C, quantized=quantized)
+        if offset:  # storage starting one element past an aligned address
+            flat = torch.empty(x.numel() + offset, dtype=x.dtype,
+                               device=device)
+            x = flat[offset:].view(x.shape).copy_(x)
+        emit(compare_stage(timer, x, hb, R, 700, taps[0],
+                           f"width C={C} {'int16' if quantized else 'f32'}"
+                           f"{' +1 element' if offset else ''}",
+                           with_time=False, row0=-3173))
+    # ragged: C not a multiple of 32, T short of (n_out + B) * R
     k = 1001
     T_short = (k + hb.shape[0]) * R - 37
     for quantized in (False, True):
@@ -297,13 +429,13 @@ def phase_kernels(device, widths, timer):
     # all-zero input must give exact zeros
     for dt in (torch.float32, torch.int16):
         z = torch.zeros((20000, 777), dtype=dt, device=device)
-        out = fir_decimate(z, hb, R, 2400)
+        out = fir_decimate(z, hb, R, 2400, -3173)
         timer.sync()
         nz = int(torch.count_nonzero(out))
         emit({"case": f"zeros {str(dt).split('.')[-1]}", "nonzero": nz})
         if nz:
             fail(f"all-zero {dt} input gave {nz} nonzero outputs")
-    return plan, main
+    return plan, main, paths
 
 
 def stages_bound_ms(stages, sizes, T, C, in_bytes):
@@ -826,12 +958,15 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
     plain_shift = fir_mod.shift_to_phase
     fir_mod.shift_to_phase = lambda *a: shifts.append(a[1]) or plain_shift(*a)
     fir_decimate.launches = 0
+    fir_decimate.launches_by_width = dict.fromkeys(
+        fir_decimate.launches_by_width, 0)
     try:
         lfp, wall, wins, expect_stems = run_lfproc(device, cls, src, out)
     finally:
         fir_mod.shift_to_phase = plain_shift
     expect_windows = len(wins)
     launches = fir_decimate.launches
+    by_width = dict(fir_decimate.launches_by_width)
     windows = sum(lfp.engine_counts.values())
     p, names = grid_checks(out, "main path")
     resid, amp_err = lf_fit(p, bg)
@@ -843,7 +978,9 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
         "windows": windows, "expected_windows": expect_windows,
         "engine_counts": lfp.engine_counts,
         "quantized_windows": lfp.quantized_windows,
-        "fir_decimate_launches": launches, "shift_to_phase_calls": len(shifts),
+        "fir_decimate_launches": launches,
+        "fir_decimate_launches_by_width": by_width,
+        "shift_to_phase_calls": len(shifts),
         "wall_s": wall,
         "s_per_window": wall / max(windows, 1), "timings": lfp.timings,
         "realtime_factor": n_files * file_sec / wall,
@@ -1205,12 +1342,19 @@ def phase_fft(device, workdir, cls):
 
 
 def short_kernel_name(mangled):
-    """``stage01_kernel<int16>`` from a mangled entry name (the kernels
-    of csrc/ are templates over the block's element type)."""
-    for name in ("stage01_kernel", "fused_cascade_kernel"):
+    """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
+    a mangled entry name (the kernels of csrc/ are templates over the
+    element type, and the stage kernel over its copy width and its
+    compiled (R, B))."""
+    import re
+
+    for name in ("stage01_kernel", "fused_cascade_kernel", "fir_v2_kernel",
+                 "fir_decimate_kernel"):
         if name in mangled:
             tail = mangled.split(name, 1)[1]
-            return name + ("<int16>" if tail.startswith("Is") else "<float>")
+            args = ["int16" if tail.startswith("Is") else "float"]
+            args += re.findall(r"Li(\d+)E", tail.split("EEv", 1)[0])
+            return f"{name}<{','.join(args)}>"
     return mangled
 
 
@@ -1266,6 +1410,11 @@ def main(argv=None):
         emit({"phase": "build", "wall_s": time.perf_counter() - t0,
               "libraries": {n: build_info(n) for n in libs},
               "kernels": resources})
+        spills = {short_kernel_name(k): v for k, v in
+                  resources["fir_decimate"].items()
+                  if v.get("spill_stores") or v.get("spill_loads")}
+        if spills:
+            fail(f"stage kernels spill registers: {spills}")
 
     timer = Timer(device)
     if args.only == "fir":
@@ -1277,7 +1426,7 @@ def main(argv=None):
         print("chip_smoke: --only fused finished; no result", flush=True)
         return 4
     probes = phase_hbm_probe(device, args.rehearse)
-    plan, main_cases = phase_kernels(device, widths, timer)
+    plan, main_cases, paths = phase_kernels(device, widths, timer)
     fused_cases = phase_fused_kernel(device, widths, timer)
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
@@ -1288,6 +1437,7 @@ def main(argv=None):
     shutil.rmtree(workdir, ignore_errors=True)
 
     recs = main_cases[(widths[0], True)]  # the main path's shapes
+    narrow = main_cases[(widths[1], True)]
     kernel = {
         "name": "fir_decimate",
         "route": "cuda",
@@ -1305,6 +1455,24 @@ def main(argv=None):
         "shape": (f"the 4 flagship stages of one 60 s window, "
                   f"{widths[0]} ch int16"),
         "realtime_control_launches": rt["control"]["fir_decimate_launches"],
+        "launches_by_width": res["fir_decimate_launches_by_width"],
+        "v1_ms": sum(r["v1_ms"] for r in recs),
+        "ms_by_stage": [r["ms"] for r in recs],
+        "v1_ms_by_stage": [r["v1_ms"] for r in recs],
+        "cold_ms_by_stage": [r["cold_ms"] for r in recs],
+        "v1_cold_ms_by_stage": [r["v1_cold_ms"] for r in recs],
+        "bound_ms_by_stage": [r["bound_ms"] for r in recs],
+        "window_path_ms": paths[widths[0]]["window_path_ms"],
+        "window_path_v1_ms": paths[widths[0]]["window_path_v1_ms"],
+        "window_path_device_ms": paths[widths[0]]["window_path_device_ms"],
+        "window_path_v1_device_ms":
+            paths[widths[0]]["window_path_v1_device_ms"],
+        "device_ms_by_stage": [r["device_ms"] for r in recs],
+        "v1_device_ms_by_stage": [r["v1_device_ms"] for r in recs],
+        f"ms_by_stage_{widths[1]}ch": [r["ms"] for r in narrow],
+        f"v1_ms_by_stage_{widths[1]}ch": [r["v1_ms"] for r in narrow],
+        "kernels": {short_kernel_name(k): v for k, v in
+                    resources.get("fir_decimate", {}).items()},
     }
     # B3 at the main path's full block: 60 outputs, int16, full width
     full = fused_cases[(widths[0], True, 60)]

@@ -149,12 +149,15 @@ def test_wrapper_rejects_bad_inputs(bad, match):
         fir_decimate(x, hb, 8, 5)
 
 
-@pytest.mark.parametrize("shift", ["phase>delay", "phase<delay"])
-@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "qscale"])
-def test_cascade_matches_jax(shift, quantized):
+# phase - delay: positive, negative, and more negative than one time
+# tile of the stage kernel (TILE_OUTPUTS outputs x R = 8 rows)
+SHIFTS = {"phase>delay": 777, "phase<delay": -901, "phase<<delay": -2600}
+
+
+def _cascade_vs_jax(shift, quantized):
     plan_j = jfir.design_cascade(200.0, 200, 0.45)
     plan_t = tfir.design_cascade(200.0, 200, 0.45)
-    phase = plan_j.delay + 777 if shift == "phase>delay" else plan_j.delay - 901
+    phase = plan_j.delay + SHIFTS[shift]
     n_out = 9
     T = phase + (n_out - 1) * 200 + plan_j.delay + 50
     x = _window(T, 13, seed=4, int16=quantized)
@@ -165,6 +168,28 @@ def test_cascade_matches_jax(shift, quantized):
                                 device="cpu")
     assert got.device.type == "cpu" and got.shape == (n_out, 13)
     assert _rel(got.numpy(), np.asarray(ref)) <= REL_TOL
+
+
+@pytest.mark.parametrize("shift", list(SHIFTS))
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "qscale"])
+def test_cascade_matches_jax(shift, quantized):
+    _cascade_vs_jax(shift, quantized)
+
+
+@pytest.mark.parametrize("shift", list(SHIFTS))
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "qscale"])
+def test_cascade_kernel_path_matches_jax(monkeypatch, shift, quantized):
+    """The kernel path's control flow on the CPU: stage 0 reads from
+    row phase - delay (no shifted copy), int16 stays int16 into stage 0
+    and the scale multiplies its output; ``fir_decimate`` on a CPU
+    tensor runs the plain stage with that first row."""
+    monkeypatch.setattr(tfir, "resolve_cascade_engine", lambda e, d: "cuda")
+    shifts = []
+    plain_shift = tfir.shift_to_phase
+    monkeypatch.setattr(tfir, "shift_to_phase",
+                        lambda *a: shifts.append(a) or plain_shift(*a))
+    _cascade_vs_jax(shift, quantized)
+    assert shifts == []
 
 
 def test_cascade_qscale_equals_decoded_input():

@@ -82,15 +82,111 @@ def test_kernel_first_row_matches_plain(cuda_device, int16, row0):
     assert _rel(got, fir_decimate_plain(x, hb, R, 2400, row0)) <= REL_TOL
 
 
-def test_refused_launch_raises_without_fallback(cuda_device):
-    # R = 64 with 256+ taps needs > 227 KB of shared memory: the launcher
-    # refuses it and the wrapper raises instead of running the plain stage
+# (C, dtype, elements the window starts past an aligned address, the
+# copy width the wrapper must pick)
+WIDTH_CASES = [
+    (2048, torch.int16, 0, 16), (1000, torch.int16, 0, 16),
+    (1002, torch.float32, 0, 8), (1004, torch.int16, 0, 8),
+    (333, torch.float32, 0, 4), (778, torch.int16, 0, 4),
+    (777, torch.int16, 0, 2), (2048, torch.int16, 1, 2),
+]
+
+
+def _at_offset(x, offset):
+    """``x`` copied into storage that starts ``offset`` elements past an
+    aligned address (a window whose address only the element size
+    divides)."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("C,dtype,offset,width", WIDTH_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_kernel_matches_plain_at_every_copy_width(cuda_device, C, dtype,
+                                                  offset, width):
+    from tpudas_torch.ops.fir_kernel import copy_width
+
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    R, hb = fir.blocked_taps(plan, cuda_device)[0]
+    x = torch.from_numpy(_window(6000, C, seed=C, int16=dtype == torch.int16))
+    x = _at_offset(x.to(cuda_device), offset)
+    assert copy_width(x) == width
+    before = dict(fir_decimate.launches_by_width)
+    got = fir_decimate(x, hb, R, 700, -3173)
+    assert fir_decimate.launches_by_width[width] == before[width] + 1
+    assert _rel(got, fir_decimate_plain(x, hb, R, 700, -3173)) <= REL_TOL
+
+
+def test_kernel_long_taps_match_plain(cuda_device):
+    """4,095 taps (R = 5): several tap-frame chunks a tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    hb = torch.randn(819, 5, device=cuda_device, generator=g) / 819.0
+    x = torch.from_numpy(_window((300 + 819) * 5, 333, seed=12)).to(
+        cuda_device)
+    got = fir_decimate(x, hb, 5, 300, -40)
+    assert _rel(got, fir_decimate_plain(x, hb, 5, 300, -40)) <= REL_TOL
+
+
+def test_kernel_matches_the_tiled_mirror(cuda_device):
+    """The kernel and its CPU mirror sum the same products in the same
+    order (the mirror's fused multiply-add rounds through float64)."""
+    from tpudas_torch.ops.fir_kernel import fir_decimate_tiled_plain
+
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    for R, hb in fir.blocked_taps(plan, cuda_device):
+        x = torch.from_numpy(_window(3000, 333, seed=R, int16=R == 8))
+        n_out = 3000 // R - hb.shape[0] + 9
+        got = fir_decimate(x.to(cuda_device), hb, R, n_out, -301)
+        ref = fir_decimate_tiled_plain(x, hb.cpu(), R, n_out, -301)
+        assert _rel(got, ref) <= 1e-6
+
+
+def test_kernel_never_runs_the_plain_stage(cuda_device, monkeypatch):
+    from tpudas_torch.ops import fir_kernel
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain stage")
+
+    monkeypatch.setattr(fir_kernel, "fir_decimate_plain", refuse)
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    x = _window(60001, 64, seed=3, int16=True)
+    got = fir.cascade_decimate(x, plan, 10000, 40, qscale=1e-4,
+                               device=cuda_device)
+    assert got.shape == (40, 64) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("C,dtype,offset,width", WIDTH_CASES[::2],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_refused_launch_raises_without_fallback(cuda_device, C, dtype, offset,
+                                                width):
+    # R = 64: one time tile of 32 outputs stages 2,048 rows, a 2-slot
+    # ring 512 KB of shared memory, over the 227 KB a block may have:
+    # the launcher refuses at every copy width and the wrapper raises
+    # instead of running the plain stage
     hb = torch.ones((8, 64), device=cuda_device)
-    x = torch.ones((4096, 32), device=cuda_device)
-    before = fir_decimate.launches
+    x = _at_offset(torch.ones((4096, C), dtype=dtype, device=cuda_device),
+                   offset)
+    before = fir_decimate.launches, dict(fir_decimate.launches_by_width)
     with pytest.raises(RuntimeError, match="cudaError"):
         fir_decimate(x, hb, 64, 10)
-    assert fir_decimate.launches == before
+    assert (fir_decimate.launches, fir_decimate.launches_by_width) == before
+
+
+def test_failed_build_raises(cuda_device, monkeypatch, tmp_path):
+    """A kernel library that does not build raises from the wrapper; no
+    other engine runs."""
+    from tpudas_torch.ops import _build, fir_kernel
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(fir_kernel, "_lib", None)
+    x = torch.ones((4096, 64), device=cuda_device)
+    hb = torch.ones((6, 8), device=cuda_device)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fir_decimate(x, hb, 8, 10)
 
 
 def test_cascade_on_card_matches_cpu(cuda_device):

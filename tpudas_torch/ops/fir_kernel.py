@@ -33,7 +33,10 @@ import ctypes
 
 import torch
 
-__all__ = ["fir_decimate", "fir_decimate_plain", "fir_decimate_v1"]
+__all__ = [
+    "chunk_frames", "copy_width", "fir_decimate", "fir_decimate_plain",
+    "fir_decimate_tiled_plain", "fir_decimate_v1",
+]
 
 _LIB_NAME = "fir_decimate"
 _lib = None
@@ -46,16 +49,45 @@ def _kernel_lib():
         from tpudas_torch.ops._build import load_library
 
         lib = load_library(_LIB_NAME)
-        args = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-        ]
+        ptrs = [ctypes.c_void_p] * 3
+        head = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # T, C, R
+        tail = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        for fn in (lib.fir_decimate_f32, lib.fir_decimate_i16):
+            # B, chunk frames, copy width
+            fn.argtypes = ptrs + head + [ctypes.c_int] * 3 + tail
+            fn.restype = ctypes.c_int
         for fn in (lib.fir_decimate_v1_f32, lib.fir_decimate_v1_i16):
-            fn.argtypes = args
+            fn.argtypes = ptrs + head + [ctypes.c_int] + tail  # L
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+# the kernel's tiling (csrc/fir_decimate.cu, namespace v2), which
+# fir_decimate_tiled_plain walks on the CPU
+TILE_OUTPUTS = 32  # outputs a time tile (v2::K)
+ROW_BYTES = 128  # a staged row of a channel stripe: 64 int16 or 32 f32
+SLOT_ROWS = 320  # rows a ring slot is sized for when taps are chunked
+COPY_WIDTHS = (16, 8, 4, 2)
+
+
+def chunk_frames(R: int, B: int) -> int:
+    """Tap frames the kernel stages at once: all ``B`` when a slot of
+    ``(TILE_OUTPUTS + B - 1) * R`` rows stays within ``SLOT_ROWS``,
+    else as many as fit (at least one)."""
+    return max(1, min(int(B), SLOT_ROWS // int(R) - TILE_OUTPUTS + 1))
+
+
+def copy_width(x) -> int:
+    """Bytes a staging copy moves: the widest of 16, 8, 4 that divides
+    both the window's address and its row pitch, else one element
+    (odd-width int16)."""
+    pitch = x.shape[1] * x.element_size()
+    ptr = x.data_ptr()
+    for w in COPY_WIDTHS[:-1]:
+        if pitch % w == 0 and ptr % w == 0:
+            return w
+    return x.element_size()
 
 
 def _check(x, hb, R, n_out):
@@ -138,22 +170,28 @@ def fir_decimate(x, hb, R: int, n_out: int, row0: int = 0):
     """One decimating FIR stage: x (T, C) float32 or int16, hb (B, R)
     float32 -> (n_out, C) float32, the first output reading from row
     ``row0`` (negative rows read as zero).  CUDA tensors run the kernel
-    (or raise); CPU tensors run :func:`fir_decimate_plain`."""
+    (or raise); CPU tensors run :func:`fir_decimate_plain`.
+    ``fir_decimate.launches`` counts launches, ``launches_by_width``
+    the same launches by :func:`copy_width`."""
     R, n_out, row0 = int(R), int(n_out), int(row0)
     _check(x, hb, R, n_out)
     if x.device.type == "cpu":
         return fir_decimate_plain(x, hb, R, n_out, row0)
     _cuda_only(x, "fir_decimate")
     lib = _kernel_lib()
-    fn = (lib.fir_decimate_v1_i16 if x.dtype == torch.int16
-          else lib.fir_decimate_v1_f32)
-    y, ran = _launch("fir_decimate", fn, x, hb, R, n_out, row0,
-                     hb.shape[0] * R)
-    fir_decimate.launches += ran
+    fn = lib.fir_decimate_i16 if x.dtype == torch.int16 else lib.fir_decimate_f32
+    B = hb.shape[0]
+    width = copy_width(x)
+    y, ran = _launch("fir_decimate", fn, x, hb, R, n_out, row0, B,
+                     chunk_frames(R, B), width)
+    if ran:
+        fir_decimate.launches += 1
+        fir_decimate.launches_by_width[width] += 1
     return y
 
 
 fir_decimate.launches = 0
+fir_decimate.launches_by_width = dict.fromkeys(COPY_WIDTHS, 0)
 
 
 def fir_decimate_v1(x, hb, R: int, n_out: int, row0: int = 0):
@@ -168,3 +206,41 @@ def fir_decimate_v1(x, hb, R: int, n_out: int, row0: int = 0):
           else lib.fir_decimate_v1_f32)
     return _launch("fir_decimate_v1", fn, x, hb, R, n_out, row0,
                    hb.shape[0] * R)[0]
+
+
+def fir_decimate_tiled_plain(x, hb, R: int, n_out: int, row0: int = 0):
+    """The kernel's tiling in plain PyTorch, for the CPU tests: the same
+    function as :func:`fir_decimate_plain`, computed as the kernel
+    computes it.  Each channel stripe of ``ROW_BYTES`` is staged one
+    time tile of ``TILE_OUTPUTS`` outputs and one chunk of
+    :func:`chunk_frames` tap frames at a time, rows outside ``[0, T)``
+    as zero; each output sums, per chunk, tap phase by phase and frame
+    by frame in fused multiply-adds (float64 product and sum, rounded
+    to float32 once), and the chunk sums in order."""
+    R, n_out, row0 = int(R), int(n_out), int(row0)
+    T, C = x.shape
+    B = hb.shape[0]
+    K, bch = TILE_OUTPUTS, chunk_frames(R, B)
+    tc = ROW_BYTES // x.element_size()
+    tiles = -(-n_out // K)
+    h = hb.reshape(-1).to(torch.float64)
+    xf = x.to(torch.float32)
+    y = torch.empty((n_out, C), dtype=torch.float32)
+    for c0 in range(0, C, tc):
+        xs = xf[:, c0 : c0 + tc]
+        acc = None
+        for b0 in range(0, B, bch):
+            nb = min(bch, B - b0)
+            g = (row0 + (torch.arange(tiles)[:, None] * K + b0) * R
+                 + torch.arange((K + nb - 1) * R)[None, :])
+            ok = ((g >= 0) & (g < T))[..., None]
+            staged = torch.where(ok, xs[g.clamp(0, max(T - 1, 0))], 0.0)
+            staged = staged.reshape(tiles, K + nb - 1, R, -1).double()
+            part = torch.zeros((tiles, K, xs.shape[1]), dtype=torch.float32)
+            for p in range(R):
+                for b in range(nb):
+                    fma = staged[:, b : b + K, p] * h[(b0 + b) * R + p]
+                    part = (fma + part.double()).float()
+            acc = part if acc is None else acc + part
+        y[:, c0 : c0 + tc] = acc.reshape(tiles * K, -1)[:n_out]
+    return y
