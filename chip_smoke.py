@@ -242,7 +242,7 @@ def stage_v1(device):
 
 
 def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0,
-                  cold=False, rings=()):
+                  cold=False):
     """Kernel vs plain on one stage input (first row ``row0``); returns
     the case record.  With ``with_time``: the kernel, the first kernel
     (v1, also held to plain), plain and the library call in turns, and
@@ -290,28 +290,6 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0,
         e2, d2 = timer.graphed(old), timer.graphed(kern)
         rec.update(device_ms=(d1 + d2) / 2, v1_device_ms=(e1 + e2) / 2,
                    device_ms_turns=[d1, d2], v1_device_ms_turns=[e1, e2])
-        if rings:  # stage 0's kernel at each ring depth, in turns
-            def at(ring):
-                def run():
-                    fir_decimate.ring = ring
-                    return fir_decimate(x, hb, R, k, row0)
-                return run
-
-            try:
-                errs = [per_channel_rel(at(r)(), ref)[0] for r in rings]
-                keys = [str(r) for r in rings]
-                ev = timed_turns(timer, [at(r) for r in rings], keys)
-                dev = [timer.graphed(at(r)) for r in rings]
-                dev2 = [timer.graphed(at(r)) for r in rings[::-1]][::-1]
-            finally:
-                fir_decimate.ring = 2
-            rec["ms_by_ring"] = {k: ev[k] for k in keys}
-            rec["device_ms_by_ring"] = {
-                k: (a + b) / 2 for k, a, b in zip(keys, dev, dev2)}
-            rec["max_rel_err_by_ring"] = dict(zip(keys, errs))
-            if max(errs) > REL_TOL:
-                emit(rec)
-                fail(f"{label}: a ring depth disagrees with plain: {errs}")
         if cold:
             k1, o1 = timer.cold(kern), timer.cold(old)
             o2, k2 = timer.cold(old), timer.cold(kern)
@@ -396,8 +374,7 @@ def phase_kernels(device, widths, timer):
                          f"{'int16' if cur.dtype == torch.int16 else 'f32'}"
                          f" {C}ch")
                 recs.append(compare_stage(timer, cur, hb, R, k, taps[i], label,
-                                          row0=row0, cold=True,
-                                          rings=(2, 3) if i == 0 else ()))
+                                          row0=row0, cold=True))
                 emit(recs[-1])
                 nxt = fir_decimate_plain(cur, hb, R, k, row0)
                 if cur.dtype == torch.int16:

@@ -176,8 +176,6 @@ constexpr int NT = 32 * NW;     // threads a block
 constexpr int K = NW * KPT;     // outputs a time tile
 constexpr int ROW_BYTES = 128;  // a staged row: one 128-byte segment
 constexpr int NS = 2;           // ring depth (tiles in shared memory)
-// (stage 0's compiled geometry is also built with a 3-slot ring, which
-// chip_smoke.py times beside it)
 constexpr int kMinBlocks = 3;   // blocks an SM the register cap allows
 
 // How a lane turns the 32-bit word it reads from a staged row into its
@@ -269,7 +267,7 @@ __device__ __forceinline__ void read_row(const unsigned char* lane_base,
 // chunk, loops unrolled (the four flagship stages); taps in registers
 // where RC * BC <= 64, else in shared memory at fixed offsets.
 // RC = BC = 0: any geometry, tap frames in chunks of bch.
-template <typename Tin, int VEC, int RC, int BC, int NSR>
+template <typename Tin, int VEC, int RC, int BC>
 __global__ void __launch_bounds__(NT, kMinBlocks)
 fir_v2_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
               float* __restrict__ y, long long T, int C, int R_, int B_,
@@ -286,7 +284,7 @@ fir_v2_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
   const int slot_bytes = (K + bch - 1) * R * ROW_BYTES;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_taps = reinterpret_cast<float*>(smem + NSR * slot_bytes);
+  float* s_taps = reinterpret_cast<float*>(smem + NS * slot_bytes);
   const int lane = threadIdx.x & 31;
   const int kt = (threadIdx.x >> 5) * KPT;  // this thread's first output
 
@@ -311,7 +309,7 @@ fir_v2_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
       const int b0 = static_cast<int>(it % nchunk) * bch;
       const int nb = min(bch, B - b0);
       const long long tile = u % tiles;
-      stage_rows<Tin, VEC>(smem + static_cast<int>(it % NSR) * slot_bytes, x,
+      stage_rows<Tin, VEC>(smem + static_cast<int>(it % NS) * slot_bytes, x,
                            T, C, row0 + (tile * K + b0) * R, (K + nb - 1) * R,
                            static_cast<int>(u / tiles) * TC);
     }
@@ -320,13 +318,13 @@ fir_v2_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
 
   float acc[KPT][CPT];
 #pragma unroll
-  for (int s = 0; s < NSR - 1; ++s) issue(s);
+  for (int s = 0; s < NS - 1; ++s) issue(s);
   for (long long it = 0; it < items; ++it) {
-    issue(it + NSR - 1);  // into the slot item it - 1 used
-    wait_pending<NSR - 1>();
+    issue(it + NS - 1);  // into the slot item it - 1 used
+    wait_pending<NS - 1>();
     __syncthreads();
     const unsigned char* base =
-        smem + static_cast<int>(it % NSR) * slot_bytes + lane * 4;
+        smem + static_cast<int>(it % NS) * slot_bytes + lane * 4;
     const int ch = static_cast<int>(it % nchunk);
     if constexpr (FIXED) {
       // sliding window: frame f of phase p is read once and applied to
@@ -424,13 +422,13 @@ fir_v2_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
   wait_pending<0>();
 }
 
-template <typename Tin, int VEC, int RC, int BC, int NSR = NS>
+template <typename Tin, int VEC, int RC, int BC>
 int launch_geometry(const Tin* x, const float* taps, float* y, long long T,
                     int C, int R, int B, int bch, long long n_out,
                     long long row0, cudaStream_t stream) {
-  auto kern = fir_v2_kernel<Tin, VEC, RC, BC, NSR>;
+  auto kern = fir_v2_kernel<Tin, VEC, RC, BC>;
   constexpr bool REG_TAPS = RC > 0 && RC * BC <= 64;
-  const long long smem = static_cast<long long>(NSR) * (K + bch - 1) * R *
+  const long long smem = static_cast<long long>(NS) * (K + bch - 1) * R *
                              ROW_BYTES +
                          (REG_TAPS ? 0 : 4LL * B * R);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -474,12 +472,9 @@ int launch_geometry(const Tin* x, const float* taps, float* y, long long T,
 template <typename Tin, int VEC>
 int launch_width(const Tin* x, const float* taps, float* y, long long T,
                  int C, int R, int B, int bch, long long n_out,
-                 long long row0, int ring, cudaStream_t stream) {
+                 long long row0, cudaStream_t stream) {
   if constexpr (VEC == 16) {
     if (bch == B) {  // the flagship stages, compiled for their geometry
-      if (R == 8 && B == 6 && ring == 3)
-        return launch_geometry<Tin, VEC, 8, 6, 3>(x, taps, y, T, C, R, B, bch,
-                                                  n_out, row0, stream);
       if (R == 8 && B == 6)
         return launch_geometry<Tin, VEC, 8, 6>(x, taps, y, T, C, R, B, bch,
                                                n_out, row0, stream);
@@ -501,9 +496,8 @@ int launch_width(const Tin* x, const float* taps, float* y, long long T,
 template <typename Tin>
 int launch(const Tin* x, const float* taps, float* y, long long T, int C,
            int R, int B, int bch, int vec, long long n_out, long long row0,
-           int ring, void* stream_) {
-  if (T < 0 || C < 1 || R < 1 || B < 1 || bch < 1 || bch > B || n_out < 1 ||
-      ring < 2 || ring > 3) {
+           void* stream_) {
+  if (T < 0 || C < 1 || R < 1 || B < 1 || bch < 1 || bch > B || n_out < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t pitch = static_cast<uintptr_t>(C) * sizeof(Tin);
@@ -515,17 +509,17 @@ int launch(const Tin* x, const float* taps, float* y, long long T, int C,
   switch (vec) {
     case 16:
       return launch_width<Tin, 16>(x, taps, y, T, C, R, B, bch, n_out, row0,
-                                   ring, stream);
+                                   stream);
     case 8:
       return launch_width<Tin, 8>(x, taps, y, T, C, R, B, bch, n_out, row0,
-                                  ring, stream);
+                                  stream);
     case 4:
       return launch_width<Tin, 4>(x, taps, y, T, C, R, B, bch, n_out, row0,
-                                  ring, stream);
+                                  stream);
     case 2:
       if constexpr (sizeof(Tin) == 2) {
         return launch_width<Tin, 2>(x, taps, y, T, C, R, B, bch, n_out, row0,
-                                    ring, stream);
+                                    stream);
       }
       break;
     default:
@@ -541,17 +535,17 @@ int launch(const Tin* x, const float* taps, float* y, long long T, int C,
 extern "C" {
 
 int fir_decimate_f32(const float* x, const float* taps, float* y, long long T,
-                     int C, int R, int B, int bch, int vec, int ring,
-                     long long n_out, long long row0, void* stream) {
+                     int C, int R, int B, int bch, int vec, long long n_out,
+                     long long row0, void* stream) {
   return v2::launch<float>(x, taps, y, T, C, R, B, bch, vec, n_out, row0,
-                           ring, stream);
+                           stream);
 }
 
 int fir_decimate_i16(const int16_t* x, const float* taps, float* y,
                      long long T, int C, int R, int B, int bch, int vec,
-                     int ring, long long n_out, long long row0, void* stream) {
+                     long long n_out, long long row0, void* stream) {
   return v2::launch<int16_t>(x, taps, y, T, C, R, B, bch, vec, n_out, row0,
-                             ring, stream);
+                             stream);
 }
 
 int fir_decimate_v1_f32(const float* x, const float* taps, float* y,

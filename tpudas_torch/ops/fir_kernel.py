@@ -53,8 +53,8 @@ def _kernel_lib():
         head = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # T, C, R
         tail = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         for fn in (lib.fir_decimate_f32, lib.fir_decimate_i16):
-            # B, chunk frames, copy width, ring slots
-            fn.argtypes = ptrs + head + [ctypes.c_int] * 4 + tail
+            # B, chunk frames, copy width
+            fn.argtypes = ptrs + head + [ctypes.c_int] * 3 + tail
             fn.restype = ctypes.c_int
         for fn in (lib.fir_decimate_v1_f32, lib.fir_decimate_v1_i16):
             fn.argtypes = ptrs + head + [ctypes.c_int] + tail  # L
@@ -183,7 +183,7 @@ def fir_decimate(x, hb, R: int, n_out: int, row0: int = 0):
     B = hb.shape[0]
     width = copy_width(x)
     y, ran = _launch("fir_decimate", fn, x, hb, R, n_out, row0, B,
-                     chunk_frames(R, B), width, fir_decimate.ring)
+                     chunk_frames(R, B), width)
     if ran:
         fir_decimate.launches += 1
         fir_decimate.launches_by_width[width] += 1
@@ -192,9 +192,6 @@ def fir_decimate(x, hb, R: int, n_out: int, row0: int = 0):
 
 fir_decimate.launches = 0
 fir_decimate.launches_by_width = dict.fromkeys(COPY_WIDTHS, 0)
-# ring slots of stage 0's compiled geometry (2 or 3; chip_smoke.py times
-# both)
-fir_decimate.ring = 2
 
 
 def fir_decimate_v1(x, hb, R: int, n_out: int, row0: int = 0):
