@@ -93,3 +93,12 @@ def test_chip_smoke_imports_no_jax_no_tpudas():
     names = _imported_modules(os.path.join(REPO, "chip_smoke.py"))
     assert "tpudas_torch" in {_top(n) for n in names}
     assert [n for n in names if _top(n) in ("jax", "jaxlib", "tpudas")] == []
+
+
+def test_card_tests_import_no_jax_no_tpudas():
+    """The card's tests run where JAX is not installed: the file imports
+    neither JAX nor the JAX package (the tiling mirror's parity with the
+    JAX stage lives in tests/test_torch_fir_tiled.py, on the CPU)."""
+    names = _imported_modules(os.path.join(REPO, "tests", "test_torch_gpu.py"))
+    assert "tpudas_torch" in {_top(n) for n in names}
+    assert [n for n in names if _top(n) in ("jax", "jaxlib", "tpudas")] == []

@@ -6,16 +6,22 @@ For a (T, C) window ``x`` and frame-blocked taps ``hb`` (B, R)::
 
 with rows below 0 or at or past T reading as zero.  A negative first
 row ``row0`` is the left pad that aligns a batch window with its phase
-(:func:`tpudas_torch.ops.fir.shift_to_phase`), without a padded copy.  This is the port's counterpart
-of the TPU kernel ``fir_decimate_pallas`` (tpudas/ops/pallas_fir.py:324;
-its v1 form at :269 computes the same function): one stage of the
-polyphase cascade in :mod:`tpudas_torch.ops.fir`.
+(:func:`tpudas_torch.ops.fir.shift_to_phase`), without a padded copy.
+This is the port's counterpart of the TPU kernel
+``fir_decimate_pallas`` (tpudas/ops/pallas_fir.py:324; its v1 form at
+:269 computes the same function): one stage of the polyphase cascade
+in :mod:`tpudas_torch.ops.fir`.
 
 - :func:`fir_decimate` is the wrapper.  On a CUDA tensor it launches
   the hand-written kernel in ``csrc/fir_decimate.cu`` (built with nvcc
   at first use, bound with ctypes) or raises — there is no fallback.
   On a CPU tensor, and only there, it runs :func:`fir_decimate_plain`.
   ``fir_decimate.launches`` counts kernel launches.
+- :func:`fir_decimate_v1` launches the first kernel of the same source
+  (CUDA only), which ``chip_smoke.py`` times beside the path's kernel.
+- :func:`fir_decimate_tiled_plain` walks the kernel's tiling in plain
+  PyTorch (stripes, tiles, tap chunks, order of sums), for the CPU
+  tests.
 - :func:`fir_decimate_plain` is the plain PyTorch version, a
   transcription of ``_polyphase_stage_xla`` (tpudas/ops/fir.py:340):
   one contraction over the tap phase for all frames, then a B-term
@@ -117,7 +123,8 @@ def fir_decimate_plain(x, hb, R: int, n_out: int, row0: int = 0):
 
     ``row0`` drops leading rows or left-pads with zeros as
     :func:`~tpudas_torch.ops.fir.shift_to_phase` does, so the numbers
-    are those of the stage on the shifted window.  The einsum contracts the tap phase ``r`` for every frame at once
+    are those of the stage on the shifted window.  The einsum contracts
+    the tap phase ``r`` for every frame at once
     (``u[b, m] = <x frame m, hb[b]>``); the b-loop then sums the B
     shifted frame products in order — the formulation of
     ``_polyphase_stage_xla``.
@@ -161,11 +168,6 @@ def _launch(what, fn, x, hb, R, n_out, row0, *geometry):
     return y, True
 
 
-def _cuda_only(x, what):
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
-
-
 def fir_decimate(x, hb, R: int, n_out: int, row0: int = 0):
     """One decimating FIR stage: x (T, C) float32 or int16, hb (B, R)
     float32 -> (n_out, C) float32, the first output reading from row
@@ -177,9 +179,11 @@ def fir_decimate(x, hb, R: int, n_out: int, row0: int = 0):
     _check(x, hb, R, n_out)
     if x.device.type == "cpu":
         return fir_decimate_plain(x, hb, R, n_out, row0)
-    _cuda_only(x, "fir_decimate")
+    if x.device.type != "cuda":
+        raise ValueError(f"fir_decimate runs on cuda or cpu, not {x.device}")
     lib = _kernel_lib()
-    fn = lib.fir_decimate_i16 if x.dtype == torch.int16 else lib.fir_decimate_f32
+    fn = (lib.fir_decimate_i16 if x.dtype == torch.int16
+          else lib.fir_decimate_f32)
     B = hb.shape[0]
     width = copy_width(x)
     y, ran = _launch("fir_decimate", fn, x, hb, R, n_out, row0, B,
@@ -200,7 +204,8 @@ def fir_decimate_v1(x, hb, R: int, n_out: int, row0: int = 0):
     it beside :func:`fir_decimate` in the same run."""
     R, n_out, row0 = int(R), int(n_out), int(row0)
     _check(x, hb, R, n_out)
-    _cuda_only(x, "fir_decimate_v1")
+    if x.device.type != "cuda":
+        raise ValueError(f"fir_decimate_v1 runs on cuda, not {x.device}")
     lib = _kernel_lib()
     fn = (lib.fir_decimate_v1_i16 if x.dtype == torch.int16
           else lib.fir_decimate_v1_f32)
