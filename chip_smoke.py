@@ -77,6 +77,7 @@ import os
 import shutil
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -233,20 +234,12 @@ def rows_read(T, R, B, n_out, row0):
     return max(0, min(T, row0 + (n_out + B) * R) - max(0, row0))
 
 
-def stage_v1(device):
-    """The first stage kernel (timed beside the path's kernel); its
-    plain version stands in for it in a CPU rehearsal."""
-    from tpudas_torch.ops.fir_kernel import fir_decimate_plain, fir_decimate_v1
-
-    return fir_decimate_v1 if device.type == "cuda" else fir_decimate_plain
-
-
 def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0,
                   cold=False):
     """Kernel vs plain on one stage input (first row ``row0``); returns
-    the case record.  With ``with_time``: the kernel, the first kernel
-    (v1, also held to plain), plain and the library call in turns, and
-    with ``cold`` the two kernels again with L2 flushed before each
+    the case record.  With ``with_time``: the kernel, plain and the
+    library call in turns, the kernel's device time in a CUDA graph,
+    and with ``cold`` the kernel again with L2 flushed before each
     launch."""
     from tpudas_torch.ops.fir_kernel import (
         copy_width, fir_decimate, fir_decimate_plain,
@@ -267,8 +260,6 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0,
            "max_abs_err": abs_err, "bound_ms": bound, "bound_by": bound_by,
            "bound_ms_measured": bound_m}
     if with_time:
-        v1 = stage_v1(x.device)
-        rec["v1_max_rel_err"] = per_channel_rel(v1(x, hb, R, k, row0), ref)[0]
         h = hb.reshape(-1)[None, None, :]
 
         def lib():
@@ -282,23 +273,14 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0,
             (lib_out[:n] - ref[:n]).abs().max()
         )
         kern = lambda: fir_decimate(x, hb, R, k, row0)  # noqa: E731
-        old = lambda: v1(x, hb, R, k, row0)  # noqa: E731
         plain = lambda: fir_decimate_plain(x, hb, R, k, row0)  # noqa: E731
-        rec.update(timed_turns(timer, (kern, old, plain, lib),
-                               ("ms", "v1_ms", "plain_ms", "library_ms")))
-        d1, e1 = timer.graphed(kern), timer.graphed(old)
-        e2, d2 = timer.graphed(old), timer.graphed(kern)
-        rec.update(device_ms=(d1 + d2) / 2, v1_device_ms=(e1 + e2) / 2,
-                   device_ms_turns=[d1, d2], v1_device_ms_turns=[e1, e2])
+        rec.update(timed_turns(timer, (kern, plain, lib),
+                               ("ms", "plain_ms", "library_ms")))
+        d1, d2 = timer.graphed(kern), timer.graphed(kern)
+        rec.update(device_ms=(d1 + d2) / 2, device_ms_turns=[d1, d2])
         if cold:
-            k1, o1 = timer.cold(kern), timer.cold(old)
-            o2, k2 = timer.cold(old), timer.cold(kern)
-            rec.update(cold_ms=(k1 + k2) / 2, v1_cold_ms=(o1 + o2) / 2,
-                       cold_ms_turns=[k1, k2], v1_cold_ms_turns=[o1, o2])
-        if rec["v1_max_rel_err"] > REL_TOL:
-            emit(rec)
-            fail(f"{label}: v1 kernel vs plain per-channel rel err "
-                 f"{rec['v1_max_rel_err']:.3e} > {REL_TOL:g}")
+            k1, k2 = timer.cold(kern), timer.cold(kern)
+            rec.update(cold_ms=(k1 + k2) / 2, cold_ms_turns=[k1, k2])
     if rel > REL_TOL:
         emit(rec)
         fail(f"{label}: kernel vs plain per-channel rel err {rel:.3e} > "
@@ -307,41 +289,28 @@ def compare_stage(timer, x, hb, R, k, taps, label, with_time=True, row0=0,
 
 
 def window_paths(timer, plan, x, phase, n_out, label):
-    """One batch window's device path, both ways, on the same window:
-    v1, ``shift_to_phase`` (the padded copy) then the four stages on
-    the first kernel; v2, ``cascade_decimate`` (the four stages on the
-    path's kernel, stage 0 from its first row).  Outputs held to each
-    other; times in turns."""
-    from tpudas_torch.ops.fir import (
-        blocked_taps, cascade_decimate, chain_layout, shift_to_phase,
-    )
+    """One batch window's device path on the kernel (``cascade_decimate``:
+    the four stages, stage 0 from its first row) against the plain path
+    (``engine="torch"``: ``shift_to_phase``'s padded copy, then the four
+    plain stages), on the same window: outputs held to each other,
+    times in turns."""
+    from tpudas_torch.ops.fir import cascade_decimate
 
-    v1 = stage_v1(x.device)
     qs = QSCALE if x.dtype == torch.int16 else None
-    layout = chain_layout(plan, n_out, "torch", "cpu")[0]
-    taps = blocked_taps(plan, x.device)
 
-    def old():
-        u = shift_to_phase(x, phase, plan.delay).contiguous()
-        for i, ((R, hb), (_e, k)) in enumerate(zip(taps, layout)):
-            u = v1(u, hb, R, k)
-            if i == 0 and qs is not None:
-                u = u * qs
-        return u
-
-    def new():
+    def kern():
         return cascade_decimate(x, plan, phase, n_out, qscale=qs)
 
-    rel = per_channel_rel(new(), old())[0]
-    d1, e1 = timer.graphed(new), timer.graphed(old)
-    e2, d2 = timer.graphed(old), timer.graphed(new)
+    def plain():
+        return cascade_decimate(x, plan, phase, n_out, "torch", qscale=qs)
+
+    rel = per_channel_rel(kern(), plain())[0]
+    d1, d2 = timer.graphed(kern), timer.graphed(kern)
     rec = {"case": label, "T": x.shape[0], "C": x.shape[1], "max_rel_err": rel,
-           **timed_turns(timer, (new, old),
-                         ("window_path_ms", "window_path_v1_ms")),
+           **timed_turns(timer, (kern, plain),
+                         ("window_path_ms", "window_path_plain_ms")),
            "window_path_device_ms": (d1 + d2) / 2,
-           "window_path_v1_device_ms": (e1 + e2) / 2,
-           "window_path_device_ms_turns": [d1, d2],
-           "window_path_v1_device_ms_turns": [e1, e2]}
+           "window_path_device_ms_turns": [d1, d2]}
     if rel > REL_TOL:
         emit(rec)
         fail(f"{label}: window paths differ by {rel:.3e}")
@@ -875,23 +844,25 @@ def phase_hbm_probe(device, rehearse):
                   "ring_reader")]
 
 
-def lfproc_class(force_tdas=False):
-    """``LFProc``, or — where h5py is missing (the card's host) or a
-    rehearsal asks for the card's path — a subclass that writes each
-    output patch as tdas under the ``LFDAS_`` stem."""
+def lfproc_class(force_tdas=False, base=None):
+    """``base`` (default ``LFProc``), or — where h5py is missing (the
+    card's host) or a rehearsal asks for the card's path — a subclass
+    that writes each output patch as tdas under the same stem."""
     from tpudas_torch.io.tdas import write_tdas
     from tpudas_torch.proc.lfproc import LFProc
 
+    base = base or LFProc
     if importlib.util.find_spec("h5py") is not None and not force_tdas:
-        return LFProc
+        return base
 
-    class TdasOutputLFProc(LFProc):
-        """Writes each output patch as tdas under the LFDAS_ stem."""
+    class TdasOutput(base):
+        """Writes each output patch as tdas under the same stem."""
 
         def _write_output(self, patch, path):
             write_tdas(patch, os.path.splitext(path)[0] + ".tdas")
 
-    return TdasOutputLFProc
+    TdasOutput.__name__ = f"TdasOutput{base.__name__}"
+    return TdasOutput
 
 
 def lf_fit(patch, bg):
@@ -932,11 +903,40 @@ def grid_checks(out, what, step_ns=1_000_000_000):
     return p, names
 
 
+# phase 4's runs in turns: the native assembler with pinned staging, and
+# the numpy reader without staging (the host read's speed differs
+# between calls, so the two are compared inside one call)
+INGEST_MODES = {
+    "staged": {},
+    "serial": {"TPUDAS_NO_NATIVE": "1", "TPUDAS_H2D_STAGE": "0"},
+}
+INGEST_ORDER = ("staged", "serial", "serial", "staged")
+WINDOW_SECONDS = 60  # process_patch_size x output_sample_interval
+
+
+def same_files(a, b):
+    """Names of the output files of ``a`` and ``b`` whose bytes differ
+    (or that only one has)."""
+    import filecmp
+
+    na = sorted(n for n in os.listdir(a) if not n.startswith("."))
+    nb = sorted(n for n in os.listdir(b) if not n.startswith("."))
+    if na != nb:
+        return sorted(set(na) ^ set(nb))
+    return [n for n in na if not filecmp.cmp(os.path.join(a, n),
+                                             os.path.join(b, n),
+                                             shallow=False)]
+
+
 def phase_main_path(device, n_ch, seconds, workdir, cls):
-    """Phase 4: the batch path.  Leaves its spool (``workdir/src``) and
-    output (``workdir/out``) for phase 5."""
+    """Phase 4: the batch path, run four times in turns (``INGEST_ORDER``):
+    the native assembler with pinned staging, and the numpy reader
+    without staging.  The first run is the main path.  Leaves its spool
+    (``workdir/src``) and the first run's output (``workdir/out``) for
+    the later phases."""
     from tpudas_torch.ops import fir as fir_mod
     from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.proc import lfproc as lfproc_mod
     from tpudas_torch.testing import make_synthetic_spool
 
     src = os.path.join(workdir, "src")
@@ -952,38 +952,101 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
     )
     setup_s = time.perf_counter() - t0
     bg = np.datetime64(T0, "ns")
+    cuda = device.type == "cuda"
     # the kernel path reads each window from its first row: it makes no
-    # shifted or padded copy (shift_to_phase is the plain path's step)
-    shifts = []
+    # shifted or padded copy (shift_to_phase is the plain path's step);
+    # the loader's own read time is summed beside the consumer's wait
+    shifts, load_s = [], [0.0]
     plain_shift = fir_mod.shift_to_phase
+    plain_load = lfproc_mod.LFProc._load_window
+
+    def timed_load(self, *a, **k):
+        t_l = time.perf_counter()
+        try:
+            return plain_load(self, *a, **k)
+        finally:
+            load_s[0] += time.perf_counter() - t_l
+
     fir_mod.shift_to_phase = lambda *a: shifts.append(a[1]) or plain_shift(*a)
-    fir_decimate.launches = 0
-    fir_decimate.launches_by_width = dict.fromkeys(
-        fir_decimate.launches_by_width, 0)
+    lfproc_mod.LFProc._load_window = timed_load
+    runs = []
     try:
-        lfp, wall, wins, expect_stems = run_lfproc(device, cls, src, out)
+        for i, mode in enumerate(INGEST_ORDER):
+            out_i = out if i == 0 else os.path.join(workdir, f"out{i}_{mode}")
+            shifts.clear()
+            load_s[0] = 0.0
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            fir_decimate.launches = 0
+            fir_decimate.launches_by_width = dict.fromkeys(
+                fir_decimate.launches_by_width, 0)
+            with mock.patch.dict(os.environ, INGEST_MODES[mode]):
+                lfp, wall, wins, expect_stems = run_lfproc(device, cls, src,
+                                                           out_i)
+            peak = torch.cuda.max_memory_allocated() if cuda else None
+            windows = sum(lfp.engine_counts.values())
+            runs.append({
+                "mode": mode, "out": out_i, "wall_s": wall,
+                "assemble_wait_s": lfp.timings["assemble_s"],
+                "load_s": load_s[0], "device_s": lfp.timings["device_s"],
+                "write_s": lfp.timings["write_s"],
+                "realtime_factor": n_files * file_sec / wall,
+                "windows": windows, "native_windows": lfp.native_windows,
+                "staged_windows": lfp.staged_windows,
+                "quantized_windows": lfp.quantized_windows,
+                "engine_counts": dict(lfp.engine_counts),
+                "fir_decimate_launches": fir_decimate.launches,
+                "fir_decimate_launches_by_width":
+                    dict(fir_decimate.launches_by_width),
+                "shift_to_phase_calls": len(shifts),
+                "peak_device_bytes": peak,
+                # in get_patch_time's terms: peak bytes over one window's
+                # samples x 8 bytes_per_element
+                "processing_factor": (
+                    None if peak is None else
+                    peak / (WINDOW_SECONDS * 1000.0 * n_ch * 8)),
+            })
     finally:
         fir_mod.shift_to_phase = plain_shift
+        lfproc_mod.LFProc._load_window = plain_load
+    first = runs[0]
     expect_windows = len(wins)
-    launches = fir_decimate.launches
-    by_width = dict(fir_decimate.launches_by_width)
-    windows = sum(lfp.engine_counts.values())
+    windows = first["windows"]
     p, names = grid_checks(out, "main path")
     resid, amp_err = lf_fit(p, bg)
+    differ = {r["mode"] + str(i): same_files(out, r["out"])
+              for i, r in enumerate(runs) if i}
+
+    def mean(mode, key):
+        vals = [r[key] for r in runs if r["mode"] == mode]
+        return sum(vals) / len(vals)
+
     res = {
         "phase": "main_path", "channels": n_ch, "seconds": n_files * file_sec,
         "fs": 1000.0, "payload": "int16 tdas", "setup_s": setup_s,
         "output_format": ("tdas (no h5py)" if cls.__name__ != "LFProc"
                           else "dasdae"),
         "windows": windows, "expected_windows": expect_windows,
-        "engine_counts": lfp.engine_counts,
-        "quantized_windows": lfp.quantized_windows,
-        "fir_decimate_launches": launches,
-        "fir_decimate_launches_by_width": by_width,
-        "shift_to_phase_calls": len(shifts),
-        "wall_s": wall,
-        "s_per_window": wall / max(windows, 1), "timings": lfp.timings,
-        "realtime_factor": n_files * file_sec / wall,
+        "engine_counts": first["engine_counts"],
+        "quantized_windows": first["quantized_windows"],
+        "native_windows": first["native_windows"],
+        "staged_windows": first["staged_windows"],
+        "fir_decimate_launches": first["fir_decimate_launches"],
+        "fir_decimate_launches_by_width":
+            first["fir_decimate_launches_by_width"],
+        "shift_to_phase_calls": first["shift_to_phase_calls"],
+        "wall_s": first["wall_s"],
+        "s_per_window": first["wall_s"] / max(windows, 1),
+        "timings": {"assemble_s": first["assemble_wait_s"],
+                    "device_s": first["device_s"],
+                    "write_s": first["write_s"]},
+        "realtime_factor": first["realtime_factor"],
+        "runs": [{k: v for k, v in r.items() if k != "out"} for r in runs],
+        "mean": {m: {k: mean(m, k) for k in
+                     ("wall_s", "assemble_wait_s", "load_s", "device_s",
+                      "write_s", "realtime_factor")} for m in INGEST_MODES},
+        "outputs_differing_from_first_run": differ,
         "outputs": len(names), "output_rows": int(p.host_data().shape[0]),
         "lf_fit_max_resid": resid, "lf_amp_max_rel_err": amp_err,
     }
@@ -991,22 +1054,35 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
     if cls.__name__ != "LFProc":
         print("main path: outputs were written as tdas under the LFDAS_ "
               "stem (no h5py on this host, or a rehearsal)", flush=True)
-    ran = "cascade-cuda" if device.type == "cuda" else "cascade-torch"
-    want_launches = 4 * windows if device.type == "cuda" else 0
+    ran = "cascade-cuda" if cuda else "cascade-torch"
     checks = [
         (windows == expect_windows, "window count"),
-        (lfp.engine_counts[ran] == windows, f"every window ran {ran}"),
-        (lfp.quantized_windows == windows, "every window shipped int16"),
-        (launches == want_launches, f"launches {launches} != {want_launches}"),
-        (len(shifts) == (0 if device.type == "cuda" else windows),
-         f"shift_to_phase ran {len(shifts)} times"),
         ([os.path.splitext(n)[0] for n in names] == expect_stems,
          "output names follow the window schedule"),
         (int(p.host_data().shape[0]) == wins[-1][3] - wins[0][2],
          "output rows cover the schedule"),
         (resid < 0.01, "LF fit residual < 0.01"),
         (amp_err < 0.01, "LF amplitude error < 0.01"),
+        (all(not d for d in differ.values()),
+         f"every run's outputs byte-identical to the first run's: {differ}"),
     ]
+    for r in runs:
+        m, n = r["mode"], r["windows"]
+        staged = m == "staged"
+        want = 4 * n if cuda else 0
+        checks += [
+            (n == expect_windows, f"{m}: window count {n}"),
+            (r["engine_counts"][ran] == n, f"{m}: every window ran {ran}"),
+            (r["quantized_windows"] == n, f"{m}: every window shipped int16"),
+            (r["fir_decimate_launches"] == want,
+             f"{m}: launches {r['fir_decimate_launches']} != {want}"),
+            (r["shift_to_phase_calls"] == (0 if cuda else n),
+             f"{m}: shift_to_phase ran {r['shift_to_phase_calls']} times"),
+            (r["native_windows"] == (n if staged else 0),
+             f"{m}: native_windows {r['native_windows']}"),
+            (r["staged_windows"] == (n if staged else 0),
+             f"{m}: staged_windows {r['staged_windows']}"),
+        ]
     for ok, what in checks:
         if not ok:
             fail(f"main path check failed: {what}")
@@ -1027,13 +1103,16 @@ def interior_rel(p_a, p_b):
 def new_run():
     """Accumulators of one real-time run over one or more driver calls."""
     return {"calls": 0, "rounds": 0, "blocks": {}, "wall_s": 0.0,
-            "timings": {}, "counters": None, "events": []}
+            "timings": {}, "counters": None, "events": [],
+            "native_windows": 0}
 
 
 def link_files(src_all, src, upto):
-    """Hard-link the first ``upto`` files of ``src_all`` into ``src``."""
+    """Hard-link the first ``upto`` data files of ``src_all`` into
+    ``src`` (not the spool's index cache)."""
     os.makedirs(src, exist_ok=True)
-    for name in sorted(os.listdir(src_all))[:upto]:
+    names = sorted(n for n in os.listdir(src_all) if n.endswith(".tdas"))
+    for name in names[:upto]:
         if not os.path.exists(os.path.join(src, name)):
             os.link(os.path.join(src_all, name), os.path.join(src, name))
 
@@ -1056,6 +1135,7 @@ def drive_realtime(run, src_all, src, out, engine, device, feed=(), **para):
 
     def on_round(_rnd, lfp):
         run["rounds"] += 1
+        run["native_windows"] += lfp.native_windows
         for k, v in lfp.stream_blocks.items():
             run["blocks"][k] = run["blocks"].get(k, 0) + v
         for k, v in lfp.timings.items():
@@ -1159,11 +1239,13 @@ def phase_realtime(device, workdir, cls):
                   "realtime_factor": ctr.realtime_factor,
                   "head_lag_s": rounds[-1]["head_lag_seconds"] if rounds
                   else None,
+                  "native_windows": fused["native_windows"],
                   "outputs": len(names_f)},
         "control": {"rounds": ctrl["rounds"], "blocks": ctrl["blocks"],
                     "fir_decimate_launches": ctrl_launches,
                     "fused_cascade_launches": ctrl_fused_launches,
                     "wall_s": ctrl["wall_s"], "timings": ctrl["timings"],
+                    "native_windows": ctrl["native_windows"],
                     "realtime_factor": ctrl["counters"].realtime_factor},
         "fused_vs_control_max_rel_err": ctrl_rel,
         "fused_vs_batch_interior_rel_err": batch_rel,
@@ -1189,6 +1271,8 @@ def phase_realtime(device, workdir, cls):
         (ctrl_launches == (4 * n_ctrl if cuda else 0),
          f"control fir_decimate launches {ctrl_launches} != 4 x {n_ctrl}"),
         (ctrl_fused_launches == 0, "the control launched no fused kernel"),
+        (fused["native_windows"] > 0 and ctrl["native_windows"] > 0,
+         "the stream read its slices through the native assembler"),
         (names_f == names_c, "fused and control output names differ"),
         (ctrl_rel <= REL_TOL, f"fused vs control rel err {ctrl_rel:.3e}"),
         (batch_rel <= 1e-4, f"fused vs batch interior {batch_rel:.3e}"),
@@ -1341,6 +1425,93 @@ def phase_fft(device, workdir, cls):
     return {"batch_fft": a, "auto_1.1s": b, "realtime_fft": c}
 
 
+ROLLING_SECONDS = 1.0  # window and step: rolling_mean_dascore's geometry
+
+
+def phase_joint(device, workdir, cls):
+    """Phase 7: ``JointProc`` over phase 4's spool — the LF product and
+    a 1 s trailing mean at a 1 s step from one ingest pass.  The LF
+    files must be byte-identical to phase 4's first run; the rolling
+    files must merge into one patch on the ``bg + k * 1 s`` grid and
+    equal a float64 numpy trailing mean of the same int16 input within
+    1e-6 of each channel's scale."""
+    from tpudas_torch.io.spool import spool
+    from tpudas_torch.io.tdas import assemble_window_patch
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+
+    src = os.path.join(workdir, "src")
+    jdir = os.path.join(workdir, "joint")
+    lf_out, roll_out = os.path.join(jdir, "lf"), os.path.join(jdir, "roll")
+    bg = np.datetime64(T0, "ns")
+    ed = bg + np.timedelta64(int(MAIN_PATH_SECONDS), "s")
+    cuda = device.type == "cuda"
+    fir_decimate.launches = 0
+    lfp = cls(spool(src).sort("time").update(), device=device)
+    lfp.update_processing_parameter(
+        output_sample_interval=1.0, process_patch_size=60, edge_buff_size=10,
+        rolling_window=ROLLING_SECONDS, rolling_step=ROLLING_SECONDS)
+    lfp.set_output_folder(lf_out, delete_existing=True)
+    lfp.set_rolling_output_folder(roll_out, delete_existing=True)
+    t0 = time.perf_counter()
+    lfp.process_time_range(bg, ed)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fir_decimate.launches
+    windows = sum(lfp.engine_counts.values())
+    differ = same_files(os.path.join(workdir, "out"), lf_out)
+    p_lf, _ = grid_checks(lf_out, "joint LF product")
+    p, names = grid_checks(roll_out, "rolling product")
+    times = p.coords["time"].astype("datetime64[ns]")
+    off_ns = (times - bg).astype(np.int64)
+    on_grid = bool(np.all(off_ns % int(ROLLING_SECONDS * 1e9) == 0))
+    # the float64 reference from the raw int16 payload of the whole spool
+    plan = spool(src).update().window_plan(bg, ed)
+    raw = assemble_window_patch(plan)
+    x = raw.host_data()
+    step_ns = int(plan["dt_ns"])
+    w = int(round(ROLLING_SECONDS * 1e9 / step_ns))
+    idx = ((times - raw.coords["time"][0].astype("datetime64[ns]"))
+           .astype(np.int64) // step_ns)
+    qscale = float(raw.attrs["data_scale"])
+    ref = np.stack([x[i - w + 1 : i + 1].sum(axis=0, dtype=np.float64)
+                    for i in idx]) / w * qscale
+    got = p.host_data().astype(np.float64)
+    scale = np.abs(ref).max(axis=0)
+    rel = float((np.abs(got - ref).max(axis=0) / scale).max())
+    del raw, x
+    res = {
+        "phase": "joint", "channels": int(got.shape[1]),
+        "rolling_window_s": ROLLING_SECONDS, "rolling_step_s": ROLLING_SECONDS,
+        "windows": windows, "rolling_windows": lfp.rolling_windows,
+        "native_windows": lfp.native_windows,
+        "staged_windows": lfp.staged_windows,
+        "fir_decimate_launches": launches, "wall_s": wall,
+        "timings": lfp.timings,
+        "realtime_factor": MAIN_PATH_SECONDS / wall,
+        "rolling_samples": int(got.shape[0]), "rolling_files": len(names),
+        "lf_outputs_differing_from_phase4": differ,
+        "rolling_vs_float64_max_rel_err": rel,
+    }
+    emit(res)
+    checks = [
+        (not differ, f"LF output differs from phase 4's: {differ}"),
+        (lfp.rolling_windows == windows == 4,
+         f"{lfp.rolling_windows} rolling files for {windows} windows"),
+        (lfp.staged_windows == windows and lfp.native_windows == windows,
+         "every window read natively and staged"),
+        (launches == (4 * windows if cuda else 0), f"launches {launches}"),
+        (on_grid, "rolling samples off the bg + k * step grid"),
+        (np.array_equal(times, p_lf.coords["time"].astype("datetime64[ns]")),
+         f"{got.shape[0]} rolling samples not at the LF product's times"),
+        (rel <= 1e-6, f"rolling vs float64 reference {rel:.3e} > 1e-6"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"joint check failed: {what}")
+    return res
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -1434,6 +1605,10 @@ def main(argv=None):
     res = phase_main_path(device, n_ch, MAIN_PATH_SECONDS, workdir, cls)
     rt = phase_realtime(device, workdir, cls)
     phase_fft(device, workdir, cls)
+    from tpudas_torch.proc.joint import JointProc
+
+    phase_joint(device, workdir,
+                lfproc_class(force_tdas=args.rehearse, base=JointProc))
     shutil.rmtree(workdir, ignore_errors=True)
 
     recs = main_cases[(widths[0], True)]  # the main path's shapes
@@ -1456,21 +1631,14 @@ def main(argv=None):
                   f"{widths[0]} ch int16"),
         "realtime_control_launches": rt["control"]["fir_decimate_launches"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
-        "v1_ms": sum(r["v1_ms"] for r in recs),
         "ms_by_stage": [r["ms"] for r in recs],
-        "v1_ms_by_stage": [r["v1_ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
-        "v1_cold_ms_by_stage": [r["v1_cold_ms"] for r in recs],
         "bound_ms_by_stage": [r["bound_ms"] for r in recs],
         "window_path_ms": paths[widths[0]]["window_path_ms"],
-        "window_path_v1_ms": paths[widths[0]]["window_path_v1_ms"],
+        "window_path_plain_ms": paths[widths[0]]["window_path_plain_ms"],
         "window_path_device_ms": paths[widths[0]]["window_path_device_ms"],
-        "window_path_v1_device_ms":
-            paths[widths[0]]["window_path_v1_device_ms"],
         "device_ms_by_stage": [r["device_ms"] for r in recs],
-        "v1_device_ms_by_stage": [r["v1_device_ms"] for r in recs],
         f"ms_by_stage_{widths[1]}ch": [r["ms"] for r in narrow],
-        f"v1_ms_by_stage_{widths[1]}ch": [r["v1_ms"] for r in narrow],
         "kernels": {short_kernel_name(k): v for k, v in
                     resources.get("fir_decimate", {}).items()},
     }

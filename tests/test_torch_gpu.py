@@ -235,6 +235,45 @@ def test_lfproc_on_card_matches_cpu(cuda_device, tmp_path):
                 torch.from_numpy(b.host_data())) <= REL_TOL
 
 
+@pytest.mark.parametrize("engine", ["auto", "fft"])
+def test_lfproc_staged_byte_identical_to_serial_on_card(cuda_device, tmp_path,
+                                                         monkeypatch, engine):
+    """The prefetch thread's pinned buffers and side-stream H2D give the
+    bytes of the serial path with the numpy reader; ten windows, so each
+    pinned buffer is refilled four times."""
+    src = tmp_path / "src"
+    make_synthetic_spool(
+        src, n_files=4, file_duration=30.0, fs=1000.0, n_ch=300, noise=0.02,
+        format="tdas", write_kwargs={"dtype": "int16", "scale": 1e-4},
+    )
+    runs = {}
+    for name in ("staged", "serial"):
+        if name == "serial":
+            monkeypatch.setenv("TPUDAS_H2D_STAGE", "0")
+            monkeypatch.setenv("TPUDAS_NO_NATIVE", "1")
+        lfp = LFProc(spool(str(src)).sort("time").update(), device=cuda_device)
+        lfp.update_processing_parameter(
+            output_sample_interval=1.0, process_patch_size=30,
+            edge_buff_size=10, engine=engine,
+        )
+        lfp.set_output_folder(str(tmp_path / name), delete_existing=True)
+        lfp._write_output = lambda patch, path: patch.io.write(
+            os.path.splitext(path)[0] + ".tdas", "tdas"
+        )
+        lfp.process_time_range(np.datetime64("2023-03-22T00:00:00"),
+                               np.datetime64("2023-03-22T00:02:00"))
+        runs[name] = lfp
+    windows = sum(runs["staged"].engine_counts.values())
+    assert windows == 10
+    assert runs["staged"].staged_windows == runs["staged"].native_windows == 10
+    assert runs["serial"].staged_windows == runs["serial"].native_windows == 0
+    names = sorted(os.listdir(tmp_path / "staged"))
+    assert names == sorted(os.listdir(tmp_path / "serial"))
+    for n in names:
+        assert ((tmp_path / "staged" / n).read_bytes()
+                == (tmp_path / "serial" / n).read_bytes()), n
+
+
 # -- the fused cascade kernel (B3) ------------------------------------------
 
 

@@ -50,11 +50,17 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.ops.fftlen",
         "tpudas_torch.ops.filter",
         "tpudas_torch.ops.resample",
+        "tpudas_torch.ops.rolling",
+        "tpudas_torch.native",
+        "tpudas_torch.io.index",
+        "tpudas_torch.io.tdas",
         "tpudas_torch.tools",
         "tpudas_torch.tools.harness",
         "tpudas_torch.tools.probe_pipeline",
         "tpudas_torch.tools.probe_dma",
         "tpudas_torch.proc.edge",
+        "tpudas_torch.proc.joint",
+        "tpudas_torch.proc.memory",
         "tpudas_torch.proc.lfproc",
         "tpudas_torch.proc.stream",
         "tpudas_torch.proc.ingest",

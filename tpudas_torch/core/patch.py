@@ -9,11 +9,11 @@ attrs are a :class:`~tpudas_torch.core.attrs.PatchAttrs` with the
 three-generation alias map.
 
 IO hangs off the ``.io`` accessor as in the reference call sites
-(``patch.io.write(path, "dasdae")`` — lf_das.py:232).  ``pass_filter``
-and ``interpolate`` run the port's FFT engine and gather-lerp on the
-card (``device="cpu"`` on request).  The JAX Patch's ``rolling``,
-``median_filter`` and the ``.viz`` waterfall belong to later slices of
-the port and are not here yet.
+(``patch.io.write(path, "dasdae")`` — lf_das.py:232).  ``pass_filter``,
+``interpolate`` and ``rolling`` run the port's FFT engine, gather-lerp
+and windowed reductions on the card (``device="cpu"`` on request).  The
+JAX Patch's ``median_filter`` and the ``.viz`` waterfall belong to
+later slices of the port and are not here yet.
 """
 
 from __future__ import annotations
@@ -255,6 +255,16 @@ class Patch:
         from tpudas_torch.ops.resample import patch_interpolate
 
         return patch_interpolate(self, engine=engine, device=device, **kwargs)
+
+    def rolling(self, step=None, engine=None, device=None, **kwargs):
+        """Windowed reduction factory:
+        ``rolling(time=w, step=s, engine="numpy").mean()``
+        (rolling_mean_dascore.ipynb:148); the device engine runs on
+        ``device`` (default the CUDA card)."""
+        from tpudas_torch.ops.rolling import PatchRoller
+
+        return PatchRoller(self, step=step, engine=engine, device=device,
+                           **kwargs)
 
     # convenience ------------------------------------------------------
     def time_seconds(self) -> np.ndarray:

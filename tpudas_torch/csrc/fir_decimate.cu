@@ -21,8 +21,6 @@
 // cores cannot hold an int16 sample's 16 significant bits).  Its bound is
 //     (rows read * C * sizeof(in) + n_out * C * 4) / 3.35 TB/s.
 //
-// Two kernels, both with the same C interface shape:
-//
 // fir_decimate_{f32,i16} (namespace v2), the stage the port runs:
 // - a block owns a channel stripe of one 128-byte row segment (64 int16 or
 //   32 f32 channels: each lane reads one 32-bit word of a staged row, two
@@ -40,7 +38,7 @@
 //   registers and slides a window over the frames of one tap phase: each
 //   staged value is read once and applied to every output whose window
 //   holds it ((KPT + B - 1) / (KPT * B * CPT) shared loads an FMA: 0.14 for
-//   int16 stage 0, where v1 took 1.1);
+//   int16 stage 0, against 1.1 when each thread stages one value a row);
 // - the four flagship geometries (R, B) are compiled as such: loops
 //   unrolled, taps in registers (B * R <= 64) or at fixed shared-memory
 //   offsets; any other geometry runs the same template with runtime (R, B)
@@ -49,11 +47,6 @@
 // - int16 is converted exactly without the conversion unit (see Lane);
 //   sums run in float32, per tap phase then frame, per chunk then across
 //   chunks.
-//
-// fir_decimate_v1_{f32,i16} (namespace v1), the first kernel, kept so the
-// two can be timed in one run (nothing on a path launches it): 32 channels
-// x 64 outputs a block, each thread staging one value a row, taps in
-// shared-memory chunks of 256, one shared load an FMA.
 //
 // The launches use the caller's stream, do not synchronise and allocate
 // nothing; the C entry points return cudaGetLastError() or the error that
@@ -67,106 +60,6 @@
 namespace {
 
 constexpr int kMaxSmem = 232448;  // per-block opt-in limit on sm_90
-
-namespace v1 {
-
-constexpr int TC = 32;        // channels per block (one warp)
-constexpr int TY = 8;         // warps per block
-constexpr int KPT = 8;        // outputs per thread
-constexpr int K = TY * KPT;   // output frames per block
-constexpr int JC = 256;       // taps per shared-memory chunk
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(int16_t v) { return static_cast<float>(v); }
-
-template <typename Tin>
-__global__ void __launch_bounds__(TC * TY)
-fir_decimate_kernel(const Tin* __restrict__ x, const float* __restrict__ taps,
-                    float* __restrict__ y, long long T, int C, int R, int L,
-                    long long n_out, long long row0) {
-  extern __shared__ float smem[];
-  float* s_taps = smem;       // [JC]
-  float* s_x = smem + JC;     // [rows][TC]
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TC + tx;
-  const long long k0 = static_cast<long long>(blockIdx.x) * K;
-  const int c = blockIdx.y * TC + tx;
-  const bool c_ok = c < C;
-
-  float acc[KPT];
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) acc[i] = 0.f;
-
-  for (int j0 = 0; j0 < L; j0 += JC) {
-    const int jn = min(JC, L - j0);
-    const int rows = (K - 1) * R + jn;
-    const long long r0 = row0 + k0 * R + j0;
-    __syncthreads();  // the previous chunk's readers are done
-    for (int j = tid; j < jn; j += TC * TY) s_taps[j] = taps[j0 + j];
-    for (int r = ty; r < rows; r += TY) {
-      const long long row = r0 + r;
-      float v = 0.f;
-      if (c_ok && row >= 0 && row < T) v = to_f32(x[row * C + c]);
-      s_x[r * TC + tx] = v;
-    }
-    __syncthreads();
-
-    float part[KPT];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) part[i] = 0.f;
-    for (int j = 0; j < jn; ++j) {
-      const float h = s_taps[j];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        const int kk = ty + i * TY;
-        part[i] = fmaf(h, s_x[(kk * R + j) * TC + tx], part[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) acc[i] += part[i];
-  }
-
-  if (!c_ok) return;
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const long long k = k0 + ty + i * TY;
-    if (k < n_out) y[k * C + c] = acc[i];
-  }
-}
-
-int smem_bytes(int R, int L) {
-  const int jn = L < JC ? L : JC;
-  return static_cast<int>(sizeof(float)) * (JC + ((K - 1) * R + jn) * TC);
-}
-
-template <typename Tin>
-int launch(const Tin* x, const float* taps, float* y, long long T, int C,
-           int R, int L, long long n_out, long long row0, void* stream) {
-  if (T < 0 || C < 1 || R < 1 || L < 1 || n_out < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long kblocks = (n_out + K - 1) / K;
-  const int cblocks = (C + TC - 1) / TC;
-  if (kblocks > 2147483647LL || cblocks > 65535) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  const int smem = smem_bytes(R, L);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      fir_decimate_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(kblocks), static_cast<unsigned>(cblocks));
-  const dim3 block(TC, TY);
-  fir_decimate_kernel<Tin><<<grid, block, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, taps, y, T, C, R, L, n_out, row0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace v1
 
 namespace v2 {
 
@@ -546,18 +439,6 @@ int fir_decimate_i16(const int16_t* x, const float* taps, float* y,
                      long long n_out, long long row0, void* stream) {
   return v2::launch<int16_t>(x, taps, y, T, C, R, B, bch, vec, n_out, row0,
                              stream);
-}
-
-int fir_decimate_v1_f32(const float* x, const float* taps, float* y,
-                        long long T, int C, int R, int L, long long n_out,
-                        long long row0, void* stream) {
-  return v1::launch<float>(x, taps, y, T, C, R, L, n_out, row0, stream);
-}
-
-int fir_decimate_v1_i16(const int16_t* x, const float* taps, float* y,
-                        long long T, int C, int R, int L, long long n_out,
-                        long long row0, void* stream) {
-  return v1::launch<int16_t>(x, taps, y, T, C, R, L, n_out, row0, stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 The port's counterpart of :mod:`tpudas.io.spool` — the DASCore Spool
 surface the reference consumes (SURVEY.md §2.3): ``spool(...)``
 dispatch, ``update``, ``sort``, ``select``, ``chunk(time=None)`` merge
-with gap detection and gap fill, indexing/iteration.  Selection is
+with gap detection and gap fill, ``chunk(time=<seconds>)`` re-split,
+indexing/iteration.  Selection is
 recorded lazily and applied at materialization, so a
 ``DirectorySpool`` window read (``spool.select(time=...)`` inside the
 overlap-save loop, lf_das.py:236) touches only the overlapping files
@@ -243,22 +244,45 @@ class BaseSpool:
 
     def chunk(self, time="__required__", tolerance=1.5, max_fill=None):
         """``chunk(time=None)`` merges contiguous patches along time;
+        ``chunk(time=seconds)`` merges then re-splits into fixed-length
+        segments (an extension the reference leaves to DASCore).
         ``max_fill`` (seconds) bridges on-grid holes up to that long by
-        linear interpolation — see :func:`merge_patches`.  Re-splitting
-        into fixed-length segments (``time=<seconds>``) is a later
-        slice of the port."""
+        linear interpolation — see :func:`merge_patches`."""
         if time == "__required__":
             raise TypeError("chunk() requires the time keyword, e.g. time=None")
-        if time is not None:
-            raise NotImplementedError(
-                "chunk(time=<seconds>) is not in the port yet; use "
-                "chunk(time=None)"
-            )
-        return MemorySpool(
-            merge_patches(
-                self._materialize(), tolerance=tolerance, max_fill=max_fill
-            )
+        merged = merge_patches(
+            self._materialize(), tolerance=tolerance, max_fill=max_fill
         )
+        if time is None:
+            return MemorySpool(merged)
+        seg_sec = float(time)
+        out = []
+        for p in merged:
+            taxis = p.coords["time"]
+            if taxis.size == 0:
+                continue
+            step = p.attrs.get("time_step")
+            if step is None:
+                raise ValueError(
+                    "chunk(time=<seconds>) requires a patch with a known "
+                    "time_step (single-sample or step-less patches cannot "
+                    "be segmented)"
+                )
+            step_s = step.astype("timedelta64[ns]").astype(np.int64) / 1e9
+            seg_n = max(int(round(seg_sec / step_s)), 1)
+            ax = p.axis_of("time")
+            host = p.host_data()
+            for start in range(0, taxis.size, seg_n):
+                sl = (slice(None),) * ax + (slice(start, start + seg_n),)
+                out.append(
+                    Patch(
+                        data=host[sl],
+                        coords={**p.coords, "time": taxis[start : start + seg_n]},
+                        dims=p.dims,
+                        attrs=p.attrs.to_dict(),
+                    )
+                )
+        return MemorySpool(out)
 
     def get_contents(self):
         """Summary DataFrame of the spool, one row per patch

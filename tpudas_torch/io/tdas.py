@@ -1,21 +1,26 @@
 """``tdas``: flat binary stream format for the real-time ingest path.
 
-The port's copy of :mod:`tpudas.io.tdas`, numpy readers only (the
-threaded C++ reader of the JAX package is a later slice).  A tdas file
-is a 64-byte header + a row-major (time, channel) payload (float32, or
-int16 with a scale for 2x ingest bandwidth). Range reads are exact
-byte offsets — no chunk B-trees.
+The port's copy of :mod:`tpudas.io.tdas`.  A tdas file is a 64-byte
+header + a row-major (time, channel) payload (float32, or int16 with a
+scale for 2x ingest bandwidth).  Range reads are exact byte offsets —
+no chunk B-trees — executed by the threaded C++ runtime
+(:mod:`tpudas_torch.native`, built at first use; a build failure
+raises).  The numpy functions of the same semantics run only when the
+caller asks for them with ``TPUDAS_NO_NATIVE=1``.
 
 The format registers in the IO registry, so spools index and read
 ``*.tdas`` interrogator directories exactly like dasdae ones.  The
 window planner (:func:`plan_window_from_records`) assembles one
 contiguous window straight from index records; for a uniform int16
 spool it keeps the RAW payload and its scale, so the engine ships
-half the bytes to the card and the first FIR stage reads int16.
+half the bytes to the card and the first FIR stage reads int16.  The
+assemblers take an optional destination array, so the engine's
+prefetch thread fills a page-locked buffer with no extra copy.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 
@@ -23,12 +28,18 @@ import numpy as np
 
 from tpudas_torch.core.patch import Patch
 from tpudas_torch.core.timeutils import to_datetime64
+from tpudas_torch.native import load_streamio, native_enabled
 
 FORMAT_NAME = "tdas"
 _MAGIC = b"TDAS"
 _HEADER = struct.Struct("<4sIQQIIIfddQ")  # 64 bytes
 _HEADER_SIZE = 64
 _DTYPES = {0: np.float32, 1: np.int16}
+
+
+def _default_threads() -> int:
+    n = os.cpu_count() or 1
+    return max(1, min(8, n - 1))
 
 
 def _pack_header(t0_ns, dt_ns, n_time, n_ch, dtype_code, scale, d0, dx):
@@ -114,12 +125,22 @@ def write_tdas(patch, path, dtype="float32", scale=None, **_):
     else:
         raise ValueError(f"tdas dtype must be float32|int16, got {dtype!r}")
 
+    t0_ns = int(taxis[0].astype(np.int64))
+    d0 = float(dist[0]) if dist.size else 0.0
+    if native_enabled():
+        rc = load_streamio().tdas_write(
+            os.fsencode(path), t0_ns, int(steps[0]), data.shape[0],
+            data.shape[1], code, float(scale), d0, dx,
+            payload.ctypes.data_as(ctypes.c_void_p),
+        )
+        if rc != 0:
+            raise OSError(rc, f"tdas_write failed for {path}")
+        return path
     with open(path, "wb") as fh:
         fh.write(
             _pack_header(
-                int(taxis[0].astype(np.int64)), int(steps[0]),
-                data.shape[0], data.shape[1], code, float(scale),
-                float(dist[0]) if dist.size else 0.0, dx,
+                t0_ns, int(steps[0]), data.shape[0], data.shape[1], code,
+                float(scale), d0, dx,
             )
         )
         fh.write(payload.tobytes())
@@ -183,14 +204,25 @@ def _read_block_numpy(path, hdr, t_lo, t_hi, c_lo, c_hi):
     return np.ascontiguousarray(raw, np.float32)
 
 
-def read_tdas_block(path, t_lo, t_hi, c_lo, c_hi):
-    """(t_hi-t_lo, c_hi-c_lo) decoded float32 block."""
+def read_tdas_block(path, t_lo, t_hi, c_lo, c_hi, n_threads=None):
+    """(t_hi-t_lo, c_hi-c_lo) decoded float32 block, read by the native
+    threaded reader (numpy under ``TPUDAS_NO_NATIVE=1``)."""
     hdr = read_tdas_header(path)
     if not (0 <= t_lo <= t_hi <= hdr["n_time"]):
         raise ValueError(f"row range [{t_lo}, {t_hi}) out of bounds")
     if not (0 <= c_lo <= c_hi <= hdr["n_ch"]):
         raise ValueError(f"channel range [{c_lo}, {c_hi}) out of bounds")
-    return _read_block_numpy(path, hdr, t_lo, t_hi, c_lo, c_hi)
+    if not native_enabled():
+        return _read_block_numpy(path, hdr, t_lo, t_hi, c_lo, c_hi)
+    out = np.empty((t_hi - t_lo, c_hi - c_lo), np.float32)
+    rc = load_streamio().tdas_read_block(
+        os.fsencode(path), int(t_lo), int(t_hi), int(c_lo), int(c_hi),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        int(n_threads or _default_threads()),
+    )
+    if rc != 0:
+        raise OSError(rc, f"tdas_read_block failed for {path}")
+    return out
 
 
 def _patch_from_block(hdr, block, t_lo, c_lo):
@@ -349,9 +381,17 @@ def plan_window_from_records(records, t_lo, t_hi, distance=None):
     }
 
 
-def assemble_window_patch(plan) -> Patch:
-    """Execute a :func:`plan_window_from_records` plan into ONE
-    contiguous buffer wrapped as a Patch.
+def window_array_spec(plan):
+    """(shape, dtype) of the buffer a plan assembles into: raw int16
+    for an ``int16`` plan, decoded float32 otherwise."""
+    dtype = np.int16 if plan.get("payload") == "int16" else np.float32
+    return (plan["total_rows"], plan["c_hi"] - plan["c_lo"]), np.dtype(dtype)
+
+
+def assemble_window_patch(plan, n_threads=None, out=None) -> Patch:
+    """Execute a :func:`plan_window_from_records` plan: one threaded
+    multi-file read into ONE contiguous buffer (``out`` when given, of
+    :func:`window_array_spec`'s shape and dtype), wrapped as a Patch.
 
     An ``int16`` plan assembles the RAW quantized payload and returns
     an int16 Patch carrying its quantization scale as the
@@ -360,21 +400,102 @@ def assemble_window_patch(plan) -> Patch:
     exist only inside the engine's window path; the public read API
     (:func:`read_tdas`) always decodes to float32.
     """
-    quantized = plan.get("payload") == "int16"
-    rows, c_lo, c_hi = plan["total_rows"], plan["c_lo"], plan["c_hi"]
-    out = np.empty((rows, c_hi - c_lo), np.int16 if quantized else np.float32)
-    for path, r_lo, r_hi, o0 in plan["segments"]:
-        hdr = read_tdas_header(path)
-        dst = out[o0 : o0 + (r_hi - r_lo)]
-        if quantized:
-            if hdr["dtype_code"] != 1:
+    if plan.get("payload") == "int16":
+        data = assemble_window_raw(
+            plan["segments"], plan["c_lo"], plan["c_hi"],
+            plan["total_rows"], dtype_code=1, n_threads=n_threads, out=out,
+        )
+        patch = _patch_from_block(plan, data, 0, plan["c_lo"])
+        return patch.update_attrs(data_scale=float(plan["scale"]))
+    data = assemble_window(
+        plan["segments"], plan["c_lo"], plan["c_hi"], plan["total_rows"],
+        n_threads=n_threads, out=out,
+    )
+    return _patch_from_block(plan, data, 0, plan["c_lo"])
+
+
+def _segment_arrays(segments):
+    """ctypes marshaling shared by both native assemblers."""
+    n = len(segments)
+    return (
+        (ctypes.c_char_p * n)(*[os.fsencode(s[0]) for s in segments]),
+        (ctypes.c_uint64 * n)(*[int(s[1]) for s in segments]),
+        (ctypes.c_uint64 * n)(*[int(s[2]) for s in segments]),
+        (ctypes.c_uint64 * n)(*[int(s[3]) for s in segments]),
+        n,
+    )
+
+
+def _destination(out, shape, dtype):
+    """``out`` checked against the assembly's shape and dtype (the
+    native runtime writes through its pointer), or a fresh array."""
+    if out is None:
+        return np.empty(shape, dtype)
+    if (
+        not isinstance(out, np.ndarray)
+        or out.shape != tuple(shape)
+        or out.dtype != dtype
+        or not out.flags.c_contiguous
+        or not out.flags.writeable
+    ):
+        raise ValueError(
+            f"out must be a writeable C-contiguous {np.dtype(dtype)} array "
+            f"of shape {tuple(shape)}"
+        )
+    return out
+
+
+def assemble_window_raw(
+    segments, c_lo, c_hi, total_rows, dtype_code, n_threads=None, out=None
+):
+    """Fill one contiguous (total_rows, c_hi-c_lo) buffer of the RAW
+    payload dtype (no numeric conversion) from per-file row segments
+    ``(path, row_lo, row_hi, out_row0)``.  Every file must carry
+    ``dtype_code`` (the planner guarantees it; the native runtime
+    re-checks per file)."""
+    out = _destination(out, (total_rows, c_hi - c_lo), _DTYPES[dtype_code])
+    if not native_enabled():
+        for path, r_lo, r_hi, o0 in segments:
+            hdr = read_tdas_header(path)
+            if hdr["dtype_code"] != dtype_code:
                 raise ValueError(
-                    f"{path}: payload dtype {hdr['dtype_code']} != planned 1"
+                    f"{path}: payload dtype {hdr['dtype_code']} != "
+                    f"planned {dtype_code}"
                 )
-            dst[:] = _read_rows_raw_numpy(path, hdr, r_lo, r_hi, c_lo, c_hi)
-        else:
-            dst[:] = _read_block_numpy(path, hdr, r_lo, r_hi, c_lo, c_hi)
-    patch = _patch_from_block(plan, out, 0, c_lo)
-    if quantized:
-        patch = patch.update_attrs(data_scale=float(plan["scale"]))
-    return patch
+            out[o0 : o0 + (r_hi - r_lo)] = _read_rows_raw_numpy(
+                path, hdr, r_lo, r_hi, c_lo, c_hi
+            )
+        return out
+    paths, row_lo, row_hi, out_r0, n = _segment_arrays(segments)
+    rc = load_streamio().tdas_assemble_window_raw(
+        paths, row_lo, row_hi, out_r0, n, int(c_lo), int(c_hi),
+        int(dtype_code), out.ctypes.data_as(ctypes.c_void_p),
+        int(n_threads or _default_threads()),
+    )
+    if rc != 0:
+        raise OSError(rc, "tdas_assemble_window_raw failed")
+    return out
+
+
+def assemble_window(segments, c_lo, c_hi, total_rows, n_threads=None,
+                    out=None):
+    """Fill one contiguous (total_rows, c_hi-c_lo) float32 window from
+    per-file row segments ``(path, row_lo, row_hi, out_row0)``, int16
+    files decoded."""
+    out = _destination(out, (total_rows, c_hi - c_lo), np.float32)
+    if not native_enabled():
+        for path, r_lo, r_hi, o0 in segments:
+            hdr = read_tdas_header(path)
+            out[o0 : o0 + (r_hi - r_lo)] = _read_block_numpy(
+                path, hdr, r_lo, r_hi, c_lo, c_hi
+            )
+        return out
+    paths, row_lo, row_hi, out_r0, n = _segment_arrays(segments)
+    rc = load_streamio().tdas_assemble_window(
+        paths, row_lo, row_hi, out_r0, n, int(c_lo), int(c_hi),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        int(n_threads or _default_threads()),
+    )
+    if rc != 0:
+        raise OSError(rc, "tdas_assemble_window failed")
+    return out

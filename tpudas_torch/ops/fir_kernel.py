@@ -17,8 +17,6 @@ in :mod:`tpudas_torch.ops.fir`.
   at first use, bound with ctypes) or raises — there is no fallback.
   On a CPU tensor, and only there, it runs :func:`fir_decimate_plain`.
   ``fir_decimate.launches`` counts kernel launches.
-- :func:`fir_decimate_v1` launches the first kernel of the same source
-  (CUDA only), which ``chip_smoke.py`` times beside the path's kernel.
 - :func:`fir_decimate_tiled_plain` walks the kernel's tiling in plain
   PyTorch (stripes, tiles, tap chunks, order of sums), for the CPU
   tests.
@@ -41,7 +39,7 @@ import torch
 
 __all__ = [
     "chunk_frames", "copy_width", "fir_decimate", "fir_decimate_plain",
-    "fir_decimate_tiled_plain", "fir_decimate_v1",
+    "fir_decimate_tiled_plain",
 ]
 
 _LIB_NAME = "fir_decimate"
@@ -61,9 +59,6 @@ def _kernel_lib():
         for fn in (lib.fir_decimate_f32, lib.fir_decimate_i16):
             # B, chunk frames, copy width
             fn.argtypes = ptrs + head + [ctypes.c_int] * 3 + tail
-            fn.restype = ctypes.c_int
-        for fn in (lib.fir_decimate_v1_f32, lib.fir_decimate_v1_i16):
-            fn.argtypes = ptrs + head + [ctypes.c_int] + tail  # L
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -196,21 +191,6 @@ def fir_decimate(x, hb, R: int, n_out: int, row0: int = 0):
 
 fir_decimate.launches = 0
 fir_decimate.launches_by_width = dict.fromkeys(COPY_WIDTHS, 0)
-
-
-def fir_decimate_v1(x, hb, R: int, n_out: int, row0: int = 0):
-    """The same stage on the first kernel (``fir_decimate_v1_*``), CUDA
-    tensors only.  Nothing on a path calls it: ``chip_smoke.py`` times
-    it beside :func:`fir_decimate` in the same run."""
-    R, n_out, row0 = int(R), int(n_out), int(row0)
-    _check(x, hb, R, n_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"fir_decimate_v1 runs on cuda, not {x.device}")
-    lib = _kernel_lib()
-    fn = (lib.fir_decimate_v1_i16 if x.dtype == torch.int16
-          else lib.fir_decimate_v1_f32)
-    return _launch("fir_decimate_v1", fn, x, hb, R, n_out, row0,
-                   hb.shape[0] * R)[0]
 
 
 def fir_decimate_tiled_plain(x, hb, R: int, n_out: int, row0: int = 0):

@@ -6,10 +6,17 @@ the ms-quantized time grid, the overlap-save window schedule and its
 seam-freeness invariant (SURVEY.md §3.1), the ``LFDAS_*.h5`` naming,
 parameters dict semantics, and crash-only resume from the output
 folder (lf_das.py:214-217).  Per window the host assembles ``(T, C)``
-data from the spool (raw int16 for a quantized tdas spool), moves it
-to the device as one tensor, runs the polyphase FIR cascade
+data from the spool (raw int16 for a quantized tdas spool; the native
+threaded assembler for tdas spools), moves it to the device as one
+tensor, runs the polyphase FIR cascade
 (:func:`tpudas_torch.ops.fir.cascade_decimate` — the hand-written CUDA
 kernel on the card), and writes the decimated interior.
+
+The ingest is a one-deep pipeline: a prefetch thread assembles window
+N+1 while window N computes and writes.  On the card it assembles
+straight into one of two page-locked host buffers and starts the
+window's H2D on a side CUDA stream (``TPUDAS_H2D_STAGE=0`` turns the
+staging off; windows over ``_STAGE_MAX_BYTES`` are not staged).
 
 A window whose output grid is not sample-aligned, or whose halo is
 smaller than the cascade's filter support, runs the FFT engine under
@@ -31,6 +38,7 @@ from __future__ import annotations
 import os
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -171,6 +179,69 @@ def lowpass_resample(data, d_sec, corner, idx, w, order=4, qscale=None,
     return gather_lerp(_filter_rows(x, d_sec, None, corner, order), idx, w)
 
 
+class _PinnedRing:
+    """The prefetch thread's two page-locked host buffers and its copy
+    stream, on the card.
+
+    Window N is assembled into buffer N % 2 and its H2D starts on the
+    side stream; the buffer is handed out again (for window N+2) only
+    after that copy's event has completed.  The buffers are allocated
+    once and grown only when a window is larger: page-locking a window's
+    bytes anew for every window would cost more than the copy saves.
+    Used from the prefetch thread only.
+    """
+
+    _TORCH_DTYPES = {np.dtype(np.int16): torch.int16,
+                     np.dtype(np.float32): torch.float32}
+
+    def __init__(self, device):
+        self.device = device
+        self._bufs = [None, None]
+        self._events = [None, None]
+        self._next = 0
+        self._stream = None
+
+    def array(self, shape, dtype):
+        """A host array of ``shape``/``dtype`` in the next page-locked
+        buffer, once that buffer's last copy has completed."""
+        i = self._next
+        self._next ^= 1
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        if self._bufs[i] is None or self._bufs[i].numel() < nbytes:
+            self._bufs[i] = None  # release the smaller buffer first
+            self._bufs[i] = torch.empty(nbytes, dtype=torch.uint8,
+                                        pin_memory=True)
+        return self._bufs[i][:nbytes].numpy().view(dtype).reshape(shape)
+
+    def to_device(self, host):
+        """Start ``host``'s H2D on the side stream; returns (device
+        tensor, the copy's event).  An array other than the one
+        :meth:`array` handed out last is first copied into a buffer."""
+        i = self._next ^ 1
+        buf = self._bufs[i]
+        if (
+            buf is None
+            or host.ctypes.data != buf.data_ptr()
+            or not host.flags.c_contiguous
+        ):
+            dst = self.array(host.shape, host.dtype)
+            dst[...] = host
+            host, i = dst, self._next ^ 1
+        src = (self._bufs[i][: host.nbytes]
+               .view(self._TORCH_DTYPES[host.dtype]).view(host.shape))
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        with torch.cuda.stream(self._stream):
+            x = src.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        self._events[i] = ready
+        return x, ready
+
+
 class LFProc:
     """Low-frequency processing engine over a source spool.
 
@@ -199,9 +270,21 @@ class LFProc:
         self.stream_blocks = {}
         # windows whose raw int16 payload went to the device undecoded
         self.quantized_windows = 0
-        # cumulative per-phase wall seconds: assemble = window read,
-        # device = H2D + cascade + D2H, write = output file write
+        # windows read by the native tdas assembler, and windows whose
+        # device payload the prefetch thread staged
+        self.native_windows = 0
+        self.staged_windows = 0
+        # cumulative per-phase wall seconds: assemble = the consumer's
+        # wait on the prefetch thread's window read, device = (the rest
+        # of the) H2D + kernels + D2H, write = output file write
         self.timings = {"assemble_s": 0.0, "device_s": 0.0, "write_s": 0.0}
+        self._ring = (_PinnedRing(self.device) if self.device.type == "cuda"
+                      else None)
+        # the run's anchor for joint products phased in input samples
+        # (tpudas_torch.proc.joint), and whether the next window is the
+        # run's first (whose rolling warm-up may clamp)
+        self._run_origin_ns = None
+        self._first_window_of_run = True
 
     # configuration ----------------------------------------------------
     def _default_process_parameters(self):
@@ -253,16 +336,20 @@ class LFProc:
         return FrozenDict(self._para)
 
     # output folder / resume ------------------------------------------
-    def set_output_folder(self, folder, delete_existing=False):
-        """Create (or wipe and recreate) the output folder — messages
+    @staticmethod
+    def _setup_folder(folder, delete_existing):
+        """Create (or wipe and recreate) an output folder — messages
         match the reference (lf_das.py:188-195)."""
-        self._output_folder = folder
         if delete_existing and os.path.isdir(folder):
             shutil.rmtree(folder)
             print(f"original {folder} deleted")
         if not os.path.isdir(folder):
             os.makedirs(folder)
             print(f"{folder} created")
+
+    def set_output_folder(self, folder, delete_existing=False):
+        self._output_folder = folder
+        self._setup_folder(folder, delete_existing)
 
     def get_last_processed_time(self):
         """Resume primitive: progress state lives entirely in the output
@@ -298,28 +385,40 @@ class LFProc:
         self.stream_blocks[ran] = self.stream_blocks.get(ran, 0) + 1
 
     # the engine -------------------------------------------------------
-    def _load_window(self, t_lo, t_hi, on_gap):
+    def _load_window(self, t_lo, t_hi, on_gap, alloc=None):
         """Host side: read + merge one window from the source spool.
 
         tdas directory spools take the planned path: per-file row
-        segments are planned from the index alone and read into ONE
-        contiguous buffer (raw int16 + its scale for a quantized spool);
-        other spools read per-file patches and merge them, bridging
-        holes up to ``data_gap_tolorance`` seconds.
+        segments are planned from the index alone and the native
+        threaded assembler reads them into ONE contiguous buffer (raw
+        int16 + its scale for a quantized spool; numpy under
+        ``TPUDAS_NO_NATIVE=1``) — ``alloc(shape, dtype)``, when given,
+        supplies that buffer.  Other spools read per-file patches and
+        merge them, bridging holes up to ``data_gap_tolorance`` seconds.
         """
         plan_fn = getattr(self._spool, "window_plan", None)
         if plan_fn is not None:
             plan = plan_fn(t_lo, t_hi)
             if plan is not None:
-                from tpudas_torch.io.tdas import assemble_window_patch
+                from tpudas_torch.io.tdas import (
+                    assemble_window_patch,
+                    window_array_spec,
+                )
+                from tpudas_torch.native import native_enabled
 
+                native = native_enabled()
                 log_event(
                     "planned_window",
                     files=len(plan["segments"]),
                     rows=plan["total_rows"],
                     payload=plan["payload"],
+                    native=native,
                 )
-                return assemble_window_patch(plan)
+                out = None if alloc is None else alloc(*window_array_spec(plan))
+                patch = assemble_window_patch(plan, out=out)
+                if native:
+                    self.native_windows += 1
+                return patch
         selected = self._spool.select(time=(t_lo, t_hi))
         plist = make_spool(selected).chunk(
             time=None,
@@ -380,6 +479,10 @@ class LFProc:
         on_gap = self._para["on_gap"]
         bgtime = to_datetime64(bgtime)
         edtime = to_datetime64(edtime)
+        self._run_origin_ns = int(
+            bgtime.astype("datetime64[ns]").astype(np.int64)
+        )
+        self._first_window_of_run = True
         time_grid = build_time_grid(bgtime, edtime, dt)
         if on_gap == "split":
             # a globally invalid patch/buff relation must fail loudly
@@ -402,15 +505,22 @@ class LFProc:
         else:
             segments = [(0, len(time_grid))]
         total_windows = 0
-        for s_i, (g_lo, g_hi) in enumerate(segments):
-            if len(segments) > 1:
-                print(
-                    f"Processing segment {s_i + 1}/{len(segments)} "
-                    f"[{time_grid[g_lo]} .. {time_grid[g_hi - 1]}]"
+        try:
+            for s_i, (g_lo, g_hi) in enumerate(segments):
+                if len(segments) > 1:
+                    print(
+                        f"Processing segment {s_i + 1}/{len(segments)} "
+                        f"[{time_grid[g_lo]} .. {time_grid[g_hi - 1]}]"
+                    )
+                total_windows += self._process_segment(
+                    time_grid[g_lo:g_hi], on_gap
                 )
-            total_windows += self._process_segment(
-                time_grid[g_lo:g_hi], on_gap
-            )
+        finally:
+            # the run anchor must not leak into later direct
+            # _process_window use (whose fallback is a window-local
+            # origin)
+            self._run_origin_ns = None
+            self._first_window_of_run = True
         log_event(
             "process_time_range_done",
             windows=total_windows,
@@ -421,8 +531,8 @@ class LFProc:
 
     def _process_segment(self, time_grid, on_gap) -> int:
         """Overlap-save over one contiguous grid segment; returns the
-        number of scheduled windows.  Windows run one after another:
-        read, transfer, filter, write."""
+        number of scheduled windows.  The prefetch thread reads (and
+        stages) window N+1 while window N is filtered and written."""
         dt = self._para["output_sample_interval"]
         patch_size = self._para["process_patch_size"]
         buff_size = self._para["edge_buff_size"]
@@ -432,20 +542,87 @@ class LFProc:
             return 0
         windows = schedule_windows(len(time_grid), patch_size, buff_size)
         corner = output_corner(dt)
-        for i, (sel_lo, sel_hi, emit_lo, emit_hi) in enumerate(windows):
-            print("Processing patch ", str(i + 1))
-            t0 = time.perf_counter()
-            window_patch = self._load_window(
-                time_grid[sel_lo], time_grid[sel_hi], on_gap
-            )
-            self.timings["assemble_s"] += time.perf_counter() - t0
+        for i, loaded, emit_times in self._iter_windows(
+            time_grid, windows, on_gap, self._load_and_stage
+        ):
+            window_patch, staged = loaded
             if window_patch is None:
                 log_event("window_skipped_gap", index=i + 1)
                 continue
             self._process_window(
-                window_patch, time_grid[emit_lo:emit_hi], dt, corner, order
+                window_patch, emit_times, dt, corner, order, staged=staged
             )
         return len(windows)
+
+    def _iter_windows(self, time_grid, windows, on_gap, loader):
+        """Prefetching window iterator: ``loader(bg, ed, on_gap)`` runs
+        one window ahead on a worker thread; yields ``(i, loaded,
+        emit_times)`` with the consumer's wait counted as assemble
+        time.  Window N+2 is asked for only after window N has been
+        processed, which is what lets two staging buffers suffice."""
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            future = None
+            if windows:
+                w0 = windows[0]
+                future = pool.submit(
+                    loader, time_grid[w0[0]], time_grid[w0[1]], on_gap
+                )
+            try:
+                for i, (sel_lo, sel_hi, emit_lo, emit_hi) in enumerate(windows):
+                    print("Processing patch ", str(i + 1))
+                    t_wait = time.perf_counter()
+                    loaded = future.result()
+                    future = None
+                    self.timings["assemble_s"] += time.perf_counter() - t_wait
+                    if i + 1 < len(windows):
+                        nxt = windows[i + 1]
+                        future = pool.submit(
+                            loader, time_grid[nxt[0]], time_grid[nxt[1]], on_gap
+                        )
+                    yield i, loaded, time_grid[emit_lo:emit_hi]
+            finally:
+                if future is not None and not future.cancel():
+                    # the consumer stopped early: the read ahead is
+                    # abandoned, and its own failure (if any) with it
+                    future.exception()
+
+    # windows larger than this are not staged: staging keeps two
+    # windows resident (the computing one and the transferring one) in
+    # page-locked host memory and on the device.  TPUDAS_H2D_STAGE=0
+    # turns staging off.
+    _STAGE_MAX_BYTES = 2 << 30
+
+    def _stage_array(self, shape, dtype):
+        """The prefetch thread's destination for a planned window: a
+        page-locked buffer when the window fits the staging budget."""
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        if nbytes > self._STAGE_MAX_BYTES:
+            return np.empty(shape, dtype)
+        return self._ring.array(shape, dtype)
+
+    def _load_and_stage(self, bg, ed, on_gap):
+        """Prefetch-thread body: assemble the window, then START its
+        transfer so the H2D overlaps the previous window's compute and
+        write.  Returns (patch, staged): ``staged`` is (time-major
+        device tensor — raw int16 for quantized windows —, the copy's
+        CUDA event or None) or None when staging does not apply.  On
+        the CPU the "transfer" wraps the host array."""
+        staging = os.environ.get("TPUDAS_H2D_STAGE", "1") != "0"
+        cuda = self._ring is not None
+        alloc = self._stage_array if staging and cuda else None
+        window_patch = self._load_window(bg, ed, on_gap, alloc=alloc)
+        if window_patch is None or not staging:
+            return window_patch, None
+        host, qscale = self._time_major_payload(window_patch)
+        es = 2 if qscale is not None else 4
+        if host.size * es > self._STAGE_MAX_BYTES:
+            return window_patch, None
+        host = np.ascontiguousarray(
+            host, dtype=host.dtype if qscale is not None else np.float32
+        )
+        if not cuda:
+            return window_patch, (torch.from_numpy(host), None)
+        return window_patch, self._ring.to_device(host)
 
     @staticmethod
     def _time_major_payload(window_patch):
@@ -500,10 +677,13 @@ class LFProc:
             return None
         return ratio, phase
 
-    def _process_window(self, window_patch, target_times, dt, corner, order):
+    def _process_window(self, window_patch, target_times, dt, corner, order,
+                        staged=None):
         """Device side: filter + decimate (the cascade, or the FFT engine
         where the cascade cannot serve the window), then write the
-        interior."""
+        interior.  ``staged`` is the prefetch thread's (device tensor,
+        copy event) of this window's payload: host-side decisions still
+        read the host array, only the device payload is substituted."""
         if target_times.size == 0:
             return
         host, qs = self._time_major_payload(window_patch)
@@ -566,10 +746,19 @@ class LFProc:
                     align = None  # auto: the FFT engine takes the window
         n_out = int(target_times.size)
         t_dev0 = time.perf_counter()
-        # quantized windows ship the raw int16 payload: half the
-        # transfer bytes, dequantized on the device
-        payload = host if qs is not None else host.astype(np.float32, copy=False)
-        x = torch.from_numpy(np.ascontiguousarray(payload)).to(self.device)
+        if staged is not None:
+            x, ready = staged  # H2D started by the prefetch thread
+            if ready is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(ready)
+                x.record_stream(compute)
+            self.staged_windows += 1
+        else:
+            # quantized windows ship the raw int16 payload: half the
+            # transfer bytes, dequantized on the device
+            payload = (host if qs is not None
+                       else host.astype(np.float32, copy=False))
+            x = torch.from_numpy(np.ascontiguousarray(payload)).to(self.device)
         if align is not None:
             from tpudas_torch.ops.fir import cascade_decimate
 
@@ -588,10 +777,25 @@ class LFProc:
         self.timings["device_s"] += t_dev
         if qs is not None:
             self.quantized_windows += 1
+        # joint products (tpudas_torch.proc.joint.JointProc) read the
+        # same device payload: one ingest pass, one H2D, several
+        # products.  Emitted BEFORE the LF file: resume state is the LF
+        # output folder, so a crash between the two writes leaves the
+        # window to be redone (its extra file is rewritten under the
+        # same name) rather than a hole in the extra product.
+        self._emit_window_extras(
+            window_patch, x, qs, taxis, target_times, dt, d_sec,
+        )
         self._emit_window_output(
             window_patch, target_times, dt, out, ran,
             rows=int(host.shape[0]), t_dev=t_dev,
         )
+
+    def _emit_window_extras(self, window_patch, payload, qs, taxis,
+                            target_times, dt, d_sec):
+        """Hook for subclasses emitting extra per-window products.
+        ``payload`` is the time-major window already on the device (raw
+        int16 with ``qs`` for a quantized window)."""
 
     def _emit_window_output(self, window_patch, target_times, dt, out, ran,
                             rows, t_dev=0.0):
