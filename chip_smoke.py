@@ -52,7 +52,18 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    ``engine="auto"`` on a 1.1 s grid (ratio 1100 = 2^2 5^2 11: every
    window routes to the FFT engine); ``run_lowpass_realtime(engine=
    "fft")`` over files 1-2, then resumed over file 3 from its "fft"
-   carry, equal to the FFT batch output within 1e-4 on the interior.
+   carry, equal to the FFT batch output within 1e-4 on the interior;
+7. ``JointProc`` over the same spool: LF files byte-equal to phase 4's,
+   the 1 s rolling mean within 1e-6 of a float64 mean;
+8. the fleet (``FleetEngine``) over the same spool: four streams of
+   10,000, 6,001, 2,500 and 1,499 channels (``distance`` selections,
+   20,000 ch packed), batched under ``engine="fused"`` (files 1-2, then
+   a second fleet resumed over file 3), ``"auto"`` and ``"fft"`` (files
+   1-2): every member's output files and carry byte-equal to its solo
+   control and to the unbatched fleet, B3 and the B1 chain launched on
+   the packed block (fewer steps than member blocks); one packed
+   60-output B3 step timed against its members' solo steps; the FFT's
+   packed transform held against the per-member one.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -63,8 +74,9 @@ before any phase.  ``--rehearse`` runs the same phases on the CPU at a
 64-channel width with the plain versions (no kernel, no timings worth
 reading) and exits 3: a dry run of the control flow, never a result.
 ``--only fir`` runs phases 1, 2 and 3 alone (the stage kernel's
-iteration loop) and ``--only fused`` phases 1, 2 and 3b (the fused
-step's); both exit 4 without the kernels line or the ``ok`` line.
+iteration loop), ``--only fused`` phases 1, 2 and 3b (the fused
+step's) and ``--only fleet`` phases 1, 2 and 8 over a fresh spool; all
+exit 4 without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1512,6 +1524,352 @@ def phase_joint(device, workdir, cls):
     return res
 
 
+# phase 8: four streams read phase 4's spool, each its own channel range
+# (a ``distance`` selection), for ragged widths whose odd sizes put the
+# members at packed offsets where B1's copy width differs from solo
+FLEET_MEMBERS = (("a", 0, 10000), ("b", 1, 6001), ("c", 3, 2500),
+                 ("d", 7, 1499))  # 20,000 channels packed
+REHEARSE_MEMBERS = (("a", 0, 32), ("b", 1, 17), ("c", 3, 9), ("d", 7, 6))
+D_CH = 5.0  # the synthetic spool's channel spacing (m)
+
+
+def fleet_specs(fdir, src_all, members, tag, engine, upto):
+    """The members' specs, each over its own source folder of hard links
+    to the first ``upto`` files of ``src_all``."""
+    from tpudas_torch.fleet import StreamConfig, StreamSpec
+
+    specs = []
+    for sid, c0, w in members:
+        src = os.path.join(fdir, f"src_{tag}_{sid}")
+        link_files(src_all, src, upto)
+        specs.append(StreamSpec(stream_id=sid, source=src, config=StreamConfig(
+            kind="lowpass", start_time=T0, output_sample_interval=1.0,
+            edge_buffer=10.0, process_patch_size=60, poll_interval=0.0,
+            poll_jitter=0.0, engine=engine, stateful=True,
+            distance=(c0 * D_CH, (c0 + w - 1) * D_CH))))
+    return specs
+
+
+def kernel_counts():
+    """The kernel wrappers' launch counts and the stacked step's."""
+    from tpudas_torch.ops.fir import cascade_decimate_stream_stacked
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    return {"b3_steps": fused_cascade.launches,
+            "b3_kernels": fused_cascade.kernel_launches,
+            "b1": fir_decimate.launches,
+            "stacked": {f"{e}@{c}": n for (e, c), n in
+                        cascade_decimate_stream_stacked.launches.items()}}
+
+
+def zero_kernel_counts():
+    from tpudas_torch.ops.fir import cascade_decimate_stream_stacked
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    fused_cascade.launches = fused_cascade.kernel_launches = 0
+    fir_decimate.launches = 0
+    cascade_decimate_stream_stacked.launches.clear()
+
+
+def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched):
+    """One fleet over ``calls`` (file counts; a new ``FleetEngine`` each,
+    resuming every member from its carry), or with ``batched=None`` each
+    member alone (``drive(build_runner(...))``, the same calls).  Kernel
+    counts are set to 0 just before and read just after."""
+    from tpudas_torch.fleet import FleetEngine, build_runner, drive
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+
+    root = os.path.join(fdir, tag)
+    blocks, data_s, walls, timings = {}, [0.0], [], {}
+
+    def on_round(sid, _rnd, lfp):
+        for k, v in lfp.stream_blocks.items():
+            blocks.setdefault(sid, {})
+            blocks[sid][k] = blocks[sid].get(k, 0) + v
+        for k, v in lfp.timings.items():
+            timings[k] = timings.get(k, 0.0) + v
+
+    cuda = device.type == "cuda"
+    reg = MetricsRegistry()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    summaries = []
+    with use_registry(reg):
+        for upto in calls:
+            specs = fleet_specs(fdir, src_all, members, tag, engine, upto)
+            t0 = time.perf_counter()
+            if batched is None:
+                runners = []
+                for spec in specs:
+                    sid = str(spec.stream_id)
+                    r = build_runner(spec, root=root, device=device,
+                                     on_round=lambda rnd, lfp, sid=sid:
+                                     on_round(sid, rnd, lfp))
+                    drive(r, sleep_fn=lambda _s: None)
+                    runners.append(r)
+            else:
+                eng = FleetEngine(root, specs, sleep_fn=lambda _s: None,
+                                  batched=batched, device=device,
+                                  on_round=on_round)
+                summaries.append(eng.run())
+                runners = [s.runner for s in eng.streams.values()]
+            if cuda:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            data_s[0] += sum(r.counters.data_seconds for r in runners)
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    wall = sum(walls)
+    return root, {
+        "calls": len(calls), "wall_s": wall, "walls_s": walls,
+        "member_data_s": data_s[0],
+        "realtime_factor": data_s[0] / wall if wall else None,
+        "blocks": blocks,
+        # summed over the members, whose rounds overlap when batched
+        "member_timings": timings,
+        "member_blocks": sum(sum(b.values()) for b in blocks.values()),
+        "kernel_counts": counts,
+        "stacked_launches": reg.value(
+            "tpudas_fleet_batch_stacked_launches_total"),
+        "stacked_members": reg.value(
+            "tpudas_fleet_batch_stacked_members_total"),
+        "solo_launches": reg.value("tpudas_fleet_batch_solo_launches_total"),
+        "groups": reg.value("tpudas_fleet_batch_groups_total"),
+        "parked": sorted({p for s in summaries for p in s["parked"]}),
+        "peak_device_bytes": peak,
+    }
+
+
+def member_diff(a, b):
+    """Output files and the carry of two member folders whose bytes
+    differ (or that only one has)."""
+    import filecmp
+
+    from tpudas_torch.proc.stream import CARRY_FILENAME
+
+    def names(d):
+        return sorted(n for n in os.listdir(d)
+                      if n.startswith("LFDAS_") or n == CARRY_FILENAME)
+
+    na, nb = names(a), names(b)
+    if na != nb or CARRY_FILENAME not in na or len(na) < 2:
+        return sorted(set(na) ^ set(nb)) or ["no outputs"]
+    return [n for n in na if not filecmp.cmp(os.path.join(a, n),
+                                             os.path.join(b, n),
+                                             shallow=False)]
+
+
+def fleet_step_timing(timer, members, device):
+    """One 60-output int16 stream block per member at its own width, from
+    the same carry: the stacked steps on the packed block (B3 and the B1
+    chain) byte-equal to each member's solo step; the packed B3 step
+    (kernels A + B) timed with events against the sum of the members'
+    solo steps, and the stacked step with its packing and slicing."""
+    from tpudas_torch.ops.fir import (
+        _stream_step,
+        cascade_decimate_stream,
+        cascade_decimate_stream_stacked,
+        design_cascade,
+        stream_carry_sizes,
+    )
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    plan = design_cascade(1000.0, 1000, 0.45)
+    sizes = stream_carry_sizes(plan)
+    widths = [w for _sid, _c0, w in members]
+    C = sum(widths)
+    warm = [warm_blocks(plan, (60,), w, device, 80 + i, True)
+            for i, w in enumerate(widths)]
+    blocks = [b[0][0] for b in warm]
+    carries = [b[1] for b in warm]
+    rec = {"channels": C, "widths": widths, "rows": int(blocks[0].shape[0])}
+    engines = ("fused-cuda", "cuda") if device.type == "cuda" else (
+        "fused-torch", "torch")
+    for eng in engines:
+        res = cascade_decimate_stream_stacked(blocks, carries, plan, eng,
+                                              qscale=QSCALE)
+        differ = []
+        for i, (b, c) in enumerate(zip(blocks, carries)):
+            y, new = cascade_decimate_stream(b, c, plan, eng, qscale=QSCALE)
+            if not (torch.equal(y, res[i][0]) and all(
+                    torch.equal(u, v) for u, v in zip(new, res[i][1]))):
+                differ.append(widths[i])
+        rec[f"{eng}_stacked_differs_at_widths"] = differ
+        del res
+    packed = torch.cat(blocks, dim=1).contiguous()
+    pc = tuple(torch.cat([c[i] for c in carries], dim=1).contiguous()
+               for i in range(len(sizes)))
+    step = fused_cascade if device.type == "cuda" else None
+    if step is not None:
+        def packed_b3():
+            return step(packed, pc, plan.stages, sizes, qscale=QSCALE)
+
+        reps = timer.reps_for(packed_b3)
+        rec["b3_packed_ms"] = timer(packed_b3, reps)
+        rec["b3_solo_ms"] = [
+            timer(lambda b=b, c=c: step(b, c, plan.stages, sizes,
+                                        qscale=QSCALE), reps)
+            for b, c in zip(blocks, carries)]
+        rec["b3_solo_sum_ms"] = sum(rec["b3_solo_ms"])
+        rec["b3_stacked_op_ms"] = timer(
+            lambda: cascade_decimate_stream_stacked(
+                blocks, carries, plan, "fused-cuda", qscale=QSCALE), reps)
+        rec["b1_chain_packed_ms"] = timer(
+            lambda: _stream_step(packed, pc, plan, "cuda", QSCALE), reps)
+        rec["b1_chain_solo_sum_ms"] = sum(
+            timer(lambda b=b, c=c: _stream_step(b, c, plan, "cuda", QSCALE),
+                  reps) for b, c in zip(blocks, carries))
+        rec["b3_packed_bound_ms"], rec["b3_packed_bound_by"], \
+            rec["b3_packed_bound_ms_measured"] = cascade_bound_ms(
+                plan, int(packed.shape[0]), C, 2)
+    del packed, pc, blocks, carries, warm
+    return rec
+
+
+def fft_packed_transform(timer, members, device):
+    """The FFT stream step's transform over one packed [carry; block]
+    (20,000 ch at the flagship's edge) against each member's transform
+    at its own width: whether the bits agree, the largest difference,
+    and both times.  The port's stacked step runs the per-member form."""
+    from tpudas_torch.ops.filter import _filter_rows
+    from tpudas_torch.proc.lfproc import output_corner
+
+    widths = [w for _sid, _c0, w in members]
+    rows = 80000 if device.type == "cuda" else 8000  # 2 x edge + 60 s
+    x = synthetic_window(rows, sum(widths), device, 90, False)
+    corner = output_corner(1.0)
+    packed = _filter_rows(x, 1e-3, None, corner, 4)
+    differ, max_abs = [], 0.0
+    o = 0
+    for w in widths:
+        m = _filter_rows(x[:, o:o + w].contiguous(), 1e-3, None, corner, 4)
+        if not torch.equal(m, packed[:, o:o + w]):
+            differ.append(w)
+        max_abs = max(max_abs, float((m - packed[:, o:o + w]).abs().max()))
+        o += w
+    del packed
+    parts = [x[:, o:o + w].contiguous() for o, w in
+             zip(np.cumsum([0] + widths[:-1]), widths)]
+    rec = {"rows": rows, "channels": sum(widths),
+           "packed_differs_at_widths": differ,
+           "packed_max_abs_diff": max_abs}
+    rec["packed_ms"] = timer(lambda: _filter_rows(x, 1e-3, None, corner, 4),
+                             3)
+    rec["per_member_ms"] = timer(
+        lambda: [_filter_rows(p, 1e-3, None, corner, 4) for p in parts], 3)
+    del x, parts
+    return rec
+
+
+def phase_fleet(device, workdir, cls, members, timer):
+    """Phase 8: the multi-array fleet over phase 4's spool.  Four streams
+    of ragged widths (20,000 ch packed), ``poll_jitter=0`` and a no-op
+    sleep, so the backlog forms batch groups (the drain regime).  (a)
+    ``engine="fused"`` batched over files 1-2, then a second fleet that
+    resumes every member over file 3; (b) ``engine="auto"`` batched over
+    files 1-2; (c) ``engine="fft"`` batched over files 1-2.  Each member's
+    output files and carry must equal its solo control (the same calls
+    of ``drive(build_runner(...))``) byte for byte, and the unbatched
+    fleet's; each leg runs batched, solo, unbatched, batched again, so
+    the walls come in turns; (a) must launch B3 and (b) the B1 chain on the
+    packed block, fewer steps than member blocks.  Then one packed
+    60-output B3 step timed against its members' solo steps, and the
+    FFT's packed transform against the per-member one."""
+    from tpudas_torch.fleet import engine as fleet_engine
+
+    src_all = os.path.join(workdir, "src")
+    fdir = os.path.join(workdir, "fleet")
+    shutil.rmtree(fdir, ignore_errors=True)
+    cuda = device.type == "cuda"
+    legs = {"fused": (2, 3), "auto": (2,), "fft": (2,)}
+    res, checks = {}, []
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    try:
+        for engine, calls in legs.items():
+            root_b, rb = fleet_leg(device, fdir, src_all, members,
+                                   f"{engine}_batched", engine, calls, True)
+            root_c, rc = fleet_leg(device, fdir, src_all, members,
+                                   f"{engine}_control", engine, calls, None)
+            leg = {"batched": rb, "control": rc}
+            vs_ctrl = {sid: member_diff(os.path.join(root_b, sid),
+                                        os.path.join(root_c, sid))
+                       for sid, _c0, _w in members}
+            leg["differs_from_control"] = vs_ctrl
+            checks += [
+                (not any(vs_ctrl.values()),
+                 f"({engine}) members differ from solo controls: {vs_ctrl}"),
+                (rb["parked"] == [], f"({engine}) parked {rb['parked']}"),
+                (rb["stacked_launches"] >= 1 and rb["groups"] >= 1,
+                 f"({engine}) no stacked launch"),
+            ]
+            root_u, ru = fleet_leg(device, fdir, src_all, members,
+                                   f"{engine}_unbatched", engine, calls,
+                                   False)
+            leg["unbatched"] = ru
+            vs_u = {sid: member_diff(os.path.join(root_b, sid),
+                                     os.path.join(root_u, sid))
+                    for sid, _c0, _w in members}
+            leg["differs_from_unbatched"] = vs_u
+            checks.append((not any(vs_u.values()),
+                           f"({engine}) batched differs from unbatched: "
+                           f"{vs_u}"))
+            # batched again, so the walls come in turns: B, solo, U, B
+            root_a, ra = fleet_leg(device, fdir, src_all, members,
+                                   f"{engine}_batched_again", engine, calls,
+                                   True)
+            leg["batched_again"] = ra
+            vs_a = {sid: member_diff(os.path.join(root_a, sid),
+                                     os.path.join(root_c, sid))
+                    for sid, _c0, _w in members}
+            checks.append((not any(vs_a.values()),
+                           f"({engine}) second batched run differs from "
+                           f"solo controls: {vs_a}"))
+            res[engine] = leg
+    finally:
+        fleet_engine.LFProc = saved_cls
+    C = sum(w for _sid, _c0, w in members)
+    a, b = res["fused"]["batched"], res["auto"]["batched"]
+    fused_blocks = sum(v.get("fused-cuda" if cuda else "fused-torch", 0)
+                       for v in a["blocks"].values())
+    chain_blocks = sum(v.get("cascade-cuda" if cuda else "cascade-torch", 0)
+                       for v in b["blocks"].values())
+    if cuda:
+        ka, kb = a["kernel_counts"], b["kernel_counts"]
+        checks += [
+            (ka["stacked"].get(f"fused-cuda@{C}", 0) >= 1,
+             f"(fused) no stacked B3 step over {C} ch: {ka['stacked']}"),
+            (0 < ka["b3_steps"] < fused_blocks,
+             f"(fused) B3 steps {ka['b3_steps']} not fewer than member "
+             f"blocks {fused_blocks}"),
+            (kb["stacked"].get(f"cuda@{C}", 0) >= 1,
+             f"(auto) no stacked B1 chain over {C} ch: {kb['stacked']}"),
+            (0 < kb["b1"] < 4 * chain_blocks and kb["b1"] % 4 == 0,
+             f"(auto) B1 launches {kb['b1']} vs 4 x {chain_blocks} member "
+             "blocks"),
+            (kb["b3_steps"] == 0, "(auto) launched B3"),
+        ]
+    steps = fleet_step_timing(timer, members, device)
+    checks += [(not steps[k], f"stacked step differs: {k} {steps[k]}")
+               for k in steps if k.endswith("differs_at_widths")]
+    fft_t = fft_packed_transform(timer, members, device)
+    rec = {"phase": "fleet", "members": [list(m) for m in members],
+           "channels": C, "payload": "int16 tdas", "legs": res,
+           "fused_member_blocks": fused_blocks,
+           "auto_member_blocks": chain_blocks,
+           "packed_step": steps, "fft_transform": fft_t}
+    emit(rec)
+    for ok, what in checks:
+        if not ok:
+            fail(f"fleet check failed: {what}")
+    return rec
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -1533,13 +1891,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="dry run on the CPU at a small width; exits 3")
-    ap.add_argument("--only", choices=["fir", "fused"],
-                    help="run phases 1, 2 and 3 (fir) or 3b (fused) "
-                    "alone; exits 4")
+    ap.add_argument("--only", choices=["fir", "fused", "fleet"],
+                    help="run phases 1, 2 and 3 (fir), 3b (fused) or 8 "
+                    "(fleet) alone; exits 4")
     args = ap.parse_args(argv)
     if args.rehearse:
         device = torch.device("cpu")
         widths, n_ch = (64, 48), 64
+        members = REHEARSE_MEMBERS
         # 64 channels make every stream block smaller than the fused
         # size threshold; clear it so phase 5 runs the fused step
         os.environ["TPUDAS_FUSED_MIN_ELEMS"] = "0"
@@ -1550,6 +1909,7 @@ def main(argv=None):
             return 2
         device = torch.device("cuda")
         widths, n_ch = (10000, 2048), 10000
+        members = FLEET_MEMBERS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from tpudas_torch.tools.probe_pipeline import card_line
@@ -1596,12 +1956,24 @@ def main(argv=None):
         phase_fused_kernel(device, widths, timer)
         print("chip_smoke: --only fused finished; no result", flush=True)
         return 4
-    probes = phase_hbm_probe(device, args.rehearse)
-    plan, main_cases, paths = phase_kernels(device, widths, timer)
-    fused_cases = phase_fused_kernel(device, widths, timer)
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
     cls = lfproc_class(force_tdas=args.rehearse)
+    if args.only == "fleet":
+        from tpudas_torch.testing import make_synthetic_spool
+
+        shutil.rmtree(workdir, ignore_errors=True)
+        make_synthetic_spool(
+            os.path.join(workdir, "src"), n_files=3, file_duration=60.0,
+            fs=1000.0, n_ch=n_ch, noise=NOISE, format="tdas", start=T0,
+            write_kwargs={"dtype": "int16", "scale": QSCALE})
+        phase_fleet(device, workdir, cls, members, timer)
+        shutil.rmtree(workdir, ignore_errors=True)
+        print("chip_smoke: --only fleet finished; no result", flush=True)
+        return 4
+    probes = phase_hbm_probe(device, args.rehearse)
+    plan, main_cases, paths = phase_kernels(device, widths, timer)
+    fused_cases = phase_fused_kernel(device, widths, timer)
     res = phase_main_path(device, n_ch, MAIN_PATH_SECONDS, workdir, cls)
     rt = phase_realtime(device, workdir, cls)
     phase_fft(device, workdir, cls)
@@ -1609,7 +1981,10 @@ def main(argv=None):
 
     phase_joint(device, workdir,
                 lfproc_class(force_tdas=args.rehearse, base=JointProc))
+    fleet = phase_fleet(device, workdir, cls, members, timer)
     shutil.rmtree(workdir, ignore_errors=True)
+    fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
+                    for leg in ("fused", "auto")}
 
     recs = main_cases[(widths[0], True)]  # the main path's shapes
     narrow = main_cases[(widths[1], True)]
@@ -1630,6 +2005,8 @@ def main(argv=None):
         "shape": (f"the 4 flagship stages of one 60 s window, "
                   f"{widths[0]} ch int16"),
         "realtime_control_launches": rt["control"]["fir_decimate_launches"],
+        # phase 8's batched auto fleet: B1 chains, stacked and solo
+        "fleet_launches": fleet_counts["auto"]["b1"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
@@ -1664,6 +2041,10 @@ def main(argv=None):
         "kernel_a_ms": full["kernel_a_ms"],
         "kernel_b_ms": full["kernel_b_ms"],
         "kernel_launches": rt["fused"]["fused_cascade_kernel_launches"],
+        # phase 8's batched fused fleet: B3 steps, stacked and solo
+        "fleet_launches": fleet_counts["fused"]["b3_steps"],
+        "fleet_packed_ms": fleet["packed_step"].get("b3_packed_ms"),
+        "fleet_solo_sum_ms": fleet["packed_step"].get("b3_solo_sum_ms"),
         "b1_chain_ms": full["b1_chain_ms"],
         "conv1d_chain_ms": full["conv1d_chain_ms"],
         "ms_by_block": {f"{n} out": fused_cases[(widths[0], True, n)]["ms"]

@@ -494,3 +494,79 @@ def test_fft_engine_on_card_matches_cpu(cuda_device):
     ref = lowpass_resample(x, 1e-3, 0.409, idx, w, qscale=1e-4, device="cpu")
     assert got.device.type == "cuda"
     assert _rel(got, ref) <= REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# the batched fleet's stacked steps: B1 and B3 on the channel-packed block
+
+# ragged widths: the members sit at odd int16 offsets of the packed block,
+# where B1 stages with another copy width than solo
+STACK_WIDTHS = (1001, 777, 3, 64, 1499)
+
+
+@pytest.mark.parametrize("engine", ["cuda", "fused-cuda"])
+@pytest.mark.parametrize("int16", [False, True], ids=["f32", "int16"])
+def test_stacked_step_equals_solo_on_card(cuda_device, engine, int16):
+    """The stacked step launches the member's own engine once on the
+    packed block; every member's output and carry leaves equal its solo
+    step's, byte for byte, over blocks of 8, 1 and 3 outputs."""
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    qs = 1e-4 if int16 else None
+    carries = [fir.cascade_stream_init(plan, w, cuda_device)
+               for w in STACK_WIDTHS]
+    solo = list(carries)
+    b1, b3 = fir_decimate.launches, fused_cascade.launches
+    fir.cascade_decimate_stream_stacked.launches.clear()
+    n_out = (8, 1, 3)
+    for rnd, n in enumerate(n_out):
+        blocks = [torch.from_numpy(_window(n * 1000, w, 60 + 7 * rnd + i,
+                                           int16)).to(cuda_device)
+                  for i, w in enumerate(STACK_WIDTHS)]
+        res = fir.cascade_decimate_stream_stacked(blocks, carries, plan,
+                                                  engine, qscale=qs)
+        carries = [c for _y, c in res]
+        for i, b in enumerate(blocks):
+            y, solo[i] = fir.cascade_decimate_stream(b, solo[i], plan, engine,
+                                                     qscale=qs)
+            assert torch.equal(res[i][0], y), (engine, STACK_WIDTHS[i], n)
+            for u, v in zip(carries[i], solo[i]):
+                assert torch.equal(u, v), (engine, STACK_WIDTHS[i], n)
+    steps = len(n_out) * (1 + len(STACK_WIDTHS))
+    if engine == "cuda":
+        assert fir_decimate.launches - b1 == 4 * steps
+    else:
+        assert fused_cascade.launches - b3 == steps
+    assert fir.cascade_decimate_stream_stacked.launches == {
+        (engine, sum(STACK_WIDTHS)): len(n_out)}
+
+
+@pytest.mark.parametrize("int16", [False, True], ids=["f32", "int16"])
+def test_fft_stacked_step_equals_solo_on_card(cuda_device, int16):
+    """The stacked FFT step (packed carry and block, one transform per
+    member at its own width) equals each member's solo step on the card,
+    over three carried blocks."""
+    from tpudas_torch.ops.filter import (
+        fft_pass_filter_stream,
+        fft_pass_filter_stream_stacked,
+        fft_stream_init,
+    )
+
+    qs = 1e-4 if int16 else None
+    widths = STACK_WIDTHS + (1,)
+    carries = [fft_stream_init(512, w) for w in widths]
+    solo = list(carries)
+    for rnd in range(3):
+        blocks = [torch.from_numpy(_window(4096, w, 80 + 7 * rnd + i,
+                                           int16)).to(cuda_device)
+                  for i, w in enumerate(widths)]
+        res = fft_pass_filter_stream_stacked(blocks, carries, 1e-3,
+                                             high=0.45, qscale=qs)
+        carries = [c for _y, c in res]
+        for i, b in enumerate(blocks):
+            y, solo[i] = fft_pass_filter_stream(b, solo[i], 1e-3, high=0.45,
+                                                qscale=qs)
+            assert y.device.type == "cuda"
+            assert torch.equal(res[i][0], y), widths[i]
+            assert torch.equal(carries[i], solo[i]), widths[i]

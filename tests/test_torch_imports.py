@@ -67,8 +67,11 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.proc.streaming",
         "tpudas_torch.fleet.config",
         "tpudas_torch.fleet.engine",
+        "tpudas_torch.fleet.batch",
+        "tpudas_torch.fleet.fleet",
         "tpudas_torch.integrity.checksum",
         "tpudas_torch.obs.registry",
+        "tpudas_torch.obs.trace",
         "tpudas_torch.resilience.faults",
         "tpudas_torch.resilience.quarantine",
         "tpudas_torch.utils.profiling",

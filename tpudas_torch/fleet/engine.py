@@ -5,8 +5,8 @@ A runner's :meth:`StreamRunner.step` is one poll of the realtime loop —
 index update, processing round, carry commit, all inside the fault
 boundary — and returns a :class:`StepResult` saying what happened and
 how long to wait before the next poll.  ``step`` never sleeps: the
-caller waits (the single-stream :func:`drive` loop here; a multi-stream
-scheduler is a later slice of the port).
+caller waits (the single-stream :func:`drive` loop here, or the
+multi-stream :class:`tpudas_torch.fleet.fleet.FleetEngine`).
 
 The fault boundary is the JAX package's
 (:mod:`tpudas_torch.resilience`): every round runs under a
@@ -28,7 +28,7 @@ stream carry says (:mod:`tpudas_torch.proc.stream`).
 Not ported in this slice: the startup integrity audit, resource
 shedding, the flight recorder and health files, the tile pyramid,
 detection, the live plane, device telemetry and phase timing, the
-batched fleet executor, the rolling runner, and the backfill clamps
+rolling runner, and the backfill clamps
 (``time_range``, ``ingest_limit_sec``).  :class:`LowpassStreamRunner`
 raises ``NotImplementedError`` when its configuration turns on one of
 those features (see :data:`UNPORTED_FIELDS`).
@@ -67,6 +67,7 @@ __all__ = [
     "StepResult",
     "StreamRunner",
     "build_runner",
+    "check_ported",
     "check_unported",
     "clamp_poll_interval",
     "drive",
@@ -87,6 +88,18 @@ UNPORTED_FIELDS = (
     "live",
     "flight",
 )
+
+
+def check_ported(spec: StreamSpec) -> None:
+    """Raise ``NotImplementedError`` when ``spec`` asks for a stream
+    kind or a feature (:data:`UNPORTED_FIELDS`) the port lacks."""
+    cfg = spec.config
+    if cfg.kind != "lowpass":
+        raise NotImplementedError(
+            f"stream {spec.stream_id!r}: the {cfg.kind!r} stream runner is "
+            "not ported to tpudas_torch yet"
+        )
+    check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS})
 
 
 def check_unported(values: dict) -> None:
@@ -230,6 +243,11 @@ class StreamRunner:
             self.stream_id, resolve_poll_jitter(spec.config.poll_jitter)
         )
         self.interval = 0.0  # subclasses set the clamped poll cadence
+        # batched fleet service: the fleet's group service installs its
+        # BatchStepExecutor here for one step; _process_round hands it
+        # to the round's LFProc so the stream's device steps rendezvous.
+        # None (the default) is the solo step.
+        self._batch_executor = None
 
     def poll_delay(self) -> float:
         """The clamped interval stretched by this stream's jitter."""
@@ -381,6 +399,8 @@ class LowpassStreamRunner(StreamRunner):
 
     def _process_round(self, sub) -> None:
         lfp = LFProc(sub, device=self.device)
+        # the processor is rebuilt every round: re-install the handoff
+        lfp._batch_executor = self._batch_executor
         lfp.update_processing_parameter(
             output_sample_interval=self.d_t,
             process_patch_size=self.process_patch_size,
@@ -578,11 +598,7 @@ def build_runner(
     resolved on the first round).  Only the ``lowpass`` kind is ported;
     ``device`` defaults to the CUDA card."""
     folder = spec.resolve_output_folder(root if root is not None else ".")
-    if spec.config.kind != "lowpass":
-        raise NotImplementedError(
-            f"the {spec.config.kind!r} stream runner is not ported to "
-            "tpudas_torch yet"
-        )
+    check_ported(spec)
     return LowpassStreamRunner(
         spec, folder, counters=counters, on_round=on_round, device=device
     )

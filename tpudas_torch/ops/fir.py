@@ -46,7 +46,9 @@ read and filtered once.  Its engines mirror the JAX package's
 per-stage chain (every stage on the strided-FIR kernel on the card),
 or the whole cascade as one fused kernel (``csrc/fused_cascade.cu``).
 Both share one carry layout, so a stream may switch engines at any
-block.
+block.  :func:`cascade_decimate_stream_stacked` runs one resolved engine
+once over several streams' blocks packed along channels (the batched
+fleet's stacked launch), each member's bytes equal to its solo step.
 """
 
 from __future__ import annotations
@@ -84,6 +86,8 @@ __all__ = [
     "resolve_stream_engine",
     "stream_stage_engines",
     "cascade_decimate_stream",
+    "STACKED_ENGINES",
+    "cascade_decimate_stream_stacked",
 ]
 
 # engine literals the batch entry point (cascade_decimate) accepts
@@ -94,6 +98,16 @@ BATCH_ENGINES = ("auto", "cuda", "torch")
 # (resolve_stream_engine); "fused-cuda"/"fused-torch" force a variant.
 STREAM_ENGINES = ("auto", "cuda", "torch", "fused", "fused-cuda",
                   "fused-torch")
+# engine literals the stacked multi-stream step
+# (cascade_decimate_stream_stacked) accepts: resolved literals only, each
+# decided at the member's own width before packing, so the packed width
+# can never flip a block across fused_min_elems.  Unlike the JAX
+# package, which keeps its Pallas rounds solo (its stacked program is
+# XLA, another arithmetic path), the port stacks its CUDA engines: the
+# same kernel runs solo and stacked, and B1 and B3 compute each channel
+# on its own (a sum per tap phase, then per frame, whatever the stripe
+# or the copy width), so a member's bytes do not depend on its packing.
+STACKED_ENGINES = ("cuda", "fused-cuda", "torch", "fused-torch")
 
 
 def butter2_mag(f, corner, order):
@@ -708,7 +722,15 @@ def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
         )
     eng = resolve_stream_engine(engine, plan, T, n_ch, dev)
     bufs = tuple(_carry_leaf(b, dev) for b in carry)
-    x = x.contiguous()
+    return _stream_step(x.contiguous(), bufs, plan, eng, qscale)
+
+
+def _stream_step(x, bufs, plan: CascadePlan, eng: str, qscale):
+    """One stream step of the resolved engine ``eng`` on a contiguous
+    block and float32 carry leaves on its device -> ``(y, new_carry)``.
+    The solo and the stacked step both run it."""
+    dev = x.device
+    sizes = stream_carry_sizes(plan)
     if eng.startswith("fused"):
         from tpudas_torch.ops.fused_kernel import (
             fused_cascade,
@@ -731,6 +753,115 @@ def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
         new_carry.append(xc[xc.shape[0] - p :].clone())
         x = stage(xc, hb, R, k)
     return x, tuple(new_carry)
+
+
+def _block_tensor(b, device):
+    """A stream block as a tensor (its own device), or numpy moved to
+    ``device`` (default the CUDA card); int16 stays int16."""
+    if isinstance(b, torch.Tensor):
+        return b
+    return torch.from_numpy(np.ascontiguousarray(b)).to(resolve_device(device))
+
+
+def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
+                                    engine, qscale=None, device=None):
+    """N same-plan streams' stateful steps as ONE step on the
+    channel-packed block (the batched fleet's stacked launch).
+
+    ``blocks`` are (T, C_i) blocks sharing T and dtype (mixed widths are
+    the ragged case: each stream keeps its own width); ``carries`` the
+    matching per-stream carries (from :func:`cascade_stream_init`, a
+    previous solo or stacked step, or a loaded ``.npz``: one layout, so
+    a stream moves freely between solo and stacked steps).  The blocks
+    are packed along channels in the given order (the caller sorts the
+    members), int16 as int16, and each carry leaf likewise; ``engine``
+    (a resolved :data:`STACKED_ENGINES` literal, chosen at the member's
+    own width) runs once on the packed block: ``fused-cuda`` is B3
+    (kernels A then B) and ``cuda`` the chain of B1 launches, exactly
+    as :func:`cascade_decimate_stream` runs them for one member.  Returns
+    ``[(y_i, new_carry_i), ...]`` in member order, each a fresh
+    contiguous tensor, byte-identical to the member's solo step.
+
+    ``qscale`` is one scale shared by every member (the batch executor
+    keys on it).  ``cascade_decimate_stream_stacked.launches`` counts
+    the stacked steps that ran on the card, by ``(engine, packed
+    width)``."""
+    if engine not in STACKED_ENGINES:
+        raise ValueError(
+            f"stacked engine must be one of {STACKED_ENGINES}, got "
+            f"{engine!r}"
+        )
+    blocks = [_block_tensor(b, device) for b in blocks]
+    carries = [tuple(c) for c in carries]
+    if not blocks or len(blocks) != len(carries):
+        raise ValueError(
+            f"blocks/carries length mismatch: {len(blocks)} vs "
+            f"{len(carries)}"
+        )
+    T = int(blocks[0].shape[0])
+    if T % plan.ratio:
+        raise ValueError(
+            f"stream block length {T} is not a multiple of the "
+            f"decimation ratio {plan.ratio}"
+        )
+    dev, dtype = blocks[0].device, blocks[0].dtype
+    widths = [int(b.shape[1]) for b in blocks]
+    sizes = stream_carry_sizes(plan)
+    for i, (b, c, w) in enumerate(zip(blocks, carries, widths)):
+        if int(b.shape[0]) != T:
+            raise ValueError(
+                f"member {i} block has {int(b.shape[0])} rows; the "
+                f"stacked step needs a shared T={T} (partition waves "
+                "by block length)"
+            )
+        if b.dtype != dtype or b.device != dev:
+            raise ValueError(
+                f"member {i} block is {b.dtype} on {b.device}; the "
+                f"stacked step packs one dtype on one device ({dtype} on "
+                f"{dev})"
+            )
+        if len(c) != len(sizes) or any(
+            int(np.shape(leaf)[0]) != p for leaf, p in zip(c, sizes)
+        ):
+            raise ValueError(
+                f"member {i} carry does not match this plan's "
+                "stream_carry_sizes "
+                f"({[int(np.shape(leaf)[0]) for leaf in c]} vs "
+                f"{list(sizes)})"
+            )
+        if any(int(np.shape(leaf)[1]) != w for leaf in c):
+            raise ValueError(
+                f"member {i} carry width "
+                f"{[tuple(np.shape(leaf)) for leaf in c]} does not match "
+                f"its block width {w}"
+            )
+        _check_quantized(b, qscale)
+    if engine.endswith("cuda") and dev.type != "cuda":
+        raise ValueError(
+            f"engine={engine!r} needs CUDA tensors, got device {dev}"
+        )
+    x = torch.cat(blocks, dim=1) if len(blocks) > 1 else blocks[0]
+    bufs = tuple(
+        torch.cat([_carry_leaf(c[i], dev) for c in carries], dim=1)
+        for i in range(len(sizes))
+    )
+    y, new = _stream_step(x.contiguous(), bufs, plan, engine, qscale)
+    if dev.type == "cuda":
+        key = (engine, sum(widths))
+        launches = cascade_decimate_stream_stacked.launches
+        launches[key] = launches.get(key, 0) + 1
+    out = []
+    o = 0
+    for w in widths:
+        out.append((
+            y[:, o : o + w].contiguous(),
+            tuple(leaf[:, o : o + w].contiguous() for leaf in new),
+        ))
+        o += w
+    return out
+
+
+cascade_decimate_stream_stacked.launches = {}
 
 
 # ---------------------------------------------------------------------------

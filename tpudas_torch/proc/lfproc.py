@@ -285,6 +285,9 @@ class LFProc:
         # run's first (whose rolling warm-up may clamp)
         self._run_origin_ns = None
         self._first_window_of_run = True
+        # the batched fleet's rendezvous (tpudas_torch.fleet.batch),
+        # installed by the round's runner; None is the solo step
+        self._batch_executor = None
 
     # configuration ----------------------------------------------------
     def _default_process_parameters(self):

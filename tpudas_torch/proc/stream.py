@@ -770,9 +770,19 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
         # the pipeline (same order, same math, overlapped wall clock)
         t0 = time.perf_counter()
         x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
-        y_dev, bufs = cascade_decimate_stream(
-            x, carry.bufs, plan, eng_req, qscale=pool_qs
-        )
+        bx = getattr(lfp, "_batch_executor", None)
+        if bx is not None:
+            # batched fleet service: rendezvous with the group's other
+            # members so co-shaped blocks run as one stacked step; the
+            # engine is the one resolved above at this stream's own
+            # width, so stacking never flips a threshold
+            y_dev, bufs = bx.cascade_step(
+                x, carry.bufs, plan, eng, qscale=pool_qs
+            )
+        else:
+            y_dev, bufs = cascade_decimate_stream(
+                x, carry.bufs, plan, eng_req, qscale=pool_qs
+            )
         t_disp = time.perf_counter() - t0
         carry.bufs = bufs
         lfp._count_block(ran)
@@ -826,10 +836,20 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
         # is updated at flush, before the next flush reads it (FIFO)
         t0 = time.perf_counter()
         x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
-        filt_dev, fcarry = fft_pass_filter_stream(
-            x, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
-            qscale=pool_qs,
-        )
+        bx = getattr(lfp, "_batch_executor", None)
+        if bx is not None:
+            # batched fleet service: stack with the group's co-parameter
+            # FFT blocks (same T, edge, corner, order, dtype, qscale:
+            # the executor's wave key)
+            filt_dev, fcarry = bx.fft_step(
+                x, carry.bufs[0], d / 1e9, corner, carry.order,
+                qscale=pool_qs,
+            )
+        else:
+            filt_dev, fcarry = fft_pass_filter_stream(
+                x, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
+                qscale=pool_qs,
+            )
         t_disp = time.perf_counter() - t0
         carry.bufs = (fcarry, carry.bufs[1])
         lfp._count_block("fft")
