@@ -61,7 +61,9 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    a second fleet resumed over file 3), ``"auto"`` and ``"fft"`` (files
    1-2): every member's output files and carry byte-equal to its solo
    control and to the unbatched fleet, B3 and the B1 chain launched on
-   the packed block (fewer steps than member blocks); one packed
+   the packed block (fewer steps than member blocks), every FFT step at
+   its member's width; the fused fleet again with every wave's steps
+   run one by one (threads kept, packing taken away); one packed
    60-output B3 step timed against its members' solo steps; the FFT's
    packed transform held against the per-member one.
 
@@ -82,6 +84,7 @@ exit 4 without the kernels line or the ``ok`` line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import math
@@ -1573,12 +1576,22 @@ def zero_kernel_counts():
     cascade_decimate_stream_stacked.launches.clear()
 
 
-def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched):
+def _run_wave_unstacked(ex, key, pend):
+    """A stacked wave's members run one by one, for the leg that keeps
+    the batched fleet's threads and rendezvous and takes the packing
+    away."""
+    return [ex._run_solo(key, p) for p in pend]
+
+
+def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched,
+              unstacked=False):
     """One fleet over ``calls`` (file counts; a new ``FleetEngine`` each,
     resuming every member from its carry), or with ``batched=None`` each
-    member alone (``drive(build_runner(...))``, the same calls).  Kernel
-    counts are set to 0 just before and read just after."""
+    member alone (``drive(build_runner(...))``, the same calls).  With
+    ``unstacked`` the batched fleet runs every wave's members solo.
+    Kernel counts are set to 0 just before and read just after."""
     from tpudas_torch.fleet import FleetEngine, build_runner, drive
+    from tpudas_torch.fleet.batch import BatchStepExecutor
     from tpudas_torch.obs.registry import MetricsRegistry, use_registry
 
     root = os.path.join(fdir, tag)
@@ -1599,7 +1612,10 @@ def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched):
         torch.cuda.reset_peak_memory_stats()
     zero_kernel_counts()
     summaries = []
-    with use_registry(reg):
+    waves = (mock.patch.object(BatchStepExecutor, "_run_stacked",
+                               _run_wave_unstacked) if unstacked
+             else contextlib.nullcontext())
+    with use_registry(reg), waves:
         for upto in calls:
             specs = fleet_specs(fdir, src_all, members, tag, engine, upto)
             t0 = time.perf_counter()
@@ -1626,7 +1642,8 @@ def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched):
     peak = torch.cuda.max_memory_allocated() if cuda else None
     wall = sum(walls)
     return root, {
-        "calls": len(calls), "wall_s": wall, "walls_s": walls,
+        "calls": len(calls), "unstacked": unstacked, "wall_s": wall,
+        "walls_s": walls,
         "member_data_s": data_s[0],
         "realtime_factor": data_s[0] / wall if wall else None,
         "blocks": blocks,
@@ -1777,9 +1794,13 @@ def phase_fleet(device, workdir, cls, members, timer):
     of ``drive(build_runner(...))``) byte for byte, and the unbatched
     fleet's; each leg runs batched, solo, unbatched, batched again, so
     the walls come in turns; (a) must launch B3 and (b) the B1 chain on the
-    packed block, fewer steps than member blocks.  Then one packed
-    60-output B3 step timed against its members' solo steps, and the
-    FFT's packed transform against the per-member one."""
+    packed block, fewer steps than member blocks, and (c) transforms
+    every member at its own width (no stacked launch).  (a) also runs
+    the batched fleet with every wave unstacked (its members' steps one
+    by one), between the unbatched fleet and the second batched run, to
+    separate what packing saves from what the member threads overlap.
+    Then one packed 60-output B3 step timed against its members' solo
+    steps, and the FFT's packed transform against the per-member one."""
     from tpudas_torch.fleet import engine as fleet_engine
 
     src_all = os.path.join(workdir, "src")
@@ -1805,9 +1826,20 @@ def phase_fleet(device, workdir, cls, members, timer):
                 (not any(vs_ctrl.values()),
                  f"({engine}) members differ from solo controls: {vs_ctrl}"),
                 (rb["parked"] == [], f"({engine}) parked {rb['parked']}"),
-                (rb["stacked_launches"] >= 1 and rb["groups"] >= 1,
-                 f"({engine}) no stacked launch"),
             ]
+            if engine == "fft":
+                fft_blocks = sum(v.get("fft", 0)
+                                 for v in rb["blocks"].values())
+                checks.append((
+                    rb["groups"] >= 1 and rb["stacked_launches"] == 0
+                    and 0 < rb["solo_launches"] <= fft_blocks,
+                    f"(fft) groups {rb['groups']}, stacked "
+                    f"{rb['stacked_launches']}, solo {rb['solo_launches']} "
+                    f"of {fft_blocks} member blocks"))
+            else:
+                checks.append((rb["stacked_launches"] >= 1
+                               and rb["groups"] >= 1,
+                               f"({engine}) no stacked launch"))
             root_u, ru = fleet_leg(device, fdir, src_all, members,
                                    f"{engine}_unbatched", engine, calls,
                                    False)
@@ -1819,7 +1851,20 @@ def phase_fleet(device, workdir, cls, members, timer):
             checks.append((not any(vs_u.values()),
                            f"({engine}) batched differs from unbatched: "
                            f"{vs_u}"))
-            # batched again, so the walls come in turns: B, solo, U, B
+            if engine == "fused":
+                root_s, rs = fleet_leg(device, fdir, src_all, members,
+                                       f"{engine}_unstacked", engine, calls,
+                                       True, unstacked=True)
+                leg["unstacked"] = rs
+                vs_s = {sid: member_diff(os.path.join(root_s, sid),
+                                         os.path.join(root_c, sid))
+                        for sid, _c0, _w in members}
+                leg["unstacked_differs_from_control"] = vs_s
+                checks.append((not any(vs_s.values()),
+                               f"({engine}) unstacked batched run differs "
+                               f"from solo controls: {vs_s}"))
+            # batched again, so the walls come in turns: B, solo, U,
+            # (fused: unstacked,) B
             root_a, ra = fleet_leg(device, fdir, src_all, members,
                                    f"{engine}_batched_again", engine, calls,
                                    True)
@@ -1835,6 +1880,7 @@ def phase_fleet(device, workdir, cls, members, timer):
         fleet_engine.LFProc = saved_cls
     C = sum(w for _sid, _c0, w in members)
     a, b = res["fused"]["batched"], res["auto"]["batched"]
+    s = res["fused"]["unstacked"]
     fused_blocks = sum(v.get("fused-cuda" if cuda else "fused-torch", 0)
                        for v in a["blocks"].values())
     chain_blocks = sum(v.get("cascade-cuda" if cuda else "cascade-torch", 0)
@@ -1853,6 +1899,8 @@ def phase_fleet(device, workdir, cls, members, timer):
              f"(auto) B1 launches {kb['b1']} vs 4 x {chain_blocks} member "
              "blocks"),
             (kb["b3_steps"] == 0, "(auto) launched B3"),
+            (not s["kernel_counts"]["stacked"],
+             f"(fused, unstacked) stacked steps {s['kernel_counts']}"),
         ]
     steps = fleet_step_timing(timer, members, device)
     checks += [(not steps[k], f"stacked step differs: {k} {steps[k]}")

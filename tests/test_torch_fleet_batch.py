@@ -461,6 +461,8 @@ class TestBatchStepExecutor:
         assert tuple(res["c"][0].shape) == (40, 5)
 
     def test_fft_wave_stacks(self):
+        """Co-parameter FFT steps meet at the rendezvous as one wave, and
+        each member transforms at its own width: no stacked launch."""
         rng = np.random.default_rng(8)
         widths = {"a": 4, "b": 1}
         blocks = {m: _block(rng, 512, w) for m, w in widths.items()}
@@ -473,7 +475,8 @@ class TestBatchStepExecutor:
                     0.45, 4))
                 for m in widths
             })
-        assert reg.value("tpudas_fleet_batch_stacked_launches_total") == 1
+        assert reg.value("tpudas_fleet_batch_stacked_launches_total") == 0
+        assert reg.value("tpudas_fleet_batch_solo_launches_total") == 2
         for m, w in widths.items():
             y, c = tfilter.fft_pass_filter_stream(
                 blocks[m], tfilter.fft_stream_init(64, w), 0.01, high=0.45)
@@ -605,8 +608,9 @@ class TestFleetBatched:
     def test_mixed_width_byte_identity_and_metrics(self, pools, tmp_path,
                                                    engine, monkeypatch):
         """Three mixed-width streams through the batched scheduler: every
-        device step stacks (ragged packing), outputs and carries equal
-        the per-stream controls, and equal an unbatched fleet's."""
+        cascade step stacks (ragged packing) and every FFT step runs at
+        its member's width; outputs and carries equal the per-stream
+        controls, and equal an unbatched fleet's."""
         monkeypatch.setenv("TPUDAS_FUSED_MIN_ELEMS", "0")
         root = str(tmp_path / "root")
         specs = _specs(pools, tmp_path, engine=engine)
@@ -629,8 +633,11 @@ class TestFleetBatched:
         assert reg.value("tpudas_fleet_batch_groups_total") == 3
         assert reg.value("tpudas_fleet_batch_members_total") == 9
         launches = reg.value("tpudas_fleet_batch_stacked_launches_total")
-        assert launches > 0
-        assert reg.value("tpudas_fleet_batch_solo_launches_total") == 0
+        solo = reg.value("tpudas_fleet_batch_solo_launches_total")
+        if engine == "fft":
+            assert launches == 0 and solo > 0 and solo % 3 == 0
+        else:
+            assert launches > 0 and solo == 0
         assert reg.value("tpudas_fleet_batch_stacked_members_total") == (
             3 * launches)
         _assert_match_controls(pools, tmp_path, root, then=[3],

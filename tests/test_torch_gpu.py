@@ -544,9 +544,9 @@ def test_stacked_step_equals_solo_on_card(cuda_device, engine, int16):
 
 @pytest.mark.parametrize("int16", [False, True], ids=["f32", "int16"])
 def test_fft_stacked_step_equals_solo_on_card(cuda_device, int16):
-    """The stacked FFT step (packed carry and block, one transform per
-    member at its own width) equals each member's solo step on the card,
-    over three carried blocks."""
+    """The stacked FFT step (each member's step at its own width)
+    equals each member's solo step on the card, over three carried
+    blocks."""
     from tpudas_torch.ops.filter import (
         fft_pass_filter_stream,
         fft_pass_filter_stream_stacked,

@@ -27,14 +27,16 @@ fleet feature:
     the cascade and FFT stream steps here via ``lfp._batch_executor``),
     it submits the block and waits; once every member still in the
     round has either submitted or left, the submissions are partitioned
-    into waves by exact stack key, and each wave of two or more runs as
-    one stacked step
+    into waves by exact stack key, and each cascade wave of two or more
+    runs as one stacked step
     (:func:`tpudas_torch.ops.fir.cascade_decimate_stream_stacked`, which
-    launches B3 or the B1 chain once on the packed block, or
-    :func:`tpudas_torch.ops.filter.fft_pass_filter_stream_stacked`); a
-    member with no co-shaped peer runs its solo step, byte-identical to
-    the unbatched path.  A member that finishes (or faults out of) its
-    round ``leave()``s, shrinking the rendezvous, so a parked stream
+    launches B3 or the B1 chain once on the packed block).  A member
+    with no co-shaped peer, and every FFT step (an FFT over the packed
+    width is not promised the member's bits, see
+    :func:`tpudas_torch.ops.filter.fft_pass_filter_stream_stacked`),
+    runs its solo step, byte-identical to the unbatched path.  A member
+    that finishes (or faults out of) its round ``leave()``s, shrinking
+    the rendezvous, so a parked stream
     drops out of its group, not the fleet, with its carry sliced back
     out intact (the stacked step returns fresh per-stream tensors).
 
@@ -236,65 +238,45 @@ class BatchStepExecutor:
         return p.result
 
     def _dispatch(self, batch: dict) -> None:
-        """Partition the snapshot into exact-key waves and run each:
-        stacked when two or more members share the key, solo otherwise.
-        Members are packed in sorted stream-id order, so a fleet's
-        packing is deterministic."""
+        """Partition the snapshot into exact-key waves and run each: a
+        cascade wave of two or more members as one stacked step, every
+        other member step solo.  Members are packed in sorted
+        stream-id order, so a fleet's packing is deterministic."""
         reg = get_registry()
         waves: dict = {}
         for m in sorted(batch):
             waves.setdefault(batch[m].key, []).append(m)
         for key, members in waves.items():
             pend = [batch[m] for m in members]
-            try:
-                if len(members) >= 2:
-                    reg.counter(
-                        "tpudas_fleet_batch_stacked_launches_total",
-                        "stacked device steps dispatched (>= 2 streams "
-                        "in one launch)",
-                    ).inc()
-                    reg.counter(
-                        "tpudas_fleet_batch_stacked_members_total",
-                        "stream steps served by a stacked launch",
-                    ).inc(len(members))
-                    results = self._run_stacked(key, pend)
-                else:
-                    reg.counter(
-                        "tpudas_fleet_batch_solo_launches_total",
-                        "batch-executor dispatches that ran solo (no "
-                        "co-shaped peer in the rendezvous)",
-                    ).inc()
-                    results = [self._run_solo(key, pend[0])]
-            except BaseException as exc:
-                for p in pend:
-                    p.error = exc
-                    p.done = True
+            if len(pend) >= 2 and key[0] == "cascade":
+                reg.counter(
+                    "tpudas_fleet_batch_stacked_launches_total",
+                    "stacked device steps dispatched (>= 2 streams "
+                    "in one launch)",
+                ).inc()
+                reg.counter(
+                    "tpudas_fleet_batch_stacked_members_total",
+                    "stream steps served by a stacked launch",
+                ).inc(len(pend))
+                _settle(pend, lambda: self._run_stacked(key, pend))
                 continue
-            for p, res in zip(pend, results):
-                p.result = res
-                p.done = True
+            for p in pend:
+                reg.counter(
+                    "tpudas_fleet_batch_solo_launches_total",
+                    "stream steps the batch executor ran alone (no "
+                    "co-shaped peer in the rendezvous, or an FFT step)",
+                ).inc()
+                _settle([p], lambda p=p: [self._run_solo(key, p)])
 
     def _run_stacked(self, key, pend):
         from tpudas_torch.obs.trace import span
+        from tpudas_torch.ops.fir import cascade_decimate_stream_stacked
 
-        blocks = [p.payload[0] for p in pend]
-        carries = [p.payload[1] for p in pend]
-        if key[0] == "cascade":
-            from tpudas_torch.ops.fir import cascade_decimate_stream_stacked
-
-            _kind, plan, t, engine, _dt, _dev, qscale = key
-            with span("op.stacked", rows=t, streams=len(pend),
-                      engine=engine):
-                return cascade_decimate_stream_stacked(
-                    blocks, carries, plan, engine, qscale=qscale
-                )
-        from tpudas_torch.ops.filter import fft_pass_filter_stream_stacked
-
-        _kind, t, rc, d_sec, high, order, _dt, _dev, qscale = key
-        with span("op.stacked", rows=t, streams=len(pend), edge=rc // 2):
-            return fft_pass_filter_stream_stacked(
-                blocks, carries, d_sec, high=high, order=order,
-                qscale=qscale,
+        _kind, plan, t, engine, _dt, _dev, qscale = key
+        with span("op.stacked", rows=t, streams=len(pend), engine=engine):
+            return cascade_decimate_stream_stacked(
+                [p.payload[0] for p in pend], [p.payload[1] for p in pend],
+                plan, engine, qscale=qscale,
             )
 
     def _run_solo(self, key, p):
@@ -312,3 +294,18 @@ class BatchStepExecutor:
         return fft_pass_filter_stream(
             block, carry, d_sec, high=high, order=order, qscale=qscale
         )
+
+
+def _settle(pend, run) -> None:
+    """Run one dispatch and hand its results (or its error) to the
+    waiting members."""
+    try:
+        results = run()
+    except BaseException as exc:
+        for p in pend:
+            p.error = exc
+            p.done = True
+        return
+    for p, res in zip(pend, results):
+        p.result = res
+        p.done = True

@@ -14,10 +14,9 @@ computed in float32 as there, so both packages filter on the same grid.
 
 Entry points take a torch tensor (its device is used) or a numpy array
 (moved to ``device``, default the CUDA card).  The stacked fleet step
-(:func:`fft_pass_filter_stream_stacked`) packs several streams' blocks
-and carries along channels and runs each member's transform at the
-member's own width; the mesh path of the stream step is a later slice
-of the port.
+(:func:`fft_pass_filter_stream_stacked`) validates several streams'
+blocks as one wave and runs each member's step at the member's own
+width; the mesh path of the stream step is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -177,20 +176,16 @@ def fft_pass_filter_stream(block, carry, d_sec, low=None, high=None,
 def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
                                    high=None, order=4, qscale=None,
                                    device=None):
-    """N streams' overlap-save FFT filter steps in one call (the batched
-    fleet's stacked step).  ``blocks`` share T, dtype and the filter
-    parameters; each keeps its own channel width (ragged packing).
-    Returns ``[(filtered_i, new_carry_i), ...]`` in member order, fresh
-    contiguous tensors byte-identical to
-    :func:`fft_pass_filter_stream` for each member alone.
-
-    The blocks (int16 stays int16) and the carries are packed along
-    channels and dequantized once; the packed ``[carry; block]`` rows
-    are then transformed member by member, each at its own width: an
-    FFT over the packed width is not promised the member's bits (on
-    the CPU a one-channel member at 2,048 points differs in the last
-    bit), so only the elementwise work is shared.  ``qscale`` is one
-    scale shared by every member."""
+    """N streams' overlap-save FFT filter steps in one call, validated
+    as one wave as the JAX package's stacked step is.  ``blocks`` share
+    T and the filter parameters; each keeps its own channel width.
+    Returns ``[(filtered_i, new_carry_i), ...]`` in member order: each
+    is :func:`fft_pass_filter_stream` of that member alone.  An FFT
+    over the packed width is not promised the member's bits (on the
+    CPU a one-channel member at 2,048 points differs in the last bit),
+    and packing would share only the elementwise dequantize, so no
+    member is packed.  ``qscale`` is one scale shared by every
+    member."""
     from tpudas_torch.ops.fir import _check_quantized
 
     blocks = [_as_tensor(b, device) for b in blocks]
@@ -206,7 +201,6 @@ def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
         raise ValueError(
             f"carry must be (2*edge, C), got {tuple(np.shape(carries[0]))}"
         )
-    dev, dtype = blocks[0].device, blocks[0].dtype
     for i, (b, c) in enumerate(zip(blocks, carries)):
         if int(b.shape[0]) != T or int(np.shape(c)[0]) != rows_carry:
             raise ValueError(
@@ -219,33 +213,12 @@ def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
                 f"member {i} block {tuple(b.shape)} does not match "
                 f"carry {tuple(np.shape(c))}"
             )
-        if b.dtype != dtype or b.device != dev:
-            raise ValueError(
-                f"member {i} block is {b.dtype} on {b.device}; the "
-                f"stacked step packs one dtype on one device ({dtype} on "
-                f"{dev})"
-            )
         _check_quantized(b, qscale)
-    x = torch.cat(blocks, dim=1).to(torch.float32)
-    if qscale is not None:
-        x = x * _f32(qscale, dev)
-    c = torch.cat([
-        (cc if isinstance(cc, torch.Tensor) else torch.from_numpy(
-            np.asarray(cc))).to(device=dev, dtype=torch.float32)
-        for cc in carries
-    ], dim=1)
-    xc = torch.cat([c, x], dim=0)
-    edge = rows_carry // 2
-    out = []
-    o = 0
-    for b in blocks:
-        w = int(b.shape[1])
-        xm = xc[:, o : o + w].contiguous()
-        filt = _filter_rows(xm, d_sec, low, high, order)
-        out.append((filt[edge : edge + T].clone(),
-                    xm[xm.shape[0] - 2 * edge :].clone()))
-        o += w
-    return out
+    return [
+        fft_pass_filter_stream(b, c, d_sec, low=low, high=high,
+                               order=order, qscale=qscale)
+        for b, c in zip(blocks, carries)
+    ]
 
 
 def _host_sosfiltfilt(data, d_sec, low, high, order):

@@ -838,9 +838,9 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
         x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
         bx = getattr(lfp, "_batch_executor", None)
         if bx is not None:
-            # batched fleet service: stack with the group's co-parameter
-            # FFT blocks (same T, edge, corner, order, dtype, qscale:
-            # the executor's wave key)
+            # batched fleet service: the step waits at the group's
+            # rendezvous and runs at the member's own width (FFT steps
+            # are never packed; see fft_pass_filter_stream_stacked)
             filt_dev, fcarry = bx.fft_step(
                 x, carry.bufs[0], d / 1e9, corner, carry.order,
                 qscale=pool_qs,
