@@ -65,7 +65,20 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    its member's width; the fused fleet again with every wave's steps
    run one by one (threads kept, packing taken away); one packed
    60-output B3 step timed against its members' solo steps; the FFT's
-   packed transform held against the per-member one.
+   packed transform held against the per-member one;
+9. the real-time derived products over the same spool: (a)
+   ``run_lowpass_realtime(engine="fused", detect=True)`` with STA/LTA
+   and RMS (thresholds that yield events here) over files 1-2, then a
+   resumed call over file 3, its ledger, detect carry and scores equal
+   to an uninterrupted control's, B3 launched, the same rows through
+   the operators on the CPU giving the same events (STA/LTA
+   byte-equal, RMS within 1e-6); (b) ``run_rolling_realtime`` (1 s
+   window and step) with detect ``rms``, each output within 1e-6 of a
+   float64 rolling mean of its file; (c) the real-time joint product
+   (``rolling_output_folder``) over two rounds, seam-free, within 1e-6
+   of phase 7's batch product, the LF product within 1e-4 of phase
+   4's, B1 launched; (d) ``Patch.median_filter`` (5 x 5, and 9 along
+   time) on phase 4's output bit-equal to ``scipy.ndimage``.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -77,8 +90,10 @@ before any phase.  ``--rehearse`` runs the same phases on the CPU at a
 reading) and exits 3: a dry run of the control flow, never a result.
 ``--only fir`` runs phases 1, 2 and 3 alone (the stage kernel's
 iteration loop), ``--only fused`` phases 1, 2 and 3b (the fused
-step's) and ``--only fleet`` phases 1, 2 and 8 over a fresh spool; all
-exit 4 without the kernels line or the ``ok`` line.
+step's), ``--only fleet`` phases 1, 2 and 8 over a fresh spool and
+``--only detect`` phases 1, 2 and 9 over a fresh spool (its batch
+references from one ``JointProc`` pass); all exit 4 without the
+kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1918,6 +1933,375 @@ def phase_fleet(device, workdir, cls, members, timer):
     return rec
 
 
+# phase 9: the real-time derived products.  Thresholds for which the
+# flagship spool's 1 Hz LF stream yields events: at the stream's start
+# the LTA and the RMS baseline (EMAs from zero) are still low, which
+# lifts the ratios above the values the stationary 0.05 Hz sine reaches
+# later (STA/LTA 2.2 in the first cycle after the warm-up, at most 1.93
+# after it; RMS about 1.33), so each channel triggers there and nowhere
+# else
+DETECT_OPS = [
+    ("stalta", {"sta": 2.0, "lta": 20.0, "on": 2.05, "off": 1.2}),
+    ("rms", {"window": 5.0, "step": 1.0, "thresh": 1.65,
+             "baseline": 20.0}),
+]
+
+
+def detect_sig(out):
+    """(ledger bytes sha, carry content sha, scores content sha) — the
+    crash-equivalence key of tests/test_detect.py (the carry compared
+    by parsed content: the npz container embeds zip timestamps)."""
+    import hashlib
+
+    from tpudas_torch.detect.ledger import ScoreStore
+    from tpudas_torch.detect.runner import load_detect_carry
+
+    with open(os.path.join(out, ".detect", "events.jsonl"), "rb") as fh:
+        ledger = hashlib.sha256(fh.read()).hexdigest()
+    carry = load_detect_carry(out)
+    if carry is None:
+        fail(f"no detect carry in {out}")
+    h = hashlib.sha256()
+    h.update(json.dumps(carry["meta"], sort_keys=True).encode())
+    for st in carry["states"]:
+        for key in sorted(st):
+            arr = np.asarray(st[key])
+            h.update(key.encode())
+            h.update(str(arr.dtype).encode())
+            h.update(arr.tobytes())
+    t, v = ScoreStore.open(out).read()
+    return (ledger, h.hexdigest(),
+            hashlib.sha256(t.tobytes() + v.tobytes()).hexdigest())
+
+
+def round_walls(run):
+    """(sum of the rounds' processing walls, sum of their detect walls)
+    from a run's ``realtime_round`` events."""
+    rounds = [e for e in run["events"] if e["event"] == "realtime_round"]
+    return (sum(e["wall_seconds"] for e in rounds),
+            sum(e.get("detect_seconds") or 0.0 for e in rounds))
+
+
+def ev_key(ev):
+    return (ev["t_end_ns"], ev["op"], ev["channel"], ev["t_ns"],
+            ev["t_peak_ns"])
+
+
+def detect_on_cpu(out, ledger_events):
+    """Phase 9a's cross-check: the control's emitted rows (its merged
+    output files) through fresh operators on the CPU, held to what the
+    card's pipeline committed: the same events (STA/LTA scores and
+    state byte-equal; RMS within 1e-6 of the max)."""
+    from tpudas_torch.detect.ledger import ScoreStore
+    from tpudas_torch.detect.operators import make_operator
+    from tpudas_torch.detect.runner import load_detect_carry
+    from tpudas_torch.io.spool import spool
+
+    p = spool(out).update().chunk(time=None)[0]
+    rows = np.ascontiguousarray(p.host_data(), np.float32)
+    t_ns = p.coords["time"].astype("datetime64[ns]").astype(np.int64)
+    states = load_detect_carry(out)["states"]
+    res = {}
+    for (name, params), st_card in zip(DETECT_OPS, states):
+        op = make_operator((name, params), device="cpu")
+        got, st = op.process(rows, t_ns, 1_000_000_000,
+                             op.init_state(rows.shape[1], 1_000_000_000))
+        card = sorted((e for e in ledger_events if e["op"] == name),
+                      key=ev_key)
+        cpu = sorted(got.events, key=ev_key)
+        same_keys = [ev_key(e) for e in card] == [ev_key(e) for e in cpu]
+        if name == "stalta":
+            score_err = 0.0 if [e["score"] for e in card] == [
+                e["score"] for e in cpu] else float("inf")
+            state_err = 0.0 if all(
+                np.asarray(st[k]).tobytes() == np.asarray(st_card[k]).tobytes()
+                for k in st) else float("inf")
+        else:
+            score_err = max((abs(a["score"] - b["score"]) / abs(b["score"])
+                             for a, b in zip(card, cpu)), default=0.0)
+            _t, v = ScoreStore.open(out).read()
+            state_err = max(
+                float(np.nanmax(np.abs(v - got.scores))
+                      / np.nanmax(np.abs(got.scores))),
+                float(np.abs(st["base"] - st_card["base"]).max()
+                      / np.abs(st["base"]).max()),
+                0.0 if (int(st["row_idx"]) == int(st_card["row_idx"])
+                        and int(st["bwarm"]) == int(st_card["bwarm"]))
+                else float("inf"))
+        res[name] = {"events": len(cpu), "same_events": same_keys,
+                     "score_max_rel_err": score_err,
+                     "state_or_scores_max_rel_err": state_err}
+    return res
+
+
+def write_rolling_tdas(patch, path):
+    from tpudas_torch.io.tdas import write_tdas
+
+    write_tdas(patch, os.path.splitext(path)[0] + ".tdas")
+
+
+def phase_detect_fused(device, workdir, ddir):
+    """Phase 9a: ``run_lowpass_realtime(engine="fused", detect=True)``
+    fed as phase 5 feeds (files 1-2, then a resumed call over file 3)
+    beside an uninterrupted control; the ledger, carry and scores of
+    the two equal; the rows re-run on the CPU give the same events."""
+    from tpudas_torch.detect.ledger import ScoreStore, load_events
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    src_all = os.path.join(workdir, "src")
+    cuda = device.type == "cuda"
+    kw = dict(detect=True, detect_operators=DETECT_OPS)
+    run, ctrl = new_run(), new_run()
+    src_r, out_r = os.path.join(ddir, "src_resumed"), os.path.join(
+        ddir, "resumed")
+    link_files(src_all, src_r, 2)
+    zero_kernel_counts()
+    r1 = drive_realtime(run, src_all, src_r, out_r, "fused", device, **kw)
+    link_files(src_all, src_r, 3)
+    r2 = drive_realtime(run, src_all, src_r, out_r, "fused", device, **kw)
+    b3, b3_kernels = fused_cascade.launches, fused_cascade.kernel_launches
+    b1 = fir_decimate.launches
+    src_c, out_c = os.path.join(ddir, "src_ctrl"), os.path.join(ddir, "ctrl")
+    link_files(src_all, src_c, 2)
+    rc = drive_realtime(ctrl, src_all, src_c, out_c, "fused", device,
+                        feed=[3], **kw)
+    events = load_events(out_c)
+    by_op = {name: sum(e["op"] == name for e in events)
+             for name, _p in DETECT_OPS}
+    store = ScoreStore.open(out_c)
+    score_rows = 0 if store is None else store.n_rows
+    same = detect_sig(out_r) == detect_sig(out_c)
+    cpu = detect_on_cpu(out_c, events)
+    wall_r, det_r = round_walls(run)
+    wall_c, det_c = round_walls(ctrl)
+    res = {"rounds": [r1, r2, rc], "b3_steps": b3, "b3_kernels": b3_kernels,
+           "b1_launches": b1, "blocks": run["blocks"],
+           "thresholds": dict(DETECT_OPS), "events_by_op": by_op,
+           "score_rows": score_rows, "resumed_equals_control": same,
+           "cpu_rerun": cpu,
+           "resumed_round_wall_s": wall_r, "resumed_detect_wall_s": det_r,
+           "control_round_wall_s": wall_c, "control_detect_wall_s": det_c,
+           "detect_share_of_round": det_c / (wall_c + det_c),
+           "resumed_call_wall_s": run["wall_s"],
+           "control_call_wall_s": ctrl["wall_s"]}
+    n_blocks = sum(run["blocks"].values())
+    checks = [
+        ((r1, r2, rc) == (1, 1, 2), f"rounds {(r1, r2, rc)} != (1, 1, 2)"),
+        (all(n >= 1 for n in by_op.values()),
+         f"an operator yielded no event: {by_op}"),
+        (score_rows >= 1, "no score row"),
+        (same, "the resumed run's ledger, carry or scores differ from the "
+         "control's"),
+        (b3 > 0 if cuda else b3 == 0, f"B3 launches {b3}"),
+        (b3 == (n_blocks if cuda else 0), f"B3 steps {b3} != blocks "
+         f"{n_blocks}"),
+        (all(c["same_events"] for c in cpu.values()),
+         f"the CPU re-run's events differ: {cpu}"),
+        (cpu["stalta"]["score_max_rel_err"] == 0.0
+         and cpu["stalta"]["state_or_scores_max_rel_err"] == 0.0,
+         "STA/LTA on the card is not byte-equal to the CPU"),
+        (cpu["rms"]["score_max_rel_err"] <= 1e-6
+         and cpu["rms"]["state_or_scores_max_rel_err"] <= 1e-6,
+         f"RMS card vs CPU {cpu['rms']}"),
+    ]
+    return res, checks
+
+
+def phase_detect_rolling(device, workdir, ddir):
+    """Phase 9b: ``run_rolling_realtime(window=1 s, step=1 s)`` (the
+    rolling_mean_dascore notebook's) with detect ``rms``, fed files 1-2
+    then 3: each output within 1e-6 of the max of the host float64
+    ``rolling_reduce`` of its file."""
+    from tpudas_torch.detect.ledger import ScoreStore, load_events
+    from tpudas_torch.io.spool import spool
+    from tpudas_torch.ops.rolling import rolling_reduce
+    from tpudas_torch.proc.streaming import run_rolling_realtime
+
+    src_all = os.path.join(workdir, "src")
+    src, out = os.path.join(ddir, "src_rolling"), os.path.join(ddir,
+                                                                "rolling")
+    link_files(src_all, src, 2)
+    feed = [3]
+
+    def sleep(_):
+        if feed:
+            link_files(src_all, src, feed.pop(0))
+
+    t0 = time.perf_counter()
+    rounds = run_rolling_realtime(
+        src, out, window=ROLLING_SECONDS, step=ROLLING_SECONDS,
+        poll_interval=0.0, sleep_fn=sleep, detect=True,
+        detect_operators=[DETECT_OPS[1]], device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ins = spool(src).sort("time").update()
+    outs = spool(out).sort("time").update()
+    errs = []
+    for j in range(len(ins)):
+        p = ins[j]
+        w = int(round(ROLLING_SECONDS / p.get_sample_step("time")))
+        ref = rolling_reduce(p.host_data(), w, w, "mean", engine="host")
+        got = outs[j].host_data().astype(np.float64)
+        if got.shape != ref.shape or not np.array_equal(np.isnan(got),
+                                                        np.isnan(ref)):
+            fail(f"rolling output {j} shape or NaN rows differ")
+        errs.append(float(np.nanmax(np.abs(got - ref))
+                          / np.nanmax(np.abs(ref))))
+    events = load_events(out)
+    store = ScoreStore.open(out)
+    res = {"rounds": rounds, "outputs": len(outs), "wall_s": wall,
+           "realtime_factor": MAIN_PATH_SECONDS / wall,
+           "max_rel_err_by_file": errs, "rms_events": len(events),
+           "score_rows": 0 if store is None else store.n_rows}
+    checks = [
+        (rounds == 2 and len(outs) == 3, f"{rounds} rounds, {len(outs)} "
+         "outputs"),
+        (max(errs) <= 1e-6, f"rolling vs float64 {max(errs):.3e}"),
+        (res["score_rows"] >= 1 and len(events) >= 1,
+         "detect rms on the rolling stream yielded no score or event"),
+    ]
+    return res, checks
+
+
+def phase_detect_joint(device, workdir, ddir):
+    """Phase 9c: ``run_lowpass_realtime(rolling_output_folder=...)`` over
+    files 1-2, then 3 (one call, two rounds: the joint mode runs the
+    rewind path, whose new call starts again at start_time): the rolling
+    product one seam-free patch within 1e-6 of phase 7's batch product,
+    the LF product within 1e-4 of phase 4's, B1 on every stage."""
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+
+    src_all = os.path.join(workdir, "src")
+    src = os.path.join(ddir, "src_joint")
+    lf, roll = os.path.join(ddir, "joint_lf"), os.path.join(ddir, "joint_roll")
+    link_files(src_all, src, 2)
+    run = new_run()
+    zero_kernel_counts()
+    rounds = drive_realtime(
+        run, src_all, src, lf, "auto", device, feed=[3],
+        rolling_output_folder=roll, rolling_window=ROLLING_SECONDS,
+        rolling_step=ROLLING_SECONDS)
+    b1 = fir_decimate.launches
+    p_lf, _ = grid_checks(lf, "real-time joint LF product")
+    p_roll, names = grid_checks(roll, "real-time rolling product")
+    p_batch_lf, _ = grid_checks(os.path.join(workdir, "out"), "batch")
+    p_batch_roll, _ = grid_checks(os.path.join(workdir, "joint", "roll"),
+                                  "batch rolling product")
+    roll_rel = interior_rel(p_roll, p_batch_roll)
+    lf_rel = interior_rel(p_lf, p_batch_lf)
+    res = {"rounds": rounds, "b1_launches": b1, "rolling_files": len(names),
+           "rolling_samples": int(p_roll.host_data().shape[0]),
+           "rolling_vs_batch_interior_rel_err": roll_rel,
+           "lf_vs_phase4_interior_rel_err": lf_rel,
+           "wall_s": run["wall_s"],
+           "carry_files": sorted(n for n in os.listdir(lf)
+                                 if n.startswith(".stream_carry"))}
+    checks = [
+        (rounds == 2, f"{rounds} rounds != 2"),
+        (b1 > 0 if device.type == "cuda" else b1 == 0, f"B1 launches {b1}"),
+        (roll_rel <= 1e-6, f"rolling vs batch {roll_rel:.3e}"),
+        (lf_rel <= 1e-4, f"LF vs phase 4 {lf_rel:.3e}"),
+        (not res["carry_files"], "the joint mode saved a stream carry"),
+    ]
+    return res, checks
+
+
+def phase_detect_median(device, workdir, timer):
+    """Phase 9d: ``Patch.median_filter(size=5)`` and ``size=9,
+    dim="time"`` on phase 4's LF output, bit-equal to
+    ``scipy.ndimage.median_filter``; the call's ms, the device work's ms
+    and the peak device memory it added."""
+    from scipy.ndimage import median_filter as scipy_median
+
+    from tpudas_torch.io.spool import spool
+    from tpudas_torch.ops.median import median_filter
+
+    p = spool(os.path.join(workdir, "out")).update().chunk(time=None)[0]
+    host = np.ascontiguousarray(p.host_data())
+    cuda = device.type == "cuda"
+    res, checks = {}, []
+    for name, kw, size in (("2d_size5", {"size": 5}, 5),
+                           ("time_size9", {"size": 9, "dim": "time"},
+                            (9, 1))):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = p.median_filter(device=device, **kw).host_data()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+        x = torch.from_numpy(host).to(device)
+        axes = None if "dim" not in kw else (p.axis_of("time"),)
+        dev_ms = timer(lambda: median_filter(x, kw["size"], axes=axes), 5)
+        t0 = time.perf_counter()
+        want = scipy_median(host, size=size)
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        same = got.dtype == want.dtype and got.tobytes() == want.tobytes()
+        res[name] = {"shape": list(host.shape), "call_ms": call_ms,
+                     "device_ms": dev_ms, "scipy_host_ms": scipy_ms,
+                     "peak_device_bytes": peak, "bit_equal_to_scipy": same}
+        checks.append((same, f"median {name} differs from scipy"))
+    return res, checks
+
+
+def phase_detect(device, workdir, timer, cls, jcls):
+    """Phase 9 over phase 4's spool: 9a-9d (see their docstrings).  The
+    runners build an LFProc / JointProc every round and the rolling
+    runner writes through ``write_rolling_output``: on a host without
+    h5py all three write tdas."""
+    from tpudas_torch.fleet import engine as fleet_engine
+
+    ddir = os.path.join(workdir, "detect")
+    shutil.rmtree(ddir, ignore_errors=True)
+    saved = (fleet_engine.LFProc, fleet_engine.JointProc,
+             fleet_engine.write_rolling_output)
+    fleet_engine.LFProc, fleet_engine.JointProc = cls, jcls
+    if cls.__name__ != "LFProc":
+        fleet_engine.write_rolling_output = write_rolling_tdas
+    try:
+        res = {"phase": "detect"}
+        checks = []
+        for key, fn in (("fused", phase_detect_fused),
+                        ("rolling", phase_detect_rolling),
+                        ("joint", phase_detect_joint)):
+            res[key], c = fn(device, workdir, ddir)
+            checks += [(ok, f"9{key[0]}: {what}") for ok, what in c]
+    finally:
+        (fleet_engine.LFProc, fleet_engine.JointProc,
+         fleet_engine.write_rolling_output) = saved
+    res["median"], c = phase_detect_median(device, workdir, timer)
+    checks += [(ok, f"9d: {what}") for ok, what in c]
+    emit(res)
+    for ok, what in checks:
+        if not ok:
+            fail(f"detect check failed: {what}")
+    shutil.rmtree(ddir, ignore_errors=True)
+    return res
+
+
+def batch_references(device, workdir, jcls):
+    """``--only detect``: the batch products phase 9 compares with —
+    phase 4's LF output (``workdir/out``) and phase 7's rolling product
+    (``workdir/joint/roll``) — from one ``JointProc`` pass (its LF files
+    are byte-equal to ``LFProc``'s, phase 7 holds it)."""
+    from tpudas_torch.io.spool import spool
+
+    bg = np.datetime64(T0, "ns")
+    lfp = jcls(spool(os.path.join(workdir, "src")).sort("time").update(),
+               device=device)
+    lfp.update_processing_parameter(
+        output_sample_interval=1.0, process_patch_size=60, edge_buff_size=10,
+        rolling_window=ROLLING_SECONDS, rolling_step=ROLLING_SECONDS)
+    lfp.set_output_folder(os.path.join(workdir, "out"), delete_existing=True)
+    lfp.set_rolling_output_folder(os.path.join(workdir, "joint", "roll"),
+                                  delete_existing=True)
+    lfp.process_time_range(
+        bg, bg + np.timedelta64(int(MAIN_PATH_SECONDS), "s"))
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -1939,9 +2323,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="dry run on the CPU at a small width; exits 3")
-    ap.add_argument("--only", choices=["fir", "fused", "fleet"],
-                    help="run phases 1, 2 and 3 (fir), 3b (fused) or 8 "
-                    "(fleet) alone; exits 4")
+    ap.add_argument("--only", choices=["fir", "fused", "fleet", "detect"],
+                    help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
+                    "(fleet) or 9 (detect) alone; exits 4")
     args = ap.parse_args(argv)
     if args.rehearse:
         device = torch.device("cpu")
@@ -2007,7 +2391,10 @@ def main(argv=None):
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
     cls = lfproc_class(force_tdas=args.rehearse)
-    if args.only == "fleet":
+    from tpudas_torch.proc.joint import JointProc
+
+    jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
+    if args.only in ("fleet", "detect"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2015,9 +2402,14 @@ def main(argv=None):
             os.path.join(workdir, "src"), n_files=3, file_duration=60.0,
             fs=1000.0, n_ch=n_ch, noise=NOISE, format="tdas", start=T0,
             write_kwargs={"dtype": "int16", "scale": QSCALE})
-        phase_fleet(device, workdir, cls, members, timer)
+        if args.only == "fleet":
+            phase_fleet(device, workdir, cls, members, timer)
+        else:
+            batch_references(device, workdir, jcls)
+            phase_detect(device, workdir, timer, cls, jcls)
         shutil.rmtree(workdir, ignore_errors=True)
-        print("chip_smoke: --only fleet finished; no result", flush=True)
+        print(f"chip_smoke: --only {args.only} finished; no result",
+              flush=True)
         return 4
     probes = phase_hbm_probe(device, args.rehearse)
     plan, main_cases, paths = phase_kernels(device, widths, timer)
@@ -2025,11 +2417,9 @@ def main(argv=None):
     res = phase_main_path(device, n_ch, MAIN_PATH_SECONDS, workdir, cls)
     rt = phase_realtime(device, workdir, cls)
     phase_fft(device, workdir, cls)
-    from tpudas_torch.proc.joint import JointProc
-
-    phase_joint(device, workdir,
-                lfproc_class(force_tdas=args.rehearse, base=JointProc))
+    phase_joint(device, workdir, jcls)
     fleet = phase_fleet(device, workdir, cls, members, timer)
+    detect = phase_detect(device, workdir, timer, cls, jcls)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}
@@ -2055,6 +2445,8 @@ def main(argv=None):
         "realtime_control_launches": rt["control"]["fir_decimate_launches"],
         # phase 8's batched auto fleet: B1 chains, stacked and solo
         "fleet_launches": fleet_counts["auto"]["b1"],
+        # phase 9c: the real-time joint product's rewind windows
+        "detect_joint_launches": detect["joint"]["b1_launches"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
@@ -2091,6 +2483,8 @@ def main(argv=None):
         "kernel_launches": rt["fused"]["fused_cascade_kernel_launches"],
         # phase 8's batched fused fleet: B3 steps, stacked and solo
         "fleet_launches": fleet_counts["fused"]["b3_steps"],
+        # phase 9a: detection on the fused stream (resumed run)
+        "detect_launches": detect["fused"]["b3_steps"],
         "fleet_packed_ms": fleet["packed_step"].get("b3_packed_ms"),
         "fleet_solo_sum_ms": fleet["packed_step"].get("b3_solo_sum_ms"),
         "b1_chain_ms": full["b1_chain_ms"],

@@ -243,3 +243,125 @@ def test_ledger_crosses_packages(tmp_path, writer):
     assert got.excluded(now=150.0) == frozenset({"raw_7.h5"})
     assert got.record_success("raw_7.h5")
     assert write(folder).quarantined_count == 0
+
+
+# ---------------------------------------------------------------------------
+# the atomic-write and verified-read sites (fs.write_enospc,
+# integrity.verify).  The JAX driver's startup audit is switched off
+# (TPUDAS_INTEGRITY_AUDIT=0): the port has none, and its writes and
+# verified reads would shift the JAX package's hit counts.
+
+def _failures_by_kind(reg):
+    return {k: reg.value("tpudas_stream_round_failures_total", kind=k)
+            for k in ("transient", "resource", "corrupt", "network")}
+
+
+def _both_registries():
+    from tpudas.obs.registry import get_registry as jax_registry
+
+    return {"port": get_registry(), "jax": jax_registry()}
+
+
+@pytest.mark.parametrize("exc", ["transient", "enospc"])
+def test_write_enospc_fires_and_retries_like_jax(pool, tmp_path, clean,
+                                                 monkeypatch, exc):
+    """A fault at the second atomic write of the run fires in both
+    drivers; both retry it under the same kind (``resource`` for an
+    ENOSPC OSError) after the same sleeps and emit the unfaulted
+    stream."""
+    import errno
+
+    monkeypatch.setenv("TPUDAS_INTEGRITY_AUDIT", "0")
+    spec = dict(site="fs.write_enospc", at=2)
+    if exc == "enospc":
+        spec["exc"] = OSError(errno.ENOSPC, "No space left on device")
+    regs = _both_registries()
+    outs, sleeps, kinds = {}, {}, {}
+    for pkg in PACKAGES:
+        before = _failures_by_kind(regs[pkg])
+        outs[pkg] = str(tmp_path / f"out-{pkg}")
+        sleeps[pkg] = []
+        rounds, plan = _run(pkg, pool, str(tmp_path / f"src-{pkg}"),
+                            outs[pkg], then=[5], specs=[spec], policy=FAST,
+                            sleeps=sleeps[pkg])
+        assert rounds == 2
+        assert plan.fired == [("fs.write_enospc", "raise", 2)]
+        after = _failures_by_kind(regs[pkg])
+        kinds[pkg] = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+    want = "resource" if exc == "enospc" else "transient"
+    assert kinds["port"] == kinds["jax"] == {want: 1}
+    assert sleeps["port"] == sleeps["jax"]
+    _assert_same_stream(outs["port"], outs["jax"])
+    _assert_same_stream(outs["port"], clean)
+    from tpudas_torch.integrity import resource
+
+    assert not resource.is_degraded()  # the round-end probe cleared it
+
+
+def test_integrity_verify_fires_like_jax(pool, tmp_path, clean,
+                                         monkeypatch):
+    """A fault raised at the first verified read of a resumed run (the
+    stream carry's) fires in both drivers; both take it as a rejected
+    primary (one counted ``carry`` fallback, no failed round), resume
+    from ``.prev`` (the carry saved before the first round's outputs,
+    which the resume regenerates) and emit the unfaulted stream, in
+    other file boundaries than an unfaulted resume."""
+    monkeypatch.setenv("TPUDAS_INTEGRITY_AUDIT", "0")
+    spec = dict(site="integrity.verify", at=1)
+    regs = _both_registries()
+    outs, sleeps = {}, {}
+    for pkg in PACKAGES:
+        src = str(tmp_path / f"src-{pkg}")
+        outs[pkg] = str(tmp_path / f"out-{pkg}")
+        assert _run(pkg, pool, src, outs[pkg])[0] == 1
+        _link(pool, src, 5)
+        reg = regs[pkg]
+        before = (_failures_by_kind(reg), reg.value(
+            "tpudas_integrity_fallback_total", artifact="carry"))
+        sleeps[pkg] = []
+        rounds, plan = _run(pkg, pool, src, outs[pkg], first=5, specs=[spec],
+                            policy=FAST, sleeps=sleeps[pkg])
+        assert rounds == 1
+        assert plan.fired == [("integrity.verify", "raise", 1)]
+        assert _failures_by_kind(reg) == before[0]
+        assert reg.value("tpudas_integrity_fallback_total",
+                         artifact="carry") == before[1] + 1
+    assert sleeps["port"] == sleeps["jax"]
+    _assert_same_stream(outs["port"], outs["jax"])
+    a, b = _merged(outs["port"]), _merged(clean)
+    assert np.array_equal(a.coords["time"], b.coords["time"])
+    da, db = a.host_data(), b.host_data()
+    assert (np.abs(da - db).max(axis=0)
+            <= REL_TOL * np.abs(db).max(axis=0)).all()
+
+
+@pytest.mark.parametrize("pkg", sorted(PACKAGES))
+def test_verify_truncate_takes_the_prev_rung(clean, tmp_path, pkg):
+    """``integrity.verify`` with ``action="truncate"`` tears the carry
+    just before its verified read: both packages' ``load_carry`` fall
+    to ``.prev`` and count the fallback (tests/test_integrity.py)."""
+    import shutil
+
+    from tpudas.obs.registry import MetricsRegistry as JaxRegistry
+    from tpudas.obs.registry import use_registry as jax_use_registry
+    from tpudas.proc.stream import load_carry as jax_load_carry
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.proc.stream import CARRY_FILENAME, load_carry
+
+    out = str(tmp_path / "out")
+    shutil.copytree(clean, out)
+    assert os.path.isfile(os.path.join(out, CARRY_FILENAME + ".prev"))
+    mod = PACKAGES[pkg][1]
+    plan = mod.FaultPlan(mod.FaultSpec(
+        "integrity.verify", action="truncate", nbytes=32, at=1, times=1,
+        match=CARRY_FILENAME))
+    reg, scope, load = ((MetricsRegistry(), use_registry, load_carry)
+                        if pkg == "port" else
+                        (JaxRegistry(), jax_use_registry, jax_load_carry))
+    with scope(reg), mod.install_fault_plan(plan):
+        carry = load(out)
+    assert plan.fired == [("integrity.verify", "truncate", 1)]
+    assert carry is not None
+    assert os.path.getsize(os.path.join(out, CARRY_FILENAME)) == 32
+    assert reg.value("tpudas_integrity_fallback_total", artifact="carry") == 1

@@ -570,3 +570,104 @@ def test_fft_stacked_step_equals_solo_on_card(cuda_device, int16):
             assert y.device.type == "cuda"
             assert torch.equal(res[i][0], y), widths[i]
             assert torch.equal(carries[i], solo[i]), widths[i]
+
+
+def _detect_rows(T=300, C=257, seed=5):
+    rng = np.random.default_rng(seed)
+    rows = (0.1 * rng.standard_normal((T, C))).astype(np.float32)
+    rows[150:180, 3] += 5.0
+    rows[60:70] = np.nan
+    return rows, np.arange(T, dtype=np.int64) * 1_000_000_000
+
+
+@pytest.mark.parametrize("cuts", [[], [100, 101, 257]], ids=["whole", "cut"])
+def test_detect_operators_on_card_match_cpu(cuda_device, cuts):
+    """STA/LTA on the card is byte-equal to the CPU (elementwise float32
+    ops, each rounded on its own on both); the RMS track within 1e-6 of
+    the largest |value|; the events equal."""
+    from tpudas_torch.detect.operators import make_operator
+
+    rows, t_ns = _detect_rows()
+    specs = [("stalta", {"sta": 2.0, "lta": 10.0, "on": 2.0, "off": 1.2}),
+             ("rms", {"window": 5.0, "step": 2.0, "thresh": 1.5,
+                      "baseline": 20.0})]
+    for spec in specs:
+        got = {}
+        for dev in ("cpu", "cuda"):
+            op = make_operator(spec, device=dev)
+            st = op.init_state(rows.shape[1], 1_000_000_000)
+            evs, scores = [], []
+            for lo, hi in zip([0] + cuts, cuts + [rows.shape[0]]):
+                res, st = op.process(rows[lo:hi], t_ns[lo:hi],
+                                     1_000_000_000, st)
+                evs.extend(res.events)
+                if res.scores is not None:
+                    scores.append(res.scores)
+            got[dev] = (evs, scores, st)
+        (ev_c, sc_c, st_c), (ev_g, sc_g, st_g) = got["cpu"], got["cuda"]
+        key = ("op", "kind", "channel", "t_ns", "t_peak_ns", "t_end_ns")
+        assert [[e[k] for k in key] for e in ev_g] == [
+            [e[k] for k in key] for e in ev_c]
+        if spec[0] == "stalta":
+            assert [e["score"] for e in ev_g] == [e["score"] for e in ev_c]
+            for k in st_c:
+                assert np.asarray(st_g[k]).tobytes() == np.asarray(
+                    st_c[k]).tobytes(), k
+        else:
+            a, b = np.concatenate(sc_g), np.concatenate(sc_c)
+            assert np.nanmax(np.abs(a - b)) <= 1e-6 * np.nanmax(np.abs(b))
+
+
+def test_detect_run_defaults_to_the_card(cuda_device, tmp_path):
+    """run_lowpass_realtime(detect=True) with device=None runs the
+    operators on the card; its detection equals a CPU run's."""
+    from tpudas_torch.detect import runner as det_runner
+    from tpudas_torch.detect.ledger import load_events
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+
+    class TdasLFProc(LFProc):
+        # outputs as tdas: the card's host may lack h5py
+        def _write_output(self, patch, path):
+            patch.io.write(os.path.splitext(path)[0] + ".tdas", "tdas")
+
+    src = str(tmp_path / "src")
+    make_synthetic_spool(src, n_files=3, file_duration=20.0, fs=50.0,
+                         n_ch=4, noise=0.01, format="tdas")
+    ops = [("stalta", {"sta": 2.0, "lta": 10.0, "on": 2.0, "off": 1.2})]
+    seen = []
+    real_open = det_runner.DetectPipeline.open.__func__
+
+    def spy(cls, *a, **k):
+        pipe = real_open(cls, *a, **k)
+        seen.extend(op.device.type for op in pipe.ops)
+        return pipe
+
+    outs = {}
+    for dev in (None, "cpu"):
+        out = str(tmp_path / f"out-{dev}")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(det_runner.DetectPipeline, "open", classmethod(spy))
+            mp.setattr(fleet_engine, "LFProc", TdasLFProc)
+            run_lowpass_realtime(
+                source=src, output_folder=out,
+                start_time="2023-03-22T00:00:00", output_sample_interval=1.0,
+                edge_buffer=5.0, process_patch_size=20, poll_interval=0.0,
+                sleep_fn=lambda _s: None, detect=True, detect_operators=ops,
+                device=dev)
+        outs[dev] = load_events(out)
+    assert seen == ["cuda", "cpu"]
+    key = ("op", "channel", "t_ns", "t_peak_ns", "t_end_ns")
+    assert [[e[k] for k in key] for e in outs[None]] == [
+        [e[k] for k in key] for e in outs["cpu"]]
+
+
+@pytest.mark.parametrize("size", [5, (9, 1)])
+def test_median_on_card_bit_equal_to_cpu(cuda_device, size):
+    from tpudas_torch.ops.median import median_filter
+
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((180, 1001)).astype(np.float32)
+    x[7, 5] = np.nan
+    assert median_filter(x, size).tobytes() == median_filter(
+        x, size, device="cpu").tobytes()

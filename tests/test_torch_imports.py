@@ -70,6 +70,13 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.fleet.batch",
         "tpudas_torch.fleet.fleet",
         "tpudas_torch.integrity.checksum",
+        "tpudas_torch.integrity.resource",
+        "tpudas_torch.utils.atomicio",
+        "tpudas_torch.detect",
+        "tpudas_torch.detect.operators",
+        "tpudas_torch.detect.ledger",
+        "tpudas_torch.detect.runner",
+        "tpudas_torch.ops.median",
         "tpudas_torch.obs.registry",
         "tpudas_torch.obs.trace",
         "tpudas_torch.resilience.faults",

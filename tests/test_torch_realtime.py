@@ -312,9 +312,7 @@ def test_changed_configuration_is_rejected(pool, tmp_path):
 
 
 @pytest.mark.parametrize("keyword,value", [
-    ("mesh", 2), ("window_dp", 2), ("rolling_output_folder", "roll"),
-    ("rolling_window", 1.0), ("rolling_step", 1.0), ("health", True),
-    ("pyramid", True), ("detect", True), ("detect_operators", ["sta_lta"]),
+    ("mesh", 2), ("window_dp", 2), ("health", True), ("pyramid", True),
     ("live", True), ("flight", True),
 ])
 def test_unported_keywords_raise(tmp_path, keyword, value):
@@ -323,6 +321,18 @@ def test_unported_keywords_raise(tmp_path, keyword, value):
             source=str(tmp_path / "src"), output_folder=str(tmp_path / "o"),
             start_time=T0, sleep_fn=lambda _: None, device="cpu",
             **{keyword: value}, **PARAMS)
+    assert not os.path.exists(tmp_path / "o")
+
+
+@pytest.mark.parametrize("keyword", ["rolling_window", "rolling_step"])
+def test_rolling_keywords_without_folder_raise(tmp_path, keyword):
+    """As in the JAX package (tests/test_streaming.py): without a
+    rolling_output_folder no rolling product would be written."""
+    with pytest.raises(ValueError, match="rolling_output_folder"):
+        run_lowpass_realtime(
+            source=str(tmp_path / "src"), output_folder=str(tmp_path / "o"),
+            start_time=T0, sleep_fn=lambda _: None, device="cpu",
+            **{keyword: 3.0}, **PARAMS)
     assert not os.path.exists(tmp_path / "o")
 
 

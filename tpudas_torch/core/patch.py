@@ -10,10 +10,10 @@ three-generation alias map.
 
 IO hangs off the ``.io`` accessor as in the reference call sites
 (``patch.io.write(path, "dasdae")`` — lf_das.py:232).  ``pass_filter``,
-``interpolate`` and ``rolling`` run the port's FFT engine, gather-lerp
-and windowed reductions on the card (``device="cpu"`` on request).  The
-JAX Patch's ``median_filter`` and the ``.viz`` waterfall belong to
-later slices of the port and are not here yet.
+``interpolate``, ``rolling`` and ``median_filter`` run the port's FFT
+engine, gather-lerp, windowed reductions and median despike on the card
+(``device="cpu"`` on request).  The JAX Patch's ``.viz`` waterfall
+belongs to a later slice of the port and is not here yet.
 """
 
 from __future__ import annotations
@@ -265,6 +265,18 @@ class Patch:
 
         return PatchRoller(self, step=step, engine=engine, device=device,
                            **kwargs)
+
+    def median_filter(self, engine=None, device=None, **kwargs) -> "Patch":
+        """Sliding-window median despike (the notebook's
+        ``scipy.ndimage.median_filter`` equivalent,
+        low_pass_dascore.ipynb:265): ``median_filter(size=5)`` over both
+        dims, ``median_filter(size=9, dim="time")`` per channel, on
+        ``device`` (default the CUDA card); ``engine="scipy"`` runs
+        scipy on the host."""
+        from tpudas_torch.ops.median import patch_median_filter
+
+        return patch_median_filter(self, engine=engine, device=device,
+                                   **kwargs)
 
     # convenience ------------------------------------------------------
     def time_seconds(self) -> np.ndarray:

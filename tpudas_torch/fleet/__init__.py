@@ -1,11 +1,12 @@
 """The stream round engine and the multi-array fleet: configuration,
-runner, driver loop, :class:`FleetEngine` and its batched executor.
-The rolling runner is not ported yet."""
+runners (low-pass and rolling), driver loop, :class:`FleetEngine` and
+its batched executor."""
 
 from tpudas_torch.fleet.config import StreamConfig, StreamSpec
 from tpudas_torch.fleet.engine import (
     LowpassStreamRunner,
     PollJitter,
+    RollingStreamRunner,
     StepResult,
     StreamRunner,
     build_runner,
@@ -17,6 +18,7 @@ __all__ = [
     "FleetEngine",
     "LowpassStreamRunner",
     "PollJitter",
+    "RollingStreamRunner",
     "StepResult",
     "StreamConfig",
     "StreamRunner",

@@ -5,9 +5,9 @@ The port's copy of the JAX package's ``fleet/config.py`` (same fields,
 same validation, so a configuration reads the same in both packages).
 :class:`StreamConfig` holds every processing/config parameter of the
 realtime drivers, with ``kind`` selecting the driver semantics
-(``"lowpass"`` — the carried-state low-pass decimator — or
-``"rolling"``, the stateless per-file rolling mean, whose runner is a
-later slice of the port).  Run-control arguments (``max_rounds``,
+(``"lowpass"`` — the carried-state low-pass decimator, optionally
+joint with a rolling product — or ``"rolling"``, the stateless per-file
+rolling mean).  Run-control arguments (``max_rounds``,
 ``sleep_fn``, ``on_round``, ``counters``) are not configuration: they
 belong to whoever drives the rounds, so they stay function arguments.
 

@@ -25,11 +25,18 @@ A runner holds no durable state of its own: kill the process anywhere
 and a new runner over the same folders resumes where the persisted
 stream carry says (:mod:`tpudas_torch.proc.stream`).
 
-Not ported in this slice: the startup integrity audit, resource
-shedding, the flight recorder and health files, the tile pyramid,
-detection, the live plane, device telemetry and phase timing, the
-rolling runner, and the backfill clamps
-(``time_range``, ``ingest_limit_sec``).  :class:`LowpassStreamRunner`
+Detection (``detect=True``, :mod:`tpudas_torch.detect`) runs after each
+round's output writes, over the round's emitted patches; its failures
+are counted and swallowed, and the detect round is shed while the disk
+is full (:mod:`tpudas_torch.integrity.resource`).  A low-pass stream
+with a ``rolling_output_folder`` runs the joint product
+(:class:`~tpudas_torch.proc.joint.JointProc`) in rewind mode;
+:class:`RollingStreamRunner` is the stateless per-file rolling mean.
+
+Not ported in this slice: the startup integrity audit, the flight
+recorder and health files, the tile pyramid, the live plane, device
+telemetry and phase timing, the mesh and window data parallelism, and
+the backfill clamps (``time_range``, ``ingest_limit_sec``).  A runner
 raises ``NotImplementedError`` when its configuration turns on one of
 those features (see :data:`UNPORTED_FIELDS`).
 """
@@ -44,12 +51,16 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from tpudas_torch.core import units as _units
 from tpudas_torch.core.timeutils import to_datetime64, to_timedelta64
 from tpudas_torch.device import resolve_device
 from tpudas_torch.fleet.config import StreamSpec
+from tpudas_torch.integrity import resource as _resource
 from tpudas_torch.io.spool import spool as make_spool
 from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.proc.joint import JointProc
 from tpudas_torch.proc.lfproc import LFProc
+from tpudas_torch.proc.naming import get_filename
 from tpudas_torch.resilience.faults import (
     FaultBoundary,
     RetryPolicy,
@@ -64,6 +75,7 @@ __all__ = [
     "UNPORTED_FIELDS",
     "LowpassStreamRunner",
     "PollJitter",
+    "RollingStreamRunner",
     "StepResult",
     "StreamRunner",
     "build_runner",
@@ -73,32 +85,22 @@ __all__ = [
     "drive",
 ]
 
-# lowpass configuration fields whose features the port does not have
-# yet; each must stay at its off value (None or False)
+# configuration fields whose features the port does not have yet; each
+# must stay at its off value (None or False)
 UNPORTED_FIELDS = (
     "mesh",
     "window_dp",
-    "rolling_output_folder",
-    "rolling_window",
-    "rolling_step",
     "health",
     "pyramid",
-    "detect",
-    "detect_operators",
     "live",
     "flight",
 )
 
 
 def check_ported(spec: StreamSpec) -> None:
-    """Raise ``NotImplementedError`` when ``spec`` asks for a stream
-    kind or a feature (:data:`UNPORTED_FIELDS`) the port lacks."""
+    """Raise ``NotImplementedError`` when ``spec`` asks for a feature
+    (:data:`UNPORTED_FIELDS`) the port lacks."""
     cfg = spec.config
-    if cfg.kind != "lowpass":
-        raise NotImplementedError(
-            f"stream {spec.stream_id!r}: the {cfg.kind!r} stream runner is "
-            "not ported to tpudas_torch yet"
-        )
     check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS})
 
 
@@ -226,6 +228,43 @@ def clamp_poll_interval(requested, file_duration, edge_buffer):
     )
 
 
+def _detect_config(cfg):
+    """``(detect on?, operator specs)``: ``detect=None`` reads
+    ``TPUDAS_DETECT``."""
+    detect = cfg.detect
+    if detect is None:
+        detect = os.environ.get("TPUDAS_DETECT", "0") == "1"
+    return bool(detect), cfg.detect_operators
+
+
+def _run_detect(runner, rnd, emitted, step_sec):
+    """The round's detect hook over the captured output patches: shed
+    while the disk is full, else :func:`run_detect_round` (which counts
+    and swallows its own failures).  Returns its wall seconds, or None
+    when detection is off."""
+    if not runner.detect:
+        return None
+    from tpudas_torch.detect.runner import mark_detect_shed, run_detect_round
+
+    t0 = _time.perf_counter()
+    if _resource.should_shed("detect"):
+        mark_detect_shed(runner.det_state)
+    else:
+        run_detect_round(
+            runner.output_folder, rnd, emitted, runner.det_state,
+            operators=runner.detect_operators, step_sec=step_sec,
+            device=runner.device,
+        )
+    return _time.perf_counter() - t0
+
+
+def write_rolling_output(patch, path) -> None:
+    """Write one rolling-stream output patch: dasdae HDF5 at the
+    ``LFDAS_*.h5`` name, as the JAX package does.  A module-level
+    function, so a host without h5py can put another writer here."""
+    patch.io.write(path, "dasdae")
+
+
 class StreamRunner:
     """Base: identity, jitter and the step bookkeeping every kind
     shares.  Subclasses implement :meth:`step`."""
@@ -297,6 +336,9 @@ class LowpassStreamRunner(StreamRunner):
         )
         self.start_time = to_datetime64(cfg.start_time)
         self.distance = cfg.distance
+        self.rolling_output_folder = cfg.rolling_output_folder
+        self.rolling_window = cfg.rolling_window
+        self.rolling_step = cfg.rolling_step
         self.extra = {
             k: v
             for k, v in (
@@ -314,14 +356,21 @@ class LowpassStreamRunner(StreamRunner):
         )
         # carry, ledger and outputs live in the output folder
         os.makedirs(self.output_folder, exist_ok=True)
+        if _resource.is_degraded():
+            # stale in-process pressure from a previous run: re-probe
+            _resource.probe_recovery(self.output_folder)
         ledger = (
             QuarantineLedger(self.output_folder) if cfg.quarantine else None
         )
         self.boundary = FaultBoundary(policy, ledger)
+        self.detect, self.detect_operators = _detect_config(cfg)
+        self.det_state = {"pipe": None}  # cross-round detect pipeline
         stateful = cfg.stateful
         if stateful is None:
             stateful = os.environ.get("TPUDAS_STREAM_STATEFUL", "1") != "0"
-        self.stateful = bool(stateful)
+        # the joint product runs the window (rewind) path: its rolling
+        # windows need the loaded halo, which the carry does not keep
+        self.stateful = bool(stateful) and self.rolling_output_folder is None
         carry_save_every = cfg.carry_save_every
         if carry_save_every is None:
             carry_save_every = int(
@@ -372,6 +421,10 @@ class LowpassStreamRunner(StreamRunner):
                 status = "processed"
                 self._process_round(sub)
             self.boundary.on_success()
+            if _resource.is_degraded():
+                # disk-full recovery probe: one tiny write; the moment
+                # it succeeds, the shed detect round resumes
+                _resource.probe_recovery(self.output_folder)
             # every poll sets the growth baseline: the next poll without
             # growth terminates (the reference's loop ends when the
             # spool stops growing, low_pass_dascore_edge.ipynb:205-207)
@@ -388,6 +441,7 @@ class LowpassStreamRunner(StreamRunner):
                 self.carry = None
                 self.carry_checked = False
                 self.carry_unsaved = 0
+            self.det_state["pipe"] = None
             return StepResult(
                 "retry", decision.delay, decision.kind,
                 self.boundary.consecutive,
@@ -398,7 +452,19 @@ class LowpassStreamRunner(StreamRunner):
         return "stateful" if self.stateful else "rewind"
 
     def _process_round(self, sub) -> None:
-        lfp = LFProc(sub, device=self.device)
+        joint_extra = {}
+        if self.rolling_output_folder is not None:
+            lfp = JointProc(sub, device=self.device)
+            joint_extra = {
+                k: v
+                for k, v in (
+                    ("rolling_window", self.rolling_window),
+                    ("rolling_step", self.rolling_step),
+                )
+                if v is not None
+            }
+        else:
+            lfp = LFProc(sub, device=self.device)
         # the processor is rebuilt every round: re-install the handoff
         lfp._batch_executor = self._batch_executor
         lfp.update_processing_parameter(
@@ -406,8 +472,17 @@ class LowpassStreamRunner(StreamRunner):
             process_patch_size=self.process_patch_size,
             edge_buff_size=self.buff_out,
             **self.extra,
+            **joint_extra,
         )
         lfp.set_output_folder(self.output_folder, delete_existing=False)
+        emitted = []
+        if self.detect:
+            # the round's output patches, captured at their write site
+            lfp.add_emit_listener(emitted.append)
+        if self.rolling_output_folder is not None:
+            lfp.set_rolling_output_folder(
+                self.rolling_output_folder, delete_existing=False
+            )
         rnd = self.rounds + 1
         log_event("round_start", round=rnd, stream=self.stream_id)
         if self.stateful and not self.carry_checked:
@@ -484,6 +559,7 @@ class LowpassStreamRunner(StreamRunner):
         self.head_lag = (
             _head_lag_seconds(t2, lfp, self.carry) if self.stateful else None
         )
+        detect_s = _run_detect(self, rnd, emitted, self.d_t)
         log_event(
             "realtime_round",
             round=rnd,
@@ -497,6 +573,7 @@ class LowpassStreamRunner(StreamRunner):
             engine=lfp.parameters["engine"],
             engine_counts=dict(lfp.engine_counts),
             stream_blocks=dict(lfp.stream_blocks),
+            detect_seconds=detect_s,
         )
         if self.on_round is not None:
             self.on_round(rnd, lfp)
@@ -587,6 +664,133 @@ class LowpassStreamRunner(StreamRunner):
         )
 
 
+class RollingStreamRunner(StreamRunner):
+    """One stateless rolling-mean stream: the ``run_rolling_realtime``
+    round loop (see that driver's docstring).  Each new input patch is
+    rolled on ``device`` (default the CUDA card) and written by
+    :func:`write_rolling_output`; the JAX package's mesh-batched path is
+    not ported."""
+
+    kind = "rolling"
+
+    def __init__(self, spec: StreamSpec, output_folder: str, device=None):
+        super().__init__(spec, output_folder)
+        cfg = spec.config
+        if cfg.kind != "rolling":
+            raise ValueError(
+                f"RollingStreamRunner needs kind='rolling', got {cfg.kind!r}"
+            )
+        check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS})
+        self.device = resolve_device(device)
+        self.window = cfg.window
+        self.step_param = cfg.step
+        self.scale = float(cfg.scale)
+        self.distance = cfg.distance
+        self.engine = cfg.engine
+        os.makedirs(self.output_folder, exist_ok=True)
+        file_duration = (
+            30.0 if cfg.file_duration is None else float(cfg.file_duration)
+        )
+        self.interval = (
+            float(cfg.poll_interval)
+            if cfg.poll_interval is not None
+            else file_duration
+        )
+        policy = (
+            cfg.fault_policy if cfg.fault_policy is not None
+            else RetryPolicy()
+        )
+        ledger = (
+            QuarantineLedger(self.output_folder) if cfg.quarantine else None
+        )
+        self.boundary = FaultBoundary(policy, ledger)
+        self.detect, self.detect_operators = _detect_config(cfg)
+        self.step_sec = _units.get_seconds(cfg.step)
+        self.det_state = {"pipe": None}  # cross-round detect pipeline
+        self.initial_run = True
+        # patches are identified by their time span, so a late file with
+        # an earlier timestamp is still processed (a positional
+        # high-water mark into the time-sorted spool would skip it)
+        self.processed: set = set()
+
+    def step(self) -> StepResult:
+        self.polls += 1
+        try:
+            fault_point("round.body", poll=self.polls)
+            sp = self.boundary.begin_round(
+                make_spool(self.source).sort("time"), self.source
+            )
+            sub = (
+                sp.select(distance=self.distance)
+                if self.distance is not None else sp
+            )
+            keys = [
+                (np.datetime64(r["time_min"], "ns"),
+                 np.datetime64(r["time_max"], "ns"))
+                for r in sub.contents()
+            ]
+            fresh = [j for j, k in enumerate(keys) if k not in self.processed]
+            if (
+                not self.initial_run
+                and not fresh
+                and self.boundary.consecutive == 0
+            ):
+                log_event(
+                    "stream_terminated", stream=self.stream_id,
+                    rounds=self.rounds, polls=self.polls,
+                )
+                return StepResult("terminate")
+            status = "empty"
+            if fresh:
+                status = "processed"
+                self._process_round(sub, keys, fresh)
+            self.boundary.on_success()
+            if _resource.is_degraded():
+                _resource.probe_recovery(self.output_folder)
+            self.initial_run = False
+        except Exception as exc:
+            self.det_state["pipe"] = None
+            decision = self.boundary.on_failure(exc)
+            if decision.propagate:
+                raise
+            return StepResult(
+                "retry", decision.delay, decision.kind,
+                self.boundary.consecutive,
+            )
+        return StepResult(status, self.poll_delay())
+
+    def _process_round(self, sub, keys, fresh) -> None:
+        rnd = self.rounds + 1
+        log_event("round_start", round=rnd, stream=self.stream_id)
+        emitted = []  # in-memory capture for the detect round
+        t0 = _time.perf_counter()
+        write_s = 0.0
+        # one patch at a time: each output is written as soon as it is
+        # computed, so a retry resumes at the first unwritten patch
+        for j in fresh:
+            log_event("rolling_patch", index=j, stream=self.stream_id)
+            out = sub[j].rolling(
+                time=self.window, step=self.step_param,
+                engine=self.engine, device=self.device,
+            ).mean()
+            out = out.new(data=np.asarray(out.data) * self.scale)
+            fname = get_filename(out.attrs["time_min"], out.attrs["time_max"])
+            t_w0 = _time.perf_counter()
+            write_rolling_output(out, os.path.join(self.output_folder, fname))
+            write_s += _time.perf_counter() - t_w0
+            self.processed.add(keys[j])
+            if self.detect:
+                emitted.append(out)
+        loop_s = _time.perf_counter() - t0
+        detect_s = _run_detect(self, rnd, emitted, self.step_sec)
+        self.rounds = rnd
+        log_event(
+            "rolling_round", round=rnd, stream=self.stream_id,
+            patches=len(fresh), wall_seconds=round(loop_s, 4),
+            write_seconds=round(write_s, 4), detect_seconds=detect_s,
+        )
+
+
 def build_runner(
     spec: StreamSpec,
     root=None,
@@ -594,14 +798,17 @@ def build_runner(
     on_round=None,
     device=None,
 ) -> StreamRunner:
-    """The runner for ``spec`` (output folder created; the carry is
-    resolved on the first round).  Only the ``lowpass`` kind is ported;
-    ``device`` defaults to the CUDA card."""
+    """The runner for ``spec`` (output folder created; a low-pass
+    stream's carry is resolved on its first round); ``device`` defaults
+    to the CUDA card."""
     folder = spec.resolve_output_folder(root if root is not None else ".")
     check_ported(spec)
-    return LowpassStreamRunner(
-        spec, folder, counters=counters, on_round=on_round, device=device
-    )
+    if spec.config.kind == "lowpass":
+        return LowpassStreamRunner(
+            spec, folder, counters=counters, on_round=on_round,
+            device=device,
+        )
+    return RollingStreamRunner(spec, folder, device=device)
 
 
 def drive(runner: StreamRunner, max_rounds=None, sleep_fn=_time.sleep):

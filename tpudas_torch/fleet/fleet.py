@@ -49,9 +49,10 @@ Not ported: the JAX package's persistent compile cache
 (``utils/compile_cache``) has no counterpart, because the nvcc-built
 kernel libraries are already shared by every stream of the process;
 parking writes no health snapshot (health files are not ported).  A
-spec that asks for an unported feature (a ``rolling`` stream, or any
+spec that asks for an unported feature (any
 :data:`tpudas_torch.fleet.engine.UNPORTED_FIELDS` entry) raises
 ``NotImplementedError`` when the fleet is built, rather than parking.
+Rolling streams and joint low-pass streams are always serviced solo.
 """
 
 from __future__ import annotations

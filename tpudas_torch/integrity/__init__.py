@@ -1,1 +1,1 @@
-"""Checksummed persistent state (the stream carry's files)."""
+"""Checksummed persistent state and disk-pressure shedding."""

@@ -1,33 +1,40 @@
-"""crc32 stamping and verification of the stream carry's files.
+"""crc32 stamping and verification of every durable artifact.
 
-The port's copy of the part of :mod:`tpudas.integrity.checksum` that
-the stream carry needs, with the same on-disk format byte for byte, so
-each package verifies the carry the other wrote:
+The port's copy of :mod:`tpudas.integrity.checksum` (the writers and
+verified reads; the startup audit's re-stamping is not ported), with the
+same on-disk format byte for byte, so each package verifies what the
+other wrote:
 
 - **JSON** (the carry's readable sidecar) embeds the digest as a
   top-level ``"_crc32"`` key computed over the canonical dump of the
   rest of the object (sorted keys, no whitespace);
-- **binary** (the carry ``.npz``) gets a sidecar ``<path>.crc`` holding
+- **binary** (the carry ``.npz``, the detect score tiles) gets a sidecar ``<path>.crc`` holding
   ``crc32 <8-hex-digest> <size>\\n``, written after the payload's
   rename, so a crash between the two reads as a mismatch.
 
-Writes go through a per-process tmp name and ``os.replace``; readers
-never see a partial file.  ``durable=True`` (or ``TPUDAS_FSYNC=1``)
-fsyncs the payload before the rename and the directory after it.
+Writes go through :mod:`tpudas_torch.utils.atomicio` (a per-process tmp
+name, ``os.replace`` and the ``fs.write_enospc`` fault site); readers
+never see a partial file.  Verified reads pass the ``integrity.verify``
+fault site with their artifact's name, so a test can corrupt (action
+``"truncate"``) any artifact just before its verified read.
 
 A verification result is ``"ok"``, ``"unstamped"`` (no sidecar: a
 legacy artifact, accepted) or ``"mismatch"``.  A reader that rejects a
-primary and falls down its ladder reports it with :func:`count_fallback`,
-which emits an ``integrity_fallback`` log event; an accepted unstamped
-artifact is counted by :func:`count_unstamped`.
+primary and falls down its ladder reports it with :func:`count_fallback`
+(``tpudas_integrity_fallback_total{artifact}``, the process count
+:func:`fallback_count` and an ``integrity_fallback`` log event); an
+accepted unstamped artifact is counted by :func:`count_unstamped`.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import zlib
 
+from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.utils.atomicio import atomic_write_bytes, atomic_write_text
 from tpudas_torch.utils.logging import log_event
 
 __all__ = [
@@ -36,14 +43,17 @@ __all__ = [
     "count_fallback",
     "count_unstamped",
     "crc32_hex",
+    "fallback_count",
     "read_json_verified",
     "rotate_prev",
     "sidecar_path",
     "stamp_json",
+    "strip_stamp",
     "verify_file_checksum",
     "verify_json_obj",
     "write_bytes_checksummed",
     "write_json_checksummed",
+    "write_npy_checksummed",
 ]
 
 CRC_KEY = "_crc32"
@@ -62,9 +72,27 @@ def _canonical(obj) -> bytes:
     ).encode()
 
 
+_fallbacks = 0  # process-lifetime ladder steps (all artifacts)
+
+
+def fallback_count() -> int:
+    """Verified reads (process lifetime) that rejected a primary and
+    took a degradation-ladder step."""
+    return _fallbacks
+
+
 def count_fallback(artifact: str, reason: str, path: str = "") -> None:
     """One degradation-ladder step: the primary for ``artifact`` was
-    rejected and the reader falls through to ``.prev`` or rewind."""
+    rejected and the reader falls through to ``.prev``, rebuild or
+    rewind."""
+    global _fallbacks
+    _fallbacks += 1
+    get_registry().counter(
+        "tpudas_integrity_fallback_total",
+        "verified reads that rejected the primary artifact and took a "
+        "degradation-ladder step (.prev / rebuild / rewind)",
+        labelnames=("artifact",),
+    ).inc(artifact=artifact)
     log_event(
         "integrity_fallback",
         artifact=artifact,
@@ -75,8 +103,6 @@ def count_fallback(artifact: str, reason: str, path: str = "") -> None:
 
 def count_unstamped(artifact: str) -> None:
     """A legacy artifact without a checksum was accepted."""
-    from tpudas_torch.obs.registry import get_registry
-
     get_registry().counter(
         "tpudas_integrity_unstamped_total",
         "checksum-less legacy artifacts accepted by verified reads",
@@ -91,36 +117,24 @@ def stamp_json(obj: dict) -> dict:
     return {**body, CRC_KEY: crc32_hex(_canonical(body))}
 
 
-def _durable(durable) -> bool:
-    if durable is None:
-        return os.environ.get("TPUDAS_FSYNC", "0") == "1"
-    return bool(durable)
+def _verify_point(path: str, artifact: str | None) -> None:
+    from tpudas_torch.resilience.faults import fault_point
+
+    fault_point("integrity.verify", path=path, artifact=artifact)
 
 
-def _atomic_write(path: str, payload: bytes, durable) -> None:
-    """``payload`` to ``path`` via a per-process tmp name + rename."""
-    durable = _durable(durable)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as fh:
-        fh.write(payload)
-        if durable:
-            fh.flush()
-            os.fsync(fh.fileno())
-    os.replace(tmp, path)
-    if durable:
-        fd = os.open(os.path.dirname(os.path.abspath(path)) or ".", os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
+def strip_stamp(obj: dict) -> dict:
+    return {k: v for k, v in obj.items() if k != CRC_KEY}
 
 
 def write_json_checksummed(
     path: str, obj: dict, durable: bool | None = None, indent: int = 1
 ) -> None:
     """Atomically write ``obj`` with an embedded crc32 stamp."""
-    text = json.dumps(stamp_json(obj), indent=indent) + "\n"
-    _atomic_write(path, text.encode(), durable)
+    atomic_write_text(
+        path, json.dumps(stamp_json(obj), indent=indent) + "\n",
+        durable=durable,
+    )
 
 
 def verify_json_obj(obj) -> str:
@@ -132,16 +146,15 @@ def verify_json_obj(obj) -> str:
     return "ok" if crc32_hex(_canonical(body)) == obj[CRC_KEY] else "mismatch"
 
 
-def read_json_verified(path: str) -> tuple[dict, str]:
+def read_json_verified(path: str, artifact: str) -> tuple[dict, str]:
     """Parse and verify one JSON artifact: ``(payload without the
     stamp, status)``.  Raises whatever ``open``/``json.load`` raise (the
     caller's ladder treats unreadable like mismatched)."""
+    _verify_point(path, artifact)
     with open(path) as fh:
         obj = json.load(fh)
     status = verify_json_obj(obj)
-    if isinstance(obj, dict):
-        obj = {k: v for k, v in obj.items() if k != CRC_KEY}
-    return obj, status
+    return (strip_stamp(obj) if isinstance(obj, dict) else obj), status
 
 
 def sidecar_path(path: str) -> str:
@@ -152,18 +165,30 @@ def write_bytes_checksummed(
     path: str, payload: bytes, durable: bool | None = None
 ) -> None:
     """Atomic payload write, then the ``<path>.crc`` sidecar."""
-    _atomic_write(path, payload, durable)
-    _atomic_write(
+    atomic_write_bytes(path, payload, durable=durable)
+    atomic_write_text(
         sidecar_path(path),
-        f"crc32 {crc32_hex(payload)} {len(payload)}\n".encode(),
-        durable,
+        f"crc32 {crc32_hex(payload)} {len(payload)}\n",
+        durable=durable,
     )
 
 
-def verify_file_checksum(path: str) -> str:
+def write_npy_checksummed(path: str, array,
+                          durable: bool | None = None) -> None:
+    """Checksummed atomic raw ``.npy`` write (serialized in memory, so
+    the sidecar digests exactly the bytes on disk)."""
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(array))
+    write_bytes_checksummed(path, buf.getvalue(), durable=durable)
+
+
+def verify_file_checksum(path: str, artifact: str | None = None) -> str:
     """``"ok"`` | ``"unstamped"`` | ``"mismatch"`` for a binary artifact
     against its ``.crc`` sidecar.  A missing payload raises
     ``FileNotFoundError``."""
+    _verify_point(path, artifact)
     try:
         with open(sidecar_path(path)) as fh:
             tokens = fh.read().split()

@@ -91,7 +91,7 @@ class DirectoryIndex:
         self._loaded_cache = True
         for path in (self.cache_path, self.cache_path + ".prev"):
             try:
-                raw, status = read_json_verified(path)
+                raw, status = read_json_verified(path, "index")
             except FileNotFoundError:
                 continue
             except (OSError, ValueError):

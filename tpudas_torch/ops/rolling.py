@@ -12,11 +12,13 @@ computes mean-decimation via
 - positions with ``p < w-1`` (incomplete window) are NaN — the warm-up
   prefix downstream strips with ``dropna("time")``.
 
-Device engine: a direct windowed reduction (``unfold`` at stride ``s``,
-then ``sum``/``amax``/``amin`` over each window) on the alignment-shifted
+Device engine: a direct windowed reduction on the alignment-shifted
 float32 tensor, NaN prefix concatenated — the JAX package's
 ``lax.reduce_window`` in plain torch, on ``device`` (default the CUDA
-card).  Host engine (``"numpy"``/``"host"``): the float64 reference of
+card).  ``amax``/``amin`` run over ``unfold`` windows; sums run a fixed
+pairwise tree over each window (:func:`_window_sum`), so a window's sum
+does not depend on where the array starts, how many windows it holds or
+the device (the detect RMS operator's chunk invariance rests on it).  Host engine (``"numpy"``/``"host"``): the float64 reference of
 the same semantics, computed with torch on CPU tensors.  The mesh
 batched rolling mean of the JAX package belongs to the multi-GPU slice.
 """
@@ -44,13 +46,45 @@ def _window_step_samples(window_sec, step_sec, d_sec):
     return w, s
 
 
+# elements of the first level of a window sum's pairwise tree per pass
+_MAX_TREE_ELEMS = 1 << 28
+
+
+def _window_sum(x, w, s, n):
+    """Sums of the ``w`` rows of (T, ...) ``x`` starting at rows
+    ``0, s, ..., (n-1)s``.  Each window is summed in one fixed pairwise
+    order that depends on ``w`` alone: its rows are halved into two
+    halves added row for row (an odd row rides to the next level) until
+    one row is left.  So a window's sum is the same bytes whatever
+    ``n``, wherever ``x`` starts (a detect operator's pool starts at
+    another row in each chunking) and on any device (only elementwise
+    adds), and it keeps pairwise summation's accuracy."""
+    rest = tuple(x.shape[1:])
+    per_window = max(w // 2, 1) * max(int(np.prod(rest)), 1)
+    chunk = max(1, _MAX_TREE_ELEMS // per_window)
+    outs = []
+    for i0 in range(0, n, chunk):
+        m = min(chunk, n - i0)
+        # (w, m, ...): element [k, i] is row i0*s + i*s + k, no copy
+        v = torch.as_strided(
+            x, (w, m) + rest, (x.stride(0), s * x.stride(0)) + x.stride()[1:],
+            x.storage_offset() + i0 * s * x.stride(0),
+        )
+        while v.shape[0] > 1:
+            h = v.shape[0] // 2
+            y = v[:h] + v[h:2 * h]
+            v = torch.cat([y, v[2 * h:]]) if v.shape[0] % 2 else y
+        outs.append(v[0])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def _windowed(x, w, s, op):
     """Valid trailing windows of ``w`` rows at stride ``s`` of (T, ...)
     ``x``, reduced by ``op`` (the positions ``w-1, w-1+s, ...``)."""
-    win = x.unfold(0, w, s)  # (n, ..., w): a view, no copy
     if op in ("mean", "sum"):
-        red = win.sum(dim=-1)
+        red = _window_sum(x, w, s, (x.shape[0] - w) // s + 1)
         return red / w if op == "mean" else red
+    win = x.unfold(0, w, s)  # (n, ..., w): a view, no copy
     if op == "max":
         return win.amax(dim=-1)
     if op == "min":

@@ -51,6 +51,7 @@ from tpudas_torch.core.timeutils import (
 )
 from tpudas_torch.device import resolve_device
 from tpudas_torch.io.spool import spool as make_spool
+from tpudas_torch.obs.registry import get_registry
 from tpudas_torch.proc.naming import get_filename
 from tpudas_torch.utils.logging import log_event
 
@@ -288,6 +289,10 @@ class LFProc:
         # the batched fleet's rendezvous (tpudas_torch.fleet.batch),
         # installed by the round's runner; None is the solo step
         self._batch_executor = None
+        # output-emission subscribers (the realtime runner's detect
+        # capture), and the ids of those that raised this round
+        self._emit_listeners: list = []
+        self._failed_listeners: set = set()
 
     # configuration ----------------------------------------------------
     def _default_process_parameters(self):
@@ -353,6 +358,18 @@ class LFProc:
     def set_output_folder(self, folder, delete_existing=False):
         self._output_folder = folder
         self._setup_folder(folder, delete_existing)
+
+    def add_emit_listener(self, fn) -> None:
+        """Subscribe ``fn(result_patch)`` to every output emission
+        (called after the output write).  Several subscribers coexist;
+        a failing one is counted and skipped at the emit site."""
+        self._emit_listeners.append(fn)
+
+    def clear_emit_failures(self) -> None:
+        """Re-arm listeners skipped after raising (a consumer that
+        failed on round N's emissions gets a fresh chance on round
+        N+1)."""
+        self._failed_listeners.clear()
 
     def get_last_processed_time(self):
         """Resume primitive: progress state lives entirely in the output
@@ -827,6 +844,23 @@ class LFProc:
         self._write_output(result, os.path.join(self._output_folder, filename))
         t_write = time.perf_counter() - t_w0
         self.timings["write_s"] += t_write
+        for listener in self._emit_listeners:
+            if id(listener) in self._failed_listeners:
+                continue  # raised earlier this round: skip, don't re-fail
+            try:
+                listener(result)
+            except Exception as exc:
+                self._failed_listeners.add(id(listener))
+                get_registry().counter(
+                    "tpudas_lfproc_listener_errors_total",
+                    "output-emission listener callbacks that raised "
+                    "(swallowed and skipped for the rest of the "
+                    "round; the commit path is never poisoned)",
+                ).inc()
+                log_event(
+                    "emit_listener_failed",
+                    error=f"{type(exc).__name__}: {str(exc)[:200]}",
+                )
         log_event(
             "window_timing", device_s=round(t_dev, 5),
             write_s=round(t_write, 5), engine=ran,

@@ -277,7 +277,7 @@ def load_carry(folder: str) -> StreamCarry | None:
                 count_fallback("carry", "primary missing", cand)
             continue
         try:
-            if verify_file_checksum(cand) == "mismatch":
+            if verify_file_checksum(cand, artifact="carry") == "mismatch":
                 raise ValueError("carry checksum mismatch")
             carry = _parse_carry(cand)
         except Exception as exc:

@@ -1,11 +1,12 @@
-"""The real-time ("edge") low-pass driver.
+"""The real-time ("edge") drivers.
 
-The port's counterpart of :func:`tpudas.proc.streaming.run_lowpass_realtime`:
-the library form of the edge notebook's polling loop (poll the source
-directory, process what is new, sleep, repeat; stop when the spool stops
-growing).  The driver is a thin shim: a
-:class:`~tpudas_torch.fleet.config.StreamConfig`, a
-:class:`~tpudas_torch.fleet.engine.LowpassStreamRunner` and
+The port's counterpart of :mod:`tpudas.proc.streaming`: the library
+form of the edge notebooks' polling loops (poll the source directory,
+process what is new, sleep, repeat; stop when the spool stops
+growing).  Each driver is a thin shim: a
+:class:`~tpudas_torch.fleet.config.StreamConfig`, a runner
+(:class:`~tpudas_torch.fleet.engine.LowpassStreamRunner` or
+:class:`~tpudas_torch.fleet.engine.RollingStreamRunner`) and
 :func:`~tpudas_torch.fleet.engine.drive`.
 
 Stateful by default: each round filters only the new full-rate samples
@@ -31,7 +32,8 @@ from tpudas_torch.fleet.engine import (
 )
 from tpudas_torch.proc.lfproc import resolve_gap_tolerance
 
-__all__ = ["clamp_poll_interval", "run_lowpass_realtime"]
+__all__ = ["clamp_poll_interval", "run_lowpass_realtime",
+           "run_rolling_realtime"]
 
 
 def _shim_stream_id(output_folder) -> str:
@@ -110,12 +112,23 @@ def run_lowpass_realtime(
     :class:`~tpudas_torch.utils.profiling.Counters`) accumulates
     throughput; ``on_round(round, lfp)`` is called after each round.
 
+    ``detect`` (default ``TPUDAS_DETECT=1``) runs the
+    :mod:`tpudas_torch.detect` operators (``detect_operators``, default
+    ``("stalta", "rms")``) over each round's emitted output on
+    ``device``, committing the events ledger, score tiles and detect
+    carry under ``<output_folder>/.detect/``; a detect failure is
+    counted and swallowed, never the stream's.  ``rolling_output_folder``
+    (with ``rolling_window`` / ``rolling_step`` seconds) writes the
+    joint rolling-mean product from the same ingest pass
+    (:class:`~tpudas_torch.proc.joint.JointProc`); that mode runs the
+    rewind path (the rolling windows need the loaded halo), and the
+    two ``rolling_*`` keywords without the folder raise ``ValueError``.
+
     Not ported yet, and raising ``NotImplementedError`` when set to
     anything but their off value (None or False): ``mesh``,
-    ``window_dp``, ``rolling_output_folder`` / ``rolling_window`` /
-    ``rolling_step``, ``health``, ``pyramid``, ``detect``,
-    ``detect_operators``, ``live`` and ``flight``.  The JAX package
-    keeps its flight recorder on by default; here it is off.
+    ``window_dp``, ``health``, ``pyramid``, ``live`` and ``flight``.
+    The JAX package keeps its flight recorder on by default; here it is
+    off.
 
     Every round runs inside the JAX package's fault boundary
     (:mod:`tpudas_torch.resilience`): ``fault_policy`` (a
@@ -128,11 +141,8 @@ def run_lowpass_realtime(
     past the policy's ``max_consecutive``, propagates to the caller.
     """
     check_unported(dict(
-        mesh=mesh, window_dp=window_dp,
-        rolling_output_folder=rolling_output_folder,
-        rolling_window=rolling_window, rolling_step=rolling_step,
-        health=health, pyramid=pyramid, detect=detect,
-        detect_operators=detect_operators, live=live, flight=flight,
+        mesh=mesh, window_dp=window_dp, health=health, pyramid=pyramid,
+        live=live, flight=flight,
     ))
     gap_tol = resolve_gap_tolerance(data_gap_tolerance, data_gap_tolorance)
     config = StreamConfig(
@@ -174,4 +184,81 @@ def run_lowpass_realtime(
     runner = build_runner(
         spec, counters=counters, on_round=on_round, device=device
     )
+    return drive(runner, max_rounds=max_rounds, sleep_fn=sleep_fn)
+
+
+def run_rolling_realtime(
+    source,
+    output_folder,
+    window,
+    step,
+    scale=1.0,
+    distance=None,
+    poll_interval=None,
+    file_duration=30.0,
+    max_rounds=None,
+    sleep_fn=_time.sleep,
+    engine=None,
+    mesh=None,
+    fault_policy=None,
+    quarantine=True,
+    pyramid=None,
+    detect=None,
+    detect_operators=None,
+    poll_jitter=None,
+    flight=None,
+    live=None,
+    device=None,
+):
+    """Poll ``source`` and rolling-mean each NEW patch (stateless per
+    file — rolling_mean_dascore_edge.ipynb:209-221).  Returns the number
+    of rounds that processed data.
+
+    The signature is the JAX package's, plus ``device`` (default: the
+    CUDA card; ``"cpu"`` on request).  Each new patch is rolled with
+    ``patch.rolling(time=window, step=step, engine=engine).mean()``
+    (the device engine unless ``engine`` is ``"numpy"``/``"host"``),
+    scaled by ``scale`` and written under its ``LFDAS_*`` name.
+    Patches are identified by their time span, so a file that arrives
+    late with an earlier timestamp is still processed.  Rounds run
+    inside the same fault boundary as :func:`run_lowpass_realtime`
+    (``fault_policy`` / ``quarantine``); patches written before a
+    failure are not redone.  ``detect`` (default ``TPUDAS_DETECT=1``,
+    operators via ``detect_operators``) runs the detect operators over
+    each round's outputs.  The rolling grid is anchored per file: for a
+    globally uniform grid (what detection assumes) use a ``step`` that
+    divides the file duration.
+
+    Not ported yet, and raising ``NotImplementedError`` when set:
+    ``mesh`` (the JAX package's batched rolling over a device mesh),
+    ``pyramid``, ``live`` and ``flight``.
+    """
+    check_unported(dict(mesh=mesh, pyramid=pyramid, live=live,
+                        flight=flight))
+    config = StreamConfig(
+        kind="rolling",
+        window=window,
+        step=step,
+        scale=scale,
+        distance=distance,
+        poll_interval=poll_interval,
+        file_duration=file_duration,
+        engine=engine,
+        mesh=mesh,
+        fault_policy=fault_policy,
+        quarantine=quarantine,
+        pyramid=pyramid,
+        detect=detect,
+        detect_operators=detect_operators,
+        poll_jitter=poll_jitter,
+        flight=flight,
+        live=live,
+    )
+    spec = StreamSpec(
+        stream_id=_shim_stream_id(output_folder),
+        source=source,
+        config=config,
+        output_folder=str(output_folder),
+    )
+    runner = build_runner(spec, device=device)
     return drive(runner, max_rounds=max_rounds, sleep_fn=sleep_fn)

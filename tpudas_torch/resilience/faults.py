@@ -4,12 +4,16 @@ the deterministic fault-injection harness.
 The port's own copy of :mod:`tpudas.resilience.faults`: the same
 classes, the same decisions and the same :data:`FAULT_SITES`, so a
 :class:`FaultSpec` written for one package means the same in the
-other.  The real-time path marks four of the sites: ``round.body``
-(top of :meth:`tpudas_torch.fleet.engine.LowpassStreamRunner.step`),
+other.  The real-time path marks eight of the sites: ``round.body``
+(top of each runner's ``step``, :mod:`tpudas_torch.fleet.engine`),
 ``spool.read`` (the per-file payload read,
 :mod:`tpudas_torch.io.spool`), ``index.update`` (the directory index
-re-scan, :mod:`tpudas_torch.io.index`) and ``carry.save`` (the stream
-carry persist, :mod:`tpudas_torch.proc.stream`).  The other sites
+re-scan, :mod:`tpudas_torch.io.index`), ``carry.save`` (the stream
+carry persist, :mod:`tpudas_torch.proc.stream`), ``fs.write_enospc``
+(every atomic write, :mod:`tpudas_torch.utils.atomicio`),
+``integrity.verify`` (every verified read,
+:mod:`tpudas_torch.integrity.checksum`), ``detect.op`` and
+``detect.ledger_write`` (:mod:`tpudas_torch.detect`).  The other sites
 belong to features the port does not have yet.
 
 Taxonomy (:func:`classify_failure`):
@@ -25,9 +29,10 @@ Taxonomy (:func:`classify_failure`):
 - ``"network"`` — a :class:`NetworkFaultError`; retried like a
   transient, never quarantined.
 - ``"resource"`` — ``OSError`` with ``ENOSPC``/``EDQUOT``; retried with
-  ``max_consecutive * resource_patience`` attempts.  (The JAX package
-  also sheds non-essential writers while the disk is full; the port
-  has none of those writers yet.)
+  ``max_consecutive * resource_patience`` attempts, and the boundary
+  flips the process-wide pressure flag
+  (:mod:`tpudas_torch.integrity.resource`), so the driver sheds the
+  detect round until a probe write succeeds again.
 - ``"fatal"`` — everything else; propagates at once.
 
 Backoff is deterministic: ``RetryPolicy.delay(attempt)`` derives its
@@ -264,6 +269,12 @@ class FaultBoundary:
         ).inc(kind=kind)
         if isinstance(exc, SpoolReadError):
             self._charge_file(exc.path, self.last_error)
+        if kind == "resource":
+            # flip the process-wide pressure flag: the driver sheds
+            # non-essential writers until a probe write succeeds
+            from tpudas_torch.integrity.resource import note_pressure
+
+            note_pressure(where, exc)
         if kind == "fatal":
             decision = FaultDecision(kind, True, reason="fatal failure")
         else:

@@ -76,7 +76,7 @@ class QuarantineLedger:
             return
         for cand in (primary, primary + ".prev"):
             try:
-                raw, status = read_json_verified(cand)
+                raw, status = read_json_verified(cand, "quarantine")
                 if status == "mismatch":
                     raise ValueError("ledger checksum mismatch")
                 if status == "unstamped":
