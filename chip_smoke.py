@@ -58,8 +58,8 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
 8. the fleet (``FleetEngine``) over the same spool: four streams of
    10,000, 6,001, 2,500 and 1,499 channels (``distance`` selections,
    20,000 ch packed), batched under ``engine="fused"`` (files 1-2, then
-   a second fleet resumed over file 3), ``"auto"`` and ``"fft"`` (files
-   1-2): every member's output files and carry byte-equal to its solo
+   a second fleet resumed over file 3), ``"auto"`` (files 1-2) and
+   ``"fft"`` (file 1): every member's output files and carry byte-equal to its solo
    control and to the unbatched fleet, B3 and the B1 chain launched on
    the packed block (fewer steps than member blocks), every FFT step at
    its member's width; the fused fleet again with every wave's steps
@@ -78,7 +78,15 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    (``rolling_output_folder``) over two rounds, seam-free, within 1e-6
    of phase 7's batch product, the LF product within 1e-4 of phase
    4's, B1 launched; (d) ``Patch.median_filter`` (5 x 5, and 9 along
-   time) on phase 4's output bit-equal to ``scipy.ndimage``.
+   time) on phase 4's output bit-equal to ``scipy.ndimage``;
+10. the SIGKILL crash drill (``tpudas_torch/tools/crash_drill.py``) at
+   10,000 channels under ``engine="fused"`` (4 killed cycles),
+   ``"auto"`` and ``"fft"`` (2 each): fresh worker interpreters on the
+   card with the stateful carry and phase 9's detection on, killed at
+   seeded points after they are ready; the drained folder audits clean,
+   no worker's startup audit raised, and the outputs, the stream carry
+   and the detect state equal an uninterrupted control's; the fused
+   workers launched B3 and the auto workers B1.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -92,8 +100,9 @@ reading) and exits 3: a dry run of the control flow, never a result.
 iteration loop), ``--only fused`` phases 1, 2 and 3b (the fused
 step's), ``--only fleet`` phases 1, 2 and 8 over a fresh spool and
 ``--only detect`` phases 1, 2 and 9 over a fresh spool (its batch
-references from one ``JointProc`` pass); all exit 4 without the
-kernels line or the ``ok`` line.
+references from one ``JointProc`` pass) and ``--only crash`` phases 1,
+2 and 10 over a fresh spool (``--cycles N``: N killed cycles for every
+engine); all exit 4 without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1804,7 +1813,7 @@ def phase_fleet(device, workdir, cls, members, timer):
     sleep, so the backlog forms batch groups (the drain regime).  (a)
     ``engine="fused"`` batched over files 1-2, then a second fleet that
     resumes every member over file 3; (b) ``engine="auto"`` batched over
-    files 1-2; (c) ``engine="fft"`` batched over files 1-2.  Each member's
+    files 1-2; (c) ``engine="fft"`` batched over file 1.  Each member's
     output files and carry must equal its solo control (the same calls
     of ``drive(build_runner(...))``) byte for byte, and the unbatched
     fleet's; each leg runs batched, solo, unbatched, batched again, so
@@ -1822,7 +1831,9 @@ def phase_fleet(device, workdir, cls, members, timer):
     fdir = os.path.join(workdir, "fleet")
     shutil.rmtree(fdir, ignore_errors=True)
     cuda = device.type == "cuda"
-    legs = {"fused": (2, 3), "auto": (2,), "fft": (2,)}
+    # the fft leg over file 1 alone (60 s; 120 s before phase 10 came):
+    # the full run keeps within its time
+    legs = {"fused": (2, 3), "auto": (2,), "fft": (1,)}
     res, checks = {}, []
     saved_cls = fleet_engine.LFProc
     fleet_engine.LFProc = cls
@@ -2302,6 +2313,117 @@ def batch_references(device, workdir, jcls):
         bg, bg + np.timedelta64(int(MAIN_PATH_SECONDS), "s"))
 
 
+# phase 10: the SIGKILL crash drill (tpudas_torch/tools/crash_drill.py)
+# at the flagship's width and parameters, with phase 9's detection; the
+# drilled cycles of each engine (each cycle one SIGKILLed worker)
+CRASH_CYCLES = {"fused": 4, "auto": 2, "fft": 2}
+
+
+def crash_feeder(pool):
+    """The drill's feed: file k of the drilled stream is a copy of the
+    spool's file k mod 3 (``pool``, written by ``make_synthetic_spool``)
+    under its own start time, k x 60 s after T0 — a copy and a header
+    rewrite, where synthesizing a 60 s x 10,000 ch file takes ~23 s."""
+    from tpudas_torch.io.tdas import _pack_header, read_tdas_header
+
+    names = sorted(n for n in os.listdir(pool) if n.endswith(".tdas"))
+    t0_ns = int(np.datetime64(T0, "ns").astype(np.int64))
+
+    def feed(src, first, n_files):
+        os.makedirs(src, exist_ok=True)
+        made = []
+        for k in range(first, first + n_files):
+            tpl = os.path.join(pool, names[k % len(names)])
+            h = read_tdas_header(tpl)
+            name = f"raw{k:04d}.tdas"
+            dst = os.path.join(src, name)
+            shutil.copyfile(tpl, dst)
+            with open(dst, "r+b") as fh:
+                fh.write(_pack_header(
+                    t0_ns + k * h["n_time"] * h["dt_ns"], h["dt_ns"],
+                    h["n_time"], h["n_ch"], h["dtype_code"], h["scale"],
+                    h["d0"], h["dx"]))
+            made.append(name)
+        return made
+
+    return feed
+
+
+def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
+    """Phase 10: the crash drill under ``fused``, ``auto`` and ``fft``
+    (``CRASH_CYCLES`` killed cycles each, or ``cycles``): fresh worker
+    interpreters on the card, SIGKILLed at seeded points; the drained
+    folder audits clean, no startup audit raised, and the outputs, the
+    stream carry and the detect state equal an uninterrupted control's.
+    One line per engine; the fused workers must have launched B3 and
+    the auto workers B1."""
+    from tpudas_torch.tools.crash_drill import run_drill
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()  # the workers need the card's memory
+    shape = {"fs": 1000.0, "file_sec": 60.0, "n_ch": n_ch, "noise": NOISE,
+             "format": "tdas",
+             "write_kwargs": {"dtype": "int16", "scale": QSCALE},
+             "dt_out": 1.0, "edge": 10.0, "patch_out": 60,
+             "detect_ops": DETECT_OPS}
+    feed = crash_feeder(os.path.join(workdir, "src"))
+    res = {}
+    for engine, n in CRASH_CYCLES.items():
+        wd = os.path.join(workdir, "crash", engine)
+        shutil.rmtree(wd, ignore_errors=True)
+        rep = run_drill(engine=engine, cycles=cycles or n, seed=0,
+                        workdir=wd, device=device.type, shape=shape,
+                        tdas_output=tdas_output, feed=feed)
+        rec, aud = rep["recover_s"], rep["audit_seconds"]
+        line = {
+            "phase": "crash", "engine": engine, "n_ch": n_ch,
+            "cycles": rep["cycles"], "kills": rep["kills"],
+            "epochs": rep["epochs"], "audit_repairs": rep["audit_repairs"],
+            "audit_errors": rep["audit_errors"],
+            "audit_clean": rep["audit_clean"],
+            "outputs_match": rep["outputs_match"],
+            "carry_match": rep["carry_match"],
+            "detect_match": rep["detect_match"],
+            "detect_events": rep["detect_events"],
+            "recover_s_median": float(np.median(rec)) if rec else None,
+            "recover_s_max": max(rec) if rec else None, "recover_s": rec,
+            "audit_seconds_median": float(np.median(aud)) if aud else None,
+            "audit_seconds_max": max(aud) if aud else None,
+            "final_audit_s": rep["final_audit_s"],
+            "cold_wall_s": rep["cold_wall_s"],
+            "warm_wall_s": rep["warm_wall_s"],
+            "warm_work_s": rep["warm_work_s"],
+            "drill_wall_s": rep["drill_wall_s"],
+            "worker_start_s_median": float(np.median(rep["worker_start_s"])),
+            "worker_launches": rep["launches"],
+            "difference": rep["difference"],
+            "cycle_log": rep["cycle_log"], "drain": rep["drain"],
+            "ok": rep["ok"],
+        }
+        emit(line)
+        launches = rep["launches"]
+        checks = [
+            (rep["ok"], "the drill is not ok"),
+            (rep["kills"] >= 1, "no kill landed"),
+            (rep["detect_events"] >= 1, "no detect event (a vacuous match)"),
+        ]
+        if engine == "fused":
+            checks.append(((launches["fused_cascade"] > 0) == cuda,
+                           f"B3 steps of the workers {launches}"))
+        if engine == "auto":
+            checks.append(((launches["fir_decimate"] > 0) == cuda,
+                           f"B1 launches of the workers {launches}"))
+        for ok, what in checks:
+            if not ok:
+                # the workdir stays for a post-mortem: the workers' logs
+                # are under <workdir>/logs
+                fail(f"crash drill ({engine}): {what}; workdir {wd}: {line}")
+        shutil.rmtree(wd, ignore_errors=True)
+        res[engine] = line
+    return res
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -2323,9 +2445,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="dry run on the CPU at a small width; exits 3")
-    ap.add_argument("--only", choices=["fir", "fused", "fleet", "detect"],
+    ap.add_argument("--only",
+                    choices=["fir", "fused", "fleet", "detect", "crash"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
-                    "(fleet) or 9 (detect) alone; exits 4")
+                    "(fleet), 9 (detect) or 10 (crash) alone; exits 4")
+    ap.add_argument("--cycles", type=int, default=None,
+                    help="killed cycles of each engine's crash drill "
+                    "(default: fused 4, auto and fft 2)")
     args = ap.parse_args(argv)
     if args.rehearse:
         device = torch.device("cpu")
@@ -2394,7 +2520,8 @@ def main(argv=None):
     from tpudas_torch.proc.joint import JointProc
 
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
-    if args.only in ("fleet", "detect"):
+    tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
+    if args.only in ("fleet", "detect", "crash"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2404,6 +2531,8 @@ def main(argv=None):
             write_kwargs={"dtype": "int16", "scale": QSCALE})
         if args.only == "fleet":
             phase_fleet(device, workdir, cls, members, timer)
+        elif args.only == "crash":
+            phase_crash(device, workdir, n_ch, tdas_output, args.cycles)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -2420,6 +2549,7 @@ def main(argv=None):
     phase_joint(device, workdir, jcls)
     fleet = phase_fleet(device, workdir, cls, members, timer)
     detect = phase_detect(device, workdir, timer, cls, jcls)
+    phase_crash(device, workdir, n_ch, tdas_output, args.cycles)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}

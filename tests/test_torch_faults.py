@@ -247,9 +247,9 @@ def test_ledger_crosses_packages(tmp_path, writer):
 
 # ---------------------------------------------------------------------------
 # the atomic-write and verified-read sites (fs.write_enospc,
-# integrity.verify).  The JAX driver's startup audit is switched off
-# (TPUDAS_INTEGRITY_AUDIT=0): the port has none, and its writes and
-# verified reads would shift the JAX package's hit counts.
+# integrity.verify), with the startup audit on in both drivers: its
+# verified reads and its writes pass the same sites, so both packages
+# must count the same hits there.
 
 def _failures_by_kind(reg):
     return {k: reg.value("tpudas_stream_round_failures_total", kind=k)
@@ -267,16 +267,16 @@ def test_write_enospc_fires_and_retries_like_jax(pool, tmp_path, clean,
                                                  monkeypatch, exc):
     """A fault at the second atomic write of the run fires in both
     drivers; both retry it under the same kind (``resource`` for an
-    ENOSPC OSError) after the same sleeps and emit the unfaulted
+    ENOSPC OSError) after the same sleeps, pass the write and the
+    verified-read sites equally often, and emit the unfaulted
     stream."""
     import errno
 
-    monkeypatch.setenv("TPUDAS_INTEGRITY_AUDIT", "0")
     spec = dict(site="fs.write_enospc", at=2)
     if exc == "enospc":
         spec["exc"] = OSError(errno.ENOSPC, "No space left on device")
     regs = _both_registries()
-    outs, sleeps, kinds = {}, {}, {}
+    outs, sleeps, kinds, hits = {}, {}, {}, {}
     for pkg in PACKAGES:
         before = _failures_by_kind(regs[pkg])
         outs[pkg] = str(tmp_path / f"out-{pkg}")
@@ -286,11 +286,14 @@ def test_write_enospc_fires_and_retries_like_jax(pool, tmp_path, clean,
                             sleeps=sleeps[pkg])
         assert rounds == 2
         assert plan.fired == [("fs.write_enospc", "raise", 2)]
+        hits[pkg] = (plan.hits["fs.write_enospc"],
+                     plan.hits["integrity.verify"])
         after = _failures_by_kind(regs[pkg])
         kinds[pkg] = {k: after[k] - before[k] for k in after
                       if after[k] != before[k]}
     want = "resource" if exc == "enospc" else "transient"
     assert kinds["port"] == kinds["jax"] == {want: 1}
+    assert hits["port"] == hits["jax"]
     assert sleeps["port"] == sleeps["jax"]
     _assert_same_stream(outs["port"], outs["jax"])
     _assert_same_stream(outs["port"], clean)
@@ -299,34 +302,101 @@ def test_write_enospc_fires_and_retries_like_jax(pool, tmp_path, clean,
     assert not resource.is_degraded()  # the round-end probe cleared it
 
 
-def test_integrity_verify_fires_like_jax(pool, tmp_path, clean,
-                                         monkeypatch):
-    """A fault raised at the first verified read of a resumed run (the
-    stream carry's) fires in both drivers; both take it as a rejected
-    primary (one counted ``carry`` fallback, no failed round), resume
-    from ``.prev`` (the carry saved before the first round's outputs,
-    which the resume regenerates) and emit the unfaulted stream, in
-    other file boundaries than an unfaulted resume."""
-    monkeypatch.setenv("TPUDAS_INTEGRITY_AUDIT", "0")
+def _audit_verify_hits(pkg, out, tmp_path):
+    """How often ``pkg``'s startup audit of ``out`` passes
+    ``integrity.verify`` (counted on a copy)."""
+    import shutil
+
+    from tpudas.integrity.audit import audit as jax_audit
+    from tpudas_torch.integrity.audit import audit as port_audit
+
+    mod = PACKAGES[pkg][1]
+    copy = str(tmp_path / f"count-{pkg}")
+    shutil.copytree(out, copy)
+    plan = mod.FaultPlan()
+    with mod.install_fault_plan(plan):
+        rep = (port_audit if pkg == "port" else jax_audit)(copy)
+    assert rep["clean"] and not rep["issues"]
+    return plan.hits["integrity.verify"]
+
+
+def _resumed_run(pkg, pool, tmp_path, clean_src_files, spec_kw, regs):
+    """Run ``pkg``'s driver over 3 files, then resume it over 5 under a
+    FaultPlan of ``spec_kw`` (a dict, or a function of the output folder
+    returning one).  Returns (out, sleeps, plan, before, after): the
+    failure kinds, the carry fallbacks and the audit errors counted
+    before and after the resumed run."""
+    src = str(tmp_path / f"src-{pkg}")
+    out = str(tmp_path / f"out-{pkg}")
+    assert _run(pkg, pool, src, out)[0] == 1
+    _link(pool, src, clean_src_files)
+    if callable(spec_kw):
+        spec_kw = spec_kw(out)
+    reg = regs[pkg]
+
+    def counts():
+        return (_failures_by_kind(reg),
+                reg.value("tpudas_integrity_fallback_total",
+                          artifact="carry"),
+                reg.value("tpudas_integrity_audit_errors_total"))
+
+    before = counts()
+    sleeps = []
+    rounds, plan = _run(pkg, pool, src, out, first=clean_src_files,
+                        specs=[spec_kw], policy=FAST, sleeps=sleeps)
+    assert rounds == 1
+    return out, sleeps, plan, before, counts()
+
+
+def test_integrity_verify_fires_like_jax(pool, tmp_path, clean):
+    """A fault raised at the first verified read of a resumed run fires
+    in both drivers at the same hit: the startup audit's read of the
+    stream carry.  Both swallow the raising audit and count it
+    (``tpudas_integrity_audit_errors_total``), fail no round, take no
+    fallback (the runtime's own read of the carry is not faulted), pass
+    the site equally often, and emit the unfaulted stream."""
     spec = dict(site="integrity.verify", at=1)
     regs = _both_registries()
-    outs, sleeps = {}, {}
+    outs, sleeps, hits = {}, {}, {}
     for pkg in PACKAGES:
-        src = str(tmp_path / f"src-{pkg}")
-        outs[pkg] = str(tmp_path / f"out-{pkg}")
-        assert _run(pkg, pool, src, outs[pkg])[0] == 1
-        _link(pool, src, 5)
-        reg = regs[pkg]
-        before = (_failures_by_kind(reg), reg.value(
-            "tpudas_integrity_fallback_total", artifact="carry"))
-        sleeps[pkg] = []
-        rounds, plan = _run(pkg, pool, src, outs[pkg], first=5, specs=[spec],
-                            policy=FAST, sleeps=sleeps[pkg])
-        assert rounds == 1
+        outs[pkg], sleeps[pkg], plan, before, after = _resumed_run(
+            pkg, pool, tmp_path, 5, spec, regs)
         assert plan.fired == [("integrity.verify", "raise", 1)]
-        assert _failures_by_kind(reg) == before[0]
-        assert reg.value("tpudas_integrity_fallback_total",
-                         artifact="carry") == before[1] + 1
+        assert after[0] == before[0]  # no failed round
+        assert after[1] == before[1]  # no carry fallback
+        assert after[2] == before[2] + 1  # the audit raised, swallowed
+        hits[pkg] = plan.hits["integrity.verify"]
+    assert hits["port"] == hits["jax"]
+    assert sleeps["port"] == sleeps["jax"]
+    _assert_same_stream(outs["port"], outs["jax"])
+    _assert_same_stream(outs["port"], clean)
+
+
+def test_integrity_verify_after_the_audit_falls_back_like_jax(
+        pool, tmp_path, clean):
+    """A fault raised at the first verified read after the startup audit
+    (the runtime's load of the stream carry) fires in both drivers at
+    the same hit; both take it as a rejected primary (one counted
+    ``carry`` fallback, no failed round), resume from ``.prev`` (the
+    carry saved before the first round's outputs, which the resume
+    regenerates) and emit the unfaulted stream, in other file boundaries
+    than an unfaulted resume."""
+    regs = _both_registries()
+    outs, sleeps, hits = {}, {}, {}
+
+    def spec(out):
+        # the first verified read after the audit's own
+        hits[pkg] = _audit_verify_hits(pkg, out, tmp_path)
+        return dict(site="integrity.verify", at=hits[pkg] + 1)
+
+    for pkg in PACKAGES:
+        outs[pkg], sleeps[pkg], plan, before, after = _resumed_run(
+            pkg, pool, tmp_path, 5, spec, regs)
+        assert plan.fired == [("integrity.verify", "raise", hits[pkg] + 1)]
+        assert after[0] == before[0]
+        assert after[1] == before[1] + 1
+        assert after[2] == before[2]
+    assert hits["port"] == hits["jax"] >= 1
     assert sleeps["port"] == sleeps["jax"]
     _assert_same_stream(outs["port"], outs["jax"])
     a, b = _merged(outs["port"]), _merged(clean)

@@ -671,3 +671,73 @@ def test_median_on_card_bit_equal_to_cpu(cuda_device, size):
     x[7, 5] = np.nan
     assert median_filter(x, size).tobytes() == median_filter(
         x, size, device="cpu").tobytes()
+
+
+def test_audit_repairs_a_folder_the_card_wrote(cuda_device, tmp_path):
+    """A stream folder written on the card (the fused step, detection
+    on, tdas outputs): clean as written; damaged, the audit repairs it
+    (the carry promoted from ``.prev``, a stale tmp removed, a ledger
+    surplus truncated) and a second audit is clean and empty; the
+    resumed run on the card then finds nothing left to repair."""
+    from tpudas_torch.detect.ledger import event_line, load_events
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.integrity.audit import audit
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.proc.stream import CARRY_FILENAME
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+
+    class TdasLFProc(LFProc):
+        # outputs as tdas: the card's host may lack h5py
+        def _write_output(self, patch, path):
+            patch.io.write(os.path.splitext(path)[0] + ".tdas", "tdas")
+
+    pool, src, out = (str(tmp_path / n) for n in ("pool", "src", "out"))
+    make_synthetic_spool(pool, n_files=4, file_duration=20.0, fs=50.0,
+                         n_ch=4, noise=0.01, format="tdas")
+    ops = [("stalta", {"sta": 2.0, "lta": 10.0, "on": 2.0, "off": 1.2})]
+    os.makedirs(src)
+
+    def run(upto):
+        for name in sorted(os.listdir(pool))[:upto]:
+            if name.endswith(".tdas") and not os.path.exists(
+                    os.path.join(src, name)):
+                os.link(os.path.join(pool, name), os.path.join(src, name))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("TPUDAS_FUSED_MIN_ELEMS", "0")
+            mp.setattr(fleet_engine, "LFProc", TdasLFProc)
+            return run_lowpass_realtime(
+                source=src, output_folder=out,
+                start_time="2023-03-22T00:00:00", output_sample_interval=1.0,
+                edge_buffer=5.0, process_patch_size=20, poll_interval=0.0,
+                sleep_fn=lambda _s: None, engine="fused", stateful=True,
+                detect=True, detect_operators=ops)
+
+    assert run(3) == 1
+    rep = audit(out)
+    assert rep["clean"] and not rep["issues"]
+    carry = os.path.join(out, CARRY_FILENAME)
+    with open(carry, "r+b") as fh:
+        fh.seek(64)
+        b = fh.read(1)
+        fh.seek(64)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    with open(carry + ".tmp.999", "wb") as fh:
+        fh.write(b"junk")
+    evs = load_events(out)
+    assert evs
+    fake = dict(evs[-1], seq=len(evs))
+    with open(os.path.join(out, ".detect", "events.jsonl"), "a") as fh:
+        fh.write(event_line(fake) + "\n")
+    rep = audit(out)
+    assert rep["clean"]
+    assert sorted((i["artifact"], i["action"]) for i in rep["issues"]) == [
+        ("carry", "promoted_prev"), ("events", "truncated"),
+        ("tmp", "removed")]
+    again = audit(out)
+    assert again["clean"] and not again["issues"]
+    reg = MetricsRegistry()
+    with use_registry(reg):
+        assert run(4) == 1
+    assert reg.value("tpudas_integrity_audit_runs_total") == 1
+    assert reg.value("tpudas_integrity_audit_repairs_total",
+                     kind="promoted_prev") == 0

@@ -58,6 +58,8 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.tools.harness",
         "tpudas_torch.tools.probe_pipeline",
         "tpudas_torch.tools.probe_dma",
+        "tpudas_torch.tools.fsck",
+        "tpudas_torch.tools.crash_drill",
         "tpudas_torch.proc.edge",
         "tpudas_torch.proc.joint",
         "tpudas_torch.proc.memory",
@@ -69,6 +71,7 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.fleet.engine",
         "tpudas_torch.fleet.batch",
         "tpudas_torch.fleet.fleet",
+        "tpudas_torch.integrity.audit",
         "tpudas_torch.integrity.checksum",
         "tpudas_torch.integrity.resource",
         "tpudas_torch.utils.atomicio",
@@ -77,6 +80,7 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.detect.ledger",
         "tpudas_torch.detect.runner",
         "tpudas_torch.ops.median",
+        "tpudas_torch.obs.health",
         "tpudas_torch.obs.registry",
         "tpudas_torch.obs.trace",
         "tpudas_torch.resilience.faults",
@@ -118,3 +122,14 @@ def test_card_tests_import_no_jax_no_tpudas():
     names = _imported_modules(os.path.join(REPO, "tests", "test_torch_gpu.py"))
     assert "tpudas_torch" in {_top(n) for n in names}
     assert [n for n in names if _top(n) in ("jax", "jaxlib", "tpudas")] == []
+
+
+def test_operator_tools_import_no_jax_no_tpudas():
+    """The fsck and the crash drill, whose workers import inside
+    functions: no import at any depth names JAX or the JAX package."""
+    for name in ("fsck.py", "crash_drill.py"):
+        names = _imported_modules(
+            os.path.join(REPO, "tpudas_torch", "tools", name))
+        assert "tpudas_torch" in {_top(n) for n in names}, name
+        assert [n for n in names
+                if _top(n) in ("jax", "jaxlib", "tpudas")] == [], name

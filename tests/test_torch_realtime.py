@@ -373,3 +373,123 @@ def test_single_sample_tdas_round_trips(tmp_path):
     assert len(merged) == 1
     np.testing.assert_array_equal(merged[0].coords["time"], p.coords["time"])
     np.testing.assert_allclose(merged[0].host_data(), p.host_data())
+
+
+# ---------------------------------------------------------------------------
+# features the JAX runners turn on from the environment (ROADMAP C3)
+
+# variable -> (config field, what the JAX driver leaves behind)
+ENV_FEATURES = {
+    "TPUDAS_HEALTH": ("health", "health.json"),
+    "TPUDAS_PYRAMID": ("pyramid", ".tiles"),
+    "TPUDAS_LIVE": ("live", "live hub"),
+}
+
+
+@pytest.fixture(scope="module")
+def env_pool(tmp_path_factory):
+    d = tmp_path_factory.mktemp("pool-env")
+    make_synthetic_spool(d, n_files=3, file_duration=FILE_SEC, fs=FS,
+                         n_ch=NCH, noise=0.01)
+    return str(d)
+
+
+def _lowpass_entry_points(src, out):
+    """Every way a caller starts a port low-pass stream, each a thunk."""
+    from tpudas_torch.fleet import (
+        FleetEngine,
+        LowpassStreamRunner,
+        StreamConfig,
+        StreamSpec,
+        build_runner,
+    )
+
+    spec = StreamSpec(
+        stream_id="env", source=src, output_folder=out,
+        config=StreamConfig(kind="lowpass", start_time=T0, **PARAMS))
+    return {
+        "run_lowpass_realtime": lambda: run_lowpass_realtime(
+            source=src, output_folder=out, start_time=T0,
+            sleep_fn=lambda _: None, device="cpu", **PARAMS),
+        "build_runner": lambda: build_runner(spec, device="cpu"),
+        "LowpassStreamRunner": lambda: LowpassStreamRunner(
+            spec, out, device="cpu"),
+        "FleetEngine": lambda: FleetEngine(out, [spec], device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("var", sorted(ENV_FEATURES))
+def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
+                                            var):
+    """Under the variable the JAX driver turns its feature on (and leaves
+    its artifact); every port entry point raises naming the variable
+    before it writes anything."""
+    field, artifact = ENV_FEATURES[var]
+    monkeypatch.setenv(var, "1")
+    jout = str(tmp_path / "jax")
+    assert _drive(jax_realtime, env_pool, str(tmp_path / "src"), jout) == 1
+    if var == "TPUDAS_LIVE":
+        from tpudas.live.hub import find_hub
+
+        assert find_hub(folder=os.path.abspath(jout)) is not None
+    else:
+        assert os.path.exists(os.path.join(jout, artifact))
+    out = str(tmp_path / "port")
+    for name, start in _lowpass_entry_points(str(tmp_path / "src"),
+                                             out).items():
+        with pytest.raises(NotImplementedError, match=var) as err:
+            start()
+        assert field in str(err.value), name
+        assert not os.path.exists(out), name
+
+
+@pytest.mark.parametrize("raw,raises", [("2", True), ("1", False),
+                                        ("0", False), ("", False)])
+def test_env_mesh(env_pool, tmp_path, monkeypatch, raw, raises):
+    """``TPUDAS_MESH=N`` is a mesh over N devices in the JAX package (0
+    and 1: none); the port has no mesh, so N > 1 raises naming it."""
+    monkeypatch.setenv("TPUDAS_MESH", raw)
+    src, out = str(tmp_path / "src"), str(tmp_path / "port")
+    _link(env_pool, src, 3)
+    if raises:
+        for name, start in _lowpass_entry_points(src, out).items():
+            with pytest.raises(NotImplementedError, match="TPUDAS_MESH"):
+                start()
+            assert not os.path.exists(out), name
+        return
+    assert _drive(run_lowpass_realtime, env_pool, src, out) == 1
+    jout = str(tmp_path / "jax")
+    assert _drive(jax_realtime, env_pool, src, jout) == 1
+    _assert_same_stream(out, jout)
+
+
+@pytest.mark.parametrize("raw,raises", [("1", True), ("0", False)])
+def test_env_flight(env_pool, tmp_path, monkeypatch, raw, raises):
+    """The JAX package's flight recorder is on unless ``TPUDAS_FLIGHT=0``;
+    the port has none and raises only when it is asked for explicitly."""
+    monkeypatch.setenv("TPUDAS_FLIGHT", raw)
+    src, out = str(tmp_path / "src"), str(tmp_path / "port")
+    _link(env_pool, src, 3)
+    if raises:
+        with pytest.raises(NotImplementedError, match="TPUDAS_FLIGHT"):
+            _drive(run_lowpass_realtime, env_pool, src, out)
+        assert not os.path.exists(out)
+    else:
+        assert _drive(run_lowpass_realtime, env_pool, src, out) == 1
+
+
+def test_env_features_off_both_run(env_pool, tmp_path, monkeypatch):
+    """With every variable at its off value both packages run as they do
+    with the variables unset, and emit the same stream."""
+    for var in (*ENV_FEATURES, "TPUDAS_FLIGHT"):
+        monkeypatch.setenv(var, "0")
+    monkeypatch.setenv("TPUDAS_MESH", "1")
+    outs = {}
+    for name, driver in (("port", run_lowpass_realtime),
+                         ("jax", jax_realtime)):
+        outs[name] = str(tmp_path / name)
+        assert _drive(driver, env_pool, str(tmp_path / "src"),
+                      outs[name]) == 1
+    for name in ("health.json", ".tiles", ".flight"):
+        assert not os.path.exists(os.path.join(outs["jax"], name))
+    _assert_same_stream(outs["port"], outs["jax"])

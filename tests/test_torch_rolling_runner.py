@@ -314,3 +314,70 @@ class TestJointRealtime:
         _td, runs = joint_runs
         out = runs["port"][1]
         assert not os.path.exists(os.path.join(out, ".stream_carry.npz"))
+
+
+# ---------------------------------------------------------------------------
+# features the JAX runners turn on from the environment (ROADMAP C3)
+
+def _rolling_entry_points(src, out):
+    """Every way a caller starts a port rolling stream, each a thunk."""
+    from tpudas_torch.fleet import build_runner
+
+    spec = StreamSpec(stream_id="env", source=src, output_folder=out,
+                      config=StreamConfig(kind="rolling", window=1.0,
+                                          step=1.0))
+    return {
+        "run_rolling_realtime": lambda: run_rolling_realtime(
+            src, out, window=1.0, step=1.0, sleep_fn=lambda _: None,
+            device="cpu"),
+        "build_runner": lambda: build_runner(spec, device="cpu"),
+        "RollingStreamRunner": lambda: RollingStreamRunner(
+            spec, out, device="cpu"),
+        "FleetEngine": lambda: FleetEngine(out, [spec], device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("var,raw", [("TPUDAS_PYRAMID", "1"),
+                                     ("TPUDAS_LIVE", "1"),
+                                     ("TPUDAS_MESH", "2"),
+                                     ("TPUDAS_FLIGHT", "1")])
+def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
+    """Under the variable the JAX rolling runner turns its feature on
+    (the pyramid leaves ``.tiles/``, the live plane a hub); every port
+    entry point raises naming the variable before it writes anything."""
+    src = str(tmp_path / "src")
+    make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
+                         n_ch=NCH)
+    monkeypatch.setenv(var, raw)
+    if var in ("TPUDAS_PYRAMID", "TPUDAS_LIVE"):
+        jout = str(tmp_path / "jax")
+        assert _rolling("jax", src, jout, pyramid=None) == 2
+        if var == "TPUDAS_PYRAMID":
+            assert os.path.isdir(os.path.join(jout, ".tiles"))
+        else:
+            from tpudas.live.hub import find_hub
+
+            assert find_hub(folder=os.path.abspath(jout)) is not None
+    out = str(tmp_path / "port")
+    for name, start in _rolling_entry_points(src, out).items():
+        with pytest.raises(NotImplementedError, match=var):
+            start()
+        assert not os.path.exists(out), name
+
+
+@pytest.mark.parametrize("var,raw", [("TPUDAS_HEALTH", "1"),
+                                     ("TPUDAS_MESH", "1")])
+def test_env_without_effect_runs(tmp_path, monkeypatch, var, raw):
+    """The JAX rolling runner reads no ``TPUDAS_HEALTH``, and
+    ``TPUDAS_MESH=1`` is no mesh: the port runs as the JAX package does,
+    with the same outputs."""
+    monkeypatch.setenv(var, raw)
+    outs = {}
+    for pkg in ("port", "jax"):
+        src = str(tmp_path / f"src-{pkg}")
+        make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
+                             n_ch=NCH)
+        outs[pkg] = str(tmp_path / pkg)
+        assert _rolling(pkg, src, outs[pkg]) == 2
+    assert not os.path.exists(os.path.join(outs["jax"], "health.json"))
+    assert _outputs(outs["port"]) == _outputs(outs["jax"])

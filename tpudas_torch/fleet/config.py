@@ -50,8 +50,8 @@ class StreamConfig:
     detect: object = None
     detect_operators: object = None
     poll_jitter: object = None  # fraction; None -> TPUDAS_POLL_JITTER/0
-    flight: object = None  # on-disk flight recorder; None -> TPUDAS_FLIGHT/1
-    live: object = None  # live push hub; None -> TPUDAS_LIVE/0
+    flight: object = None  # not ported: None -> TPUDAS_FLIGHT, raises at 1
+    live: object = None  # not ported: None -> TPUDAS_LIVE, raises at 1
     # -- lowpass only ---------------------------------------------------
     start_time: object = None
     output_sample_interval: object = None

@@ -33,12 +33,18 @@ with a ``rolling_output_folder`` runs the joint product
 (:class:`~tpudas_torch.proc.joint.JointProc`) in rewind mode;
 :class:`RollingStreamRunner` is the stateless per-file rolling mean.
 
-Not ported in this slice: the startup integrity audit, the flight
-recorder and health files, the tile pyramid, the live plane, device
-telemetry and phase timing, the mesh and window data parallelism, and
-the backfill clamps (``time_range``, ``ingest_limit_sec``).  A runner
-raises ``NotImplementedError`` when its configuration turns on one of
-those features (see :data:`UNPORTED_FIELDS`).
+Before the first round each runner audits and repairs its output folder
+(:func:`_startup_audit`, :mod:`tpudas_torch.integrity.audit`), as the
+JAX runners do; ``TPUDAS_INTEGRITY_AUDIT=0`` turns that off.
+
+Not ported in this slice: the flight recorder and health files, the
+tile pyramid, the live plane, device telemetry and phase timing, the
+mesh and window data parallelism, and the backfill clamps
+(``time_range``, ``ingest_limit_sec``).  A runner raises
+``NotImplementedError`` when its configuration, or the environment
+variable the JAX runner reads for a field left at None
+(:data:`UNPORTED_ENV`), turns on one of those features (see
+:data:`UNPORTED_FIELDS`).
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from tpudas_torch.utils.profiling import Counters
 
 __all__ = [
     "POLL_FLOOR_SEC",
+    "UNPORTED_ENV",
     "UNPORTED_FIELDS",
     "LowpassStreamRunner",
     "PollJitter",
@@ -97,21 +104,62 @@ UNPORTED_FIELDS = (
 )
 
 
+# the environment variable the JAX runners read for an unported field
+# left at None; window_dp has none.  TPUDAS_FLIGHT is on by default in
+# the JAX package and off here until the flight recorder is ported, so
+# only an explicit 1 turns it on.
+UNPORTED_ENV = {
+    "mesh": "TPUDAS_MESH",
+    "health": "TPUDAS_HEALTH",
+    "pyramid": "TPUDAS_PYRAMID",
+    "live": "TPUDAS_LIVE",
+    "flight": "TPUDAS_FLIGHT",
+}
+
+
+def _unported_from_env(name: str, kind: str):
+    """The value the JAX runner of ``kind`` resolves for ``name`` left
+    at None: ``TPUDAS_MESH=N`` is a mesh over N devices (0 and 1 mean
+    none, as in ``tpudas.parallel.mesh.resolve_mesh``), the others are
+    on at ``1``; the rolling runner reads no ``TPUDAS_HEALTH``."""
+    env = UNPORTED_ENV.get(name)
+    if env is None or (name == "health" and kind != "lowpass"):
+        return None
+    raw = os.environ.get(env, "").strip()
+    if name == "mesh":
+        if not raw:
+            return None
+        n = int(raw)
+        if n < 0:
+            raise ValueError(f"mesh device count must be >= 0, got {n}")
+        return n if n > 1 else None
+    return True if raw == "1" else None
+
+
 def check_ported(spec: StreamSpec) -> None:
     """Raise ``NotImplementedError`` when ``spec`` asks for a feature
-    (:data:`UNPORTED_FIELDS`) the port lacks."""
+    (:data:`UNPORTED_FIELDS`) the port lacks, by its configuration or by
+    the environment."""
     cfg = spec.config
-    check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS})
+    check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS}, cfg.kind)
 
 
-def check_unported(values: dict) -> None:
+def check_unported(values: dict, kind: str = "lowpass") -> None:
     """Raise ``NotImplementedError`` for any :data:`UNPORTED_FIELDS`
-    entry of ``values`` that is not at its off value (None or False)."""
+    entry of ``values`` that is not at its off value (None or False),
+    resolving a None from its environment variable
+    (:data:`UNPORTED_ENV`) as the JAX runner of ``kind`` does."""
     for name in UNPORTED_FIELDS:
         v = values.get(name)
+        what = f"{name}={v!r}"
+        if v is None:
+            v = _unported_from_env(name, kind)
+            if v is not None:
+                env = UNPORTED_ENV[name]
+                what = f"{env}={os.environ[env]!r} ({name}={v!r})"
         if v is not None and v is not False:
             raise NotImplementedError(
-                f"{name}={v!r}: this feature of the realtime driver is not "
+                f"{what}: this feature of the realtime driver is not "
                 "ported to tpudas_torch yet"
             )
 
@@ -228,6 +276,38 @@ def clamp_poll_interval(requested, file_duration, edge_buffer):
     )
 
 
+def _startup_audit(output_folder) -> None:
+    """The runners' pre-first-round fsck
+    (:mod:`tpudas_torch.integrity.audit`): sweep stale tmp files, verify
+    every durable artifact, repair through the ``.prev`` ladder.
+    ``TPUDAS_INTEGRITY_AUDIT=0`` turns it off.  Never raises, as in the
+    JAX runners: an audit failure must not take down the stream it
+    protects (counted in ``tpudas_integrity_audit_errors_total`` and
+    logged)."""
+    if os.environ.get("TPUDAS_INTEGRITY_AUDIT", "1") == "0":
+        return
+    try:
+        from tpudas_torch.integrity.audit import audit
+
+        report = audit(output_folder, repair=True)
+        if report["issues"]:
+            print(
+                f"Integrity audit repaired {report['repaired']} "
+                f"artifact(s) in {output_folder} "
+                f"(clean={report['clean']})"
+            )
+    except Exception as exc:
+        get_registry().counter(
+            "tpudas_integrity_audit_errors_total",
+            "startup integrity audits that raised (swallowed)",
+        ).inc()
+        log_event(
+            "integrity_audit_failed",
+            folder=str(output_folder),
+            error=f"{type(exc).__name__}: {str(exc)[:200]}",
+        )
+
+
 def _detect_config(cfg):
     """``(detect on?, operator specs)``: ``detect=None`` reads
     ``TPUDAS_DETECT``."""
@@ -322,7 +402,7 @@ class LowpassStreamRunner(StreamRunner):
             raise ValueError(
                 f"LowpassStreamRunner needs kind='lowpass', got {cfg.kind!r}"
             )
-        check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS})
+        check_ported(spec)
         self.device = resolve_device(device)
         self.on_round = on_round
         self.d_t = float(cfg.output_sample_interval)
@@ -356,6 +436,8 @@ class LowpassStreamRunner(StreamRunner):
         )
         # carry, ledger and outputs live in the output folder
         os.makedirs(self.output_folder, exist_ok=True)
+        # startup fsck before any persisted state (ledger, carry) loads
+        _startup_audit(self.output_folder)
         if _resource.is_degraded():
             # stale in-process pressure from a previous run: re-probe
             _resource.probe_recovery(self.output_folder)
@@ -680,7 +762,7 @@ class RollingStreamRunner(StreamRunner):
             raise ValueError(
                 f"RollingStreamRunner needs kind='rolling', got {cfg.kind!r}"
             )
-        check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS})
+        check_ported(spec)
         self.device = resolve_device(device)
         self.window = cfg.window
         self.step_param = cfg.step
@@ -688,6 +770,7 @@ class RollingStreamRunner(StreamRunner):
         self.distance = cfg.distance
         self.engine = cfg.engine
         os.makedirs(self.output_folder, exist_ok=True)
+        _startup_audit(self.output_folder)
         file_duration = (
             30.0 if cfg.file_duration is None else float(cfg.file_duration)
         )

@@ -1,7 +1,7 @@
 """crc32 stamping and verification of every durable artifact.
 
-The port's copy of :mod:`tpudas.integrity.checksum` (the writers and
-verified reads; the startup audit's re-stamping is not ported), with the
+The port's copy of :mod:`tpudas.integrity.checksum` (the writers, the
+verified reads and the audit's re-stamping), with the
 same on-disk format byte for byte, so each package verifies what the
 other wrote:
 
@@ -54,6 +54,7 @@ __all__ = [
     "write_bytes_checksummed",
     "write_json_checksummed",
     "write_npy_checksummed",
+    "write_sidecar_for",
 ]
 
 CRC_KEY = "_crc32"
@@ -182,6 +183,20 @@ def write_npy_checksummed(path: str, array,
     buf = io.BytesIO()
     np.save(buf, np.ascontiguousarray(array))
     write_bytes_checksummed(path, buf.getvalue(), durable=durable)
+
+
+def write_sidecar_for(path: str, durable: bool | None = None) -> str:
+    """(Re-)stamp an existing binary artifact from its current bytes —
+    the audit's repair for an unstamped payload or a stale sidecar.
+    Returns the digest."""
+    with open(path, "rb") as fh:
+        payload = fh.read()
+    digest = crc32_hex(payload)
+    atomic_write_text(
+        sidecar_path(path), f"crc32 {digest} {len(payload)}\n",
+        durable=durable,
+    )
+    return digest
 
 
 def verify_file_checksum(path: str, artifact: str | None = None) -> str:

@@ -66,10 +66,14 @@ def median_filter(data, size, axes=None, device=None):
     ``(3, 1)`` despikes along time only on a ``(T, C)`` array).  A
     tensor is filtered on its own device and returned as a tensor; a
     numpy array on ``device`` (default the CUDA card), returned as
-    numpy."""
+    numpy.  A float64 input comes back float32, as the JAX package's
+    does."""
     host = not isinstance(data, torch.Tensor)
     x = (torch.from_numpy(np.ascontiguousarray(data)).to(
         resolve_device(device)) if host else data)
+    if x.dtype == torch.float64:
+        # the JAX package computes in float32 (x64 off)
+        x = x.to(torch.float32)
     if axes is None:
         axes = tuple(range(x.ndim))
     axes = tuple(int(a) % x.ndim for a in axes)

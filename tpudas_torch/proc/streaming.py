@@ -124,11 +124,18 @@ def run_lowpass_realtime(
     rewind path (the rolling windows need the loaded halo), and the
     two ``rolling_*`` keywords without the folder raise ``ValueError``.
 
+    Before its first round the driver audits and repairs the output
+    folder (:mod:`tpudas_torch.integrity.audit`), as the JAX package's
+    does; ``TPUDAS_INTEGRITY_AUDIT=0`` turns that off.
+
     Not ported yet, and raising ``NotImplementedError`` when set to
-    anything but their off value (None or False): ``mesh``,
-    ``window_dp``, ``health``, ``pyramid``, ``live`` and ``flight``.
-    The JAX package keeps its flight recorder on by default; here it is
-    off.
+    anything but their off value (None or False), or left at None while
+    the variable the JAX package reads for them turns them on
+    (``TPUDAS_MESH`` above 1, ``TPUDAS_HEALTH``, ``TPUDAS_PYRAMID``,
+    ``TPUDAS_LIVE`` or ``TPUDAS_FLIGHT`` at 1): ``mesh``, ``window_dp``,
+    ``health``, ``pyramid``, ``live`` and ``flight``.  The JAX package
+    keeps its flight recorder on by default; here it is off unless
+    ``TPUDAS_FLIGHT=1`` asks for it, which raises.
 
     Every round runs inside the JAX package's fault boundary
     (:mod:`tpudas_torch.resilience`): ``fault_policy`` (a
@@ -143,7 +150,7 @@ def run_lowpass_realtime(
     check_unported(dict(
         mesh=mesh, window_dp=window_dp, health=health, pyramid=pyramid,
         live=live, flight=flight,
-    ))
+    ), "lowpass")
     gap_tol = resolve_gap_tolerance(data_gap_tolerance, data_gap_tolorance)
     config = StreamConfig(
         kind="lowpass",
@@ -229,12 +236,15 @@ def run_rolling_realtime(
     globally uniform grid (what detection assumes) use a ``step`` that
     divides the file duration.
 
-    Not ported yet, and raising ``NotImplementedError`` when set:
-    ``mesh`` (the JAX package's batched rolling over a device mesh),
-    ``pyramid``, ``live`` and ``flight``.
+    Not ported yet, and raising ``NotImplementedError`` when set, or
+    left at None while ``TPUDAS_MESH`` (above 1), ``TPUDAS_PYRAMID``,
+    ``TPUDAS_LIVE`` or ``TPUDAS_FLIGHT`` (at 1) turns them on: ``mesh``
+    (the JAX package's batched rolling over a device mesh),
+    ``pyramid``, ``live`` and ``flight``.  The output folder is audited
+    before the first round, as in :func:`run_lowpass_realtime`.
     """
     check_unported(dict(mesh=mesh, pyramid=pyramid, live=live,
-                        flight=flight))
+                        flight=flight), "rolling")
     config = StreamConfig(
         kind="rolling",
         window=window,
