@@ -82,11 +82,27 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
 10. the SIGKILL crash drill (``tpudas_torch/tools/crash_drill.py``) at
    10,000 channels under ``engine="fused"`` (4 killed cycles),
    ``"auto"`` and ``"fft"`` (2 each): fresh worker interpreters on the
-   card with the stateful carry and phase 9's detection on, killed at
-   seeded points after they are ready; the drained folder audits clean,
-   no worker's startup audit raised, and the outputs, the stream carry
-   and the detect state equal an uninterrupted control's; the fused
-   workers launched B3 and the auto workers B1.
+   card with the stateful carry, phase 9's detection and the tile
+   pyramid on, killed at seeded points after they are ready; the
+   drained folder audits clean, no worker's startup audit raised, no
+   pyramid append failed, and the outputs, the stream carry, the
+   pyramid tree and the detect state equal an uninterrupted control's;
+   the fused workers launched B3 and the auto workers B1;
+11. the tile pyramid (``tpudas_torch.serve``) over 6 files of 60 s x
+   10,000 ch: (a) ``run_lowpass_realtime(engine="fused",
+   pyramid=True)`` in two calls, the tree equal to ``rebuild_pyramid``
+   over a copy, the level counts the output rows and their floor
+   divisions by 4, B3 launched once a block; (b) ``engine="auto"``
+   under ``TPUDAS_CODEC=bitshuffle-deflate`` and 64-row tiles, decoded
+   tiles equal to a raw store's, a ``quantize-deflate`` rebuild within
+   1e-3 with the generation bumped, B1 launched 4 times a block; (c)
+   ``QueryEngine`` at 16, 64 and 1,024 samples over the whole stream
+   (full width and 1,000 ch), each answer equal to the host reduction of
+   the output rows, cold and warm, and windows past the head served
+   from the files; (d) ``block_reduce(engine="torch")`` on the card
+   against the host float64 reduction (min/max exact, mean within 1e-6
+   of the largest value); (e) the waterfall's ``_pyramid_block`` at
+   ``max_px`` 256.  No pyramid append may fail.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -100,9 +116,10 @@ reading) and exits 3: a dry run of the control flow, never a result.
 iteration loop), ``--only fused`` phases 1, 2 and 3b (the fused
 step's), ``--only fleet`` phases 1, 2 and 8 over a fresh spool and
 ``--only detect`` phases 1, 2 and 9 over a fresh spool (its batch
-references from one ``JointProc`` pass) and ``--only crash`` phases 1,
+references from one ``JointProc`` pass), ``--only crash`` phases 1,
 2 and 10 over a fresh spool (``--cycles N``: N killed cycles for every
-engine); all exit 4 without the kernels line or the ``ok`` line.
+engine) and ``--only pyramid`` phases 1, 2 and 11 over a fresh spool;
+all exit 4 without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -2352,9 +2369,11 @@ def crash_feeder(pool):
 def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
     """Phase 10: the crash drill under ``fused``, ``auto`` and ``fft``
     (``CRASH_CYCLES`` killed cycles each, or ``cycles``): fresh worker
-    interpreters on the card, SIGKILLed at seeded points; the drained
-    folder audits clean, no startup audit raised, and the outputs, the
-    stream carry and the detect state equal an uninterrupted control's.
+    interpreters on the card, SIGKILLed at seeded points, with detection
+    and the tile pyramid on; the drained folder audits clean, no startup
+    audit raised, no pyramid append failed, and the outputs, the stream
+    carry, the pyramid tree and the detect state equal an uninterrupted
+    control's.
     One line per engine; the fused workers must have launched B3 and
     the auto workers B1."""
     from tpudas_torch.tools.crash_drill import run_drill
@@ -2384,6 +2403,10 @@ def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
             "audit_clean": rep["audit_clean"],
             "outputs_match": rep["outputs_match"],
             "carry_match": rep["carry_match"],
+            "pyramid_match": rep["pyramid_match"],
+            "pyramid_files": rep["pyramid_files"],
+            "pyramid_errors": rep["pyramid_errors"],
+            "control_pyramid_errors": rep["control_pyramid_errors"],
             "detect_match": rep["detect_match"],
             "detect_events": rep["detect_events"],
             "recover_s_median": float(np.median(rec)) if rec else None,
@@ -2407,6 +2430,10 @@ def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
             (rep["ok"], "the drill is not ok"),
             (rep["kills"] >= 1, "no kill landed"),
             (rep["detect_events"] >= 1, "no detect event (a vacuous match)"),
+            (rep["pyramid_match"] and rep["pyramid_files"] > 0,
+             "the pyramid differs from the control's (or is empty)"),
+            (rep["pyramid_errors"] == rep["control_pyramid_errors"] == 0,
+             "a worker swallowed a pyramid-append error"),
         ]
         if engine == "fused":
             checks.append(((launches["fused_cascade"] > 0) == cuda,
@@ -2421,6 +2448,383 @@ def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
                 fail(f"crash drill ({engine}): {what}; workdir {wd}: {line}")
         shutil.rmtree(wd, ignore_errors=True)
         res[engine] = line
+    return res
+
+
+# phase 11: the tile pyramid (tpudas_torch.serve) on the real-time path.
+# 6 files of 60 s x 10,000 ch (files k mod 3 of the spool under their
+# own start times, as phase 10 feeds), 1 Hz output
+PYRAMID_FILES = 6
+PYRAMID_BUDGETS = (16, 64, 1024)
+
+
+def manifest_core(folder):
+    """The manifest without its stamp and generation: what a rebuild
+    must reproduce."""
+    with open(os.path.join(folder, ".tiles", "manifest.json")) as fh:
+        m = json.load(fh)
+    return {k: v for k, v in m.items() if k not in ("_crc32", "generation")}
+
+
+def tiles_bytes(folder):
+    """Bytes of ``.tiles/`` per level directory, plus the tails and
+    manifest files."""
+    out = {}
+    base = os.path.join(folder, ".tiles")
+    for d, _sub, files in os.walk(base):
+        rel = os.path.relpath(d, base)
+        for n in files:
+            key = rel if rel != "." else n.split(".")[0]
+            out[key] = out.get(key, 0) + os.path.getsize(os.path.join(d, n))
+    return out
+
+
+def copy_outputs(out, dst):
+    """Hard-link the output files of ``out`` into a fresh ``dst``."""
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    for n in os.listdir(out):
+        if n.startswith("LFDAS_"):
+            os.link(os.path.join(out, n), os.path.join(dst, n))
+    return dst
+
+
+def hierarchy(x0, levels):
+    """The pyramid the host reduction gives the output rows ``x0``:
+    level k+1 is ``block_reduce`` of level k's float32 rows, per agg
+    (the cascade's own order)."""
+    from tpudas_torch.serve.tiles import block_reduce
+
+    ref = [{a: x0 for a in ("mean", "min", "max")}]
+    for k in range(1, levels):
+        prev = ref[-1]
+        n = prev["mean"].shape[0] // 4 * 4
+        ref.append({a: block_reduce(prev[a][:n], 4, a).astype(np.float32)
+                    for a in ("mean", "min", "max")})
+    return ref
+
+
+def pyramid_round_lines(run):
+    return [{"round": e["round"], "wall_s": e["wall_seconds"],
+             "pyramid_append_s": e["pyramid_seconds"]}
+            for e in run["events"] if e["event"] == "realtime_round"]
+
+
+def phase_pyramid(device, workdir, cls, timer):
+    """Phase 11: the tile pyramid on the real-time path at 10,000 ch.
+    (a) ``engine="fused"`` with ``pyramid=True`` over two calls (the
+    second resumes from the manifest): the tree equals
+    ``rebuild_pyramid`` over a copy, the level counts are the output rows
+    and their floor divisions by 4, B3 launched once a block; (b)
+    ``engine="auto"`` under ``bitshuffle-deflate`` and 64-row tiles:
+    decoded tiles equal a raw store's, then a ``quantize-deflate``
+    rebuild within 1e-3 with the generation bumped, B1 launched 4 times
+    a block; (c) ``QueryEngine`` at 16 / 64 / 1024 samples, full width
+    and a 1,000-ch range, each answer equal to the host reduction of the
+    output rows, cold and warm, and the fallback past the head; (d)
+    ``block_reduce(engine="torch")`` on the card against the host; (e)
+    ``_pyramid_block`` at ``max_px`` 256."""
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.io.spool import spool
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.serve.query import QueryEngine
+    from tpudas_torch.serve.tiles import (
+        TileStore,
+        block_reduce,
+        rebuild_pyramid,
+        sync_pyramid,
+    )
+    from tpudas_torch.tools.crash_drill import _pyramid_tree as pyramid_tree
+    from tpudas_torch.viz.waterfall import _pyramid_block
+
+    cuda = device.type == "cuda"
+    pdir = os.path.join(workdir, "pyramid")
+    shutil.rmtree(pdir, ignore_errors=True)
+    src_all = os.path.join(pdir, "src_all")
+    crash_feeder(os.path.join(workdir, "src"))(src_all, 0, PYRAMID_FILES)
+    reg = MetricsRegistry()
+    env_keys = ("TPUDAS_CODEC", "TPUDAS_PYRAMID_TILE_LEN",
+                "TPUDAS_PYRAMID_FACTOR", "TPUDAS_PYRAMID")
+    saved_env = {k: os.environ.pop(k, None) for k in env_keys}
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    res = {"phase": "pyramid", "n_ch": None}
+    try:
+        with use_registry(reg):
+            # (a) the fused stream, two calls: 4 files, then all 6
+            fused = new_run()
+            src_f, out_f = (os.path.join(pdir, n) for n in ("src_f", "fused"))
+            link_files(src_all, src_f, 4)
+            fused_cascade.launches = fused_cascade.kernel_launches = 0
+            fir_decimate.launches = 0
+            r1 = drive_realtime(fused, src_all, src_f, out_f, "fused", device,
+                                pyramid=True)
+            link_files(src_all, src_f, PYRAMID_FILES)
+            r2 = drive_realtime(fused, src_all, src_f, out_f, "fused", device,
+                                pyramid=True)
+            b3, b3k, b1_f = (fused_cascade.launches,
+                             fused_cascade.kernel_launches,
+                             fir_decimate.launches)
+            hist_a = reg.histogram(
+                "tpudas_serve_pyramid_append_seconds").snapshot()
+            errors_a = reg.value("tpudas_serve_pyramid_errors_total")
+            # (b) the auto stream under a codec and 64-row tiles
+            os.environ["TPUDAS_CODEC"] = "bitshuffle-deflate"
+            os.environ["TPUDAS_PYRAMID_TILE_LEN"] = "64"
+            auto = new_run()
+            src_a, out_a = (os.path.join(pdir, n) for n in ("src_a", "auto"))
+            link_files(src_all, src_a, 4)
+            fused_cascade.launches = 0
+            fir_decimate.launches = 0
+            ra = drive_realtime(auto, src_all, src_a, out_a, "auto", device,
+                                feed=[PYRAMID_FILES], pyramid=True)
+            b1, b3_a = fir_decimate.launches, fused_cascade.launches
+            for k in ("TPUDAS_CODEC", "TPUDAS_PYRAMID_TILE_LEN"):
+                os.environ.pop(k, None)
+            errors = reg.value("tpudas_serve_pyramid_errors_total")
+    finally:
+        fleet_engine.LFProc = saved_cls
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (a) checks
+    p_f, _names = grid_checks(out_f, "pyramid fused")
+    x0 = np.ascontiguousarray(p_f.host_data(), dtype=np.float32)
+    n_rows, n_ch = x0.shape
+    res["n_ch"] = int(n_ch)
+    store = TileStore.open(out_f)
+    want_levels = [n_rows]
+    while want_levels[-1] // 4:
+        want_levels.append(want_levels[-1] // 4)
+    copy = os.path.join(pdir, "fused_copy")
+    shutil.copytree(out_f, copy)
+    t0 = time.perf_counter()
+    rebuild_pyramid(copy)
+    rebuild_s = time.perf_counter() - t0
+    got_tree = {k: v for k, v in pyramid_tree(out_f).items()
+                if k != "manifest.json"}
+    reb_tree = {k: v for k, v in pyramid_tree(copy).items()
+                if k != "manifest.json"}
+    n_blocks = sum(fused["blocks"].values())
+    rounds_a = pyramid_round_lines(fused)
+    res["a"] = {
+        "engine": "fused", "calls": [r1, r2], "rounds": rounds_a,
+        "output_rows": int(n_rows), "levels": store.levels,
+        "want_levels": want_levels, "tiles_files": len(got_tree),
+        "tree_equals_rebuild": got_tree == reb_tree
+        and manifest_core(out_f) == manifest_core(copy),
+        "rebuild_s": rebuild_s, "tiles_bytes": tiles_bytes(out_f),
+        "append_seconds": hist_a, "blocks": fused["blocks"],
+        "fused_cascade_launches": b3, "fused_cascade_kernel_launches": b3k,
+        "fir_decimate_launches": b1_f, "wall_s": fused["wall_s"],
+        "pyramid_errors": errors_a,
+    }
+    fused_eng = "fused-cuda" if cuda else "fused-torch"
+    checks = [
+        ((r1, r2) == (1, 1), f"fused calls {(r1, r2)} != (1, 1)"),
+        (store.levels == want_levels,
+         f"levels {store.levels} != {want_levels}"),
+        (res["a"]["tree_equals_rebuild"],
+         "the incremental tree differs from rebuild_pyramid's"),
+        (any(k.startswith("L0/") for k in got_tree),
+         "level 0 completed no tile"),
+        (set(fused["blocks"]) == {fused_eng} and n_blocks > 0,
+         f"every fused block ran {fused_eng}"),
+        (b3 == (n_blocks if cuda else 0),
+         f"B3 launches {b3} != blocks {n_blocks} (phase 5's relation)"),
+        (b3k == (2 * n_blocks if cuda else 0),
+         f"kernels A+B launches {b3k} != 2 x {n_blocks}"),
+        (len(rounds_a) == 2 and all(r["pyramid_append_s"] is not None
+                                    for r in rounds_a),
+         "each round appended the pyramid"),
+    ]
+
+    # (b) the compressed store against a raw one, then a lossy rebuild
+    st_a = TileStore.open(out_a)
+    raw = copy_outputs(out_a, os.path.join(pdir, "auto_raw"))
+    sync_pyramid(raw, tile_len=64, codec="raw")
+    st_raw = TileStore.open(raw)
+    tpt = [k for k in pyramid_tree(out_a) if k.endswith(".tpt")]
+    same = st_a.levels == st_raw.levels and all(
+        st_a.read(k, 0, st_a.n(k), a).tobytes()
+        == st_raw.read(k, 0, st_raw.n(k), a).tobytes()
+        for k in range(st_a.n_levels) for a in ("mean", "min", "max"))
+    lossy = os.path.join(pdir, "auto_lossy")
+    shutil.copytree(out_a, lossy)
+    rebuild_pyramid(lossy, codec="quantize-deflate:max_error=1e-3")
+    st_q = TileStore.open(lossy)
+    # the bound holds per level: level 0 against the raw rows, each
+    # coarser level against the host reduction of the level below as
+    # the lossy store holds it (its own source); against the raw store
+    # the levels' errors add up, so those are reported, not bounded
+    q_err, nan_same, q_vs_raw = 0.0, True, []
+    for k in range(st_q.n_levels):
+        lvl_raw = 0.0
+        for a in ("mean", "min", "max"):
+            q = st_q.read(k, 0, st_q.n(k), a)
+            r = st_raw.read(k, 0, st_raw.n(k), a)
+            if k:
+                below = st_q.read(k - 1, 0, st_q.n(k) * 4, a)
+                src = block_reduce(below, 4, a).astype(np.float32)
+            else:
+                src = r
+            nan_same = nan_same and np.array_equal(np.isnan(q), np.isnan(r))
+            fin = np.isfinite(r)
+            if fin.any():
+                q_err = max(q_err, float(np.abs(q[fin] - src[fin]).max()))
+                lvl_raw = max(lvl_raw, float(np.abs(q[fin] - r[fin]).max()))
+        q_vs_raw.append(lvl_raw)
+    n_blocks_a = sum(auto["blocks"].values())
+    res["b"] = {
+        "engine": "auto", "codec": st_a.codec, "tile_len": st_a.tile_len,
+        "calls": ra, "rounds": pyramid_round_lines(auto),
+        "levels": st_a.levels, "tpt_tiles": len(tpt),
+        "tpt_levels": sorted({k.split("/")[0] for k in tpt}),
+        "decoded_equal_raw": bool(same), "tiles_bytes": tiles_bytes(out_a),
+        "raw_tiles_bytes": tiles_bytes(raw),
+        "quantize_max_abs_err": q_err, "quantize_nan_exact": bool(nan_same),
+        "quantize_err_vs_raw_by_level": q_vs_raw,
+        "quantize_generation": st_q.generation,
+        "quantize_tiles_bytes": tiles_bytes(lossy),
+        "blocks": auto["blocks"], "fir_decimate_launches": b1,
+        "fused_cascade_launches": b3_a, "wall_s": auto["wall_s"],
+    }
+    chain_eng = "cascade-cuda" if cuda else "cascade-torch"
+    checks += [
+        (ra == 2, f"auto rounds {ra} != 2"),
+        (st_a.codec == "bitshuffle-deflate" and st_a.tile_len == 64,
+         "the auto store's codec and tile length"),
+        ({"L0", "L1"} <= set(res["b"]["tpt_levels"]),
+         f"completed .tpt tiles at levels 0-1: {res['b']['tpt_levels']}"),
+        (same, "decoded tiles differ from the raw store's"),
+        (q_err <= 1e-3 and nan_same,
+         f"quantize-deflate rebuild err {q_err:.3e} (bound 1e-3)"),
+        (st_q.generation == 1, "the rebuild bumped the generation"),
+        (set(auto["blocks"]) == {chain_eng} and n_blocks_a > 0,
+         f"every auto block ran {chain_eng}"),
+        (b1 == (4 * n_blocks_a if cuda else 0),
+         f"B1 launches {b1} != 4 x {n_blocks_a}"),
+        (b3_a == 0, "the auto stream launched no B3 step"),
+    ]
+
+    # (c) queries over the whole stream, against the host reduction
+    ref = hierarchy(x0, store.n_levels)
+    times = p_f.coords["time"]
+    dists = np.asarray(p_f.coords["distance"], np.float64)
+    # a 1,000-channel range (a quarter of the width in a rehearsal)
+    c0, c1 = min(1000, n_ch // 4), min(1000, n_ch // 4) + min(1000, n_ch // 4)
+    sub = (float(dists[c0]), float(dists[c1 - 1]))
+    queries = []
+    for budget in PYRAMID_BUDGETS:
+        for rng_name, drange in (("full", None), (f"{c1 - c0}ch", sub)):
+            eng = QueryEngine(out_f)
+            t_c = time.perf_counter()
+            r = eng.query(times[0], times[-1], max_samples=budget,
+                          distance=drange)
+            cold = (time.perf_counter() - t_c) * 1e3
+            t_w = time.perf_counter()
+            r2 = eng.query(times[0], times[-1], max_samples=budget,
+                           distance=drange)
+            warm = (time.perf_counter() - t_w) * 1e3
+            want = ref[r.level]["mean"][:r.n_samples]
+            if drange is not None:
+                want = want[:, c0:c1]
+            equal = (r.data.tobytes() == np.ascontiguousarray(
+                want).tobytes() and r2.data.tobytes() == r.data.tobytes())
+            queries.append({"max_samples": budget, "range": rng_name,
+                            "level": r.level, "rows": r.n_samples,
+                            "channels": int(r.data.shape[1]),
+                            "source": r.source, "cold_ms": cold,
+                            "warm_ms": warm, "equal_host": bool(equal)})
+            checks.append((equal and r.source == "tiles",
+                           f"query {budget}/{rng_name}: level {r.level} "
+                           f"source {r.source} equal {equal}"))
+    # past the head: a pyramid over the first 3 output files only
+    part = copy_outputs(out_f, os.path.join(pdir, "part"))
+    names = sorted(n for n in os.listdir(part) if n.startswith("LFDAS_"))
+    later = names[len(names) // 2:]
+    held = os.path.join(pdir, "part_rest")
+    os.makedirs(held)
+    for n in later:
+        os.replace(os.path.join(part, n), os.path.join(held, n))
+    sync_pyramid(part)
+    for n in later:
+        os.replace(os.path.join(held, n), os.path.join(part, n))
+    head = TileStore.open(part).head_ns
+    eng = QueryEngine(part)
+    mixed = eng.query(times[0], times[-1])
+    beyond = eng.query(np.datetime64(int(head), "ns") + np.timedelta64(1, "s"),
+                       times[-1])
+    fb_equal = mixed.data.tobytes() == x0.tobytes()
+    res["c"] = {"queries": queries,
+                "fallback": {"mixed_source": mixed.source,
+                             "beyond_source": beyond.source,
+                             "mixed_equal_rows": bool(fb_equal),
+                             "beyond_rows": beyond.n_samples}}
+    checks += [
+        (mixed.source == "mixed" and fb_equal,
+         f"straddling window: {mixed.source}, equal {fb_equal}"),
+        (beyond.source == "files" and beyond.n_samples > 0,
+         f"window past the head: {beyond.source}"),
+    ]
+
+    # (d) the device reduction against the host one
+    n4 = n_rows // 4 * 4
+    xr = x0[:n4]
+    red = {}
+    for op in ("mean", "min", "max"):
+        host = block_reduce(xr, 4, op).astype(np.float32)
+        dev = block_reduce(xr, 4, op, engine="torch", device=device)
+        xt = torch.from_numpy(xr).to(device)
+        dev_t = block_reduce(xt, 4, op, engine="torch")
+        t_h = time.perf_counter()
+        for _ in range(5):
+            block_reduce(xr, 4, op)
+        host_ms = (time.perf_counter() - t_h) / 5 * 1e3
+        # a card tensor in, the host rows out (the D2H included)
+        dev_ms = timer(lambda: block_reduce(xt, 4, op, engine="torch"), 5)
+        fin = np.isfinite(host)
+        err = float(np.abs(dev[fin] - host[fin]).max())
+        scale = float(np.abs(host[fin]).max())
+        exact = (np.array_equal(dev, host) if op != "mean" else None)
+        red[op] = {"host_ms": host_ms, "device_ms": dev_ms,
+                   "max_abs_err": err, "rel_err": err / scale,
+                   "exact": exact,
+                   "tensor_equal": bool(np.array_equal(dev_t, dev))}
+        # min and max are exact; the mean is within 1e-6 of the largest
+        # |value| (float32 window sums against float64)
+        ok = exact if op != "mean" else err <= 1e-6 * scale
+        checks.append((ok and red[op]["tensor_equal"],
+                       f"block_reduce {op} on {device.type}: err {err:.3e}"))
+    res["d"] = {"rows": int(n4), "channels": int(n_ch), "ops": red}
+
+    # (e) the waterfall's pyramid block
+    t_e = time.perf_counter()
+    blk = _pyramid_block(p_f, out_f, 256)
+    blk_ms = (time.perf_counter() - t_e) * 1e3
+    ok_e = blk is not None
+    if ok_e:
+        qr = QueryEngine(out_f).query(times[0], times[-1],
+                                      distance=(dists.min(), dists.max()),
+                                      max_samples=256)
+        ok_e = (blk[0].tobytes() == qr.data.tobytes()
+                and blk[0].shape[1] == n_ch)
+    res["e"] = {"max_px": 256, "ms": blk_ms, "ok": bool(ok_e),
+                "shape": list(blk[0].shape) if blk is not None else None}
+    checks.append((ok_e, "_pyramid_block at max_px 256"))
+    res["pyramid_errors"] = errors
+    checks.append((errors == 0,
+                   f"tpudas_serve_pyramid_errors_total {errors} != 0"))
+    emit(res)
+    for ok, what in checks:
+        if not ok:
+            fail(f"pyramid check failed: {what}")
+    shutil.rmtree(pdir, ignore_errors=True)
     return res
 
 
@@ -2446,9 +2850,11 @@ def main(argv=None):
     ap.add_argument("--rehearse", action="store_true",
                     help="dry run on the CPU at a small width; exits 3")
     ap.add_argument("--only",
-                    choices=["fir", "fused", "fleet", "detect", "crash"],
+                    choices=["fir", "fused", "fleet", "detect", "crash",
+                             "pyramid"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
-                    "(fleet), 9 (detect) or 10 (crash) alone; exits 4")
+                    "(fleet), 9 (detect), 10 (crash) or 11 (pyramid) "
+                    "alone; exits 4")
     ap.add_argument("--cycles", type=int, default=None,
                     help="killed cycles of each engine's crash drill "
                     "(default: fused 4, auto and fft 2)")
@@ -2521,7 +2927,7 @@ def main(argv=None):
 
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
     tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
-    if args.only in ("fleet", "detect", "crash"):
+    if args.only in ("fleet", "detect", "crash", "pyramid"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2533,6 +2939,8 @@ def main(argv=None):
             phase_fleet(device, workdir, cls, members, timer)
         elif args.only == "crash":
             phase_crash(device, workdir, n_ch, tdas_output, args.cycles)
+        elif args.only == "pyramid":
+            phase_pyramid(device, workdir, cls, timer)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -2550,6 +2958,7 @@ def main(argv=None):
     fleet = phase_fleet(device, workdir, cls, members, timer)
     detect = phase_detect(device, workdir, timer, cls, jcls)
     phase_crash(device, workdir, n_ch, tdas_output, args.cycles)
+    pyramid = phase_pyramid(device, workdir, cls, timer)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}
@@ -2577,6 +2986,8 @@ def main(argv=None):
         "fleet_launches": fleet_counts["auto"]["b1"],
         # phase 9c: the real-time joint product's rewind windows
         "detect_joint_launches": detect["joint"]["b1_launches"],
+        # phase 11b: the auto stream with the pyramid on
+        "pyramid_launches": pyramid["b"]["fir_decimate_launches"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
@@ -2615,6 +3026,8 @@ def main(argv=None):
         "fleet_launches": fleet_counts["fused"]["b3_steps"],
         # phase 9a: detection on the fused stream (resumed run)
         "detect_launches": detect["fused"]["b3_steps"],
+        # phase 11a: the fused stream with the pyramid on
+        "pyramid_launches": pyramid["a"]["fused_cascade_launches"],
         "fleet_packed_ms": fleet["packed_step"].get("b3_packed_ms"),
         "fleet_solo_sum_ms": fleet["packed_step"].get("b3_solo_sum_ms"),
         "b1_chain_ms": full["b1_chain_ms"],

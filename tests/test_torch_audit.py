@@ -11,8 +11,10 @@ port's ``audit`` the other.  The reports must agree — the same
 ``repaired`` — the repaired trees must be byte-equal, and a second
 audit of each must be clean and empty.  The cases mirror
 ``tests/test_integrity.py``'s and ``tests/test_detect.py``'s audit
-tests where they apply (the pyramid's and the flight recorder's do not:
-the port has neither yet).  The drivers run on the CPU.
+tests where they apply (the flight recorder's do not: the port has none
+yet).  The pyramid cases damage a folder whose port driver kept a tile
+pyramid (``tile_len`` 8), raw and under ``bitshuffle-deflate``.  The
+drivers run on the CPU.
 """
 
 import importlib
@@ -401,6 +403,260 @@ def test_audit_fleet_empty_root_is_not_clean(tmp_path):
         assert rep == want
         assert not rep["clean"] and rep["stream_count"] == 0
         assert "no stream folders" in rep["error"]
+
+
+# ---------------------------------------------------------------------------
+# the tile pyramid's half (ROADMAP A8a)
+
+def _pyramid_folder(tmp_path_factory, codec):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
+        if codec:
+            mp.setenv("TPUDAS_CODEC", codec)
+        root = str(tmp_path_factory.mktemp(f"audit-pyr-{codec or 'raw'}"))
+        src, out = _write_folder(root, "port", pyramid=True)
+    tiles = os.path.join(out, ".tiles")
+    assert os.path.isfile(os.path.join(tiles, "manifest.json.prev"))
+    suffix = ".tpt" if codec else ".npy"
+    assert os.path.isfile(os.path.join(tiles, "L1", "00000000" + suffix))
+    return src, out
+
+
+@pytest.fixture(scope="module")
+def pyramid_folders(tmp_path_factory):
+    return {"raw": _pyramid_folder(tmp_path_factory, None),
+            "bitshuffle": _pyramid_folder(tmp_path_factory,
+                                          "bitshuffle-deflate")}
+
+
+def _tree_but_index(folder):
+    """:func:`_tree` without the directory-index cache: a pyramid
+    rebuild rescans the outputs, and the cache's records carry each
+    copy's own absolute paths."""
+    return {k: v for k, v in _tree(folder).items()
+            if not k.startswith(".tpudas_index.json")}
+
+
+def _tiles(out, *parts):
+    return os.path.join(out, ".tiles", *parts)
+
+
+def _tile_file(out, level=0, idx=0):
+    d = _tiles(out, f"L{level}")
+    name = [n for n in sorted(os.listdir(d))
+            if n.startswith(f"{idx:08d}.") and not n.endswith(".crc")][0]
+    return os.path.join(d, name)
+
+
+def _torn_manifest(out):
+    _flip_byte(_tiles(out, "manifest.json"), 20)
+
+
+def _torn_manifest_and_prev(out):
+    _flip_byte(_tiles(out, "manifest.json"), 20)
+    _flip_byte(_tiles(out, "manifest.json.prev"), 20)
+
+
+def _bad_stamps_manifest_and_prev(out):
+    """Both rungs parse but fail their checksum: the rebuild keeps the
+    geometry and codec it reads from them."""
+    for name in ("manifest.json", "manifest.json.prev"):
+        path = _tiles(out, name)
+        with open(path) as fh:
+            obj = json.load(fh)
+        obj["_crc32"] = "00000000"
+        _write(path, json.dumps(obj).encode())
+
+
+def _torn_tails(out):
+    with open(_tiles(out, "tails.npy"), "r+b") as fh:
+        fh.truncate(60)
+
+
+def _unstamped_tails(out):
+    os.remove(_tiles(out, "tails.npy" + SIDECAR_SUFFIX))
+
+
+def _bad_tile(out):
+    _flip_byte(_tile_file(out, 0, 1), 200)
+
+
+def _torn_tile(out):
+    path = _tile_file(out, 1, 0)
+    with open(path, "r+b") as fh:
+        fh.truncate(os.path.getsize(path) - 4)
+
+
+def _orphan_tile(out):
+    src = _tile_file(out, 0, 0)
+    dst = os.path.join(os.path.dirname(src),
+                       "00000099" + os.path.splitext(src)[1])
+    with open(src, "rb") as fh:
+        payload = fh.read()
+    _write(dst, payload[:-8])  # torn, and past the manifest head
+
+
+PYRAMID_DAMAGE = {
+    "torn_manifest": (_torn_manifest, ("manifest", "corrupt",
+                                       "promoted_prev")),
+    "torn_manifest_and_prev": (_torn_manifest_and_prev,
+                               ("manifest", "corrupt", "rebuilt_pyramid")),
+    "bad_stamps_manifest_and_prev": (
+        _bad_stamps_manifest_and_prev,
+        ("manifest", "corrupt", "rebuilt_pyramid")),
+    "torn_tails": (_torn_tails, ("tails", "torn", "rebuilt_pyramid")),
+    "bad_tile": (_bad_tile, ("tile", None, "rebuilt_pyramid")),
+    "torn_tile": (_torn_tile, ("tile", None, "rebuilt_pyramid")),
+    "orphan_tile": (_orphan_tile, ("tile", "orphan", "removed")),
+}
+
+
+@pytest.mark.parametrize("store", ["raw", "bitshuffle"])
+@pytest.mark.parametrize("case", sorted(PYRAMID_DAMAGE))
+def test_pyramid_repairs_equal_jax(pyramid_folders, tmp_path, case, store):
+    """Pyramid damage: the same report and repairs as the JAX audit, the
+    repaired trees byte-equal (a rebuilt ``.tiles/`` included, with its
+    geometry and codec kept), and a second audit clean and empty."""
+    damage, (artifact, status, action) = PYRAMID_DAMAGE[case]
+    clean_tiles = _tree(_tiles(pyramid_folders[store][1]))
+    outs = _copies(pyramid_folders[store][1], tmp_path, damage)
+    reps = _audit_both(outs)
+    assert reps["port"]["clean"]
+    assert any(it["artifact"] == artifact and it["action"] == action
+               and status in (None, it["status"])
+               for it in reps["port"]["issues"]), reps["port"]["issues"]
+    assert _tree_but_index(outs["port"]) == _tree_but_index(outs["jax"])
+    again = _audit_both(outs)
+    assert again["port"]["clean"] and not again["port"]["issues"]
+    from tpudas_torch.serve.tiles import TileStore
+
+    st = TileStore.open(outs["port"])
+    if case == "torn_manifest_and_prev":
+        # no rung parses: the rebuild takes the defaults (4 / 256 / raw),
+        # in the JAX audit too
+        assert (st.factor, st.tile_len, st.codec) == (4, 256, None)
+        return
+    assert (st.factor, st.tile_len) == (4, 8)
+    assert st.codec == ("bitshuffle-deflate" if store != "raw" else None)
+    if action == "rebuilt_pyramid":
+        assert st.generation == 1
+        # the rebuilt tiles are the stream's own (derived data)
+        got = _tree(_tiles(outs["port"]))
+        assert {k: v for k, v in got.items() if "manifest" not in k} == {
+            k: v for k, v in clean_tiles.items()
+            if "manifest" not in k and ".prev" not in k}
+
+
+@pytest.mark.parametrize("case", ["torn_tails", "bad_tile"])
+def test_pyramid_no_rebuild_reports(pyramid_folders, tmp_path, case):
+    """``rebuild=False`` (fsck ``--no-rebuild``): found, not rebuilt, in
+    both packages alike."""
+    outs = _copies(pyramid_folders["raw"][1], tmp_path,
+                   PYRAMID_DAMAGE[case][0])
+    before = _tree(outs["port"])
+    reps = _audit_both(outs, rebuild=False)
+    assert not reps["port"]["clean"]
+    assert any(it["action"] == "found" for it in reps["port"]["issues"])
+    assert _tree(outs["port"]) == before == _tree(outs["jax"])
+
+
+def test_pyramid_resumes_after_repair_like_control(pyramid_folders,
+                                                   tmp_path, monkeypatch):
+    """After the port's audit rebuilds a torn pyramid, the next driver
+    call appends to it; the tree equals the JAX sync over the outputs."""
+    from tpudas.serve.tiles import sync_pyramid as jax_sync
+
+    src, folder = pyramid_folders["raw"]
+    out = str(tmp_path / "out")
+    shutil.copytree(folder, out)
+    _torn_tails(out)
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
+    reg = MetricsRegistry()
+    with use_registry(reg):
+        _drive("port", src, out, pyramid=True)
+    assert reg.value("tpudas_integrity_audit_repairs_total",
+                     kind="rebuilt_pyramid") >= 1
+    ref = str(tmp_path / "ref")
+    os.makedirs(ref)
+    for n in os.listdir(out):
+        if n.startswith("LFDAS_"):
+            os.link(os.path.join(out, n), os.path.join(ref, n))
+    jax_sync(ref)
+    got = {k: v for k, v in _tree(_tiles(out)).items()
+           if "manifest" not in k}
+    want = {k: v for k, v in _tree(_tiles(ref)).items()
+            if "manifest" not in k}
+    assert got == want
+
+
+def test_fsck_cli_reports_pyramid_rebuild(pyramid_folders, tmp_path):
+    """The port's fsck CLI repairs a torn in-use tile like the audit."""
+    import subprocess
+    import sys
+
+    out = _copies(pyramid_folders["raw"][1], tmp_path, _bad_tile)["port"]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, os.path.join(repo, "tpudas_torch", "tools",
+                                      "fsck.py"), out],
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "rebuilt_pyramid" in r.stdout
+    assert taudit.audit(out)["issues"] == []
+
+
+@pytest.mark.parametrize("when", ["before_payload", "after_payload"])
+@pytest.mark.parametrize("artifact", ["carry", "detect_carry"])
+@pytest.mark.parametrize("unstamped", [False, True])
+def test_rotate_killed_mid_rotation_keeps_the_carry(
+        port_folder, tmp_path, monkeypatch, artifact, unstamped, when):
+    """ROADMAP C5, the card half: a save's rotation killed just before,
+    or right after, the payload's rename (on the card, inside the slow
+    rename of an 800 MB FFT carry over its old ``.prev``: the kill ends
+    the process as the rename returns).  The port moves the sidecar
+    first, so the newest state survives as an unstamped primary or a
+    consistent ``.prev``: the audit keeps a carry and the reader loads
+    the state the save started from.  (With the payload moved first, a
+    kill after its rename left a ``.prev`` beside the older rung's
+    stamp: the audit removed it and the stream restarted in rewind
+    mode, unlike its control.)"""
+    from tpudas_torch.detect.runner import load_detect_carry
+    from tpudas_torch.integrity import checksum
+    from tpudas_torch.proc.stream import load_carry
+
+    out = str(tmp_path / "out")
+    shutil.copytree(port_folder[1], out)
+    path = (os.path.join(out, CARRY_FILENAME) if artifact == "carry"
+            else os.path.join(out, ".detect", "carry.npz"))
+    if unstamped:
+        os.remove(path + SIDECAR_SUFFIX)  # a primary no one stamped yet
+    load = ((lambda: load_carry(out)._meta()) if artifact == "carry"
+            else (lambda: load_detect_carry(out)["meta"]))
+    want = load()
+    with open(path, "rb") as fh:
+        payload = fh.read()
+    real = os.replace
+
+    def killed(src, dst):
+        if dst != path + ".prev":  # a sidecar's rename
+            return real(src, dst)
+        if when == "after_payload":
+            real(src, dst)
+        raise KeyboardInterrupt(f"killed {when}")
+
+    monkeypatch.setattr(checksum.os, "replace", killed)
+    with pytest.raises(KeyboardInterrupt):
+        checksum.rotate_prev(path)
+    monkeypatch.setattr(checksum.os, "replace", real)
+    assert load() == want
+    rep = taudit.audit(out)
+    assert rep["clean"]
+    assert not [it for it in rep["issues"] if it["action"] == "removed"
+                and it["artifact"] == artifact]
+    assert load() == want
+    kept = path if os.path.isfile(path) else path + ".prev"
+    with open(kept, "rb") as fh:
+        assert fh.read() == payload
 
 
 def test_audit_metrics_and_span(port_folder, tmp_path):

@@ -2,9 +2,10 @@
 
 Real SIGKILLs of fresh worker interpreters at seeded points, on the CPU
 (the plain versions of the kernels), with the stateful carry and the
-detect operators on: after the drain the folder must audit clean, no
-worker's startup audit may have raised, and the outputs, the stream
-carry and the detect state must equal an uninterrupted control's
+detect operators and the tile pyramid on: after the drain the folder
+must audit clean, no worker's startup audit may have raised, and the
+outputs, the stream carry, the pyramid tree and the detect state must
+equal an uninterrupted control's
 (``tests/test_integrity.py`` holds the JAX drill the same way).  Every
 wait of the drill carries its own limit (``ready_timeout`` /
 ``run_timeout``), so a hung worker fails the test instead of holding
@@ -25,9 +26,12 @@ def _assert_drill_ok(rep):
     assert rep["kills"] >= 1, rep["cycle_log"]
     assert rep["audit_clean"] and rep["audit_issues"] == 0
     assert rep["audit_errors"] == 0
-    for key in ("outputs_match", "carry_match", "detect_match"):
-        assert rep[key], key
+    for key in ("outputs_match", "carry_match", "pyramid_match",
+                "detect_match"):
+        assert rep[key], (key, rep["difference"])
     assert rep["detect_events"] > 0  # the comparison is not vacuous
+    assert rep["pyramid_files"] > 0
+    assert rep["pyramid_errors"] == rep["control_pyramid_errors"] == 0
     assert rep["ok"]
     assert rep["launches"] == {"fused_cascade": 0,
                                "fused_cascade_kernels": 0,
@@ -35,10 +39,19 @@ def _assert_drill_ok(rep):
     assert all(r >= 0 for r in rep["recover_s"])
 
 
-def test_sigkill_drill_smoke(tmp_path):
+def _completed_tiles(rep, suffix):
+    tiles = os.path.join(rep["workdir"], "out", ".tiles", "L1")
+    return [n for n in os.listdir(tiles) if n.endswith(suffix)]
+
+
+def test_sigkill_drill_smoke(tmp_path, monkeypatch):
+    # 8-row tiles: the stream completes tiles, so a kill can land in a
+    # tile write
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
     rep = run_drill(engine="fused", cycles=2, seed=0,
                     workdir=str(tmp_path / "drill"), **LIMITS)
     _assert_drill_ok(rep)
+    assert _completed_tiles(rep, ".npy")
     assert rep["epochs"] >= 3
     assert len(rep["audit_seconds"]) == 2 + 2 + 1  # one per drilled worker
     # one fresh worker per cycle (cold, warm, kills, drain, the control's
@@ -48,6 +61,17 @@ def test_sigkill_drill_smoke(tmp_path):
              if os.path.isfile(os.path.join(logs, d, "go.json"))]
     assert len(tasks) == 2 + 2 + 1 + rep["epochs"]
     assert all(s > 0 for s in rep["worker_start_s"])
+
+
+def test_sigkill_drill_compressed_pyramid(tmp_path, monkeypatch):
+    """The drill under a compressed store (workers and control alike):
+    the ``.tpt`` tiles match file for file."""
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
+    monkeypatch.setenv("TPUDAS_CODEC", "bitshuffle-deflate")
+    rep = run_drill(engine="auto", cycles=2, seed=3,
+                    workdir=str(tmp_path / "drill"), **LIMITS)
+    _assert_drill_ok(rep)
+    assert _completed_tiles(rep, ".tpt")
 
 
 @pytest.mark.slow

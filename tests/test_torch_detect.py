@@ -263,6 +263,85 @@ class TestOperators:
             if val.dtype.kind == "f" and key != "ring":
                 assert np.isfinite(val).all(), key
 
+    @pytest.mark.parametrize("spec", OPS, ids=["stalta", "rms"])
+    def test_state_owns_caller_memory(self, spec):
+        """ROADMAP C5: chunk 1 comes from an emitted patch whose data is
+        a CPU tensor (``_patch_rows``, as the pipeline reads it); after
+        ``process`` returns, the caller overwrites its rows buffer and
+        the patch's tensor in place, then chunk 2 follows.  Events,
+        scores and the saved state must equal an untouched run's byte
+        for byte, and the JAX operator's within REL."""
+        from tpudas_torch.core.patch import Patch
+
+        rows, t_ns = _rows()
+        cut = 250
+        ref = _feed(_make(spec), rows.copy(), t_ns, [cut])
+        ev_j, sc_j, _, st_j = _feed(jops.make_operator(spec), rows, t_ns,
+                                    [cut])
+        op = _make(spec)
+        st = op.init_state(rows.shape[1], STEP_NS)
+        evs, scores = [], []
+        for lo, hi in ((0, cut), (cut, rows.shape[0])):
+            data = torch.from_numpy(rows[lo:hi].copy())
+            patch = Patch(
+                data=data,
+                coords={"time": t_ns[lo:hi].astype("datetime64[ns]"),
+                        "distance": np.arange(rows.shape[1], dtype=float)},
+                dims=("time", "distance"))
+            t, r = trunner._patch_rows(patch)
+            res, st = op.process(r, t, STEP_NS, st)
+            saved = {k: np.array(v, copy=True) for k, v in st.items()}
+            r[:] = 1e3  # the caller reuses its rows buffer
+            data.fill_(-1e3)  # and the emitted patch's tensor
+            for k, v in st.items():
+                assert np.asarray(v).tobytes() == saved[k].tobytes(), k
+            evs.extend(res.events)
+            if res.scores is not None and res.scores.size:
+                scores.append(res.scores)
+        assert sorted(evs, key=_ev_key) == ref[0]
+        if ref[1] is not None:
+            assert np.concatenate(scores).tobytes() == ref[1].tobytes()
+            assert _rel(np.concatenate(scores), sc_j) <= REL
+        assert [_ev_key(e) for e in ref[0]] == [_ev_key(e) for e in ev_j]
+        for key in ref[3]:
+            a, b = np.asarray(st[key]), np.asarray(ref[3][key])
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), key
+            c = np.asarray(st_j[key])
+            if a.dtype.kind == "f" and a.size:
+                assert _rel(a, c) <= REL, key
+            else:
+                assert np.array_equal(a, c), key
+
+
+    def test_rms_sqrt_skips_torch_sqrt_on_cpu(self, monkeypatch):
+        """ROADMAP C5: on the CPU ``torch.sqrt`` runs MKL's vector math
+        over the OpenMP threads, and its first call in about one fresh
+        process in a hundred leaves a chunk ~3e-4 off (a resumed worker's
+        RMS scores then differed from the control's).  The CPU operator
+        takes numpy's correctly rounded sqrt instead: it never calls
+        ``torch.sqrt`` on a CPU tensor, and its scores are the exact
+        square roots of its float32 window means."""
+        from tpudas_torch.ops.rolling import exact_sqrt, rolling_reduce
+
+        real = torch.sqrt
+
+        def no_cpu_sqrt(t, *a, **k):
+            assert t.device.type != "cpu", "torch.sqrt on a CPU tensor"
+            return real(t, *a, **k)
+
+        rows, t_ns = _rows()
+        want = _feed(_make(OPS[1]), rows, t_ns, [250])
+        monkeypatch.setattr(torch, "sqrt", no_cpu_sqrt)
+        got = _feed(_make(OPS[1]), rows, t_ns, [250])
+        assert got[0] == want[0] and got[1].tobytes() == want[1].tobytes()
+        x = torch.from_numpy(rows)
+        mean = rolling_reduce(x * x, 5, 1, "mean").numpy()
+        full = np.sqrt(mean)
+        pos = (got[2] // STEP_NS).astype(np.int64)
+        assert got[1].tobytes() == np.ascontiguousarray(full[pos]).tobytes()
+        t = torch.from_numpy(np.array([0.0, 2.0, np.nan, 1e-30], np.float32))
+        assert exact_sqrt(t).numpy().tobytes() == np.sqrt(t.numpy()).tobytes()
+
 
 # ---------------------------------------------------------------------------
 # durable artifacts, read across packages

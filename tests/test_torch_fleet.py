@@ -40,6 +40,7 @@ from tpudas_torch.obs.registry import MetricsRegistry, use_registry
 from tpudas_torch.obs.trace import get_spans
 from tpudas_torch.proc.stream import CARRY_FILENAME
 from tpudas_torch.resilience import FaultPlan, FaultSpec, install_fault_plan
+from test_torch_realtime import _pyramid_tree
 
 FS = 100.0
 FILE_SEC = 30.0
@@ -397,3 +398,21 @@ class TestFleetUnpark:
             summary = eng.run()
         assert summary["parked"] == ["s0"]
         assert summary["unparked_total"] == 0
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_fleet_members_keep_their_pyramids(pools, tmp_path, monkeypatch,
+                                           batched):
+    """``pyramid=True`` on every spec: each member's ``.tiles/`` is the
+    tree its solo control builds over the same feed, solo or batched."""
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
+    specs = _specs(pools, tmp_path, pyramid=True, poll_jitter=0.0)
+    root = str(tmp_path / "root")
+    FleetEngine(root, specs, sleep_fn=_feeder(pools, tmp_path, [4]),
+                device="cpu", batched=batched).run()
+
+    for sid in WIDTHS:
+        ctrl = _control(pools, tmp_path, sid, then=[4], pyramid=True)
+        got = _pyramid_tree(os.path.join(root, sid))
+        assert any(k.startswith("L1/") for k in got), sid
+        assert got == _pyramid_tree(ctrl), sid

@@ -741,3 +741,75 @@ def test_audit_repairs_a_folder_the_card_wrote(cuda_device, tmp_path):
     assert reg.value("tpudas_integrity_audit_runs_total") == 1
     assert reg.value("tpudas_integrity_audit_repairs_total",
                      kind="promoted_prev") == 0
+
+
+@pytest.mark.parametrize("op", ["mean", "min", "max"])
+def test_block_reduce_on_card_matches_host(cuda_device, op):
+    """The pyramid's device reduction (``block_reduce(engine="torch")``)
+    on the card against the host float64 one: min and max exact, the
+    mean within 1e-6 of the largest |value| (float32 window sums)."""
+    from tpudas_torch.serve.tiles import block_reduce
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1024, 2048)).astype(np.float32)
+    x[40:44, 7] = np.nan
+    got = block_reduce(x, 4, op, engine="torch", device=cuda_device)
+    ref = block_reduce(x, 4, op).astype(np.float32)
+    assert got.shape == ref.shape == (256, 2048)
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    fin = np.isfinite(ref)
+    if op == "mean":
+        assert (np.abs(got[fin] - ref[fin]).max()
+                <= 1e-6 * np.abs(ref[fin]).max())
+    else:
+        assert np.array_equal(got[fin], ref[fin])
+    # the card's answer on a card tensor too
+    t = block_reduce(torch.from_numpy(x).to(cuda_device), 4, op,
+                     engine="torch")
+    assert np.array_equal(t, got, equal_nan=True)
+
+
+def test_pyramid_stream_on_card(cuda_device, tmp_path, monkeypatch):
+    """``run_lowpass_realtime(pyramid=True)`` on the card: the tree is
+    the one-shot sync over the stream's own outputs."""
+    import hashlib
+
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+    from tpudas_torch.serve.tiles import sync_pyramid
+
+    class TdasLFProc(LFProc):
+        # outputs as tdas: the card's host may lack h5py
+        def _write_output(self, patch, path):
+            patch.io.write(os.path.splitext(path)[0] + ".tdas", "tdas")
+
+    monkeypatch.setattr(fleet_engine, "LFProc", TdasLFProc)
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
+    src = str(tmp_path / "src")
+    make_synthetic_spool(src, n_files=3, file_duration=30.0, fs=100.0,
+                         n_ch=8, noise=0.01, format="tdas")
+    out = str(tmp_path / "out")
+    run_lowpass_realtime(src, out, "2023-03-22T00:00:00",
+                         output_sample_interval=1.0, edge_buffer=8.0,
+                         process_patch_size=40, poll_interval=0.0,
+                         sleep_fn=lambda _: None, stateful=True,
+                         pyramid=True, device=cuda_device)
+
+    def tree(folder):
+        res = {}
+        base = os.path.join(folder, ".tiles")
+        for d, _s, files in os.walk(base):
+            for n in files:
+                if ".prev" not in n and ".tmp" not in n:
+                    with open(os.path.join(d, n), "rb") as fh:
+                        res[os.path.relpath(os.path.join(d, n), base)] = (
+                            hashlib.sha256(fh.read()).hexdigest())
+        return res
+
+    ref = str(tmp_path / "ref")
+    os.makedirs(ref)
+    for n in os.listdir(out):
+        if n.startswith("LFDAS_"):
+            os.link(os.path.join(out, n), os.path.join(ref, n))
+    sync_pyramid(ref)
+    assert tree(out) == tree(ref) and "tails.npy" in tree(out)

@@ -1,7 +1,8 @@
 """The port stands alone: importing every tpudas_torch module pulls in
 neither JAX nor any module of the JAX package, and the processing path
-imports without h5py and pandas (both optional on the card's host);
-``chip_smoke.py`` imports neither JAX nor the JAX package either."""
+imports without h5py, pandas and matplotlib (all optional on the card's
+host); ``chip_smoke.py`` imports neither JAX nor the JAX package
+either."""
 
 import ast
 import json
@@ -86,6 +87,14 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.resilience.faults",
         "tpudas_torch.resilience.quarantine",
         "tpudas_torch.utils.profiling",
+        "tpudas_torch.codec",
+        "tpudas_torch.codec.codecs",
+        "tpudas_torch.codec.frame",
+        "tpudas_torch.serve",
+        "tpudas_torch.serve.tiles",
+        "tpudas_torch.serve.query",
+        "tpudas_torch.viz",
+        "tpudas_torch.viz.waterfall",
     ):
         assert mod in res["mods"]
     loaded = res["loaded"]
@@ -93,6 +102,8 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
     assert [n for n in loaded if _top(n) in ("jax", "jaxlib")] == []
     assert [n for n in loaded if _top(n) == "tpudas"] == []
     assert [n for n in loaded if _top(n) in ("h5py", "pandas")] == []
+    # the waterfall draws with matplotlib, imported only when it draws
+    assert [n for n in loaded if _top(n) == "matplotlib"] == []
     assert "torch" in loaded
 
 
@@ -133,3 +144,24 @@ def test_operator_tools_import_no_jax_no_tpudas():
         assert "tpudas_torch" in {_top(n) for n in names}, name
         assert [n for n in names
                 if _top(n) in ("jax", "jaxlib", "tpudas")] == [], name
+
+
+def test_pyramid_modules_import_no_jax_no_tpudas():
+    """codec, serve and viz: no import at any depth names JAX or the JAX
+    package, and matplotlib is imported only inside a function."""
+    for sub in ("codec", "serve", "viz"):
+        d = os.path.join(REPO, "tpudas_torch", sub)
+        for name in sorted(os.listdir(d)):
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(d, name)
+            names = _imported_modules(path)
+            assert [n for n in names
+                    if _top(n) in ("jax", "jaxlib", "tpudas")] == [], path
+            tree = ast.parse(open(path).read(), filename=path)
+            top = [n for n in tree.body
+                   if isinstance(n, (ast.Import, ast.ImportFrom))]
+            for node in top:
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else [node.module])
+                assert all(_top(m) != "matplotlib" for m in mods), path

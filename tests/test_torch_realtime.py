@@ -311,11 +311,60 @@ def test_changed_configuration_is_rejected(pool, tmp_path):
             process_patch_size=40)
 
 
+def _pyramid_tree(folder):
+    """{relpath: sha256} of ``<folder>/.tiles`` (``.prev`` rungs and tmp
+    leftovers excluded: they depend on the append schedule)."""
+    import hashlib
+
+    tiles = os.path.join(folder, ".tiles")
+    out = {}
+    for dirpath, _d, files in os.walk(tiles):
+        for name in sorted(files):
+            if ".prev" in name or ".tmp" in name:
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, tiles)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def _assert_pyramid_of_outputs(out, scratch):
+    """The runner's incremental pyramid equals the one-shot sync over
+    copies of its own output files, by the port and by the JAX package
+    (the tree ``rebuild_pyramid`` writes, generation aside)."""
+    from tpudas.serve.tiles import sync_pyramid as jax_sync
+    from tpudas_torch.serve.tiles import sync_pyramid
+
+    got = _pyramid_tree(out)
+    assert "manifest.json" in got and "tails.npy" in got
+    assert any(k.startswith("L1/") for k in got)  # completed tiles
+    for name, sync in (("port", sync_pyramid), ("jax", jax_sync)):
+        d = os.path.join(scratch, f"pyramid-{name}")
+        os.makedirs(d)
+        for n in _products(out):
+            os.link(os.path.join(out, n), os.path.join(d, n))
+        sync(d)
+        assert _pyramid_tree(d) == got, name
+
+
 @pytest.mark.parametrize("keyword,value", [
     ("mesh", 2), ("window_dp", 2), ("health", True), ("pyramid", True),
     ("live", True), ("flight", True),
 ])
-def test_unported_keywords_raise(tmp_path, keyword, value):
+def test_unported_keywords_raise(tmp_path, keyword, value, request):
+    """Every keyword whose feature is not ported raises before the driver
+    writes; ``pyramid`` is ported now, and builds the tile pyramid."""
+    if keyword == "pyramid":
+        pool = request.getfixturevalue("env_pool")
+        # small tiles, so that the stream completes some (16 rows)
+        request.getfixturevalue("monkeypatch").setenv(
+            "TPUDAS_PYRAMID_TILE_LEN", "16")
+        out = str(tmp_path / "o")
+        assert _drive(run_lowpass_realtime, pool, str(tmp_path / "src"),
+                      out, first=2, then=[3], pyramid=value) == 2
+        _assert_pyramid_of_outputs(out, str(tmp_path))
+        return
     with pytest.raises(NotImplementedError, match=keyword):
         run_lowpass_realtime(
             source=str(tmp_path / "src"), output_folder=str(tmp_path / "o"),
@@ -378,7 +427,8 @@ def test_single_sample_tdas_round_trips(tmp_path):
 # ---------------------------------------------------------------------------
 # features the JAX runners turn on from the environment (ROADMAP C3)
 
-# variable -> (config field, what the JAX driver leaves behind)
+# variable -> (config field, what the JAX driver leaves behind); the
+# pyramid is ported: under TPUDAS_PYRAMID the port builds it too
 ENV_FEATURES = {
     "TPUDAS_HEALTH": ("health", "health.json"),
     "TPUDAS_PYRAMID": ("pyramid", ".tiles"),
@@ -418,6 +468,29 @@ def _lowpass_entry_points(src, out):
     }
 
 
+def _check_env_pyramid(env_pool, tmp_path, jout):
+    """``TPUDAS_PYRAMID=1`` (set by the caller): every port entry point
+    builds a stream with the pyramid on, and the driver's tree equals
+    the one-shot syncs over its own outputs and the JAX driver's tree
+    over the same files (the JAX driver's own outputs differ from the
+    port's within 1e-5, so its tree is compared after re-syncing the
+    port's files, and its level counts directly)."""
+    from tpudas.serve.tiles import TileStore as JStore
+    from tpudas_torch.serve.tiles import TileStore
+
+    src = str(tmp_path / "src")
+    for name in ("build_runner", "LowpassStreamRunner", "FleetEngine"):
+        obj = _lowpass_entry_points(src, str(tmp_path / f"ep-{name}"))[
+            name]()
+        runners = ([st.runner for st in obj.streams.values()]
+                   if name == "FleetEngine" else [obj])
+        assert all(r.pyramid for r in runners), name
+    out = str(tmp_path / "port")
+    assert _drive(run_lowpass_realtime, env_pool, src, out) == 1
+    _assert_pyramid_of_outputs(out, str(tmp_path))
+    assert TileStore.open(out).levels == JStore.open(jout).levels
+
+
 @pytest.mark.parametrize("var", sorted(ENV_FEATURES))
 def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
                                             var):
@@ -426,6 +499,7 @@ def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
     before it writes anything."""
     field, artifact = ENV_FEATURES[var]
     monkeypatch.setenv(var, "1")
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
     jout = str(tmp_path / "jax")
     assert _drive(jax_realtime, env_pool, str(tmp_path / "src"), jout) == 1
     if var == "TPUDAS_LIVE":
@@ -434,6 +508,9 @@ def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
         assert find_hub(folder=os.path.abspath(jout)) is not None
     else:
         assert os.path.exists(os.path.join(jout, artifact))
+    if var == "TPUDAS_PYRAMID":
+        _check_env_pyramid(env_pool, tmp_path, jout)
+        return
     out = str(tmp_path / "port")
     for name, start in _lowpass_entry_points(str(tmp_path / "src"),
                                              out).items():
@@ -493,3 +570,69 @@ def test_env_features_off_both_run(env_pool, tmp_path, monkeypatch):
     for name in ("health.json", ".tiles", ".flight"):
         assert not os.path.exists(os.path.join(outs["jax"], name))
     _assert_same_stream(outs["port"], outs["jax"])
+
+
+# ---------------------------------------------------------------------------
+# the tile pyramid (ROADMAP A8a)
+
+@pytest.mark.parametrize("codec", [None, "bitshuffle-deflate"])
+@pytest.mark.parametrize("engine", ["auto", "fused", "fft"])
+def test_pyramid_every_engine(pool, tmp_path, monkeypatch, fused_env, engine,
+                              codec):
+    """Each engine's stream appends its pyramid round by round (3 files,
+    then 5); the tree equals the one-shot syncs over its own outputs,
+    by the port and by the JAX package."""
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
+    if codec:
+        monkeypatch.setenv("TPUDAS_CODEC", codec)
+    out = str(tmp_path / "out")
+    assert _drive(run_lowpass_realtime, pool, str(tmp_path / "src"), out,
+                  then=[5], engine=engine, pyramid=True) == 2
+    _assert_pyramid_of_outputs(out, str(tmp_path))
+    if codec:
+        assert any(n.endswith(".tpt") for n in _pyramid_tree(out))
+
+
+def test_pyramid_resumed_across_packages(env_pool, tmp_path, monkeypatch):
+    """A pyramid the JAX driver started (over its own outputs) is resumed
+    by the port's driver in the same folder: the port appends only rows
+    past the JAX head (the JAX rows stay as written), and the tree
+    equals the JAX package's sync over the resulting files."""
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    assert _drive(jax_realtime, env_pool, src, out, first=2,
+                  pyramid=True) == 1
+    _link(env_pool, src, 3)
+    assert _drive(run_lowpass_realtime, env_pool, src, out, first=3,
+                  pyramid=True) == 1
+    _assert_pyramid_of_outputs(out, str(tmp_path))
+
+
+def test_pyramid_errors_swallowed_and_counted(env_pool, tmp_path,
+                                              monkeypatch):
+    """A failing tile read (the ``serve.tile_read`` fault site) on the
+    second round's append is counted and swallowed, as in the JAX
+    driver: the outputs equal a control's and a later sync converges."""
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.resilience.faults import (
+        FaultPlan,
+        FaultSpec,
+        install_fault_plan,
+    )
+    from tpudas_torch.serve.tiles import sync_pyramid
+
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
+    out, ctrl = str(tmp_path / "out"), str(tmp_path / "ctrl")
+    reg = MetricsRegistry()
+    plan = FaultPlan(FaultSpec(site="serve.tile_read", action="raise",
+                               times=99))
+    with use_registry(reg), install_fault_plan(plan):
+        assert _drive(run_lowpass_realtime, env_pool, str(tmp_path / "s1"),
+                      out, first=2, then=[3], pyramid=True) == 2
+    assert reg.value("tpudas_serve_pyramid_errors_total") >= 1
+    assert plan.fired
+    assert _drive(run_lowpass_realtime, env_pool, str(tmp_path / "s2"),
+                  ctrl, first=2, then=[3]) == 2
+    assert _products(out) == _products(ctrl)
+    sync_pyramid(out)  # the read side's catch-up converges
+    _assert_pyramid_of_outputs(out, str(tmp_path))

@@ -39,6 +39,7 @@ from tpudas_torch.io.spool import spool as tspool
 from tpudas_torch.proc import run_rolling_realtime
 from tpudas_torch.proc.joint import JointProc
 from tpudas_torch.proc.streaming import run_lowpass_realtime
+from test_torch_realtime import _assert_pyramid_of_outputs
 
 FS = 100.0
 FILE_SEC = 30.0
@@ -169,13 +170,21 @@ class TestRollingRealtime:
         assert np.array_equal(np.isnan(va), np.isnan(vb))
         assert np.nanmax(np.abs(va - vb)) <= REL * np.nanmax(np.abs(vb))
 
-    def test_unported_keywords_raise(self, tmp_path):
-        for kw in ({"mesh": 2}, {"pyramid": True}, {"live": True},
-                   {"flight": True}):
+    def test_unported_keywords_raise(self, tmp_path, monkeypatch):
+        """The unported keywords raise; ``pyramid`` is ported and builds
+        the tile pyramid over the rolling outputs."""
+        for kw in ({"mesh": 2}, {"live": True}, {"flight": True}):
             with pytest.raises(NotImplementedError, match=next(iter(kw))):
                 run_rolling_realtime(
                     source=str(tmp_path), output_folder=str(tmp_path / "o"),
                     window=1.0, step=1.0, device="cpu", **kw)
+        monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
+        src = str(tmp_path / "src")
+        make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
+                             n_ch=NCH, noise=0.01)
+        out = str(tmp_path / "pyr")
+        assert _rolling("port", src, out, pyramid=True) == 2
+        _assert_pyramid_of_outputs(out, str(tmp_path))
 
     def test_no_card_and_no_device_raises(self, tmp_path, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -344,11 +353,15 @@ def _rolling_entry_points(src, out):
 def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
     """Under the variable the JAX rolling runner turns its feature on
     (the pyramid leaves ``.tiles/``, the live plane a hub); every port
-    entry point raises naming the variable before it writes anything."""
+    entry point raises naming the variable before it writes anything —
+    except ``TPUDAS_PYRAMID``, ported now: every entry point turns the
+    pyramid on, and the driver's tree is the one the JAX package syncs
+    from the same output files."""
     src = str(tmp_path / "src")
     make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
                          n_ch=NCH)
     monkeypatch.setenv(var, raw)
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
     if var in ("TPUDAS_PYRAMID", "TPUDAS_LIVE"):
         jout = str(tmp_path / "jax")
         assert _rolling("jax", src, jout, pyramid=None) == 2
@@ -359,6 +372,20 @@ def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
 
             assert find_hub(folder=os.path.abspath(jout)) is not None
     out = str(tmp_path / "port")
+    if var == "TPUDAS_PYRAMID":
+        eps = {n: _rolling_entry_points(src, str(tmp_path / f"ep-{n}"))[n]
+               for n in ("build_runner", "RollingStreamRunner",
+                         "FleetEngine")}
+        for name, start in eps.items():
+            obj = start()
+            runners = ([st.runner for st in obj.streams.values()]
+                       if name == "FleetEngine" else [obj])
+            assert all(r.pyramid for r in runners), name
+        # the JAX run's feeder already added the third file: one round
+        assert _rolling("port", src, out, pyramid=None,
+                        sleep_fn=lambda _: None) == 1
+        _assert_pyramid_of_outputs(out, str(tmp_path))
+        return
     for name, start in _rolling_entry_points(src, out).items():
         with pytest.raises(NotImplementedError, match=var):
             start()

@@ -8,12 +8,13 @@ numpy axes (``time`` is datetime64[ns], ``distance`` float meters);
 attrs are a :class:`~tpudas_torch.core.attrs.PatchAttrs` with the
 three-generation alias map.
 
-IO hangs off the ``.io`` accessor as in the reference call sites
-(``patch.io.write(path, "dasdae")`` — lf_das.py:232).  ``pass_filter``,
-``interpolate``, ``rolling`` and ``median_filter`` run the port's FFT
-engine, gather-lerp, windowed reductions and median despike on the card
-(``device="cpu"`` on request).  The JAX Patch's ``.viz`` waterfall
-belongs to a later slice of the port and is not here yet.
+IO and viz hang off the ``.io`` and ``.viz`` accessors as in the
+reference call sites (``patch.io.write(path, "dasdae")`` —
+lf_das.py:232; ``patch.viz.waterfall(scale=0.01)`` —
+low_pass_dascore.ipynb cell 22).  ``pass_filter``, ``interpolate``,
+``rolling`` and ``median_filter`` run the port's FFT engine,
+gather-lerp, windowed reductions and median despike on the card
+(``device="cpu"`` on request).
 """
 
 from __future__ import annotations
@@ -42,6 +43,25 @@ class _PatchIO:
         from tpudas_torch.io.registry import write_patch
 
         return write_patch(self._patch, path, format=format, **kwargs)
+
+
+class _PatchViz:
+    """Accessor for ``patch.viz.waterfall(...)``; ``pyramid`` and
+    ``max_px`` are :func:`tpudas_torch.viz.waterfall.patch_waterfall`'s
+    (a window wider than ``max_px`` samples rasters from the output
+    folder's tile pyramid)."""
+
+    def __init__(self, patch: "Patch"):
+        self._patch = patch
+
+    def waterfall(self, scale=None, ax=None, cmap="seismic", show=False,
+                  pyramid=None, max_px=1024):
+        from tpudas_torch.viz.waterfall import patch_waterfall
+
+        return patch_waterfall(
+            self._patch, scale=scale, ax=ax, cmap=cmap, show=show,
+            pyramid=pyramid, max_px=max_px,
+        )
 
 
 class Patch:
@@ -134,6 +154,10 @@ class Patch:
     @property
     def io(self) -> _PatchIO:
         return _PatchIO(self)
+
+    @property
+    def viz(self) -> _PatchViz:
+        return _PatchViz(self)
 
     def axis_of(self, dim: str) -> int:
         return self._dims.index(dim)

@@ -116,8 +116,16 @@ class StreamOperator:
         return torch.tensor(np.float32(value), device=self.device)
 
     def _tensor(self, array, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(array, dtype)).to(
-            self.device)
+        """An owned copy of ``array`` on the operator's device: on the
+        CPU ``from_numpy`` alone would share the caller's memory (the
+        emitted patch's rows), which the caller may still change."""
+        return torch.tensor(np.asarray(array, dtype), device=self.device)
+
+
+def _owned(t) -> np.ndarray:
+    """A host array that shares memory with no tensor: ``.numpy()`` of
+    a CPU tensor is a view of it."""
+    return np.array(t.cpu().numpy(), copy=True)
 
 
 # ---------------------------------------------------------------------------
@@ -279,9 +287,9 @@ class StaLtaOperator(StreamOperator):
         ratios = ratios.cpu().numpy()
         trigs = trigs.cpu().numpy()
         new_state = dict(state)
-        new_state["sta"] = sta.cpu().numpy()
-        new_state["lta"] = lta.cpu().numpy()
-        new_state["in_event"] = in_ev.cpu().numpy()
+        new_state["sta"] = _owned(sta)
+        new_state["lta"] = _owned(lta)
+        new_state["in_event"] = _owned(in_ev)
         new_state["warm"] = np.int32(warm)
         events = self._extract_events(t_ns, ratios, trigs, state, new_state)
         return DetectResult(events=events), new_state
@@ -409,7 +417,7 @@ class RollingRmsOperator(StreamOperator):
         return w, s, dt
 
     def process(self, rows, t_ns, step_ns, state):
-        from tpudas_torch.ops.rolling import rolling_reduce
+        from tpudas_torch.ops.rolling import exact_sqrt, rolling_reduce
 
         rows = np.asarray(rows, np.float32)
         t_ns = np.asarray(t_ns, np.int64)
@@ -427,14 +435,17 @@ class RollingRmsOperator(StreamOperator):
         positions = np.arange(first, p_hi, s, dtype=np.int64)
         new_state = dict(state)
         keep = min(w - 1, pool.shape[0])
-        new_state["ring"] = np.ascontiguousarray(
-            pool[pool.shape[0] - keep:] if keep else pool[:0]
+        # an owned copy: ``pool`` is the caller's ``rows`` when the ring
+        # is empty, and the saved state must not change with them
+        new_state["ring"] = np.array(
+            pool[pool.shape[0] - keep:] if keep else pool[:0],
+            np.float32, copy=True,
         )
         new_state["row_idx"] = np.int64(p_hi)
         if positions.size == 0:
             return DetectResult(), new_state
         x = self._tensor(pool)
-        rms = torch.sqrt(rolling_reduce(x * x, w, 1, "mean"))
+        rms = exact_sqrt(rolling_reduce(x * x, w, 1, "mean"))
         rms_pos = rms[torch.from_numpy(positions - g0).to(self.device)]
         score_times = t_ns[(positions - row0)]
         warm_min = max(1, int(round(self.baseline / (s * dt))))
@@ -458,7 +469,7 @@ class RollingRmsOperator(StreamOperator):
                     "score": float(ratios[pi, c]),
                 }
             )
-        new_state["base"] = base.cpu().numpy()
+        new_state["base"] = _owned(base)
         new_state["bwarm"] = np.int32(bwarm)
         return DetectResult(
             events=events,

@@ -220,7 +220,9 @@ def reset_detect(folder: str, reason: str) -> None:
 
 def _patch_rows(patch):
     """(t_ns int64 (T,), rows float32 (T, C)) time-major from one
-    output patch."""
+    output patch, as arrays the pipeline owns: on the CPU the patch's
+    host data is its tensor's memory, which its holder may still
+    change."""
     d = patch.host_data()
     ax = patch.axis_of("time")
     if ax != 0:
@@ -230,7 +232,7 @@ def _patch_rows(patch):
         .astype("datetime64[ns]")
         .astype(np.int64)
     )
-    return t, np.asarray(d, np.float32)
+    return t, np.array(d, np.float32, copy=True)
 
 
 def _emitted_blocks(emitted, upto_ns):

@@ -46,7 +46,7 @@ class StreamConfig:
     mesh: object = None
     fault_policy: object = None
     quarantine: bool = True
-    pyramid: object = None
+    pyramid: object = None  # None -> TPUDAS_PYRAMID (on at 1)
     detect: object = None
     detect_operators: object = None
     poll_jitter: object = None  # fraction; None -> TPUDAS_POLL_JITTER/0

@@ -37,8 +37,15 @@ Before the first round each runner audits and repairs its output folder
 (:func:`_startup_audit`, :mod:`tpudas_torch.integrity.audit`), as the
 JAX runners do; ``TPUDAS_INTEGRITY_AUDIT=0`` turns that off.
 
+The tile pyramid (``pyramid=True``, or ``TPUDAS_PYRAMID=1`` for a field
+left at None; :mod:`tpudas_torch.serve.tiles`) is appended after each
+round's output writes, before detection, from the same in-memory
+capture of the round's output patches (:func:`_append_pyramid`); its
+failures are counted and swallowed as in the JAX runners, and the
+append is shed while the disk is full.
+
 Not ported in this slice: the flight recorder and health files, the
-tile pyramid, the live plane, device telemetry and phase timing, the
+live plane, device telemetry and phase timing, the
 mesh and window data parallelism, and the backfill clamps
 (``time_range``, ``ingest_limit_sec``).  A runner raises
 ``NotImplementedError`` when its configuration, or the environment
@@ -98,7 +105,6 @@ UNPORTED_FIELDS = (
     "mesh",
     "window_dp",
     "health",
-    "pyramid",
     "live",
     "flight",
 )
@@ -111,7 +117,6 @@ UNPORTED_FIELDS = (
 UNPORTED_ENV = {
     "mesh": "TPUDAS_MESH",
     "health": "TPUDAS_HEALTH",
-    "pyramid": "TPUDAS_PYRAMID",
     "live": "TPUDAS_LIVE",
     "flight": "TPUDAS_FLIGHT",
 }
@@ -317,6 +322,94 @@ def _detect_config(cfg):
     return bool(detect), cfg.detect_operators
 
 
+def _pyramid_config(cfg) -> bool:
+    """Whether the stream keeps a tile pyramid: ``pyramid=None`` reads
+    ``TPUDAS_PYRAMID``, as the JAX runners do."""
+    pyramid = cfg.pyramid
+    if pyramid is None:
+        pyramid = os.environ.get("TPUDAS_PYRAMID", "0") == "1"
+    return bool(pyramid)
+
+
+def _append_pyramid(output_folder, rnd, emitted, state) -> None:
+    """Per-round serve-side hook: cascade this round's new output rows
+    into the :mod:`tpudas_torch.serve.tiles` pyramid beside the carry.
+
+    ``emitted`` holds the round's output patches captured in memory at
+    their write site (the same capture detection reads), so the steady
+    append costs tile IO only — no index rescan, no re-read of files
+    this process just wrote.  ``state["store"]`` carries the open store
+    across rounds (a stat-gated refresh per round, not a re-parse); it
+    is dropped to None on any failure, and any discontinuity (fresh
+    folder, crashed append) falls back to the file-backed sync, so a
+    retried or crash-resumed round needs no pyramid bookkeeping: disk
+    is the only durable state.  A pyramid failure is counted in
+    ``tpudas_serve_pyramid_errors_total`` and swallowed, as in the JAX
+    runners: the read side degrades (the query engine falls back to
+    the output files), the write side must not.  A disk-full failure
+    flips the shedding flag (``note_pressure("pyramid")``); a corrupt
+    store is rebuilt from the output files."""
+    from tpudas_torch.obs.trace import span
+    from tpudas_torch.serve.tiles import (
+        CorruptStoreError,
+        append_patches,
+        rebuild_pyramid,
+    )
+
+    reg = get_registry()
+    t0 = _time.perf_counter()
+    try:
+        with span("serve.pyramid_append", round=rnd):
+            appended, state["store"] = append_patches(
+                output_folder, emitted, store=state.get("store")
+            )
+    except Exception as exc:
+        state["store"] = None  # crash-equivalent: re-resolve from disk
+        reg.counter(
+            "tpudas_serve_pyramid_errors_total",
+            "per-round pyramid appends that failed (swallowed; the "
+            "query engine falls back to full-resolution files)",
+        ).inc()
+        log_event(
+            "pyramid_append_failed",
+            round=rnd,
+            error=f"{type(exc).__name__}: {str(exc)[:200]}",
+        )
+        if _resource.is_resource_error(exc):
+            # disk full: the next rounds skip the append until the
+            # recovery probe succeeds, then backfill from the files
+            _resource.note_pressure("pyramid", exc)
+        elif isinstance(exc, CorruptStoreError):
+            # torn tails, checksum-failed tile: the ladder's last rung,
+            # delete + rebuild from the output files, mid-run
+            try:
+                rebuild_pyramid(output_folder)
+            except Exception as exc2:
+                log_event(
+                    "pyramid_rebuild_failed",
+                    round=rnd,
+                    error=f"{type(exc2).__name__}: {str(exc2)[:200]}",
+                )
+        return
+    reg.histogram(
+        "tpudas_serve_pyramid_append_seconds",
+        "per-round tile-pyramid append wall time",
+    ).observe(_time.perf_counter() - t0)
+    if appended:
+        log_event("pyramid_append", round=rnd, rows=int(appended))
+
+
+def _run_pyramid(runner, rnd, emitted):
+    """The round's pyramid hook: shed while the disk is full, else
+    :func:`_append_pyramid`.  Returns its wall seconds, or None when
+    the pyramid is off or shed."""
+    if not runner.pyramid or _resource.should_shed("pyramid"):
+        return None
+    t0 = _time.perf_counter()
+    _append_pyramid(runner.output_folder, rnd, emitted, runner.pyr_state)
+    return _time.perf_counter() - t0
+
+
 def _run_detect(runner, rnd, emitted, step_sec):
     """The round's detect hook over the captured output patches: shed
     while the disk is full, else :func:`run_detect_round` (which counts
@@ -447,6 +540,8 @@ class LowpassStreamRunner(StreamRunner):
         self.boundary = FaultBoundary(policy, ledger)
         self.detect, self.detect_operators = _detect_config(cfg)
         self.det_state = {"pipe": None}  # cross-round detect pipeline
+        self.pyramid = _pyramid_config(cfg)
+        self.pyr_state = {"store": None}  # cross-round open tile store
         stateful = cfg.stateful
         if stateful is None:
             stateful = os.environ.get("TPUDAS_STREAM_STATEFUL", "1") != "0"
@@ -524,6 +619,7 @@ class LowpassStreamRunner(StreamRunner):
                 self.carry_checked = False
                 self.carry_unsaved = 0
             self.det_state["pipe"] = None
+            self.pyr_state["store"] = None
             return StepResult(
                 "retry", decision.delay, decision.kind,
                 self.boundary.consecutive,
@@ -558,8 +654,9 @@ class LowpassStreamRunner(StreamRunner):
         )
         lfp.set_output_folder(self.output_folder, delete_existing=False)
         emitted = []
-        if self.detect:
+        if self.pyramid or self.detect:
             # the round's output patches, captured at their write site
+            # for the pyramid append and the detect operators
             lfp.add_emit_listener(emitted.append)
         if self.rolling_output_folder is not None:
             lfp.set_rolling_output_folder(
@@ -641,6 +738,7 @@ class LowpassStreamRunner(StreamRunner):
         self.head_lag = (
             _head_lag_seconds(t2, lfp, self.carry) if self.stateful else None
         )
+        pyramid_s = _run_pyramid(self, rnd, emitted)
         detect_s = _run_detect(self, rnd, emitted, self.d_t)
         log_event(
             "realtime_round",
@@ -655,6 +753,7 @@ class LowpassStreamRunner(StreamRunner):
             engine=lfp.parameters["engine"],
             engine_counts=dict(lfp.engine_counts),
             stream_blocks=dict(lfp.stream_blocks),
+            pyramid_seconds=pyramid_s,
             detect_seconds=detect_s,
         )
         if self.on_round is not None:
@@ -790,6 +889,8 @@ class RollingStreamRunner(StreamRunner):
         self.detect, self.detect_operators = _detect_config(cfg)
         self.step_sec = _units.get_seconds(cfg.step)
         self.det_state = {"pipe": None}  # cross-round detect pipeline
+        self.pyramid = _pyramid_config(cfg)
+        self.pyr_state = {"store": None}  # cross-round open tile store
         self.initial_run = True
         # patches are identified by their time span, so a late file with
         # an earlier timestamp is still processed (a positional
@@ -833,6 +934,7 @@ class RollingStreamRunner(StreamRunner):
             self.initial_run = False
         except Exception as exc:
             self.det_state["pipe"] = None
+            self.pyr_state["store"] = None
             decision = self.boundary.on_failure(exc)
             if decision.propagate:
                 raise
@@ -845,7 +947,7 @@ class RollingStreamRunner(StreamRunner):
     def _process_round(self, sub, keys, fresh) -> None:
         rnd = self.rounds + 1
         log_event("round_start", round=rnd, stream=self.stream_id)
-        emitted = []  # in-memory capture for the detect round
+        emitted = []  # in-memory capture (pyramid/detect)
         t0 = _time.perf_counter()
         write_s = 0.0
         # one patch at a time: each output is written as soon as it is
@@ -862,15 +964,17 @@ class RollingStreamRunner(StreamRunner):
             write_rolling_output(out, os.path.join(self.output_folder, fname))
             write_s += _time.perf_counter() - t_w0
             self.processed.add(keys[j])
-            if self.detect:
+            if self.pyramid or self.detect:
                 emitted.append(out)
         loop_s = _time.perf_counter() - t0
+        pyramid_s = _run_pyramid(self, rnd, emitted)
         detect_s = _run_detect(self, rnd, emitted, self.step_sec)
         self.rounds = rnd
         log_event(
             "rolling_round", round=rnd, stream=self.stream_id,
             patches=len(fresh), wall_seconds=round(loop_s, 4),
-            write_seconds=round(write_s, 4), detect_seconds=detect_s,
+            write_seconds=round(write_s, 4), pyramid_seconds=pyramid_s,
+            detect_seconds=detect_s,
         )
 
 

@@ -18,6 +18,11 @@ artifact            files
 ``index``           ``.tpudas_index.json`` (+ ``.prev``)
 ``output``          ``LFDAS_*.h5`` files newer than the carry's last
                     emitted sample
+``manifest``        ``.tiles/manifest.json`` (+ ``.prev``)
+``tails``           ``.tiles/tails.npy`` (+ ``.crc``)
+``tile``            ``.tiles/L<k>/NNNNNNNN.npy`` (+ ``.crc``) and
+                    ``.tpt`` blobs (embedded crc32)
+``pyramid``         the ``.tiles/`` tree as a whole (its rebuild)
 ``detect_carry``    ``.detect/carry.npz`` (+ ``.crc``/``.prev``)
 ``events``          ``.detect/events.jsonl`` (+ ``.prev``) — per-line
                     crc32 stamps, contiguous ``seq``
@@ -51,10 +56,19 @@ what it can:
   — **resets** ``.detect/``: the detection history is derived data and
   recomputes from the output files.
 
-Not ported yet: the tile pyramid's check and rebuild (``.tiles/``) and
-the flight recorder's segment repair (``.flight/``) come with those
-features; until then the audit leaves both trees alone, apart from the
-tmp sweep.  The backfill queue's audits come with the backfill.
+The tile pyramid (``.tiles/``, :mod:`tpudas_torch.serve.tiles`) is
+checked as in the JAX audit: the manifest rungs, ``tails.npy`` and every
+``L<k>/<i>.npy`` / ``.tpt`` tile.  A bad tile past the manifest head is
+an ``orphan`` and is **removed**; any bad in-use pyramid artifact
+triggers a **rebuild** of ``.tiles/`` from the output files
+(``rebuilt_pyramid``; byte-identical, keeping the factor, tile length
+and codec of whichever manifest rung still parses — the store is
+derived data).  ``rebuild=False`` reports it instead.
+
+Not ported yet: the flight recorder's segment repair (``.flight/``)
+comes with that feature; until then the audit leaves the tree alone,
+apart from the tmp sweep.  The backfill queue's audits come with the
+backfill.
 
 Run the CLI only while the driver is stopped (the tmp sweep cannot
 tell a crashed writer's leftovers from a live writer's in-flight
@@ -74,6 +88,8 @@ import os
 import re
 import time
 
+import numpy as np
+
 from tpudas_torch.integrity.checksum import (
     read_json_verified,
     sidecar_path,
@@ -89,6 +105,9 @@ from tpudas_torch.utils.logging import log_event
 __all__ = ["audit", "audit_fleet", "fleet_stream_dirs"]
 
 _TILE_NAME_RE = re.compile(r"^(\d{8})\.npy$")
+# compressed pyramid tiles (tpudas_torch.codec blobs): the crc is
+# embedded in the container, so verification reads the file alone
+_TILE_BLOB_NAME_RE = re.compile(r"^(\d{8})\.tpt$")
 
 
 def _issue(issues, artifact, path, status, action, detail=""):
@@ -689,10 +708,223 @@ def _check_detect(folder: str, issues: list, repair: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the tile pyramid (tpudas_torch.serve.tiles)
 
-# the JAX package's table, whole: the pyramid and backfill actions
-# (rebuilt_pyramid, adopted_commit, aborted) stay so that a report
-# counts the same either way
+
+def _tile_blob_status(path: str) -> str:
+    """``ok`` | ``torn`` | ``corrupt`` | ``absent`` for one
+    compressed tile blob, via its embedded crc plus a full decode (a
+    blob whose payload verifies but whose codec params cannot
+    reproduce the declared geometry is corrupt, not ok)."""
+    from tpudas_torch.codec import decode_tile, verify_tile_blob
+
+    try:
+        with open(path, "rb") as fh:
+            blob = fh.read()
+    except FileNotFoundError:
+        return "absent"
+    except OSError:
+        return "corrupt"
+    status = verify_tile_blob(blob)
+    if status != "ok":
+        return status
+    try:
+        decode_tile(blob)
+    except Exception:
+        return "corrupt"
+    return "ok"
+
+
+def _raw_manifest_geometry(manifest: str) -> tuple:
+    """(factor, tile_len, codec) from whichever manifest rung still
+    parses — a checksum-IGNORED read, used only to preserve the
+    pyramid geometry (and tile codec) across a rebuild.
+    (None, None, None) when nothing parses; ``codec`` is the
+    ``(id_or_None, params)`` pair :func:`rebuild_pyramid` accepts."""
+    import json
+
+    for path in (manifest, manifest + ".prev"):
+        try:
+            with open(path) as fh:
+                raw = json.load(fh)
+            codec = (
+                raw.get("codec") or None,
+                dict(raw.get("codec_params") or {}),
+            )
+            return int(raw["factor"]), int(raw["tile_len"]), codec
+        except (OSError, ValueError, KeyError, TypeError):
+            continue
+    return None, None, None
+
+
+def _tile_in_use(store, level: int, tile_idx: int) -> bool:
+    """Whether the read path can reference this tile: within the
+    manifest head, or the head tile itself (a crashed-future complete
+    file there legitimately serves the partial rows)."""
+    if store is None or level >= len(store.levels):
+        return False
+    return tile_idx <= store.n(level) // store.tile_len
+
+
+def _check_pyramid(
+    folder: str, issues: list, repair: bool, rebuild: bool
+) -> None:
+    from tpudas_torch.serve.tiles import (
+        MANIFEST_FILENAME,
+        TILE_DIRNAME,
+        TileStore,
+        rebuild_pyramid,
+    )
+
+    tiles_dir = os.path.join(folder, TILE_DIRNAME)
+    if not os.path.isdir(tiles_dir):
+        return
+    manifest = os.path.join(tiles_dir, MANIFEST_FILENAME)
+    # capture rebuild inputs BEFORE the JSON repair can delete the
+    # rungs: whether any manifest existed at all (a store that fails
+    # to open afterwards then still rebuilds instead of stranding its
+    # tiles), and the geometry from whichever rung still parses
+    # (checksum-ignored — factor/tile_len must survive the rebuild or
+    # the byte-identical claim breaks)
+    had_manifest = os.path.isfile(manifest) or os.path.isfile(
+        manifest + ".prev"
+    )
+    geom_factor, geom_tile_len, geom_codec = _raw_manifest_geometry(
+        manifest
+    )
+    _check_json_artifact(manifest, "manifest", issues, repair)
+    store = TileStore.open(folder)
+    need_rebuild = False
+    if store is None:
+        if had_manifest:
+            need_rebuild = True
+            _issue(
+                issues, "manifest", manifest, "corrupt",
+                "pending_rebuild", "no loadable manifest rung",
+            )
+    else:
+        # tails: restamp a legacy checksum-less file, then one
+        # verified parse (the partial rows of every level)
+        tails_path = store.tails_path
+        if os.path.isfile(tails_path):
+            try:
+                crc = verify_file_checksum(tails_path, artifact="tails")
+            except FileNotFoundError:
+                crc = None
+            if crc == "unstamped":
+                if repair:
+                    write_sidecar_for(tails_path)
+                _issue(
+                    issues, "tails", tails_path, "unstamped",
+                    _repair_action(repair, "restamped"),
+                )
+        try:
+            store._load_tails()
+        except Exception as exc:
+            need_rebuild = True
+            log_event(
+                "integrity_tails_unreadable",
+                path=store.tails_path,
+                error=f"{type(exc).__name__}: {str(exc)[:120]}",
+            )
+            _issue(
+                issues, "tails", store.tails_path, "torn",
+                "pending_rebuild",
+                f"{type(exc).__name__}: {str(exc)[:120]}",
+            )
+    # every tile file: verify; restamp legacy, classify bad ones
+    for level_name in sorted(os.listdir(tiles_dir)):
+        if not level_name.startswith("L"):
+            continue
+        level_dir = os.path.join(tiles_dir, level_name)
+        if not os.path.isdir(level_dir):
+            continue
+        try:
+            level = int(level_name[1:])
+        except ValueError:
+            continue
+        for name in sorted(os.listdir(level_dir)):
+            m = _TILE_NAME_RE.match(name)
+            mb = _TILE_BLOB_NAME_RE.match(name)
+            if m is None and mb is None:
+                continue
+            tile_idx = int((m or mb).group(1))
+            path = os.path.join(level_dir, name)
+            if mb is not None:
+                # compressed tile: the container's embedded crc32 is
+                # the stamp — never "unstamped", a blob either
+                # verifies or takes the ladder
+                status = _tile_blob_status(path)
+                if status in ("ok", "absent"):
+                    continue
+            else:
+                try:
+                    crc = verify_file_checksum(path, artifact="tile")
+                except FileNotFoundError:
+                    continue
+                ok_parse = True
+                if crc != "mismatch":
+                    try:
+                        np.load(path)
+                    except Exception:
+                        ok_parse = False
+                if crc == "ok" and ok_parse:
+                    continue
+                if crc == "unstamped" and ok_parse:
+                    if repair:
+                        write_sidecar_for(path)
+                    _issue(
+                        issues, "tile", path, "unstamped",
+                        _repair_action(repair, "restamped"),
+                    )
+                    continue
+                status = "torn" if crc == "mismatch" else "corrupt"
+            if _tile_in_use(store, level, tile_idx):
+                need_rebuild = True
+                _issue(issues, "tile", path, status, "pending_rebuild")
+            else:
+                if repair:
+                    _remove_all(path, sidecar_path(path))
+                _issue(
+                    issues, "tile", path, "orphan",
+                    _repair_action(repair, "removed"),
+                )
+    if need_rebuild:
+        if repair and rebuild:
+            try:
+                rows = rebuild_pyramid(
+                    folder, factor=geom_factor,
+                    tile_len=geom_tile_len, codec=geom_codec,
+                )
+            except Exception as exc:
+                log_event(
+                    "integrity_pyramid_rebuild_failed",
+                    folder=folder,
+                    error=f"{type(exc).__name__}: {str(exc)[:200]}",
+                )
+                _issue(
+                    issues, "pyramid", tiles_dir, "corrupt", "failed",
+                    f"rebuild raised {type(exc).__name__}: "
+                    f"{str(exc)[:120]}",
+                )
+                return
+            for it in issues:
+                if it["action"] == "pending_rebuild":
+                    it["action"] = "rebuilt_pyramid"
+            _issue(
+                issues, "pyramid", tiles_dir, "corrupt",
+                "rebuilt_pyramid", f"{rows} level-0 rows resynced",
+            )
+        else:
+            for it in issues:
+                if it["action"] == "pending_rebuild":
+                    it["action"] = "found"
+
+
+# ---------------------------------------------------------------------------
+
+# the JAX package's table, whole: the backfill actions (adopted_commit,
+# aborted) stay so that a report counts the same either way
 _REPAIRED_ACTIONS = (
     "removed",
     "promoted_prev",
@@ -710,8 +942,9 @@ def audit(folder, repair: bool = True, rebuild: bool = True) -> dict:
     """Scan (and with ``repair=True`` fix) every durable artifact in
     ``folder``.  Returns the report dict (see the module docstring);
     ``report["clean"]`` is True when nothing is left in a state a
-    verified read would reject.  ``rebuild`` is the JAX signature's
-    pyramid switch; the port has no pyramid to rebuild yet."""
+    verified read would reject.  ``rebuild=False`` reports a bad in-use
+    pyramid artifact (action ``found``) instead of rebuilding
+    ``.tiles/``."""
     from tpudas_torch.obs.health import HEALTH_FILENAME, validate_health
     from tpudas_torch.io.index import INDEX_FILENAME
     from tpudas_torch.resilience.quarantine import QUARANTINE_FILENAME
@@ -736,6 +969,7 @@ def audit(folder, repair: bool = True, rebuild: bool = True) -> dict:
                 repair,
             )
             _check_outputs(folder, issues, repair)
+            _check_pyramid(folder, issues, repair, rebuild)
             _check_detect(folder, issues, repair)
     elapsed = time.perf_counter() - t0
     reg = get_registry()

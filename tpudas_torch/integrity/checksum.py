@@ -223,11 +223,26 @@ def verify_file_checksum(path: str, artifact: str | None = None) -> str:
 def rotate_prev(path: str) -> bool:
     """Rotate ``path`` and its sidecar to ``path.prev`` /
     ``path.prev.crc`` (the double buffer before writing a new primary).
-    Returns True when a primary existed."""
+    Returns True when a primary existed.
+
+    The sidecar moves first.  Renaming the payload over an old ``.prev``
+    frees that file's blocks inside the rename, which takes a while for
+    a large artifact (the FFT carry is 800 MB at 10,000 channels), and
+    a SIGKILL arriving meanwhile ends the process as soon as the rename
+    returns.  With the payload moved first that left a ``.prev`` beside
+    the sidecar of the rung before it (a crc mismatch: the audit removed
+    the only good carry and the stream fell back to rewind mode); with
+    the sidecar first, a kill between the two renames leaves the primary
+    unstamped, which every reader accepts and the audit restamps.  An
+    unstamped primary takes the old ``.prev`` sidecar away with it, so
+    that no ``.prev`` is left paired with another payload's stamp."""
     if not os.path.isfile(path):
         return False
-    os.replace(path, path + ".prev")
     side = sidecar_path(path)
+    prev_side = sidecar_path(path + ".prev")
     if os.path.isfile(side):
-        os.replace(side, sidecar_path(path + ".prev"))
+        os.replace(side, prev_side)
+    elif os.path.isfile(prev_side):
+        os.remove(prev_side)
+    os.replace(path, path + ".prev")
     return True

@@ -200,3 +200,27 @@ class DirectoryIndex:
     def records(self) -> list:
         """Copies of every record, in file-name order."""
         return [dict(self._records[k]) for k in sorted(self._records)]
+
+    def time_range_records(self, t_lo=None, t_hi=None) -> list:
+        """Copies of the records whose time span overlaps ``[t_lo,
+        t_hi]`` (datetime64 bounds; ``None`` = unbounded), sorted by
+        ``time_min`` — straight off the in-memory/persisted records, no
+        directory rescan (call :meth:`update` first when freshness
+        matters).  The serve query engine's full-resolution fallback
+        reads through this."""
+        if not self._loaded_cache:
+            self._load_cache()
+        lo = None if t_lo is None else np.datetime64(t_lo, "ns")
+        hi = None if t_hi is None else np.datetime64(t_hi, "ns")
+        out = []
+        for rec in self._records.values():
+            r_lo, r_hi = rec.get("time_min"), rec.get("time_max")
+            if r_lo is None or r_hi is None:
+                continue
+            if lo is not None and np.datetime64(r_hi, "ns") < lo:
+                continue
+            if hi is not None and np.datetime64(r_lo, "ns") > hi:
+                continue
+            out.append(dict(rec))
+        out.sort(key=lambda r: np.datetime64(r["time_min"], "ns"))
+        return out

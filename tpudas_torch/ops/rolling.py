@@ -31,9 +31,21 @@ import torch
 from tpudas_torch.core import units as _units
 from tpudas_torch.device import resolve_device
 
-__all__ = ["PatchRoller", "rolling_reduce"]
+__all__ = ["PatchRoller", "exact_sqrt", "rolling_reduce"]
 
 _HOST_ENGINES = ("numpy", "host")
+
+
+def exact_sqrt(t: torch.Tensor) -> torch.Tensor:
+    """Elementwise square root, the same bytes on every call.  On the
+    CPU ``torch.sqrt`` runs MKL's vector math in chunks over the OpenMP
+    threads, and in about one fresh process in a hundred its first call
+    leaves one chunk at a lower accuracy (up to ~3e-4 relative; later
+    calls are right): so the CPU path takes numpy's correctly rounded
+    ``sqrt``.  On the card this is ``torch.sqrt``."""
+    if t.device.type != "cpu":
+        return torch.sqrt(t)
+    return torch.from_numpy(np.sqrt(t.detach().numpy()))
 
 
 def _window_step_samples(window_sec, step_sec, d_sec):
@@ -245,6 +257,6 @@ class PatchRoller:
         y = data - shift
         m = torch.as_tensor(self._reduce(y, "mean"))
         m2 = torch.as_tensor(self._reduce(y * y, "mean"))
-        out = torch.sqrt(torch.clamp_min(m2 - m**2, 0))
+        out = exact_sqrt(torch.clamp_min(m2 - m**2, 0))
         coords, attrs = self._stepped_coords_attrs(p)
         return p.new(data=_host(out), coords=coords, attrs=attrs)

@@ -128,12 +128,21 @@ def run_lowpass_realtime(
     folder (:mod:`tpudas_torch.integrity.audit`), as the JAX package's
     does; ``TPUDAS_INTEGRITY_AUDIT=0`` turns that off.
 
+    ``pyramid`` (None reads ``TPUDAS_PYRAMID``, on at ``1``) keeps the
+    multi-resolution tile pyramid under ``<output_folder>/.tiles/``
+    (:mod:`tpudas_torch.serve.tiles`), appended after each round's
+    output writes from the round's in-memory output patches, in the JAX
+    package's format; ``TPUDAS_PYRAMID_FACTOR`` / ``_TILE_LEN`` and
+    ``TPUDAS_CODEC`` shape a fresh pyramid (4 / 256 / raw).  Its
+    failures are counted in ``tpudas_serve_pyramid_errors_total`` and
+    swallowed (a corrupt store is rebuilt from the output files).
+
     Not ported yet, and raising ``NotImplementedError`` when set to
     anything but their off value (None or False), or left at None while
     the variable the JAX package reads for them turns them on
-    (``TPUDAS_MESH`` above 1, ``TPUDAS_HEALTH``, ``TPUDAS_PYRAMID``,
-    ``TPUDAS_LIVE`` or ``TPUDAS_FLIGHT`` at 1): ``mesh``, ``window_dp``,
-    ``health``, ``pyramid``, ``live`` and ``flight``.  The JAX package
+    (``TPUDAS_MESH`` above 1, ``TPUDAS_HEALTH``, ``TPUDAS_LIVE`` or
+    ``TPUDAS_FLIGHT`` at 1): ``mesh``, ``window_dp``, ``health``,
+    ``live`` and ``flight``.  The JAX package
     keeps its flight recorder on by default; here it is off unless
     ``TPUDAS_FLIGHT=1`` asks for it, which raises.
 
@@ -148,8 +157,8 @@ def run_lowpass_realtime(
     past the policy's ``max_consecutive``, propagates to the caller.
     """
     check_unported(dict(
-        mesh=mesh, window_dp=window_dp, health=health, pyramid=pyramid,
-        live=live, flight=flight,
+        mesh=mesh, window_dp=window_dp, health=health, live=live,
+        flight=flight,
     ), "lowpass")
     gap_tol = resolve_gap_tolerance(data_gap_tolerance, data_gap_tolorance)
     config = StreamConfig(
@@ -236,15 +245,16 @@ def run_rolling_realtime(
     globally uniform grid (what detection assumes) use a ``step`` that
     divides the file duration.
 
+    ``pyramid`` (None reads ``TPUDAS_PYRAMID``) keeps the tile pyramid
+    over the rolling outputs, as in :func:`run_lowpass_realtime`.
+
     Not ported yet, and raising ``NotImplementedError`` when set, or
-    left at None while ``TPUDAS_MESH`` (above 1), ``TPUDAS_PYRAMID``,
-    ``TPUDAS_LIVE`` or ``TPUDAS_FLIGHT`` (at 1) turns them on: ``mesh``
-    (the JAX package's batched rolling over a device mesh),
-    ``pyramid``, ``live`` and ``flight``.  The output folder is audited
+    left at None while ``TPUDAS_MESH`` (above 1), ``TPUDAS_LIVE`` or
+    ``TPUDAS_FLIGHT`` (at 1) turns them on: ``mesh`` (the JAX package's
+    batched rolling over a device mesh), ``live`` and ``flight``.  The output folder is audited
     before the first round, as in :func:`run_lowpass_realtime`.
     """
-    check_unported(dict(mesh=mesh, pyramid=pyramid, live=live,
-                        flight=flight), "rolling")
+    check_unported(dict(mesh=mesh, live=live, flight=flight), "rolling")
     config = StreamConfig(
         kind="rolling",
         window=window,

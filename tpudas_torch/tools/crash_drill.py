@@ -28,6 +28,9 @@ One drill (per engine):
      for byte the same — file boundaries depend on the round schedule,
      so files are compared by merged content, not by name;
    - the stream carry is the same, parsed (meta and every array);
+   - the tile pyramid is the same file by file (tiles, tails and
+     manifest; ``.prev`` rungs and tmp leftovers excluded, they depend
+     on the append schedule): ``pyramid_match`` and ``pyramid_files``;
    - the detect state is the same: the events ledger byte for byte,
      the score tiles file by file, and the detect carry parsed (the
      ``.npz`` container embeds zip timestamps).
@@ -57,10 +60,11 @@ launches.  ``recover_s`` in the report is, for every cycle that follows
 a killed one, the seconds from its ready marker to its first committed
 round: the user's time to recover.
 
-Not ported yet: ``--mesh`` (the sharded path) and ``--live`` (the live
-push plane) raise ``NotImplementedError``; the workers leave the
-pyramid, health files and flight recorder off, so the report has no
-pyramid or flight keys.
+The workers and the control run with the tile pyramid on
+(``pyramid=True``), as the JAX drill's do.  Not ported yet: ``--mesh``
+(the sharded path) and ``--live`` (the live push plane) raise
+``NotImplementedError``; the workers leave the health files and flight
+recorder off, so the report has no flight keys.
 
 CLI:
 
@@ -144,7 +148,8 @@ def _atomic_tdas_class(base):
 
 
 def _worker_counts() -> dict:
-    """This process's kernel launches and startup-audit counters."""
+    """This process's kernel launches, startup-audit counters and
+    swallowed pyramid-append errors."""
     from tpudas_torch.obs.registry import get_registry
     from tpudas_torch.ops.fir_kernel import fir_decimate
     from tpudas_torch.ops.fused_kernel import fused_cascade
@@ -155,6 +160,7 @@ def _worker_counts() -> dict:
         "audit_runs": reg.value("tpudas_integrity_audit_runs_total"),
         "audit_seconds": reg.histogram(
             "tpudas_integrity_audit_seconds").snapshot()["sum"],
+        "pyramid_errors": reg.value("tpudas_serve_pyramid_errors_total"),
         "launches": {
             "fused_cascade": fused_cascade.launches,
             "fused_cascade_kernels": fused_cascade.kernel_launches,
@@ -242,6 +248,7 @@ def _stream_kwargs(cfg: dict, engine: str) -> dict:
         edge_buffer=cfg["edge"], process_patch_size=cfg["patch_out"],
         poll_interval=0.0, engine=engine, stateful=True, detect=True,
         detect_operators=[tuple(op) for op in cfg["detect_ops"]],
+        pyramid=True,
     )
 
 
@@ -588,6 +595,25 @@ def _carry_state(folder: str):
     return h.hexdigest()
 
 
+def _pyramid_tree(folder: str) -> dict:
+    """{relpath: sha256} of the pyramid files (``.prev`` rungs and tmp
+    leftovers excluded — they depend on the append schedule)."""
+    from tpudas_torch.serve.tiles import TILE_DIRNAME
+    from tpudas_torch.utils.atomicio import is_tmp_name
+
+    tiles = os.path.join(folder, TILE_DIRNAME)
+    out = {}
+    for dirpath, _dirnames, filenames in os.walk(tiles):
+        for name in sorted(filenames):
+            if ".prev" in name or is_tmp_name(name):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as fh:
+                digest = hashlib.sha256(fh.read()).hexdigest()
+            out[os.path.relpath(path, tiles)] = digest
+    return out
+
+
 def _detect_state(folder: str) -> dict:
     """The committed detect state, ready to compare: the ledger's bytes,
     a digest of every score tile and tails file, and a digest of the
@@ -628,15 +654,17 @@ def _detect_state(folder: str) -> dict:
 
 def _worker_summary(cycles: list) -> dict:
     """Sum the workers' last JSON lines: audit errors, repairs and
-    seconds, kernel launches; ``recover_s`` of every cycle that followed
+    seconds, swallowed pyramid errors, kernel launches; ``recover_s`` of every cycle that followed
     a killed one; each worker's seconds from its start to ready."""
     errors, launches, repairs, audit_s, recover = 0, {}, {}, [], []
+    pyramid_errors = 0
     prev_killed = False
     for cyc in cycles:
         lines = cyc["lines"]
         if lines:
             last = lines[-1]
             errors += int(last["audit_errors"])
+            pyramid_errors += int(last["pyramid_errors"])
             for k, v in last["launches"].items():
                 launches[k] = launches.get(k, 0) + int(v)
         for ln in lines:
@@ -652,7 +680,8 @@ def _worker_summary(cycles: list) -> dict:
         if cyc["recover_s"] is not None:
             recover.append(cyc["recover_s"])
         prev_killed = cyc["killed"]
-    return {"audit_errors": errors, "audit_repairs": repairs,
+    return {"audit_errors": errors, "pyramid_errors": pyramid_errors,
+            "audit_repairs": repairs,
             "audit_seconds": audit_s, "launches": launches,
             "recover_s": recover,
             "worker_start_s": [cyc["start"] for cyc in cycles]}
@@ -694,7 +723,8 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
               run_timeout=RUN_TIMEOUT_S) -> dict:
     """One full drill for ``engine``; returns the report with ``ok``
     True when the final audit is clean, no startup audit raised, and the
-    outputs, the stream carry and the detect state match the control's.
+    outputs, the stream carry, the pyramid and the detect state match
+    the control's.
 
     ``device`` is where the workers filter (default the CUDA card;
     ``"cpu"`` runs the plain versions).  ``shape`` overrides
@@ -747,23 +777,32 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
                            max(warm["work"] or warm["wall"], 0.2), feed_next)
         drain = cycle(None)  # the resumed run finishes what the kills left
         report = audit(out, repair=True)
+        ctrl_cycles = []
         for i, names in enumerate(epochs):
             _link(src, os.path.join(workdir, "ctrl_src"), names)
-            cycle(None, os.path.join(workdir, "ctrl_src"), ctrl, ctrl_env,
-                  upcoming=len(epochs) - 1 - i)
+            ctrl_cycles.append(cycle(
+                None, os.path.join(workdir, "ctrl_src"), ctrl, ctrl_env,
+                upcoming=len(epochs) - 1 - i))
     finally:
         pool.close()
     drilled = [cold, warm, *log, drain]
     summary = _worker_summary(drilled)
+    summary["control_pyramid_errors"] = _worker_summary(
+        ctrl_cycles)["pyramid_errors"]
     outputs_match = _content_hash(out) == _content_hash(ctrl)
     carry_out, carry_ctrl = _carry_state(out), _carry_state(ctrl)
     carry_match = carry_out is not None and carry_out == carry_ctrl
     det_out, det_ctrl = _detect_state(out), _detect_state(ctrl)
     detect_match = det_out == det_ctrl
+    pyr_out, pyr_ctrl = _pyramid_tree(out), _pyramid_tree(ctrl)
+    pyramid_match = pyr_out == pyr_ctrl
     # what differs first, for the report of a failed drill
     difference = {
         "outputs": None if outputs_match else _output_difference(out, ctrl),
         "carry": None if carry_match else _carry_difference(out, ctrl),
+        "pyramid": None if pyramid_match else sorted(
+            k for k in set(pyr_out) | set(pyr_ctrl)
+            if pyr_out.get(k) != pyr_ctrl.get(k)),
         "detect": None if detect_match else sorted(
             k for k in set(det_out) | set(det_ctrl)
             if det_out.get(k) != det_ctrl.get(k)),
@@ -791,6 +830,8 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         "final_audit_s": report["elapsed_s"],
         "outputs_match": bool(outputs_match),
         "carry_match": bool(carry_match),
+        "pyramid_match": bool(pyramid_match),
+        "pyramid_files": len(pyr_out),
         "detect_match": bool(detect_match),
         "detect_events": int(detect_events),
         "difference": difference,
@@ -799,7 +840,8 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         "drain": _cycle_record(drain),
         "workdir": workdir,
         "ok": bool(clean and outputs_match and carry_match
-                   and detect_match and summary["audit_errors"] == 0),
+                   and pyramid_match and detect_match
+                   and summary["audit_errors"] == 0),
     }
 
 
@@ -815,7 +857,7 @@ def run_fleet_drill(engine: str = "fused", streams: int = 4,
     :class:`~tpudas_torch.fleet.FleetEngine` mid-interleave for
     ``cycles`` seeded cycles, then prove
     :func:`~tpudas_torch.integrity.audit.audit_fleet` is clean and every
-    stream's outputs, carry and detect state equal a single-stream
+    stream's outputs, carry, pyramid and detect state equal a single-stream
     control replay of the same epoch schedule.  Every stream is fed the
     same files each epoch (hard links), so one control covers all N.
     ``batched`` runs the drilled cycles with ``TPUDAS_FLEET_BATCHED=1``
@@ -869,16 +911,21 @@ def run_fleet_drill(engine: str = "fused", streams: int = 4,
         drain = fleet_cycle(None)
         report = audit_fleet(out, repair=True)
         ctrl_src = os.path.join(workdir, "ctrl_src")
+        ctrl_cycles = []
         for i, names in enumerate(epochs):
             _link(files, ctrl_src, names)
-            _run_cycle(pool, ctrl_src, ctrl, None,
-                       upcoming=len(epochs) - 1 - i, **limits)
+            ctrl_cycles.append(_run_cycle(
+                pool, ctrl_src, ctrl, None, upcoming=len(epochs) - 1 - i,
+                **limits))
     finally:
         pool.close()
     summary = _worker_summary([cold, warm, *log, drain])
+    summary["control_pyramid_errors"] = _worker_summary(
+        ctrl_cycles)["pyramid_errors"]
     ctrl_hash = _content_hash(ctrl)
     ctrl_carry = _carry_state(ctrl)
     ctrl_det = _detect_state(ctrl)
+    ctrl_pyr = _pyramid_tree(ctrl)
     detect_events = 0
     if ctrl_det.get("ledger_sha"):
         from tpudas_torch.detect.ledger import load_events
@@ -891,9 +938,11 @@ def run_fleet_drill(engine: str = "fused", streams: int = 4,
             "outputs_match": _content_hash(sdir) == ctrl_hash,
             "carry_match": (ctrl_carry is not None
                             and _carry_state(sdir) == ctrl_carry),
+            "pyramid_match": _pyramid_tree(sdir) == ctrl_pyr,
             "detect_match": _detect_state(sdir) == ctrl_det,
         }
         entry["ok"] = all(entry.values())
+        entry["pyramid_files"] = len(_pyramid_tree(sdir))
         per_stream[sid] = entry
     all_match = all(e["ok"] for e in per_stream.values())
     return {
@@ -1000,6 +1049,8 @@ def main(argv=None) -> int:
                   f"audit_errors={rep['audit_errors']} "
                   f"outputs_match={rep['outputs_match']} "
                   f"carry_match={rep['carry_match']} "
+                  f"pyramid_match={rep['pyramid_match']} "
+                  f"(files={rep['pyramid_files']}) "
                   f"detect_match={rep['detect_match']} "
                   f"(events={rep['detect_events']}, "
                   f"recover_s={rep['recover_s']})", flush=True)

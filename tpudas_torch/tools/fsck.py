@@ -4,18 +4,17 @@ The operator CLI over :func:`tpudas_torch.integrity.audit.audit`, the
 same scan the port's realtime runners make before their first round.
 It checks every durable artifact beside the stream — carry, quarantine
 ledger, health snapshot, directory-index cache, outputs beyond the
-carry, detection state — verifies checksums, classifies defects
-(unstamped / torn / corrupt / stale tmp / orphan tile) and repairs
-through the ladder (restamp, promote ``.prev``, remove, truncate, reset
-``.detect/``).
+carry, tile pyramid, detection state — verifies checksums, classifies
+defects (unstamped / torn / corrupt / stale tmp / orphan tile) and
+repairs through the ladder (restamp, promote ``.prev``, remove,
+rebuild ``.tiles/``, truncate, reset ``.detect/``).
 
     python3 tpudas_torch/tools/fsck.py OUTPUT_FOLDER [options]
     python -m tpudas_torch.tools.fsck OUTPUT_FOLDER [options]
 
 Options:
     --no-repair     report only; change nothing on disk
-    --no-rebuild    repair everything except pyramid rebuilds (the port
-                    has no pyramid yet, so this changes nothing)
+    --no-rebuild    repair everything except pyramid rebuilds
     --fleet         treat the folder as a fleet root: audit every
                     <root>/<stream_id>/ on its own and aggregate
     --out PATH      also write the JSON report to PATH
