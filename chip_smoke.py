@@ -102,7 +102,26 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    from the files; (d) ``block_reduce(engine="torch")`` on the card
    against the host float64 reduction (min/max exact, mean within 1e-6
    of the largest value); (e) the waterfall's ``_pyramid_block`` at
-   ``max_px`` 256.  No pyramid append may fail.
+   ``max_px`` 256.  No pyramid append may fail;
+12. the observability plane (``tpudas_torch.obs``: health files, flight
+   ring, round phases) on the real-time path over 4 files of 60 s x
+   10,000 ch, one a round: (a) ``engine="fused"`` with ``health=True``,
+   the flight ring at its default, detection and the pyramid, in two
+   calls (the second resumes from the carry): each round's ten phases,
+   its body seconds and the part of the body no phase covers, and
+   ``timings["device_s"]`` beside ``host_wait``; ``health.json``
+   validated every round, ``metrics.prom`` holding every phase's
+   count, the ring's round records each after its ``stream.round``
+   span, no health write error, no flight drop, B3 2 kernels a block;
+   (b) the same under ``"auto"`` (B1 4 times a block) and ``"fft"``;
+   (c) the fused stream (no detection, no pyramid) with health and
+   flight off and on in A B B A turns, the round walls and their
+   difference; (d) a batched ``fused`` fleet of 10,000 and 6,001 ch with
+   health on, ``fleet_rollup`` and ``python -m
+   tpudas_torch.tools.obs_report --json`` over its root, each member's
+   ring holding only its own spans and rounds.  Phase 10's workers run
+   with health and the flight ring on, and each leg must replay the
+   last committed round from the ring right after its kills.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -118,8 +137,9 @@ step's), ``--only fleet`` phases 1, 2 and 8 over a fresh spool and
 ``--only detect`` phases 1, 2 and 9 over a fresh spool (its batch
 references from one ``JointProc`` pass), ``--only crash`` phases 1,
 2 and 10 over a fresh spool (``--cycles N``: N killed cycles for every
-engine) and ``--only pyramid`` phases 1, 2 and 11 over a fresh spool;
-all exit 4 without the kernels line or the ``ok`` line.
+engine), ``--only pyramid`` phases 1, 2 and 11 and ``--only obs``
+phases 1, 2 and 12, each over a fresh spool; all exit 4 without the
+kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -2369,11 +2389,14 @@ def crash_feeder(pool):
 def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
     """Phase 10: the crash drill under ``fused``, ``auto`` and ``fft``
     (``CRASH_CYCLES`` killed cycles each, or ``cycles``): fresh worker
-    interpreters on the card, SIGKILLed at seeded points, with detection
-    and the tile pyramid on; the drained folder audits clean, no startup
-    audit raised, no pyramid append failed, and the outputs, the stream
-    carry, the pyramid tree and the detect state equal an uninterrupted
-    control's.
+    interpreters on the card, SIGKILLed at seeded points, with detection,
+    the tile pyramid, the health files and the flight ring on; right
+    after the kills the ring replays the last committed round (its
+    phases, its ``stream.round`` span); the drained folder audits clean,
+    no startup audit raised, no pyramid append failed, and the outputs,
+    the stream carry, the pyramid tree and the detect state equal an
+    uninterrupted control's.  Each line reports ``flight`` and the
+    flight repairs the workers' audits made.
     One line per engine; the fused workers must have launched B3 and
     the auto workers B1."""
     from tpudas_torch.tools.crash_drill import run_drill
@@ -2409,6 +2432,8 @@ def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
             "control_pyramid_errors": rep["control_pyramid_errors"],
             "detect_match": rep["detect_match"],
             "detect_events": rep["detect_events"],
+            "flight": rep["flight"],
+            "flight_repairs": rep["flight_repairs"],
             "recover_s_median": float(np.median(rec)) if rec else None,
             "recover_s_max": max(rec) if rec else None, "recover_s": rec,
             "audit_seconds_median": float(np.median(aud)) if aud else None,
@@ -2434,6 +2459,9 @@ def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
              "the pyramid differs from the control's (or is empty)"),
             (rep["pyramid_errors"] == rep["control_pyramid_errors"] == 0,
              "a worker swallowed a pyramid-append error"),
+            (rep["flight"]["ok"],
+             f"the flight ring did not replay the last committed round: "
+             f"{rep['flight']}"),
         ]
         if engine == "fused":
             checks.append(((launches["fused_cascade"] > 0) == cuda,
@@ -2828,6 +2856,387 @@ def phase_pyramid(device, workdir, cls, timer):
     return res
 
 
+# phase 12: the observability plane (health, flight, round phases) on the
+# real-time path.  4 files of 60 s x 10,000 ch, one a round: files 0-2
+# are phase 4's spool, file 3 a copy of file 0 under its own start time
+OBS_FILES = 4
+OBS_MEMBERS = (("a", 0, 10000), ("b", 1, 6001))
+REHEARSE_OBS_MEMBERS = (("a", 0, 32), ("b", 1, 17))
+# the artifacts that hold wall-clock times (never compared by bytes)
+OBS_ARTIFACTS = ("health.json", "health.json.prev", "metrics.prom")
+
+
+def obs_linker(workdir, odir):
+    """``link(src, upto)``: hard-link the stream's first ``upto`` files
+    into ``src`` — the spool's own files, then copies of them under
+    later start times (written once into ``odir/pool``)."""
+    spool_dir = os.path.join(workdir, "src")
+    names = sorted(n for n in os.listdir(spool_dir) if n.endswith(".tdas"))
+    pool = os.path.join(odir, "pool")
+    copy = crash_feeder(spool_dir)
+
+    def link(src, upto):
+        os.makedirs(src, exist_ok=True)
+        for k in range(upto):
+            if k < len(names):
+                name, frm = names[k], os.path.join(spool_dir, names[k])
+            else:
+                name = f"raw{k:04d}.tdas"
+                frm = os.path.join(pool, name)
+                if not os.path.exists(frm):
+                    copy(pool, k, 1)
+            dst = os.path.join(src, name)
+            if not os.path.exists(dst):
+                os.link(frm, dst)
+
+    return link
+
+
+def parse_prom(path):
+    """``{(name, labels): value}`` of a Prometheus text exposition."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            if not line.strip() or line.startswith("#"):
+                continue
+            key, value = line.rsplit(" ", 1)
+            name, _, labels = key.partition("{")
+            out[(name, labels.rstrip("}"))] = float(value)
+    return out
+
+
+def ring_checks(out):
+    """The flight ring of ``out``: its round records (each with every
+    phase) and whether each is preceded, since the record before it, by
+    a ``stream.round`` span of its round."""
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.obs.phases import PHASES
+
+    ring = read_flight(out)
+    rounds, ordered, span_round = [], True, None
+    for rec in ring:
+        if rec["kind"] == "span" and rec.get("name") == "stream.round":
+            span_round = rec.get("round")
+        elif rec["kind"] == "round":
+            ordered = ordered and span_round == rec["round"]
+            ordered = ordered and sorted(rec["phases"]) == sorted(PHASES)
+            rounds.append(rec)
+            span_round = None
+    return rounds, ordered, ring
+
+
+def obs_leg(device, link, ldir, engine, calls, obs=True, detect=True,
+            pyramid=True):
+    """One real-time stream: each entry of ``calls`` is one
+    ``run_lowpass_realtime`` call, starting over its first file count and
+    linking the next count at each poll's sleep (the second call resumes
+    from the carry).  ``obs`` turns the health files and the flight ring
+    on (health=True, flight at its default), or both off.  Returns the
+    per-round phases, walls and device seconds, and the checks."""
+    from tpudas_torch.obs.health import read_health, validate_health
+    from tpudas_torch.obs.phases import PHASES
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+
+    cuda = device.type == "cuda"
+    src, out = os.path.join(ldir, "src"), os.path.join(ldir, "out")
+    reg = MetricsRegistry()
+    per_round, mark, health_ok = [], [0.0], []
+
+    def on_round(rnd, lfp):
+        wall = time.perf_counter() - mark[0]
+        body = reg.histogram(
+            "tpudas_stream_round_body_seconds").snapshot()["sum"]
+        if obs:
+            snap = read_health(out)
+            health_ok.append(snap is not None and validate_health(snap)
+                             is snap and snap["rounds"] == rnd)
+        per_round.append({
+            "round": rnd, "wall_s": wall, "body_sum_s": body,
+            "device_s": float(lfp.timings.get("device_s", 0.0)),
+            "blocks": dict(lfp.stream_blocks)})
+        mark[0] = time.perf_counter()
+
+    zero_kernel_counts()
+    with use_registry(reg):
+        for counts in calls:
+            link(src, counts[0])
+            feed = list(counts[1:])
+
+            def sleep(_s, feed=feed):
+                if feed:
+                    link(src, feed.pop(0))
+                mark[0] = time.perf_counter()
+
+            mark[0] = time.perf_counter()
+            run_lowpass_realtime(
+                src, out, T0, output_sample_interval=1.0, edge_buffer=10.0,
+                process_patch_size=60, poll_interval=0.0, sleep_fn=sleep,
+                on_round=on_round, engine=engine, stateful=True,
+                device=device, health=obs, flight=None if obs else False,
+                detect=detect, detect_operators=DETECT_OPS,
+                pyramid=pyramid)
+            if cuda:
+                torch.cuda.synchronize()
+    counts = kernel_counts()
+    prev = 0.0
+    for r in per_round:  # the body histogram's sum, per round
+        total = r.pop("body_sum_s")
+        r["body_s"], prev = total - prev, total
+    blocks = {}
+    for r in per_round:
+        for k, v in r["blocks"].items():
+            blocks[k] = blocks.get(k, 0) + v
+    res = {"engine": engine, "obs": obs, "rounds": len(per_round),
+           "blocks": blocks, "kernel_counts": counts,
+           "carry_resumes": reg.value("tpudas_stream_carry_resumes_total"),
+           "per_round": per_round}
+    checks = [(len(per_round) == sum(len(c) for c in calls),
+               f"{engine}: rounds {len(per_round)} != one a file")]
+    n_blocks = sum(blocks.values())
+    if engine == "fused":
+        checks += [
+            (set(blocks) == {"fused-cuda" if cuda else "fused-torch"},
+             f"fused blocks {blocks}"),
+            (counts["b3_steps"] == (n_blocks if cuda else 0),
+             f"B3 steps {counts['b3_steps']} != blocks {n_blocks}"),
+            (counts["b3_kernels"] == 2 * counts["b3_steps"],
+             f"B3 kernels {counts['b3_kernels']} != 2 x steps")]
+    elif engine == "auto":
+        checks += [(counts["b1"] == (4 * n_blocks if cuda else 0),
+                    f"B1 launches {counts['b1']} != 4 x {n_blocks}")]
+    else:
+        checks += [(counts["b1"] == counts["b3_steps"] == 0,
+                    f"fft launched a FIR kernel {counts}")]
+    if len(calls) > 1:
+        checks.append((res["carry_resumes"] == len(calls) - 1,
+                       f"carry resumes {res['carry_resumes']}"))
+    if not obs:
+        checks.append((not any(os.path.exists(os.path.join(out, n))
+                                for n in (".flight", *OBS_ARTIFACTS)),
+                       "obs off left a health file or a flight ring"))
+        return res, checks
+    rounds, ordered, ring = ring_checks(out)
+    for r, rec in zip(per_round, rounds):
+        ph = rec["phases"]
+        r["phases"] = ph
+        # the body covers every phase but the poll, which precedes it
+        r["unphased_s"] = r["body_s"] - (sum(ph.values()) - ph["poll"])
+    prom = parse_prom(os.path.join(out, "metrics.prom"))
+    phase_counts = {p: prom.get(("tpudas_stream_round_phase_seconds_count",
+                                 f'phase="{p}"')) for p in PHASES}
+    drops = reg.get("tpudas_obs_flight_drops_total")
+    flight_drops = sum(v for _l, v in drops._series()) if drops else 0.0
+    res.update({
+        "ring_records": len(ring), "ring_rounds": len(rounds),
+        "health_write_errors": reg.value(
+            "tpudas_health_write_errors_total"),
+        "health_writes": reg.value("tpudas_health_writes_total"),
+        "flight_drops": flight_drops,
+        "flight_bytes": reg.value("tpudas_obs_flight_bytes_total"),
+        "prom_phase_counts": phase_counts,
+        "artifacts": sorted(n for n in os.listdir(out)
+                            if n in (".flight", *OBS_ARTIFACTS))})
+    checks += [
+        (all(health_ok) and len(health_ok) == len(per_round),
+         f"{engine}: validate_health/read_health failed in a round "
+         f"{health_ok}"),
+        (all(v == len(per_round) for v in phase_counts.values()),
+         f"{engine}: metrics.prom phase counts {phase_counts}"),
+        (len(rounds) == len(per_round) and ordered,
+         f"{engine}: the ring's round records (one a round, all phases, "
+         f"each after its stream.round span): {len(rounds)}, {ordered}"),
+        (res["health_write_errors"] == 0 and flight_drops == 0,
+         f"{engine}: health write errors {res['health_write_errors']}, "
+         f"flight drops {flight_drops}"),
+    ]
+    return res, checks
+
+
+def obs_fleet(device, link, fdir, members):
+    """Phase 12d: a batched ``fused`` fleet of two members (10,000 and
+    6,001 ch) with health and flight on, one call over two files; then
+    ``fleet_rollup`` and ``python -m tpudas_torch.tools.obs_report
+    --json`` over its root.  Each member's ring holds one
+    ``stream.round`` span a round of its own and only its own round
+    records."""
+    import subprocess
+
+    from tpudas_torch.fleet import FleetEngine, StreamConfig, StreamSpec
+    from tpudas_torch.obs.collect import fleet_rollup
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+
+    cuda = device.type == "cuda"
+    specs = []
+    for sid, c0, w in members:
+        src = os.path.join(fdir, f"src_{sid}")
+        link(src, 2)
+        specs.append(StreamSpec(stream_id=sid, source=src, config=StreamConfig(
+            kind="lowpass", start_time=T0, output_sample_interval=1.0,
+            edge_buffer=10.0, process_patch_size=60, poll_interval=0.0,
+            poll_jitter=0.0, engine="fused", stateful=True, health=True,
+            distance=(c0 * D_CH, (c0 + w - 1) * D_CH))))
+    root = os.path.join(fdir, "root")
+    reg = MetricsRegistry()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    with use_registry(reg):
+        summary = FleetEngine(root, specs, sleep_fn=lambda _s: None,
+                              batched=True, device=device).run()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    rollup = fleet_rollup(root)
+    t_r = time.perf_counter()
+    rep = subprocess.run(
+        [sys.executable, "-m", "tpudas_torch.tools.obs_report", "--fleet",
+         root, "--json"], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    report_s = time.perf_counter() - t_r
+    cli = json.loads(rep.stdout) if rep.returncode == 0 else None
+    rings = {}
+    for sid, _c0, _w in members:
+        folder = os.path.join(root, sid)
+        spans = read_flight(folder, kind="span", name="stream.round")
+        recs = read_flight(folder, kind="round")
+        rings[sid] = {
+            "rounds": [r["round"] for r in recs],
+            "round_spans": sorted(s["round"] for s in spans),
+            "own": all(r["stream"] == sid for r in recs),
+            "span_names": sorted({s["name"] for s in read_flight(
+                folder, kind="span")})}
+    res = {"wall_s": wall, "kernel_counts": counts,
+           "stacked_launches": reg.value(
+               "tpudas_fleet_batch_stacked_launches_total"),
+           "rounds": {sid: s["rounds"] for sid, s in
+                      summary["streams"].items()},
+           "parked": summary["parked"], "rings": rings,
+           "rollup": rollup, "obs_report_rc": rep.returncode,
+           "obs_report_s": report_s,
+           "obs_report_status": None if cli is None else cli["status"]}
+    want_rounds = {sid: list(range(1, s["rounds"] + 1))
+                   for sid, s in summary["streams"].items()}
+    checks = [
+        (summary["parked"] == [], f"fleet parked {summary['parked']}"),
+        (all(r["rounds"] == want_rounds[sid] == r["round_spans"] and r["own"]
+             for sid, r in rings.items()),
+         f"a member's ring holds another's spans or rounds: {rings}"),
+        (cli is not None and cli["fleet"]["streams"] == rollup["streams"],
+         f"obs_report --json (rc {rep.returncode}) differs from "
+         f"fleet_rollup: {rep.stderr[-400:]}"),
+        (rollup["status"] == "ok" and sorted(rollup["streams"]) == sorted(
+            sid for sid, _c, _w in members), f"rollup {rollup['status']}"),
+        ((counts["b3_steps"] > 0 and res["stacked_launches"] > 0) if cuda
+         else counts["b3_steps"] == 0,
+         f"the fleet's B3 steps {counts}, stacked "
+         f"{res['stacked_launches']}"),
+    ]
+    return res, checks
+
+
+def phase_obs(device, workdir, cls, members):
+    """Phase 12: the observability plane on the real-time path at the
+    flagship width.  (a) ``fused`` with health, the flight ring (its
+    default), detection and the pyramid: 4 files, one a round, in 2
+    calls (the second resumes from the carry); each round's ten phases,
+    body seconds and the body no phase covers, ``timings["device_s"]``
+    beside ``host_wait``; ``health.json`` validated every round,
+    ``metrics.prom`` holding every phase, the ring's round records each
+    after its ``stream.round`` span, no health write error and no
+    flight drop; B3 2 kernels a block.  (b) the same checks under
+    ``auto`` (B1 4 times a block) and ``fft``, one call of 2 rounds
+    each.  (c) the overhead: the fused stream (no detection, no
+    pyramid) with health and flight off (A) and on (B), A B B A, one
+    call of 4 rounds each.  (d) a batched 2-member fleet, rolled up."""
+    from tpudas_torch.fleet import engine as fleet_engine
+
+    cuda = device.type == "cuda"
+    odir = os.path.join(workdir, "obs")
+    shutil.rmtree(odir, ignore_errors=True)
+    link = obs_linker(workdir, odir)
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    legs, checks = {}, []
+    t_phase = time.perf_counter()
+    try:
+        link(os.path.join(odir, "warm"), OBS_FILES)  # the copy, once
+        for name, engine, calls in (("fused", "fused", [[1, 2], [3, 4]]),
+                                    ("auto", "auto", [[1, 2]]),
+                                    ("fft", "fft", [[1, 2]])):
+            leg, c = obs_leg(device, link, os.path.join(odir, name), engine,
+                             calls)
+            legs[name] = leg
+            checks += c
+            emit({"phase": "obs", "leg": name, **leg})
+            if cuda:
+                torch.cuda.empty_cache()
+        turns = []
+        for i, obs in enumerate((False, True, True, False)):
+            leg, c = obs_leg(device, link, os.path.join(odir, f"ab{i}"),
+                             "fused", [list(range(1, OBS_FILES + 1))],
+                             obs=obs, detect=False, pyramid=False)
+            checks += c
+            turns.append({"obs": obs, "round_walls_s": [
+                r["wall_s"] for r in leg["per_round"]],
+                "health_s": [r.get("phases", {}).get("health")
+                             for r in leg["per_round"]]})
+        fleet, c = obs_fleet(device, link, os.path.join(odir, "fleet"),
+                             members)
+        checks += c
+    finally:
+        fleet_engine.LFProc = saved_cls
+
+    def walls(on, first=0):
+        return [x for t in turns if t["obs"] == on
+                for x in t["round_walls_s"][first:]]
+
+    off, on = walls(False), walls(True)
+    # steady: each turn's rounds after its first (the call's filter
+    # design and first launches ride the first round)
+    s_off, s_on = walls(False, 1), walls(True, 1)
+    overhead = {
+        "turns": turns,
+        "round_wall_off_s": float(np.mean(off)),
+        "round_wall_on_s": float(np.mean(on)),
+        "difference_s": float(np.mean(on) - np.mean(off)),
+        "median_difference_s": float(np.median(on) - np.median(off)),
+        "steady_round_wall_off_s": float(np.mean(s_off)),
+        "steady_round_wall_on_s": float(np.mean(s_on)),
+        "steady_difference_s": float(np.mean(s_on) - np.mean(s_off)),
+        "steady_spread_off_s": float(np.max(s_off) - np.min(s_off)),
+        "health_phase_mean_s": float(np.mean(
+            [h for t in turns for h in t["health_s"] if h is not None])),
+    }
+    overhead["difference_frac"] = (
+        overhead["difference_s"] / overhead["round_wall_off_s"])
+    emit({"phase": "obs", "leg": "overhead", **overhead})
+    emit({"phase": "obs", "leg": "fleet", **fleet})
+    fused = legs["fused"]
+    summary = {
+        "phase": "obs", "leg": "summary",
+        "wall_s": time.perf_counter() - t_phase,
+        "fused_rounds": [
+            {"round": r["round"], "phases": r["phases"],
+             "body_s": r["body_s"], "unphased_s": r["unphased_s"],
+             "device_s": r["device_s"],
+             "host_wait_s": r["phases"]["host_wait"]}
+            for r in fused["per_round"]],
+        "b3": fused["kernel_counts"], "b3_blocks": fused["blocks"],
+        "b1": legs["auto"]["kernel_counts"]["b1"],
+        "b1_blocks": legs["auto"]["blocks"],
+        "overhead_difference_s": overhead["difference_s"],
+    }
+    emit(summary)
+    for ok, what in checks:
+        if not ok:
+            fail(f"obs check failed: {what}")
+    shutil.rmtree(odir, ignore_errors=True)
+    return {"legs": legs, "overhead": overhead, "fleet": fleet,
+            "summary": summary}
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -2851,10 +3260,10 @@ def main(argv=None):
                     help="dry run on the CPU at a small width; exits 3")
     ap.add_argument("--only",
                     choices=["fir", "fused", "fleet", "detect", "crash",
-                             "pyramid"],
+                             "pyramid", "obs"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
-                    "(fleet), 9 (detect), 10 (crash) or 11 (pyramid) "
-                    "alone; exits 4")
+                    "(fleet), 9 (detect), 10 (crash), 11 (pyramid) or 12 "
+                    "(obs) alone; exits 4")
     ap.add_argument("--cycles", type=int, default=None,
                     help="killed cycles of each engine's crash drill "
                     "(default: fused 4, auto and fft 2)")
@@ -2863,6 +3272,7 @@ def main(argv=None):
         device = torch.device("cpu")
         widths, n_ch = (64, 48), 64
         members = REHEARSE_MEMBERS
+        obs_members = REHEARSE_OBS_MEMBERS
         # 64 channels make every stream block smaller than the fused
         # size threshold; clear it so phase 5 runs the fused step
         os.environ["TPUDAS_FUSED_MIN_ELEMS"] = "0"
@@ -2874,6 +3284,7 @@ def main(argv=None):
         device = torch.device("cuda")
         widths, n_ch = (10000, 2048), 10000
         members = FLEET_MEMBERS
+        obs_members = OBS_MEMBERS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from tpudas_torch.tools.probe_pipeline import card_line
@@ -2927,7 +3338,7 @@ def main(argv=None):
 
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
     tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
-    if args.only in ("fleet", "detect", "crash", "pyramid"):
+    if args.only in ("fleet", "detect", "crash", "pyramid", "obs"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2941,6 +3352,8 @@ def main(argv=None):
             phase_crash(device, workdir, n_ch, tdas_output, args.cycles)
         elif args.only == "pyramid":
             phase_pyramid(device, workdir, cls, timer)
+        elif args.only == "obs":
+            phase_obs(device, workdir, cls, obs_members)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -2959,6 +3372,7 @@ def main(argv=None):
     detect = phase_detect(device, workdir, timer, cls, jcls)
     phase_crash(device, workdir, n_ch, tdas_output, args.cycles)
     pyramid = phase_pyramid(device, workdir, cls, timer)
+    obs = phase_obs(device, workdir, cls, obs_members)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}
@@ -2988,6 +3402,8 @@ def main(argv=None):
         "detect_joint_launches": detect["joint"]["b1_launches"],
         # phase 11b: the auto stream with the pyramid on
         "pyramid_launches": pyramid["b"]["fir_decimate_launches"],
+        # phase 12b: the auto stream with health and flight on
+        "obs_launches": obs["legs"]["auto"]["kernel_counts"]["b1"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
@@ -3028,6 +3444,9 @@ def main(argv=None):
         "detect_launches": detect["fused"]["b3_steps"],
         # phase 11a: the fused stream with the pyramid on
         "pyramid_launches": pyramid["a"]["fused_cascade_launches"],
+        # phase 12a: the fused stream with health, flight, detection and
+        # the pyramid on (2 calls, 4 rounds)
+        "obs_launches": obs["legs"]["fused"]["kernel_counts"]["b3_steps"],
         "fleet_packed_ms": fleet["packed_step"].get("b3_packed_ms"),
         "fleet_solo_sum_ms": fleet["packed_step"].get("b3_solo_sum_ms"),
         "b1_chain_ms": full["b1_chain_ms"],

@@ -11,8 +11,8 @@ port's ``audit`` the other.  The reports must agree — the same
 ``repaired`` — the repaired trees must be byte-equal, and a second
 audit of each must be clean and empty.  The cases mirror
 ``tests/test_integrity.py``'s and ``tests/test_detect.py``'s audit
-tests where they apply (the flight recorder's do not: the port has none
-yet).  The pyramid cases damage a folder whose port driver kept a tile
+tests where they apply (the flight recorder's are in
+``tests/test_torch_flight.py``).  The pyramid cases damage a folder whose port driver kept a tile
 pyramid (``tile_len`` 8), raw and under ``bitshuffle-deflate``.  The
 drivers run on the CPU.
 """

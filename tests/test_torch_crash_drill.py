@@ -1,11 +1,13 @@
 """The port's SIGKILL crash drill (tpudas_torch/tools/crash_drill.py).
 
 Real SIGKILLs of fresh worker interpreters at seeded points, on the CPU
-(the plain versions of the kernels), with the stateful carry and the
-detect operators and the tile pyramid on: after the drain the folder
-must audit clean, no worker's startup audit may have raised, and the
-outputs, the stream carry, the pyramid tree and the detect state must
-equal an uninterrupted control's
+(the plain versions of the kernels), with the stateful carry, the
+detect operators, the tile pyramid, the health files and the flight
+recorder on: right after the kills the flight ring must replay the last
+committed round (all its phases, its ``stream.round`` span), after the
+drain the folder must audit clean, no worker's startup audit may have
+raised, and the outputs, the stream carry, the pyramid tree and the
+detect state must equal an uninterrupted control's
 (``tests/test_integrity.py`` holds the JAX drill the same way).  Every
 wait of the drill carries its own limit (``ready_timeout`` /
 ``run_timeout``), so a hung worker fails the test instead of holding
@@ -32,6 +34,12 @@ def _assert_drill_ok(rep):
     assert rep["detect_events"] > 0  # the comparison is not vacuous
     assert rep["pyramid_files"] > 0
     assert rep["pyramid_errors"] == rep["control_pyramid_errors"] == 0
+    # the flight ring as the kills left it: the last committed round's
+    # record with every phase, preceded by its stream.round span
+    flight = rep["flight"]
+    assert flight["ok"] and flight["phases_complete"], flight
+    assert flight["rounds"] >= 2 and flight["last_round_spans"] >= 1
+    assert set(rep["flight_repairs"]) <= {"truncated", "removed"}
     assert rep["ok"]
     assert rep["launches"] == {"fused_cascade": 0,
                                "fused_cascade_kernels": 0,

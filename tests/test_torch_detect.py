@@ -593,6 +593,43 @@ class TestDriver:
         assert got["port"] == got["jax"]
         assert got["port"][0] == 2 and got["port"][1] == 0
 
+    def test_matches_jax_with_health_pyramid_and_flight(self, tmp_path,
+                                                        monkeypatch):
+        """Both drivers with detection, the pyramid, health on and the
+        flight ring at its default: the detection and the stream agree
+        as without them, the pyramid is the sync over the outputs, and
+        both folders hold the same artifact names, health keys and
+        round records (wall-clock fields aside)."""
+        from test_torch_realtime import (
+            _assert_obs_artifacts,
+            _assert_pyramid_of_outputs,
+            _assert_same_stream,
+        )
+        from tpudas_torch.obs.health import read_health
+
+        monkeypatch.setenv("TPUDAS_DEVPROF", "0")
+        monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "4")
+        monkeypatch.delenv("TPUDAS_FLIGHT", raising=False)
+        outs = {}
+        for pkg, registry in (("port", None), ("jax", jreg)):
+            src, outs[pkg] = str(tmp_path / f"src-{pkg}"), str(
+                tmp_path / pkg)
+            _spool(src)
+            reg = (MetricsRegistry() if registry is None
+                   else registry.MetricsRegistry())
+            scope = use_registry if registry is None else (
+                registry.use_registry)
+            with scope(reg):
+                assert _drive(src, outs[pkg], feed_third=True, pkg=pkg,
+                              health=True, pyramid=True, flight=None) == 2
+        _assert_same_detection(outs["port"], outs["jax"])
+        _assert_same_stream(outs["port"], outs["jax"])
+        _assert_pyramid_of_outputs(outs["port"], str(tmp_path))
+        for keyword in ("health", "flight"):
+            _assert_obs_artifacts(outs["port"], outs["jax"], keyword)
+        assert read_health(outs["port"])["detect"] == read_health(
+            outs["jax"])["detect"]
+
     def test_detect_off_leaves_no_artifacts(self, tmp_path):
         src, out = str(tmp_path / "src"), str(tmp_path / "out")
         _spool(src)

@@ -813,3 +813,65 @@ def test_pyramid_stream_on_card(cuda_device, tmp_path, monkeypatch):
             os.link(os.path.join(out, n), os.path.join(ref, n))
     sync_pyramid(ref)
     assert tree(out) == tree(ref) and "tails.npy" in tree(out)
+
+
+def test_obs_stream_on_card(cuda_device, tmp_path, monkeypatch):
+    """A 2-round ``fused`` stream on the card with health on and the
+    flight ring at its default: every phase observed once a round, the
+    health snapshot validates, and the ring's round records (each after
+    its ``stream.round`` span) read back through the port's reader of
+    the JAX ring format; B3 ran every block."""
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.obs.health import read_health, validate_health
+    from tpudas_torch.obs.phases import PHASES, phase_seconds_snapshot
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+
+    class TdasLFProc(LFProc):
+        # outputs as tdas: the card's host may lack h5py
+        def _write_output(self, patch, path):
+            patch.io.write(os.path.splitext(path)[0] + ".tdas", "tdas")
+
+    monkeypatch.setattr(fleet_engine, "LFProc", TdasLFProc)
+    monkeypatch.setenv("TPUDAS_FUSED_MIN_ELEMS", "0")
+    monkeypatch.delenv("TPUDAS_FLIGHT", raising=False)
+    pool = str(tmp_path / "pool")
+    make_synthetic_spool(pool, n_files=3, file_duration=30.0, fs=100.0,
+                         n_ch=8, noise=0.01, format="tdas")
+    names = sorted(n for n in os.listdir(pool) if n.endswith(".tdas"))
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    os.makedirs(src)
+    for n in names[:2]:
+        os.link(os.path.join(pool, n), os.path.join(src, n))
+    fed = []
+
+    def sleep(_s):
+        if not fed:
+            fed.append(1)
+            os.link(os.path.join(pool, names[2]), os.path.join(src, names[2]))
+
+    reg = MetricsRegistry()
+    before = fused_cascade.launches
+    with use_registry(reg):
+        assert run_lowpass_realtime(
+            src, out, "2023-03-22T00:00:00", output_sample_interval=1.0,
+            edge_buffer=8.0, process_patch_size=40, poll_interval=0.0,
+            sleep_fn=sleep, stateful=True, engine="fused", health=True,
+            device=cuda_device) == 2
+    assert fused_cascade.launches > before
+    snap = phase_seconds_snapshot(reg)
+    assert {p: s["count"] for p, s in snap.items()} == dict.fromkeys(
+        PHASES, 2)
+    health = read_health(out)
+    assert validate_health(health) is health and health["rounds"] == 2
+    ring = read_flight(out)
+    rounds = [r for r in ring if r["kind"] == "round"]
+    assert [r["round"] for r in rounds] == [1, 2]
+    for r in rounds:
+        assert sorted(r["phases"]) == sorted(PHASES)
+        i = ring.index(r)
+        assert any(x["kind"] == "span" and x["name"] == "stream.round"
+                   and x.get("round") == r["round"] for x in ring[:i])
+    assert reg.value("tpudas_health_write_errors_total") == 0.0

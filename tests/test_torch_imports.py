@@ -81,9 +81,14 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.detect.ledger",
         "tpudas_torch.detect.runner",
         "tpudas_torch.ops.median",
+        "tpudas_torch.obs",
+        "tpudas_torch.obs.collect",
+        "tpudas_torch.obs.flight",
         "tpudas_torch.obs.health",
+        "tpudas_torch.obs.phases",
         "tpudas_torch.obs.registry",
         "tpudas_torch.obs.trace",
+        "tpudas_torch.tools.obs_report",
         "tpudas_torch.resilience.faults",
         "tpudas_torch.resilience.quarantine",
         "tpudas_torch.utils.profiling",

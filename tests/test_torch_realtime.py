@@ -348,13 +348,88 @@ def _assert_pyramid_of_outputs(out, scratch):
         assert _pyramid_tree(d) == got, name
 
 
+# the health and flight artifacts hold wall-clock times: compared by name
+# and keys, never by bytes
+TIMING_ARTIFACTS = (".flight", "health.json", "health.json.prev",
+                    "metrics.prom")
+
+
+def _assert_obs_artifacts(out, jout, keyword):
+    """The port's run ``out`` left the artifact of ``keyword`` as the JAX
+    run ``jout`` did: the same names in the folder; a ``health.json``
+    that each package reads and validates, with the JAX keys, and a
+    ``metrics.prom`` naming metrics of the JAX one's; a flight ring whose
+    records the JAX reader verifies, with the JAX record kinds and the
+    same round-record keys."""
+    from tpudas.obs.flight import read_flight as jax_read_flight
+    from tpudas.obs.health import read_health as jax_read_health
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.obs.health import read_health
+
+    assert sorted(os.listdir(out)) == sorted(os.listdir(jout))
+    if keyword == "health":
+        for folder in (out, jout):
+            assert os.path.isfile(os.path.join(folder, "metrics.prom"))
+        got, want = jax_read_health(out), read_health(jout)
+        assert got is not None and want is not None
+        assert sorted(got) == sorted(want)
+        assert read_health(out) == got
+        assert got["rounds"] == want["rounds"] and got["last_error"] is None
+
+        def names(folder):
+            text = open(os.path.join(folder, "metrics.prom")).read()
+            return {ln.split()[2] for ln in text.splitlines()
+                    if ln.startswith("# TYPE")}
+
+        # the round's own metrics are the JAX runner's; the port's lower
+        # layers (spool, window, block counters) emit fewer than the JAX
+        # package's do
+        assert names(out) <= names(jout)
+        assert {"tpudas_stream_rounds_total", "tpudas_health_writes_total",
+                "tpudas_stream_round_phase_seconds",
+                "tpudas_stream_head_lag_seconds"} <= names(out)
+        return
+    recs, jrecs = jax_read_flight(out), jax_read_flight(jout)
+    assert recs == read_flight(out) and recs
+    assert ([r["kind"] for r in recs if r["kind"] != "span"]
+            == [r["kind"] for r in jrecs if r["kind"] != "span"])
+    rounds = [r for r in recs if r["kind"] == "round"]
+    jrounds = [r for r in jrecs if r["kind"] == "round"]
+    assert [sorted(r) for r in rounds] == [sorted(r) for r in jrounds]
+    assert [r["round"] for r in rounds] == [r["round"] for r in jrounds]
+
+
 @pytest.mark.parametrize("keyword,value", [
     ("mesh", 2), ("window_dp", 2), ("health", True), ("pyramid", True),
     ("live", True), ("flight", True),
 ])
-def test_unported_keywords_raise(tmp_path, keyword, value, request):
+def test_unported_keywords_raise(tmp_path, keyword, value, request,
+                                 monkeypatch):
     """Every keyword whose feature is not ported raises before the driver
-    writes; ``pyramid`` is ported now, and builds the tile pyramid."""
+    writes; ``pyramid`` is ported now, and builds the tile pyramid;
+    ``health`` and ``flight`` are ported now and leave the JAX driver's
+    artifacts."""
+    if keyword in ("health", "flight"):
+        pool = request.getfixturevalue("env_pool")
+        monkeypatch.setenv("TPUDAS_DEVPROF", "0")
+        from tpudas.obs import registry as jax_registry
+        from tpudas_torch.obs import registry as port_registry
+
+        outs = {}
+        for name, driver, registry in (
+                ("port", run_lowpass_realtime, port_registry),
+                ("jax", jax_realtime, jax_registry)):
+            outs[name] = str(tmp_path / name)
+            kw = {keyword: value}
+            if name == "jax" and keyword == "health":
+                kw["flight"] = None  # the JAX default, as the port's
+            # each run's metrics.prom holds that run's metrics only
+            with registry.use_registry(registry.MetricsRegistry()):
+                assert _drive(driver, pool, str(tmp_path / f"src-{name}"),
+                              outs[name], first=2, then=[3], **kw) == 2
+        _assert_obs_artifacts(outs["port"], outs["jax"], keyword)
+        _assert_same_stream(outs["port"], outs["jax"])
+        return
     if keyword == "pyramid":
         pool = request.getfixturevalue("env_pool")
         # small tiles, so that the stream completes some (16 rows)
@@ -428,7 +503,8 @@ def test_single_sample_tdas_round_trips(tmp_path):
 # features the JAX runners turn on from the environment (ROADMAP C3)
 
 # variable -> (config field, what the JAX driver leaves behind); the
-# pyramid is ported: under TPUDAS_PYRAMID the port builds it too
+# pyramid and the health files are ported: under TPUDAS_PYRAMID and
+# TPUDAS_HEALTH the port builds them too
 ENV_FEATURES = {
     "TPUDAS_HEALTH": ("health", "health.json"),
     "TPUDAS_PYRAMID": ("pyramid", ".tiles"),
@@ -496,7 +572,9 @@ def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
                                             var):
     """Under the variable the JAX driver turns its feature on (and leaves
     its artifact); every port entry point raises naming the variable
-    before it writes anything."""
+    before it writes anything — except for the ported features
+    (``TPUDAS_PYRAMID``, ``TPUDAS_HEALTH``), which every entry point
+    turns on and the driver writes as the JAX one does."""
     field, artifact = ENV_FEATURES[var]
     monkeypatch.setenv(var, "1")
     monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
@@ -512,6 +590,22 @@ def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
         _check_env_pyramid(env_pool, tmp_path, jout)
         return
     out = str(tmp_path / "port")
+    if var == "TPUDAS_HEALTH":
+        # ported: every entry point turns health on, and the driver's
+        # snapshot agrees with the JAX driver's
+        for name in ("build_runner", "LowpassStreamRunner", "FleetEngine"):
+            obj = _lowpass_entry_points(
+                str(tmp_path / "src"), str(tmp_path / f"ep-{name}"))[name]()
+            runners = ([st.runner for st in obj.streams.values()]
+                       if name == "FleetEngine" else [obj])
+            assert all(r.edge_health.enabled for r in runners), name
+        from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+
+        with use_registry(MetricsRegistry()):  # this run's metrics only
+            assert _drive(run_lowpass_realtime, env_pool,
+                          str(tmp_path / "src2"), out, flight=False) == 1
+        _assert_obs_artifacts(out, jout, "health")
+        return
     for name, start in _lowpass_entry_points(str(tmp_path / "src"),
                                              out).items():
         with pytest.raises(NotImplementedError, match=var) as err:
@@ -540,19 +634,22 @@ def test_env_mesh(env_pool, tmp_path, monkeypatch, raw, raises):
     _assert_same_stream(out, jout)
 
 
-@pytest.mark.parametrize("raw,raises", [("1", True), ("0", False)])
-def test_env_flight(env_pool, tmp_path, monkeypatch, raw, raises):
-    """The JAX package's flight recorder is on unless ``TPUDAS_FLIGHT=0``;
-    the port has none and raises only when it is asked for explicitly."""
+@pytest.mark.parametrize("raw,ring", [("1", True), ("0", False)])
+def test_env_flight(env_pool, tmp_path, monkeypatch, raw, ring):
+    """The flight recorder is on unless ``TPUDAS_FLIGHT=0`` in both
+    packages: at ``1`` both drivers (the JAX one with ``flight=None``)
+    leave the same ring, at ``0`` neither leaves one."""
     monkeypatch.setenv("TPUDAS_FLIGHT", raw)
+    monkeypatch.setenv("TPUDAS_DEVPROF", "0")
     src, out = str(tmp_path / "src"), str(tmp_path / "port")
+    jout = str(tmp_path / "jax")
     _link(env_pool, src, 3)
-    if raises:
-        with pytest.raises(NotImplementedError, match="TPUDAS_FLIGHT"):
-            _drive(run_lowpass_realtime, env_pool, src, out)
-        assert not os.path.exists(out)
-    else:
-        assert _drive(run_lowpass_realtime, env_pool, src, out) == 1
+    assert _drive(run_lowpass_realtime, env_pool, src, out) == 1
+    assert _drive(jax_realtime, env_pool, src, jout, flight=None) == 1
+    for folder in (out, jout):
+        assert os.path.isdir(os.path.join(folder, ".flight")) == ring
+    if ring:
+        _assert_obs_artifacts(out, jout, "flight")
 
 
 def test_env_features_off_both_run(env_pool, tmp_path, monkeypatch):
@@ -569,7 +666,26 @@ def test_env_features_off_both_run(env_pool, tmp_path, monkeypatch):
                       outs[name]) == 1
     for name in ("health.json", ".tiles", ".flight"):
         assert not os.path.exists(os.path.join(outs["jax"], name))
+        assert not os.path.exists(os.path.join(outs["port"], name))
     _assert_same_stream(outs["port"], outs["jax"])
+
+
+def test_flight_default_on_in_both(env_pool, tmp_path, monkeypatch):
+    """With ``TPUDAS_FLIGHT`` unset and ``flight=None`` both packages
+    leave a ``.flight/`` ring: the two folder listings are equal."""
+    monkeypatch.delenv("TPUDAS_FLIGHT", raising=False)
+    monkeypatch.setenv("TPUDAS_DEVPROF", "0")
+    outs = {}
+    for name, driver in (("port", run_lowpass_realtime),
+                         ("jax", jax_realtime)):
+        outs[name] = str(tmp_path / name)
+        assert _drive(driver, env_pool, str(tmp_path / "src"),
+                      outs[name], flight=None) == 1
+    assert ".flight" in os.listdir(outs["port"])
+    assert sorted(os.listdir(outs["port"])) == sorted(
+        os.listdir(outs["jax"]))
+    assert os.listdir(os.path.join(outs["port"], ".flight")) == [
+        "seg-00000000.jsonl"]
 
 
 # ---------------------------------------------------------------------------

@@ -91,6 +91,30 @@ def _rolling(pkg, src, out, **kw):
                   step=1.0 * sec, poll_interval=0.0, **kw)
 
 
+def _assert_same_rolling_ring(out, jout):
+    """The port's rolling ring reads in the JAX reader as the JAX
+    runner's: the same record kinds in order, the same round-record
+    keys and patch counts, every phase in every round."""
+    from tpudas.obs.flight import read_flight as jax_read_flight
+    from tpudas.obs.phases import PHASES as JAX_PHASES
+    from tpudas_torch.obs.flight import read_flight
+
+    recs, jrecs = jax_read_flight(out), jax_read_flight(jout)
+    assert recs and recs == read_flight(out)
+    assert [r["kind"] for r in recs] == [r["kind"] for r in jrecs]
+    rounds = [r for r in recs if r["kind"] == "round"]
+    jrounds = [r for r in jrecs if r["kind"] == "round"]
+    assert [sorted(r) for r in rounds] == [sorted(r) for r in jrounds]
+    assert [(r["round"], r["patches"], r["mode"]) for r in rounds] == [
+        (r["round"], r["patches"], r["mode"]) for r in jrounds]
+    for r in rounds:
+        assert sorted(r["phases"]) == sorted(JAX_PHASES)
+        assert r["devprof"] == {k: jrounds[0]["devprof"][k]
+                                for k in ("launches", "bound",
+                                          "utilization")} | {
+            "device_execute_s": 0.0}
+
+
 class TestRollingRealtime:
     def test_matches_jax(self, tmp_path):
         """Same file names; each file's data within REL of the max of
@@ -172,8 +196,9 @@ class TestRollingRealtime:
 
     def test_unported_keywords_raise(self, tmp_path, monkeypatch):
         """The unported keywords raise; ``pyramid`` is ported and builds
-        the tile pyramid over the rolling outputs."""
-        for kw in ({"mesh": 2}, {"live": True}, {"flight": True}):
+        the tile pyramid over the rolling outputs; ``flight`` is ported
+        and keeps the JAX runner's ring."""
+        for kw in ({"mesh": 2}, {"live": True}):
             with pytest.raises(NotImplementedError, match=next(iter(kw))):
                 run_rolling_realtime(
                     source=str(tmp_path), output_folder=str(tmp_path / "o"),
@@ -185,6 +210,15 @@ class TestRollingRealtime:
         out = str(tmp_path / "pyr")
         assert _rolling("port", src, out, pyramid=True) == 2
         _assert_pyramid_of_outputs(out, str(tmp_path))
+        monkeypatch.setenv("TPUDAS_DEVPROF", "0")
+        outs = {}
+        for pkg in ("port", "jax"):
+            fsrc = str(tmp_path / f"fsrc-{pkg}")
+            make_synthetic_spool(fsrc, n_files=2, file_duration=FILE_SEC,
+                                 fs=FS, n_ch=NCH, noise=0.01)
+            outs[pkg] = str(tmp_path / f"flight-{pkg}")
+            assert _rolling(pkg, fsrc, outs[pkg], flight=True) == 2
+        _assert_same_rolling_ring(outs["port"], outs["jax"])
 
     def test_no_card_and_no_device_raises(self, tmp_path, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -354,14 +388,34 @@ def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
     """Under the variable the JAX rolling runner turns its feature on
     (the pyramid leaves ``.tiles/``, the live plane a hub); every port
     entry point raises naming the variable before it writes anything —
-    except ``TPUDAS_PYRAMID``, ported now: every entry point turns the
-    pyramid on, and the driver's tree is the one the JAX package syncs
-    from the same output files."""
+    except ``TPUDAS_PYRAMID`` and ``TPUDAS_FLIGHT``, ported now: every
+    entry point turns the feature on, the driver's tree is the one the
+    JAX package syncs from the same output files, and its flight ring
+    has the JAX runner's records."""
     src = str(tmp_path / "src")
     make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
                          n_ch=NCH)
     monkeypatch.setenv(var, raw)
     monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
+    if var == "TPUDAS_FLIGHT":
+        monkeypatch.setenv("TPUDAS_DEVPROF", "0")
+        eps = {n: _rolling_entry_points(src, str(tmp_path / f"ep-{n}"))[n]
+               for n in ("build_runner", "RollingStreamRunner",
+                         "FleetEngine")}
+        for name, start in eps.items():
+            obj = start()
+            runners = ([st.runner for st in obj.streams.values()]
+                       if name == "FleetEngine" else [obj])
+            assert all(r.flight is not None for r in runners), name
+        outs = {}
+        for pkg in ("port", "jax"):
+            psrc = str(tmp_path / f"src-{pkg}")
+            make_synthetic_spool(psrc, n_files=2, file_duration=FILE_SEC,
+                                 fs=FS, n_ch=NCH)
+            outs[pkg] = str(tmp_path / pkg)
+            assert _rolling(pkg, psrc, outs[pkg], flight=None) == 2
+        _assert_same_rolling_ring(outs["port"], outs["jax"])
+        return
     if var in ("TPUDAS_PYRAMID", "TPUDAS_LIVE"):
         jout = str(tmp_path / "jax")
         assert _rolling("jax", src, jout, pyramid=None) == 2

@@ -50,7 +50,7 @@ class StreamConfig:
     detect: object = None
     detect_operators: object = None
     poll_jitter: object = None  # fraction; None -> TPUDAS_POLL_JITTER/0
-    flight: object = None  # not ported: None -> TPUDAS_FLIGHT, raises at 1
+    flight: object = None  # None -> TPUDAS_FLIGHT (on unless 0)
     live: object = None  # not ported: None -> TPUDAS_LIVE, raises at 1
     # -- lowpass only ---------------------------------------------------
     start_time: object = None
@@ -66,7 +66,7 @@ class StreamConfig:
     rolling_step: object = None
     stateful: object = None
     carry_save_every: object = None
-    health: object = None
+    health: object = None  # None -> TPUDAS_HEALTH (on at 1)
     # -- rolling only ---------------------------------------------------
     window: object = None
     step: object = None

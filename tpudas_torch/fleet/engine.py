@@ -44,14 +44,33 @@ capture of the round's output patches (:func:`_append_pyramid`); its
 failures are counted and swallowed as in the JAX runners, and the
 append is shed while the disk is full.
 
-Not ported in this slice: the flight recorder and health files, the
-live plane, device telemetry and phase timing, the
-mesh and window data parallelism, and the backfill clamps
-(``time_range``, ``ingest_limit_sec``).  A runner raises
-``NotImplementedError`` when its configuration, or the environment
-variable the JAX runner reads for a field left at None
-(:data:`UNPORTED_ENV`), turns on one of those features (see
-:data:`UNPORTED_FIELDS`).
+Observability, as in the JAX runners (:mod:`tpudas_torch.obs`):
+
+- **Health** (``health=True``, or ``TPUDAS_HEALTH=1`` for a low-pass
+  field left at None): ``health.json`` and ``metrics.prom`` beside the
+  carry after every round, on a retry, at clean termination and at a
+  fatal failure (:class:`_EdgeHealth`).
+- **Flight** (``flight=None`` reads ``TPUDAS_FLIGHT``, on unless ``0``):
+  the crash-surviving ring under ``.flight/``
+  (:class:`tpudas_torch.obs.flight.FlightRecorder`), opened after the
+  startup audit.  Each step runs under the recorder's span capture; a
+  retry writes a ``fault`` record, a fatal failure a fatal one, and
+  every processed round ends with ONE ``round`` record (its phases,
+  head lag, realtime factor, device-telemetry fields) and ONE flush.
+- **Phases**: every processed round times the ten phases of
+  :data:`tpudas_torch.obs.phases.PHASES` with the JAX runners'
+  attribution.  Until the device telemetry is ported the round does
+  what the JAX runner does under ``TPUDAS_DEVPROF=0``:
+  ``device_execute`` is 0.0 and ``host_wait`` carries the processing
+  call's whole residual; ``place`` and ``live`` are 0.0 (no mesh, no
+  live plane).
+
+Not ported in this slice: the live plane, device telemetry, the mesh
+and window data parallelism, and the backfill clamps (``time_range``,
+``ingest_limit_sec``).  A runner raises ``NotImplementedError`` when
+its configuration, or the environment variable the JAX runner reads
+for a field left at None (:data:`UNPORTED_ENV`), turns on one of those
+features (see :data:`UNPORTED_FIELDS`).
 """
 
 from __future__ import annotations
@@ -70,7 +89,11 @@ from tpudas_torch.device import resolve_device
 from tpudas_torch.fleet.config import StreamSpec
 from tpudas_torch.integrity import resource as _resource
 from tpudas_torch.io.spool import spool as make_spool
+from tpudas_torch.obs.flight import capture as flight_capture
+from tpudas_torch.obs.health import write_health, write_prom
+from tpudas_torch.obs.phases import RoundPhases
 from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.obs.trace import span
 from tpudas_torch.proc.joint import JointProc
 from tpudas_torch.proc.lfproc import LFProc
 from tpudas_torch.proc.naming import get_filename
@@ -104,31 +127,25 @@ __all__ = [
 UNPORTED_FIELDS = (
     "mesh",
     "window_dp",
-    "health",
     "live",
-    "flight",
 )
 
 
 # the environment variable the JAX runners read for an unported field
-# left at None; window_dp has none.  TPUDAS_FLIGHT is on by default in
-# the JAX package and off here until the flight recorder is ported, so
-# only an explicit 1 turns it on.
+# left at None; window_dp has none
 UNPORTED_ENV = {
     "mesh": "TPUDAS_MESH",
-    "health": "TPUDAS_HEALTH",
     "live": "TPUDAS_LIVE",
-    "flight": "TPUDAS_FLIGHT",
 }
 
 
 def _unported_from_env(name: str, kind: str):
     """The value the JAX runner of ``kind`` resolves for ``name`` left
     at None: ``TPUDAS_MESH=N`` is a mesh over N devices (0 and 1 mean
-    none, as in ``tpudas.parallel.mesh.resolve_mesh``), the others are
-    on at ``1``; the rolling runner reads no ``TPUDAS_HEALTH``."""
+    none, as in ``tpudas.parallel.mesh.resolve_mesh``), ``TPUDAS_LIVE``
+    is on at ``1``."""
     env = UNPORTED_ENV.get(name)
-    if env is None or (name == "health" and kind != "lowpass"):
+    if env is None:
         return None
     raw = os.environ.get(env, "").strip()
     if name == "mesh":
@@ -266,6 +283,84 @@ def _covered_workload(rows, t1, t2):
     return data_ns / 1e9, samples
 
 
+class _EdgeHealth:
+    """Per-run health bookkeeping for the realtime runner: assembles the
+    ``health.json`` payload (schema 3, :mod:`tpudas_torch.obs.health`)
+    and drops it, with the Prometheus exposition, beside the stream
+    carry.  On with ``health=True`` (or ``TPUDAS_HEALTH=1``); write
+    failures are counted and swallowed.
+
+    ``integrity_fallbacks`` is this run's count of verified reads that
+    rejected a primary artifact and took a ladder step;
+    ``resource_degraded`` mirrors the disk-full shedding flag.  Either
+    marks the snapshot ``degraded``.  Under disk pressure
+    ``metrics.prom`` is shed (counted) while ``health.json`` keeps
+    being written: it is the operator's window into the degradation.
+    ``detect`` (the detect round's summary) and ``extra`` (such as the
+    fleet's park/unpark record) are merged into every snapshot as
+    sub-objects outside the required schema."""
+
+    def __init__(self, folder, enabled, boundary=None):
+        from tpudas_torch.integrity.checksum import fallback_count
+
+        self.folder = folder
+        self.enabled = enabled
+        self.boundary = boundary  # FaultBoundary (degradation fields)
+        self.carry_resumes = 0
+        self.last_error = None
+        self.detect = None
+        self.extra: dict = {}
+        self._fb0 = fallback_count()  # run baseline for the delta
+
+    def integrity_fallbacks(self) -> int:
+        from tpudas_torch.integrity.checksum import fallback_count
+
+        return fallback_count() - self._fb0
+
+    def write(self, counters, rounds, polls, mode, round_rt, head_lag):
+        if not self.enabled:
+            return
+        b = self.boundary
+        fallbacks = self.integrity_fallbacks()
+        res_degraded = _resource.is_degraded()
+        degraded = (
+            (False if b is None else b.degraded)
+            or res_degraded
+            or fallbacks > 0
+        )
+        payload_extra = dict(self.extra)
+        if self.detect is not None:
+            payload_extra["detect"] = self.detect
+        write_health(
+            self.folder,
+            {
+                **payload_extra,
+                "rounds": rounds,
+                "polls": polls,
+                "mode": mode,
+                "realtime_factor": round(counters.realtime_factor, 3),
+                "round_realtime_factor": round(round_rt, 3),
+                "head_lag_seconds": (
+                    None if head_lag is None else round(head_lag, 3)
+                ),
+                "redundant_ratio": round(counters.redundant_ratio, 4),
+                "carry_resume_count": self.carry_resumes,
+                "last_round_wall_seconds": round(counters.last_wall, 4),
+                "consecutive_failures": 0 if b is None else b.consecutive,
+                "quarantined_files": (
+                    0 if b is None else b.quarantined_count
+                ),
+                "degraded": degraded,
+                "integrity_fallbacks": fallbacks,
+                "resource_degraded": res_degraded,
+                "last_error": self.last_error
+                or (None if b is None else b.last_error),
+            },
+        )
+        if not _resource.should_shed("prom"):
+            write_prom(self.folder)
+
+
 POLL_FLOOR_SEC = 125.0
 
 
@@ -399,36 +494,53 @@ def _append_pyramid(output_folder, rnd, emitted, state) -> None:
         log_event("pyramid_append", round=rnd, rows=int(appended))
 
 
-def _run_pyramid(runner, rnd, emitted):
+def _run_pyramid(runner, rnd, emitted, ph):
     """The round's pyramid hook: shed while the disk is full, else
-    :func:`_append_pyramid`.  Returns its wall seconds, or None when
-    the pyramid is off or shed."""
+    :func:`_append_pyramid`, timed into the round's ``pyramid`` phase.
+    Returns its wall seconds, or None when the pyramid is off or
+    shed."""
     if not runner.pyramid or _resource.should_shed("pyramid"):
         return None
     t0 = _time.perf_counter()
-    _append_pyramid(runner.output_folder, rnd, emitted, runner.pyr_state)
+    with ph.measure("pyramid"):
+        _append_pyramid(runner.output_folder, rnd, emitted, runner.pyr_state)
     return _time.perf_counter() - t0
 
 
-def _run_detect(runner, rnd, emitted, step_sec):
-    """The round's detect hook over the captured output patches: shed
-    while the disk is full, else :func:`run_detect_round` (which counts
-    and swallows its own failures).  Returns its wall seconds, or None
-    when detection is off."""
+def _run_detect(runner, rnd, emitted, step_sec, ph):
+    """The round's detect hook over the captured output patches, timed
+    into the round's ``detect`` phase: shed while the disk is full, else
+    :func:`run_detect_round` (which counts and swallows its own
+    failures).  Returns its wall seconds, or None when detection is
+    off."""
     if not runner.detect:
         return None
     from tpudas_torch.detect.runner import mark_detect_shed, run_detect_round
 
     t0 = _time.perf_counter()
-    if _resource.should_shed("detect"):
-        mark_detect_shed(runner.det_state)
-    else:
-        run_detect_round(
-            runner.output_folder, rnd, emitted, runner.det_state,
-            operators=runner.detect_operators, step_sec=step_sec,
-            device=runner.device,
-        )
+    with ph.measure("detect"):
+        if _resource.should_shed("detect"):
+            mark_detect_shed(runner.det_state)
+        else:
+            run_detect_round(
+                runner.output_folder, rnd, emitted, runner.det_state,
+                operators=runner.detect_operators, step_sec=step_sec,
+                device=runner.device,
+            )
     return _time.perf_counter() - t0
+
+
+def _devprof_fields() -> dict:
+    """The round record's ``devprof`` fields: what the JAX runner
+    stamps under ``TPUDAS_DEVPROF=0`` until the device telemetry is
+    ported (no launches counted, no device seconds, no bound, no
+    utilization)."""
+    return {
+        "launches": 0.0,
+        "device_execute_s": 0.0,
+        "bound": None,
+        "utilization": None,
+    }
 
 
 def write_rolling_output(patch, path) -> None:
@@ -460,6 +572,33 @@ class StreamRunner:
         # to the round's LFProc so the stream's device steps rendezvous.
         # None (the default) is the solo step.
         self._batch_executor = None
+        # observability: the crash-surviving flight recorder (subclasses
+        # call _init_flight once the folder exists and is audited) and
+        # the in-flight round's phase timeline
+        self.flight = None
+        self._round_phases = None
+
+    def _init_flight(self, cfg) -> None:
+        """Open the on-disk flight recorder beside the carry
+        (``flight=`` / ``TPUDAS_FLIGHT``, on by default, as in the JAX
+        package: the recorder exists for the SIGKILL the in-memory ring
+        cannot survive).  Called after the startup audit, so a repaired
+        ring is resumed, not raced."""
+        flight = cfg.flight
+        if flight is None:
+            flight = os.environ.get("TPUDAS_FLIGHT", "1") == "1"
+        if flight:
+            from tpudas_torch.obs.flight import FlightRecorder
+
+            self.flight = FlightRecorder(self.output_folder)
+
+    def _flight_record(self, kind: str, **fields) -> None:
+        if self.flight is not None:
+            self.flight.record(kind, stream=self.stream_id, **fields)
+
+    def _flight_flush(self) -> None:
+        if self.flight is not None:
+            self.flight.flush()
 
     def poll_delay(self) -> float:
         """The clamped interval stretched by this stream's jitter."""
@@ -523,14 +662,18 @@ class LowpassStreamRunner(StreamRunner):
             if v is not None
         }
         self.counters = counters if counters is not None else Counters()
+        health = cfg.health
+        if health is None:
+            health = os.environ.get("TPUDAS_HEALTH", "0") == "1"
         policy = (
             cfg.fault_policy if cfg.fault_policy is not None
             else RetryPolicy()
         )
-        # carry, ledger and outputs live in the output folder
+        # carry, ledger, health and outputs live in the output folder
         os.makedirs(self.output_folder, exist_ok=True)
         # startup fsck before any persisted state (ledger, carry) loads
         _startup_audit(self.output_folder)
+        self._init_flight(cfg)
         if _resource.is_degraded():
             # stale in-process pressure from a previous run: re-probe
             _resource.probe_recovery(self.output_folder)
@@ -538,6 +681,9 @@ class LowpassStreamRunner(StreamRunner):
             QuarantineLedger(self.output_folder) if cfg.quarantine else None
         )
         self.boundary = FaultBoundary(policy, ledger)
+        self.edge_health = _EdgeHealth(
+            self.output_folder, bool(health), self.boundary
+        )
         self.detect, self.detect_operators = _detect_config(cfg)
         self.det_state = {"pipe": None}  # cross-round detect pipeline
         self.pyramid = _pyramid_config(cfg)
@@ -557,7 +703,6 @@ class LowpassStreamRunner(StreamRunner):
         self.carry = None  # the cross-round filter state (stateful)
         self.carry_unsaved = 0  # rounds since the last carry save
         self.carry_checked = False  # disk/legacy resolution, once
-        self.carry_resumes = 0
         self.rewind_wrote = False  # the first rewind write drops any carry
         # the first processing round starts at start_time, however many
         # empty polls precede it
@@ -569,47 +714,65 @@ class LowpassStreamRunner(StreamRunner):
 
     # -- one poll -------------------------------------------------------
     def step(self) -> StepResult:
+        reg = get_registry()
         self.polls += 1
-        get_registry().counter(
+        reg.counter(
             "tpudas_stream_polls_total", "source spool polls"
         ).inc()
+        # the round's phase timeline: every processed round emits all
+        # phases exactly once; spans emitted on this thread during the
+        # step land in this stream's flight recorder
+        ph = self._round_phases = RoundPhases()
         try:
-            fault_point("round.body", poll=self.polls)
-            # quarantine exclusion + index update + scan-failure strikes
-            # + slow-schedule probe bookkeeping
-            sp = self.boundary.begin_round(make_spool(self.source), self.source)
-            sub = (
-                sp.select(distance=self.distance)
-                if self.distance is not None else sp
-            )
-            n_now = len(sub)
-            if (
-                self.len_last is not None
-                and n_now == self.len_last
-                and self.boundary.consecutive == 0
-            ):
-                log_event(
-                    "stream_terminated", stream=self.stream_id,
-                    rounds=self.rounds, polls=self.polls,
-                )
-                return StepResult("terminate")
-            status = "empty"
-            if n_now > 0:
-                status = "processed"
-                self._process_round(sub)
-            self.boundary.on_success()
-            if _resource.is_degraded():
-                # disk-full recovery probe: one tiny write; the moment
-                # it succeeds, the shed detect round resumes
-                _resource.probe_recovery(self.output_folder)
-            # every poll sets the growth baseline: the next poll without
-            # growth terminates (the reference's loop ends when the
-            # spool stops growing, low_pass_dascore_edge.ipynb:205-207)
-            self.len_last = n_now
+            with flight_capture(self.flight):
+                fault_point("round.body", poll=self.polls)
+                # quarantine exclusion + index update + scan-failure
+                # strikes + slow-schedule probe bookkeeping
+                with ph.measure("poll"):
+                    sp = self.boundary.begin_round(
+                        make_spool(self.source), self.source)
+                    sub = (
+                        sp.select(distance=self.distance)
+                        if self.distance is not None else sp
+                    )
+                    n_now = len(sub)
+                if (
+                    self.len_last is not None
+                    and n_now == self.len_last
+                    and self.boundary.consecutive == 0
+                ):
+                    log_event(
+                        "stream_terminated", stream=self.stream_id,
+                        rounds=self.rounds, polls=self.polls,
+                    )
+                    return StepResult("terminate")
+                status = "empty"
+                if n_now > 0:
+                    status = "processed"
+                    self._process_round(sub, reg)
+                else:
+                    self.boundary.on_success()
+                if _resource.is_degraded():
+                    # disk-full recovery probe: one tiny write; the
+                    # moment it succeeds, the shed writers resume
+                    _resource.probe_recovery(self.output_folder)
+                # every poll sets the growth baseline: the next poll
+                # without growth terminates (the reference's loop ends
+                # when the spool stops growing,
+                # low_pass_dascore_edge.ipynb:205-207)
+                self.len_last = n_now
         except Exception as exc:
             decision = self.boundary.on_failure(exc)
             if decision.propagate:
                 raise
+            # the retry survives the crash the flight ring exists for:
+            # record it durably before the backoff sleep
+            self._flight_record(
+                "fault", poll=self.polls, fault_kind=decision.kind,
+                attempt=self.boundary.consecutive,
+                error=f"{type(exc).__name__}: {str(exc)[:200]}",
+            )
+            self._flight_flush()
             # crash-equivalent retry: drop the in-memory carry and
             # re-resolve it from disk on the next attempt, so a retried
             # round and a process restart are the same code path (the
@@ -620,6 +783,10 @@ class LowpassStreamRunner(StreamRunner):
                 self.carry_unsaved = 0
             self.det_state["pipe"] = None
             self.pyr_state["store"] = None
+            self.edge_health.write(
+                self.counters, self.rounds, self.polls,
+                self._mode(), 0.0, None,
+            )
             return StepResult(
                 "retry", decision.delay, decision.kind,
                 self.boundary.consecutive,
@@ -629,7 +796,12 @@ class LowpassStreamRunner(StreamRunner):
     def _mode(self) -> str:
         return "stateful" if self.stateful else "rewind"
 
-    def _process_round(self, sub) -> None:
+    def _process_round(self, sub, reg) -> None:
+        ph = self._round_phases
+        if ph is None:  # direct callers outside step() still time
+            ph = self._round_phases = RoundPhases()
+        t_body = _time.perf_counter()
+        t_prep0 = t_body  # host prep until the processing call
         joint_extra = {}
         if self.rolling_output_folder is not None:
             lfp = JointProc(sub, device=self.device)
@@ -665,10 +837,14 @@ class LowpassStreamRunner(StreamRunner):
         rnd = self.rounds + 1
         log_event("round_start", round=rnd, stream=self.stream_id)
         if self.stateful and not self.carry_checked:
-            self._resolve_carry(lfp)
+            self._resolve_carry(lfp, reg)
         # the newest timestamp from the index — no file data is read
         rows = sub.contents()
         t2 = max(np.datetime64(r["time_max"], "ns") for r in rows)
+        # host prep so far (LFProc build, carry resolution, index
+        # metadata) charges the read_decode phase; the in-call read and
+        # decode wait is mirrored out of lfp.timings below
+        ph.add("read_decode", _time.perf_counter() - t_prep0)
         redundant = 0.0
         if self.stateful:
             # carried state: only NEW samples are read and filtered
@@ -678,15 +854,20 @@ class LowpassStreamRunner(StreamRunner):
                 else self.start_time
             )
             data_sec, ch_samples = _covered_workload(rows, t1, t2)
-            with self.counters.measure(int(ch_samples), data_sec):
+            t_proc0 = _time.perf_counter()
+            with span(
+                "stream.round", mode="stateful", round=rnd
+            ), self.counters.measure(int(ch_samples), data_sec):
                 lfp.process_stream_increment(self.carry, t2)
+            proc_wall = _time.perf_counter() - t_proc0
             from tpudas_torch.proc.stream import save_carry
 
             # saved AFTER the outputs: the carry is never ahead of the
             # files (resume reconciles the rest)
             self.carry_unsaved += 1
             if self.carry_unsaved >= self.carry_save_every:
-                save_carry(self.carry, self.output_folder)
+                with ph.measure("commit"):
+                    save_carry(self.carry, self.output_folder)
                 self.carry_unsaved = 0
         else:
             resumed_stateful = False
@@ -727,24 +908,72 @@ class LowpassStreamRunner(StreamRunner):
                     rows, t1, min(self.prev_t2, t2)
                 )
                 self.counters.add_redundant(int(redundant))
-            with self.counters.measure(int(ch_samples), data_sec):
+            t_proc0 = _time.perf_counter()
+            with span(
+                "stream.round", mode="rewind", round=rnd
+            ), self.counters.measure(int(ch_samples), data_sec):
                 lfp.process_time_range(t1, t2)
+            proc_wall = _time.perf_counter() - t_proc0
+        # phase attribution of the processing call: the round's fresh
+        # LFProc timings ARE its read/decode wait and output writes; the
+        # rest of the call is host_wait (kernel dispatch through host
+        # sync, engine glue).  device_execute stays 0.0 and place 0.0
+        # until the device telemetry and a mesh are ported (the JAX
+        # runner's TPUDAS_DEVPROF=0 split, unsharded)
+        assemble_s = float(lfp.timings.get("assemble_s", 0.0))
+        write_s = float(lfp.timings.get("write_s", 0.0))
+        ph.add("read_decode", assemble_s)
+        ph.add("commit", write_s)
+        ph.add("host_wait", max(proc_wall - assemble_s - write_s, 0.0))
         self.prev_t2 = t2
         self.rounds = rnd
         self.round_rt = (
             data_sec / self.counters.last_wall if self.counters.last_wall
             else 0.0
         )
+        mode_str = self._mode()
+        reg.counter(
+            "tpudas_stream_rounds_total",
+            "processing rounds completed",
+            labelnames=("mode",),
+        ).inc(mode=mode_str)
+        reg.histogram(
+            "tpudas_stream_round_seconds",
+            "per-round measured processing wall time",
+        ).observe(self.counters.last_wall)
+        reg.gauge(
+            "tpudas_stream_realtime_factor",
+            "last round's data-seconds per wall-second",
+        ).set(self.round_rt)
+        reg.gauge(
+            "tpudas_stream_redundant_ratio",
+            "cumulative fraction of channel-samples re-read to "
+            "rebuild filter state",
+        ).set(self.counters.redundant_ratio)
+        # stateful head lag is O(1) off the carry; the rewind fallback
+        # rescans the output index, so only pay it when health is on
         self.head_lag = (
-            _head_lag_seconds(t2, lfp, self.carry) if self.stateful else None
+            _head_lag_seconds(
+                t2, lfp, self.carry if self.stateful else None
+            )
+            if (self.stateful or self.edge_health.enabled)
+            else None
         )
-        pyramid_s = _run_pyramid(self, rnd, emitted)
-        detect_s = _run_detect(self, rnd, emitted, self.d_t)
+        if self.head_lag is not None:
+            reg.gauge(
+                "tpudas_stream_head_lag_seconds",
+                "stream-seconds between the fiber head and the "
+                "newest emitted output",
+            ).set(self.head_lag)
+        pyramid_s = _run_pyramid(self, rnd, emitted, ph)
+        detect_s = _run_detect(self, rnd, emitted, self.d_t, ph)
+        if self.detect:
+            self.edge_health.detect = self.det_state.get("summary")
         log_event(
             "realtime_round",
             round=rnd,
             upto=str(t2),
-            mode=self._mode(),
+            mode=mode_str,
             data_seconds=round(data_sec, 3),
             redundant_samples=int(redundant),
             wall_seconds=round(self.counters.last_wall, 4),
@@ -756,11 +985,41 @@ class LowpassStreamRunner(StreamRunner):
             pyramid_seconds=pyramid_s,
             detect_seconds=detect_s,
         )
+        self.boundary.on_success()
+        with ph.measure("health"):
+            self.edge_health.write(
+                self.counters, rnd, self.polls, mode_str, self.round_rt,
+                self.head_lag,
+            )
+        reg.histogram(
+            "tpudas_stream_round_body_seconds",
+            "full processing-round wall time (index update "
+            "through health write, pyramid append included)",
+        ).observe(_time.perf_counter() - t_body)
+        # the round's durable trace: the phase timeline record, then ONE
+        # flush — a SIGKILL after this point leaves the whole round (its
+        # spans, then this record) in the flight ring
+        phases_rec = ph.finish(reg)
+        self._round_phases = None  # finished: never re-accumulated
+        self._flight_record(
+            "round",
+            round=rnd,
+            mode=mode_str,
+            data_seconds=round(data_sec, 3),
+            realtime_factor=round(self.round_rt, 3),
+            head_lag=(
+                None if self.head_lag is None
+                else round(self.head_lag, 3)
+            ),
+            phases=phases_rec,
+            devprof=_devprof_fields(),
+        )
+        self._flight_flush()
         if self.on_round is not None:
             self.on_round(rnd, lfp)
         self.processed_once = True
 
-    def _resolve_carry(self, lfp) -> None:
+    def _resolve_carry(self, lfp, reg) -> None:
         """One-time disk resolution: resume a persisted carry, or
         continue a folder that has outputs but no carry in rewind mode
         (its resume point is only expressible as a rewind)."""
@@ -794,7 +1053,11 @@ class LowpassStreamRunner(StreamRunner):
                 carry.engine_req = live_engine
             reconcile_outputs(self.output_folder, carry)
             log_event("stream_resume", emitted=carry.emitted)
-            self.carry_resumes += 1
+            self.edge_health.carry_resumes += 1
+            reg.counter(
+                "tpudas_stream_carry_resumes_total",
+                "rounds resumed from a persisted stream carry",
+            ).inc()
             self.carry = carry
             return
         try:
@@ -830,15 +1093,41 @@ class LowpassStreamRunner(StreamRunner):
 
             save_carry(self.carry, self.output_folder)
             self.carry_unsaved = 0
+        # the final snapshot: quarantine/degradation state from the LAST
+        # poll (a file can be quarantined by the poll that terminates
+        # the loop) must be visible
+        self.edge_health.write(
+            self.counters, self.rounds, self.polls,
+            self._mode(), self.round_rt, self.head_lag,
+        )
+        self._flight_record(
+            "event", name="finish", rounds=self.rounds, polls=self.polls,
+        )
+        self._flight_flush()
         log_event(
             "stream_finish", stream=self.stream_id, rounds=self.rounds,
             polls=self.polls,
         )
 
     def record_fatal(self, exc: BaseException) -> None:
+        # terminal failure: the LAST health snapshot an operator sees
+        # must say why the stream died
+        self.edge_health.last_error = (
+            f"{type(exc).__name__}: {str(exc)[:300]}"
+        )
         get_registry().counter(
-            "tpudas_stream_errors_total", "realtime driver crashes",
+            "tpudas_stream_errors_total",
+            "realtime driver crashes (recorded in health.json)",
         ).inc()
+        self.edge_health.write(
+            self.counters, self.rounds, self.polls,
+            self._mode(), 0.0, None,
+        )
+        self._flight_record(
+            "fault", fatal=True, poll=self.polls,
+            error=f"{type(exc).__name__}: {str(exc)[:300]}",
+        )
+        self._flight_flush()
         log_event(
             "stream_fatal", stream=self.stream_id, polls=self.polls,
             error=f"{type(exc).__name__}: {str(exc)[:300]}",
@@ -870,6 +1159,7 @@ class RollingStreamRunner(StreamRunner):
         self.engine = cfg.engine
         os.makedirs(self.output_folder, exist_ok=True)
         _startup_audit(self.output_folder)
+        self._init_flight(cfg)
         file_duration = (
             30.0 if cfg.file_duration is None else float(cfg.file_duration)
         )
@@ -899,45 +1189,55 @@ class RollingStreamRunner(StreamRunner):
 
     def step(self) -> StepResult:
         self.polls += 1
+        ph = self._round_phases = RoundPhases()
         try:
-            fault_point("round.body", poll=self.polls)
-            sp = self.boundary.begin_round(
-                make_spool(self.source).sort("time"), self.source
-            )
-            sub = (
-                sp.select(distance=self.distance)
-                if self.distance is not None else sp
-            )
-            keys = [
-                (np.datetime64(r["time_min"], "ns"),
-                 np.datetime64(r["time_max"], "ns"))
-                for r in sub.contents()
-            ]
-            fresh = [j for j, k in enumerate(keys) if k not in self.processed]
-            if (
-                not self.initial_run
-                and not fresh
-                and self.boundary.consecutive == 0
-            ):
-                log_event(
-                    "stream_terminated", stream=self.stream_id,
-                    rounds=self.rounds, polls=self.polls,
-                )
-                return StepResult("terminate")
-            status = "empty"
-            if fresh:
-                status = "processed"
-                self._process_round(sub, keys, fresh)
-            self.boundary.on_success()
-            if _resource.is_degraded():
-                _resource.probe_recovery(self.output_folder)
-            self.initial_run = False
+            with flight_capture(self.flight):
+                fault_point("round.body", poll=self.polls)
+                with ph.measure("poll"):
+                    sp = self.boundary.begin_round(
+                        make_spool(self.source).sort("time"), self.source
+                    )
+                    sub = (
+                        sp.select(distance=self.distance)
+                        if self.distance is not None else sp
+                    )
+                    keys = [
+                        (np.datetime64(r["time_min"], "ns"),
+                         np.datetime64(r["time_max"], "ns"))
+                        for r in sub.contents()
+                    ]
+                    fresh = [j for j, k in enumerate(keys)
+                             if k not in self.processed]
+                if (
+                    not self.initial_run
+                    and not fresh
+                    and self.boundary.consecutive == 0
+                ):
+                    log_event(
+                        "stream_terminated", stream=self.stream_id,
+                        rounds=self.rounds, polls=self.polls,
+                    )
+                    return StepResult("terminate")
+                status = "empty"
+                if fresh:
+                    status = "processed"
+                    self._process_round(sub, keys, fresh)
+                self.boundary.on_success()
+                if _resource.is_degraded():
+                    _resource.probe_recovery(self.output_folder)
+                self.initial_run = False
         except Exception as exc:
             self.det_state["pipe"] = None
             self.pyr_state["store"] = None
             decision = self.boundary.on_failure(exc)
             if decision.propagate:
                 raise
+            self._flight_record(
+                "fault", poll=self.polls, fault_kind=decision.kind,
+                attempt=self.boundary.consecutive,
+                error=f"{type(exc).__name__}: {str(exc)[:200]}",
+            )
+            self._flight_flush()
             return StepResult(
                 "retry", decision.delay, decision.kind,
                 self.boundary.consecutive,
@@ -945,6 +1245,9 @@ class RollingStreamRunner(StreamRunner):
         return StepResult(status, self.poll_delay())
 
     def _process_round(self, sub, keys, fresh) -> None:
+        ph = self._round_phases
+        if ph is None:
+            ph = self._round_phases = RoundPhases()
         rnd = self.rounds + 1
         log_event("round_start", round=rnd, stream=self.stream_id)
         emitted = []  # in-memory capture (pyramid/detect)
@@ -966,9 +1269,15 @@ class RollingStreamRunner(StreamRunner):
             self.processed.add(keys[j])
             if self.pyramid or self.detect:
                 emitted.append(out)
+        # phase attribution: the loop is read + compute + write
+        # interleaved; writes are timed at their site, the remainder is
+        # host_wait (device_execute 0.0 until the device telemetry is
+        # ported, as in the JAX runner)
         loop_s = _time.perf_counter() - t0
-        pyramid_s = _run_pyramid(self, rnd, emitted)
-        detect_s = _run_detect(self, rnd, emitted, self.step_sec)
+        ph.add("commit", write_s)
+        ph.add("host_wait", max(loop_s - write_s, 0.0))
+        pyramid_s = _run_pyramid(self, rnd, emitted, ph)
+        detect_s = _run_detect(self, rnd, emitted, self.step_sec, ph)
         self.rounds = rnd
         log_event(
             "rolling_round", round=rnd, stream=self.stream_id,
@@ -976,6 +1285,14 @@ class RollingStreamRunner(StreamRunner):
             write_seconds=round(write_s, 4), pyramid_seconds=pyramid_s,
             detect_seconds=detect_s,
         )
+        phases_rec = ph.finish()
+        self._round_phases = None  # finished: never re-accumulated
+        self._flight_record(
+            "round", round=rnd, mode="rolling",
+            patches=len(fresh), phases=phases_rec,
+            devprof=_devprof_fields(),
+        )
+        self._flight_flush()
 
 
 def build_runner(
@@ -1012,7 +1329,13 @@ def drive(runner: StreamRunner, max_rounds=None, sleep_fn=_time.sleep):
                 break
             if max_rounds is not None and runner.polls >= max_rounds:
                 break
-            sleep_fn(res.delay)
+            if res.status == "retry":
+                with span(
+                    "stream.retry", kind=res.kind, attempt=res.attempt
+                ):
+                    sleep_fn(res.delay)
+            else:
+                sleep_fn(res.delay)
     except Exception as exc:
         runner.record_fatal(exc)
         raise

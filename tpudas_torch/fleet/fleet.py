@@ -45,10 +45,16 @@ launched once; outputs and carries byte-identical to solo execution).
 A member that faults mid-round drops out of its group, not the fleet,
 and parks as in solo scheduling.
 
+**Health and flight.**  A parked stream's terminal ``health.json``
+carries a ``fleet`` sub-object (``event``, ``parked_at``,
+``unparked_at``, ``unparks``, ``error``) and an unparked one's the
+``unparked`` event, as in the JAX fleet.  Each member's step records its
+spans into its own stream's flight ring: the capture is thread-local, so
+in batched service every member thread writes only its own ring.
+
 Not ported: the JAX package's persistent compile cache
 (``utils/compile_cache``) has no counterpart, because the nvcc-built
-kernel libraries are already shared by every stream of the process;
-parking writes no health snapshot (health files are not ported).  A
+kernel libraries are already shared by every stream of the process.  A
 spec that asks for an unported feature (any
 :data:`tpudas_torch.fleet.engine.UNPORTED_FIELDS` entry) raises
 ``NotImplementedError`` when the fleet is built, rather than parking.
@@ -308,6 +314,16 @@ class FleetEngine:
         else:
             s.probe_due = None
         if s.runner is not None:
+            health = getattr(s.runner, "edge_health", None)
+            if health is not None:
+                # the park event in the stream's terminal health.json
+                health.extra["fleet"] = {
+                    "event": "parked",
+                    "parked_at": s.parked_at,
+                    "unparked_at": s.unparked_at,
+                    "unparks": s.unparks,
+                    "error": s.error,
+                }
             try:
                 s.runner.record_fatal(exc)
             except Exception as exc2:
@@ -357,6 +373,15 @@ class FleetEngine:
         s.probe_due = None
         s.unparks += 1
         s.unparked_at = _time.time()
+        health = getattr(runner, "edge_health", None)
+        if health is not None:
+            health.extra["fleet"] = {
+                "event": "unparked",
+                "parked_at": s.parked_at,
+                "unparked_at": s.unparked_at,
+                "unparks": s.unparks,
+                "probes": s.probes,
+            }
         get_registry().counter(
             "tpudas_fleet_unparked_total",
             "parked streams that rejoined the fleet via the unpark "

@@ -29,6 +29,8 @@ artifact            files
 ``scores``          ``.detect/scores/manifest.json`` (+ ``.prev``),
                     ``.detect/scores/tails.npy``,
                     ``.detect/scores/NNNNNNNN.npy``
+``flight``          ``.flight/seg-NNNNNNNN.jsonl`` — per-line crc32
+                    stamps (the flight recorder's ring)
 ``tmp``             any ``*.tmp`` / ``*.tmp.<pid>`` leftover anywhere in
                     the tree (a crashed writer's half file)
 ==================  =====================================================
@@ -65,10 +67,11 @@ triggers a **rebuild** of ``.tiles/`` from the output files
 and codec of whichever manifest rung still parses — the store is
 derived data).  ``rebuild=False`` reports it instead.
 
-Not ported yet: the flight recorder's segment repair (``.flight/``)
-comes with that feature; until then the audit leaves the tree alone,
-apart from the tmp sweep.  The backfill queue's audits come with the
-backfill.
+The flight ring (``.flight/``, :mod:`tpudas_torch.obs.flight`) is
+checked line by line: a segment with unverifiable lines (a torn tail
+after a SIGKILL, bit rot) is **truncated** to its verified prefix, one
+with none left (or unreadable) is **removed**, as in the JAX audit.
+Not ported yet: the backfill queue's audits come with the backfill.
 
 Run the CLI only while the driver is stopped (the tmp sweep cannot
 tell a crashed writer's leftovers from a live writer's in-flight
@@ -922,6 +925,59 @@ def _check_pyramid(
 
 
 # ---------------------------------------------------------------------------
+# flight recorder segments (tpudas_torch.obs.flight)
+
+
+def _check_flight(folder: str, issues: list, repair: bool) -> None:
+    """The flight ring's crash windows: a SIGKILL mid-flush tears the
+    tail of the newest segment (the per-line crc catches it); bit rot
+    can corrupt any line.  Repair truncates each segment to its
+    verified prefix — what every reader already skips to — and removes
+    a segment with no verified line at all.  The trace is bounded,
+    derived observability data: truncation loses nothing a reader could
+    have used."""
+    from tpudas_torch.obs.flight import SEGMENT_RE, flight_dir, scan_segment
+    from tpudas_torch.utils.atomicio import atomic_write_text
+
+    fdir = flight_dir(folder)
+    if not os.path.isdir(fdir):
+        return
+    for name in sorted(os.listdir(fdir)):
+        if not SEGMENT_RE.match(name):
+            continue
+        path = os.path.join(fdir, name)
+        try:
+            _records, good_lines, bad = scan_segment(path)
+        except OSError as exc:
+            if repair:
+                _remove_all(path)
+            _issue(
+                issues, "flight", path, "corrupt",
+                _repair_action(repair, "removed"),
+                f"{type(exc).__name__}: {str(exc)[:120]}",
+            )
+            continue
+        if not bad:
+            continue
+        if good_lines:
+            if repair:
+                atomic_write_text(path, "\n".join(good_lines) + "\n")
+            _issue(
+                issues, "flight", path, "torn",
+                _repair_action(repair, "truncated"),
+                f"{bad} unverifiable line(s) dropped",
+            )
+        else:
+            if repair:
+                _remove_all(path)
+            _issue(
+                issues, "flight", path, "torn",
+                _repair_action(repair, "removed"),
+                "no verifiable lines",
+            )
+
+
+# ---------------------------------------------------------------------------
 
 # the JAX package's table, whole: the backfill actions (adopted_commit,
 # aborted) stay so that a report counts the same either way
@@ -971,6 +1027,7 @@ def audit(folder, repair: bool = True, rebuild: bool = True) -> dict:
             _check_outputs(folder, issues, repair)
             _check_pyramid(folder, issues, repair, rebuild)
             _check_detect(folder, issues, repair)
+            _check_flight(folder, issues, repair)
     elapsed = time.perf_counter() - t0
     reg = get_registry()
     reg.counter(

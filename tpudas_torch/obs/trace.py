@@ -1,18 +1,20 @@
 """Span tracing: nested timed spans into a bounded ring buffer.
 
-The host part of :mod:`tpudas.obs.trace`.  ``with span("fleet.step",
-stream="a"): ...`` records a wall-clock span with attributes; spans
-nest per thread (each knows its parent and depth), land in a
-process-wide ring buffer (bounded: a months-long edge process must not
-grow with uptime), feed the ``tpudas_span_seconds{name=...}``
-histogram, and export one ``log_event("span", ...)`` line each when a
-log handler is installed.  ``TPUDAS_SPAN_RING`` sizes the ring
-(default 2048 finished spans), read when the module is imported.
+The host half of :mod:`tpudas.obs.trace`.  ``with span("stream.round",
+round=3): ...`` records a wall-clock span with attributes; spans nest
+per thread (each span knows its parent and depth), land in a
+process-wide ring buffer (bounded: an edge process must never grow
+memory with uptime), feed the ``tpudas_span_seconds{name=...}``
+histogram, are handed to every registered span sink
+(:func:`add_span_sink`: the flight recorder's scoped capture,
+:mod:`tpudas_torch.obs.flight`), and export one ``log_event("span",
+...)`` line each when a log handler is installed.
 
-Not ported yet: the device annotation around each span (the JAX
-package wraps spans in ``jax.profiler.TraceAnnotation``; the port's
-counterpart belongs with the profiler hooks), span sinks (the flight
-recorder's capture) and the ``TPUDAS_OBS=0`` kill switch.
+``TPUDAS_OBS=0`` disables recording entirely (the registry's kill
+switch); ``TPUDAS_SPAN_RING`` sizes the ring (default 2048 finished
+spans).  Not ported yet: the device annotation around each span (the
+JAX package's ``TPUDAS_TRACE_ANNOTATE``), which comes with the device
+telemetry.
 """
 
 from __future__ import annotations
@@ -22,10 +24,17 @@ import threading
 import time
 from collections import deque
 
-from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.obs import registry as _registry_mod
 from tpudas_torch.utils import logging as _logging
 
-__all__ = ["get_spans", "span", "span_ring_capacity"]
+__all__ = [
+    "add_span_sink",
+    "remove_span_sink",
+    "span",
+    "get_spans",
+    "clear_spans",
+    "span_ring_capacity",
+]
 
 _DEFAULT_RING = 2048
 
@@ -42,6 +51,25 @@ _lock = threading.Lock()
 _ring: deque = deque(maxlen=span_ring_capacity())
 _local = threading.local()
 _next_id = 0
+# finished-span sinks (e.g. the flight recorder's thread-scoped
+# capture, tpudas_torch.obs.flight) — called with each finished span record
+_sinks: list = []
+
+
+def add_span_sink(fn) -> None:
+    """Register ``fn(record)`` to receive every finished span (after
+    the ring append).  A raising sink is counted
+    (``tpudas_obs_spans_dropped_total{reason="sink_error"}``) and
+    skipped — a trace consumer must never break the traced code."""
+    with _lock:
+        if fn not in _sinks:
+            _sinks.append(fn)
+
+
+def remove_span_sink(fn) -> None:
+    with _lock:
+        if fn in _sinks:
+            _sinks.remove(fn)
 
 
 def _span_stack():
@@ -51,11 +79,42 @@ def _span_stack():
     return st
 
 
-class _Span:
-    """Hand-rolled context manager (no generator machinery on the hot
-    path).  Yields the mutable span record."""
+def _span_metrics(reg):
+    """(histogram, eviction_counter, dropped_counter) handles, memoized
+    on the registry instance — the per-span cost must not include
+    get-or-create (once the ring is full, EVERY span exit counts an
+    eviction)."""
+    handles = getattr(reg, "_span_metric_handles", None)
+    if handles is None:
+        handles = (
+            reg.histogram(
+                "tpudas_span_seconds",
+                "span wall-clock duration by span name",
+                labelnames=("name",),
+            ),
+            reg.counter(
+                "tpudas_spans_evicted_total",
+                "finished spans dropped from the full ring buffer",
+            ),
+            reg.counter(
+                "tpudas_obs_spans_dropped_total",
+                "finished spans lost before reaching a consumer "
+                "(ring eviction, or a raising span sink)",
+                labelnames=("reason",),
+            ),
+        )
+        try:
+            reg._span_metric_handles = handles
+        except AttributeError:  # pragma: no cover - exotic registry
+            pass
+    return handles
 
-    __slots__ = ("name", "attrs", "rec", "_t0")
+
+class _Span:
+    """Hand-rolled context manager (no ``@contextmanager`` generator
+    machinery) for the hot path.  Yields the mutable span record."""
+
+    __slots__ = ("name", "attrs", "rec", "_t0", "_reg")
 
     def __init__(self, name, attrs):
         self.name = name
@@ -63,6 +122,11 @@ class _Span:
         self.rec = None
 
     def __enter__(self):
+        # same gate as the registry: TPUDAS_OBS=0 disables spans
+        # unless an explicit use_registry scope asked for measurements
+        reg = _registry_mod.get_registry()
+        if reg is _registry_mod._NOOP_REGISTRY:
+            return None
         global _next_id
         stack = _span_stack()
         parent = stack[-1] if stack else None
@@ -77,12 +141,15 @@ class _Span:
             "attrs": self.attrs,
         }
         stack.append(rec)
+        self._reg = reg
         rec["start"] = time.time()
         self._t0 = time.perf_counter()
         return rec
 
     def __exit__(self, exc_type, exc, tb):
         rec = self.rec
+        if rec is None:
+            return False
         dur = time.perf_counter() - self._t0
         if exc is not None:
             rec["error"] = repr(exc)[:200]
@@ -91,17 +158,20 @@ class _Span:
         with _lock:
             evicted = len(_ring) == _ring.maxlen
             _ring.append(rec)
-        reg = get_registry()
+        hist, evictions, dropped = _span_metrics(self._reg)
         if evicted:
-            reg.counter(
-                "tpudas_spans_evicted_total",
-                "finished spans dropped from the full ring buffer",
-            ).inc()
-        reg.histogram(
-            "tpudas_span_seconds",
-            "span wall-clock duration by span name",
-            labelnames=("name",),
-        ).observe(dur, name=rec["name"])
+            evictions.inc()
+            # the obs-wide drop count: silent trace loss must be
+            # visible in metrics.prom
+            dropped.inc(reason="ring_full")
+        hist.observe(dur, name=rec["name"])
+        for sink in tuple(_sinks):
+            try:
+                sink(rec)
+            except Exception:
+                dropped.inc(reason="sink_error")
+        # JSONL export through the existing pipeline (skipped wholesale
+        # when no handler is installed)
         if _logging._handler is not None:
             fields = {
                 **rec["attrs"],  # attrs first: the envelope keys win
@@ -119,16 +189,26 @@ class _Span:
 
 def span(name: str, **attrs) -> _Span:
     """Record a named, attributed, nested timed span around the block.
-    Exceptions propagate; the span is still recorded, with
-    ``error=<repr prefix>``."""
+
+    Exceptions propagate; the span is still recorded with
+    ``error=<repr prefix>`` so a crashed round leaves its trace."""
     return _Span(name, attrs)
 
 
 def get_spans(name: str | None = None) -> list:
-    """Copies of the finished spans in the ring (oldest first),
-    optionally only those called ``name``."""
+    """Finished spans currently in the ring (oldest first), optionally
+    filtered by name.  Returns copies — callers cannot corrupt the
+    ring."""
     with _lock:
         recs = list(_ring)
     if name is not None:
         recs = [r for r in recs if r["name"] == name]
     return [dict(r) for r in recs]
+
+
+def clear_spans() -> None:
+    """Empty the ring and re-read ``TPUDAS_SPAN_RING`` (tests resize
+    the ring this way)."""
+    global _ring
+    with _lock:
+        _ring = deque(maxlen=span_ring_capacity())

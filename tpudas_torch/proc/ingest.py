@@ -233,10 +233,15 @@ class SlicePrefetcher:
             self._cond.notify_all()
 
     def close(self) -> None:
-        """Stop and join the producer; log the pipeline's counts."""
+        """Stop and join the producer; record the pipeline's counters
+        and gauges (:func:`tpudas_torch.obs.phases.record_ingest_pipeline`,
+        as the JAX package does) and log them."""
         with self._cond:
             self._state = "stop"
             self._gen += 1
             self._cond.notify_all()
         self._thread.join(timeout=30)
+        from tpudas_torch.obs.phases import record_ingest_pipeline
+
+        record_ingest_pipeline(self.depth, self.stats)
         log_event("ingest_pipeline", depth=self.depth, **self.stats)

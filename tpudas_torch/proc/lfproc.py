@@ -52,6 +52,7 @@ from tpudas_torch.core.timeutils import (
 from tpudas_torch.device import resolve_device
 from tpudas_torch.io.spool import spool as make_spool
 from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.obs.trace import span
 from tpudas_torch.proc.naming import get_filename
 from tpudas_torch.utils.logging import log_event
 
@@ -526,15 +527,17 @@ class LFProc:
             segments = [(0, len(time_grid))]
         total_windows = 0
         try:
-            for s_i, (g_lo, g_hi) in enumerate(segments):
-                if len(segments) > 1:
-                    print(
-                        f"Processing segment {s_i + 1}/{len(segments)} "
-                        f"[{time_grid[g_lo]} .. {time_grid[g_hi - 1]}]"
+            with span("lfproc.process_time_range",
+                      grid_points=len(time_grid), segments=len(segments)):
+                for s_i, (g_lo, g_hi) in enumerate(segments):
+                    if len(segments) > 1:
+                        print(
+                            f"Processing segment {s_i + 1}/{len(segments)} "
+                            f"[{time_grid[g_lo]} .. {time_grid[g_hi - 1]}]"
+                        )
+                    total_windows += self._process_segment(
+                        time_grid[g_lo:g_hi], on_gap
                     )
-                total_windows += self._process_segment(
-                    time_grid[g_lo:g_hi], on_gap
-                )
         finally:
             # the run anchor must not leak into later direct
             # _process_window use (whose fallback is a window-local

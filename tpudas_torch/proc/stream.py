@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from tpudas_torch.core.timeutils import quantize_step, to_datetime64
+from tpudas_torch.obs.trace import span
 from tpudas_torch.utils.logging import log_event
 
 __all__ = [
@@ -178,19 +179,21 @@ def save_carry(carry: StreamCarry, folder: str) -> str:
 
     path = os.path.join(folder, CARRY_FILENAME)
     fault_point("carry.save", folder=folder)
-    arrays = {"meta": np.asarray(json.dumps(carry._meta()))}
-    for i, b in enumerate(carry.bufs):
-        arrays[f"buf_{i}"] = _host_leaf(b)
-    if carry.residual is not None:
-        res = np.asarray(carry.residual)
-        if res.dtype != np.int16:  # raw quantized rows stay int16
-            res = res.astype(np.float32, copy=False)
-        arrays["residual"] = res
-    buf = io.BytesIO()
-    np.savez(buf, **arrays)
-    rotate_prev(path)
-    write_bytes_checksummed(path, buf.getvalue())
-    write_json_checksummed(os.path.join(folder, CARRY_SIDECAR), carry._meta())
+    with span("stream.carry_save"):
+        arrays = {"meta": np.asarray(json.dumps(carry._meta()))}
+        for i, b in enumerate(carry.bufs):
+            arrays[f"buf_{i}"] = _host_leaf(b)
+        if carry.residual is not None:
+            res = np.asarray(carry.residual)
+            if res.dtype != np.int16:  # raw quantized rows stay int16
+                res = res.astype(np.float32, copy=False)
+            arrays["residual"] = res
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        rotate_prev(path)
+        write_bytes_checksummed(path, buf.getvalue())
+        write_json_checksummed(
+            os.path.join(folder, CARRY_SIDECAR), carry._meta())
     return path
 
 
@@ -451,69 +454,73 @@ def process_increment(lfp, carry: StreamCarry, edtime) -> int:
     pipe = _EmitPipeline(depth)
     prefetcher = None
     try:
-        cursor0 = (
-            carry.next_ingest_ns if carry.next_ingest_ns is not None
-            else carry.start_ns
-        )
-        if depth > 0 and cursor0 <= t2_ns:
-            prefetcher = SlicePrefetcher(
-                lfp, t2_ns, slice_ns, on_gap, depth, cursor0, carry.d_ns,
-            )
-        while True:
-            t_lo_ns = (
+        with span("stream.increment", upto=str(edtime)):
+            cursor0 = (
                 carry.next_ingest_ns if carry.next_ingest_ns is not None
                 else carry.start_ns
             )
-            if t_lo_ns > t2_ns:
-                break
-            t_hi_ns = min(t2_ns, t_lo_ns + slice_ns)
-            t_lo = np.datetime64(int(t_lo_ns), "ns")
-            t_hi = np.datetime64(int(t_hi_ns), "ns")
-            payload = None
-            missed = False
-            item = (
-                prefetcher.get(t_lo_ns, t_hi_ns) if prefetcher is not None
-                else None
-            )
-            if item is not None:
-                patch = item.patch
-                payload = item.payload
-            else:
-                # synchronous load: prefetch off, or a miss (re-read
-                # here, resync the producer after the feed)
-                missed = prefetcher is not None
-                t0 = time.perf_counter()
-                patch = lfp._load_window(t_lo, t_hi, on_gap)
-                lfp.timings["assemble_s"] += time.perf_counter() - t0
-                if patch is not None:
-                    payload = decode_payload(lfp, patch)
-            if patch is None:
-                # an unmergeable slice under a tolerant gap policy: skip
-                # it and cold-restart the engine at the next data.
-                # Pending blocks flush first: the reset re-anchors the
-                # emission grid.
-                pipe.flush()
-                log_event("stream_gap_skipped", t_lo=str(t_lo), t_hi=str(t_hi))
-                _reset_engine(carry)
-                carry.next_ingest_ns = t_hi_ns + 1
+            if depth > 0 and cursor0 <= t2_ns:
+                prefetcher = SlicePrefetcher(
+                    lfp, t2_ns, slice_ns, on_gap, depth, cursor0, carry.d_ns,
+                )
+            while True:
+                t_lo_ns = (
+                    carry.next_ingest_ns if carry.next_ingest_ns is not None
+                    else carry.start_ns
+                )
+                if t_lo_ns > t2_ns:
+                    break
+                t_hi_ns = min(t2_ns, t_lo_ns + slice_ns)
+                t_lo = np.datetime64(int(t_lo_ns), "ns")
+                t_hi = np.datetime64(int(t_hi_ns), "ns")
+                payload = None
+                missed = False
+                item = (
+                    prefetcher.get(t_lo_ns, t_hi_ns) if prefetcher is not None
+                    else None
+                )
+                if item is not None:
+                    patch = item.patch
+                    payload = item.payload
+                else:
+                    # synchronous load: prefetch off, or a miss (re-read
+                    # here, resync the producer after the feed)
+                    missed = prefetcher is not None
+                    t0 = time.perf_counter()
+                    with span("stream.load_slice"):
+                        patch = lfp._load_window(t_lo, t_hi, on_gap)
+                    lfp.timings["assemble_s"] += time.perf_counter() - t0
+                    if patch is not None:
+                        payload = decode_payload(lfp, patch)
+                if patch is None:
+                    # an unmergeable slice under a tolerant gap policy: skip
+                    # it and cold-restart the engine at the next data.
+                    # Pending blocks flush first: the reset re-anchors the
+                    # emission grid.
+                    pipe.flush()
+                    log_event("stream_gap_skipped", t_lo=str(t_lo),
+                              t_hi=str(t_hi))
+                    _reset_engine(carry)
+                    carry.next_ingest_ns = t_hi_ns + 1
+                    if missed:
+                        prefetcher.resync(carry.next_ingest_ns, carry.d_ns)
+                    if t_hi_ns >= t2_ns:
+                        break
+                    continue
+                _feed_patch(lfp, carry, patch, on_gap, pipe, payload)
+                if (carry.next_ingest_ns is None
+                        or carry.next_ingest_ns <= t_lo_ns):
+                    # no ingest progress (only already-consumed samples):
+                    # forcing the cursor forward beats spinning
+                    log_event("stream_no_progress", t_lo=str(t_lo))
+                    carry.next_ingest_ns = t_hi_ns + 1
                 if missed:
                     prefetcher.resync(carry.next_ingest_ns, carry.d_ns)
                 if t_hi_ns >= t2_ns:
                     break
-                continue
-            _feed_patch(lfp, carry, patch, on_gap, pipe, payload)
-            if carry.next_ingest_ns is None or carry.next_ingest_ns <= t_lo_ns:
-                # no ingest progress (only already-consumed samples):
-                # forcing the cursor forward beats spinning
-                log_event("stream_no_progress", t_lo=str(t_lo))
-                carry.next_ingest_ns = t_hi_ns + 1
-            if missed:
-                prefetcher.resync(carry.next_ingest_ns, carry.d_ns)
-            if t_hi_ns >= t2_ns:
-                break
-        # every dispatched block is written before the caller saves the
-        # carry (outputs-before-carry is the crash-only ordering)
-        pipe.flush()
+            # every dispatched block is written before the caller saves the
+            # carry (outputs-before-carry is the crash-only ordering)
+            pipe.flush()
     finally:
         if prefetcher is not None:
             prefetcher.close()

@@ -137,14 +137,21 @@ def run_lowpass_realtime(
     failures are counted in ``tpudas_serve_pyramid_errors_total`` and
     swallowed (a corrupt store is rebuilt from the output files).
 
+    ``health`` (None reads ``TPUDAS_HEALTH``, on at ``1``) writes
+    ``health.json`` (crc32-stamped, ``.prev`` double buffer) and
+    ``metrics.prom`` beside the carry every round
+    (:mod:`tpudas_torch.obs.health`).  ``flight`` (None reads
+    ``TPUDAS_FLIGHT``, on unless ``0``, as in the JAX package) keeps the
+    crash-surviving flight ring under ``<output_folder>/.flight/``
+    (:mod:`tpudas_torch.obs.flight`): each round's spans and one
+    ``round`` record with its phase timeline
+    (:mod:`tpudas_torch.obs.phases`), retries and the fatal error.
+
     Not ported yet, and raising ``NotImplementedError`` when set to
     anything but their off value (None or False), or left at None while
     the variable the JAX package reads for them turns them on
-    (``TPUDAS_MESH`` above 1, ``TPUDAS_HEALTH``, ``TPUDAS_LIVE`` or
-    ``TPUDAS_FLIGHT`` at 1): ``mesh``, ``window_dp``, ``health``,
-    ``live`` and ``flight``.  The JAX package
-    keeps its flight recorder on by default; here it is off unless
-    ``TPUDAS_FLIGHT=1`` asks for it, which raises.
+    (``TPUDAS_MESH`` above 1, ``TPUDAS_LIVE`` at 1): ``mesh``,
+    ``window_dp`` and ``live``.
 
     Every round runs inside the JAX package's fault boundary
     (:mod:`tpudas_torch.resilience`): ``fault_policy`` (a
@@ -156,10 +163,8 @@ def run_lowpass_realtime(
     ``quarantine_after`` failed reads or scans.  A fatal error, or one
     past the policy's ``max_consecutive``, propagates to the caller.
     """
-    check_unported(dict(
-        mesh=mesh, window_dp=window_dp, health=health, live=live,
-        flight=flight,
-    ), "lowpass")
+    check_unported(dict(mesh=mesh, window_dp=window_dp, live=live),
+                   "lowpass")
     gap_tol = resolve_gap_tolerance(data_gap_tolerance, data_gap_tolorance)
     config = StreamConfig(
         kind="lowpass",
@@ -246,15 +251,18 @@ def run_rolling_realtime(
     divides the file duration.
 
     ``pyramid`` (None reads ``TPUDAS_PYRAMID``) keeps the tile pyramid
-    over the rolling outputs, as in :func:`run_lowpass_realtime`.
+    over the rolling outputs, and ``flight`` (None reads
+    ``TPUDAS_FLIGHT``, on unless ``0``) the flight ring, as in
+    :func:`run_lowpass_realtime`; the rolling runner writes no health
+    snapshot (the JAX one neither).
 
     Not ported yet, and raising ``NotImplementedError`` when set, or
-    left at None while ``TPUDAS_MESH`` (above 1), ``TPUDAS_LIVE`` or
-    ``TPUDAS_FLIGHT`` (at 1) turns them on: ``mesh`` (the JAX package's
-    batched rolling over a device mesh), ``live`` and ``flight``.  The output folder is audited
-    before the first round, as in :func:`run_lowpass_realtime`.
+    left at None while ``TPUDAS_MESH`` (above 1) or ``TPUDAS_LIVE`` (at
+    1) turns them on: ``mesh`` (the JAX package's batched rolling over a
+    device mesh) and ``live``.  The output folder is audited before the
+    first round, as in :func:`run_lowpass_realtime`.
     """
-    check_unported(dict(mesh=mesh, live=live, flight=flight), "rolling")
+    check_unported(dict(mesh=mesh, live=live), "rolling")
     config = StreamConfig(
         kind="rolling",
         window=window,

@@ -1,1 +1,2 @@
-"""Measurement tools of the port: the HBM read probes and their harness."""
+"""Tools of the port: the HBM read probes and their harness, ``fsck``,
+the SIGKILL crash drill and the observability report (``obs_report``)."""

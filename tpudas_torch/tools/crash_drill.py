@@ -60,11 +60,17 @@ launches.  ``recover_s`` in the report is, for every cycle that follows
 a killed one, the seconds from its ready marker to its first committed
 round: the user's time to recover.
 
-The workers and the control run with the tile pyramid on
-(``pyramid=True``), as the JAX drill's do.  Not ported yet: ``--mesh``
-(the sharded path) and ``--live`` (the live push plane) raise
-``NotImplementedError``; the workers leave the health files and flight
-recorder off, so the report has no flight keys.
+The workers and the control run with the tile pyramid and the health
+files on (``pyramid=True``, ``health=True``) and the flight recorder at
+its default (on), as the JAX drill's do.  Right after the kill cycles,
+before the drain, :func:`_flight_replay_check` reads the drilled
+folder's flight ring as an operator arriving at the killed box would:
+the last committed round's ``round`` record must carry every phase and
+be preceded by that round's ``stream.round`` span.  Its keys are the
+report's ``flight`` entry and its ``ok`` joins the drill's; the flight
+repairs the workers' startup audits made are in ``flight_repairs``.
+Not ported yet: ``--mesh`` (the sharded path) and ``--live`` (the live
+push plane) raise ``NotImplementedError``.
 
 CLI:
 
@@ -248,7 +254,7 @@ def _stream_kwargs(cfg: dict, engine: str) -> dict:
         edge_buffer=cfg["edge"], process_patch_size=cfg["patch_out"],
         poll_interval=0.0, engine=engine, stateful=True, detect=True,
         detect_operators=[tuple(op) for op in cfg["detect_ops"]],
-        pyramid=True,
+        pyramid=True, health=True,
     )
 
 
@@ -653,10 +659,12 @@ def _detect_state(folder: str) -> dict:
 
 
 def _worker_summary(cycles: list) -> dict:
-    """Sum the workers' last JSON lines: audit errors, repairs and
-    seconds, swallowed pyramid errors, kernel launches; ``recover_s`` of every cycle that followed
+    """Sum the workers' last JSON lines: audit errors, repairs (and the
+    flight-ring repairs among them) and seconds, swallowed pyramid
+    errors, kernel launches; ``recover_s`` of every cycle that followed
     a killed one; each worker's seconds from its start to ready."""
     errors, launches, repairs, audit_s, recover = 0, {}, {}, [], []
+    flight_repairs: dict = {}
     pyramid_errors = 0
     prev_killed = False
     for cyc in cycles:
@@ -673,6 +681,10 @@ def _worker_summary(cycles: list) -> dict:
                 audit_s.append(ln["audit_seconds"])
                 for k, v in ln["repairs"].items():
                     repairs[k] = repairs.get(k, 0) + int(v)
+                for it in ln["issues"]:
+                    if it[0] == "flight":
+                        flight_repairs[it[3]] = (
+                            flight_repairs.get(it[3], 0) + 1)
         first_round = next((ln for ln in lines if ln["event"] == "round"),
                            None)
         cyc["recover_s"] = (first_round["since_ready_s"]
@@ -681,10 +693,43 @@ def _worker_summary(cycles: list) -> dict:
             recover.append(cyc["recover_s"])
         prev_killed = cyc["killed"]
     return {"audit_errors": errors, "pyramid_errors": pyramid_errors,
-            "audit_repairs": repairs,
+            "audit_repairs": repairs, "flight_repairs": flight_repairs,
             "audit_seconds": audit_s, "launches": launches,
             "recover_s": recover,
             "worker_start_s": [cyc["start"] for cyc in cycles]}
+
+
+def _flight_replay_check(folder: str) -> dict:
+    """What the on-disk flight ring holds at the moment an operator
+    would arrive at a SIGKILLed box (taken right after the kill cycles,
+    before the drain): the last committed round's record, with all its
+    phases, preceded by that round's spans.  The recorder flushes a
+    round's spans and its ``round`` record in one write, so a surviving
+    round record implies its spans survived too; this checks that end
+    to end."""
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.obs.phases import PHASES
+
+    recs = read_flight(folder)
+    rounds = [r for r in recs if r.get("kind") == "round"]
+    if not rounds:
+        return {"ok": False, "rounds": 0,
+                "reason": "no committed round records in the ring"}
+    last = rounds[-1]
+    spans = [
+        r for r in recs
+        if r.get("kind") == "span" and r.get("round") == last["round"]
+    ]
+    has_round_span = any(r.get("name") == "stream.round" for r in spans)
+    phases_complete = sorted(last.get("phases", {})) == sorted(PHASES)
+    return {
+        "ok": bool(has_round_span and phases_complete),
+        "rounds": len(rounds),
+        "last_round": last.get("round"),
+        "last_round_spans": len(spans),
+        "phases_complete": phases_complete,
+        "records_total": len(recs),
+    }
 
 
 def _kill_cycles(run, cycles, seed, est, feed_next):
@@ -775,6 +820,8 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         warm = cycle(None)  # the estimate the kill times are drawn from
         log = _kill_cycles(cycle, cycles, seed,
                            max(warm["work"] or warm["wall"], 0.2), feed_next)
+        # the flight ring as the kills left it, before the drain
+        flight = _flight_replay_check(out)
         drain = cycle(None)  # the resumed run finishes what the kills left
         report = audit(out, repair=True)
         ctrl_cycles = []
@@ -834,13 +881,14 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         "pyramid_files": len(pyr_out),
         "detect_match": bool(detect_match),
         "detect_events": int(detect_events),
+        "flight": flight,
         "difference": difference,
         **summary,
         "cycle_log": [_cycle_record(r) for r in log],
         "drain": _cycle_record(drain),
         "workdir": workdir,
         "ok": bool(clean and outputs_match and carry_match
-                   and pyramid_match and detect_match
+                   and pyramid_match and detect_match and flight["ok"]
                    and summary["audit_errors"] == 0),
     }
 
@@ -1053,7 +1101,9 @@ def main(argv=None) -> int:
                   f"(files={rep['pyramid_files']}) "
                   f"detect_match={rep['detect_match']} "
                   f"(events={rep['detect_events']}, "
-                  f"recover_s={rep['recover_s']})", flush=True)
+                  f"recover_s={rep['recover_s']}) "
+                  f"flight_replay={rep['flight']['ok']} "
+                  f"(flight_rounds={rep['flight']['rounds']})", flush=True)
         results[engine] = rep
         ok = ok and rep["ok"]
     payload = {"cycles": args.cycles, "seed": args.seed,

@@ -4,10 +4,12 @@ The operator CLI over :func:`tpudas_torch.integrity.audit.audit`, the
 same scan the port's realtime runners make before their first round.
 It checks every durable artifact beside the stream — carry, quarantine
 ledger, health snapshot, directory-index cache, outputs beyond the
-carry, tile pyramid, detection state — verifies checksums, classifies
-defects (unstamped / torn / corrupt / stale tmp / orphan tile) and
-repairs through the ladder (restamp, promote ``.prev``, remove,
-rebuild ``.tiles/``, truncate, reset ``.detect/``).
+carry, tile pyramid, detection state, flight-recorder segments —
+verifies checksums, classifies defects (unstamped / torn / corrupt /
+stale tmp / orphan tile) and repairs through the ladder (restamp,
+promote ``.prev``, remove, rebuild ``.tiles/``, truncate a segment or a
+ledger, reset ``.detect/``).  The report lists each issue with its
+artifact (``flight`` for a segment), as the JAX CLI's does.
 
     python3 tpudas_torch/tools/fsck.py OUTPUT_FOLDER [options]
     python -m tpudas_torch.tools.fsck OUTPUT_FOLDER [options]

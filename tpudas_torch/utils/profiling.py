@@ -2,14 +2,19 @@
 
 The port's copy of :class:`tpudas.utils.profiling.Counters` (the
 notebooks' tic/toc harness plus the channel-samples/s and real-time
-factor metrics), without the JAX package's metrics-registry mirror:
-the port has no registry yet.
+factor metrics).  As in the JAX package, every accumulation is mirrored
+into the obs registry (``tpudas_proc_channel_samples_total`` /
+``_data_seconds_total`` / ``_wall_seconds_total`` /
+``_samples_redundant_total``), so ``metrics.prom`` and
+:func:`tpudas_torch.obs.registry.headline` report from one substrate.
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+
+from tpudas_torch.obs.registry import get_registry
 
 __all__ = ["Counters"]
 
@@ -29,6 +34,21 @@ class Counters:
         # filter exactly once)
         self.samples_redundant = 0
 
+    def _mirror(self, channel_samples, data_seconds, wall_seconds):
+        reg = get_registry()
+        reg.counter(
+            "tpudas_proc_channel_samples_total",
+            "full-rate channel-samples fed through the processing engine",
+        ).inc(channel_samples)
+        reg.counter(
+            "tpudas_proc_data_seconds_total",
+            "stream-seconds of data processed",
+        ).inc(data_seconds)
+        reg.counter(
+            "tpudas_proc_wall_seconds_total",
+            "wall seconds spent inside measured processing",
+        ).inc(wall_seconds)
+
     @contextmanager
     def measure(self, channel_samples: int, data_seconds: float):
         t0 = time.perf_counter()
@@ -37,11 +57,18 @@ class Counters:
         self.wall_seconds += self.last_wall
         self.channel_samples += int(channel_samples)
         self.data_seconds += float(data_seconds)
+        self._mirror(int(channel_samples), float(data_seconds),
+                     self.last_wall)
 
     def add_redundant(self, channel_samples: int) -> None:
         """Record channel-samples that were re-read only to rebuild
         filter state (rewind-mode overlap)."""
         self.samples_redundant += int(channel_samples)
+        get_registry().counter(
+            "tpudas_proc_samples_redundant_total",
+            "channel-samples re-read solely to rebuild filter state "
+            "(rewind-mode overlap)",
+        ).inc(int(channel_samples))
 
     @property
     def redundant_ratio(self) -> float:
