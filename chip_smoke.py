@@ -80,8 +80,8 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    4's, B1 launched; (d) ``Patch.median_filter`` (5 x 5, and 9 along
    time) on phase 4's output bit-equal to ``scipy.ndimage``;
 10. the SIGKILL crash drill (``tpudas_torch/tools/crash_drill.py``) at
-   10,000 channels under ``engine="fused"`` (4 killed cycles),
-   ``"auto"`` and ``"fft"`` (2 each): fresh worker interpreters on the
+   10,000 channels under ``engine="fused"`` (3 killed cycles),
+   ``"auto"`` and ``"fft"`` (1 each): fresh worker interpreters on the
    card with the stateful carry, phase 9's detection and the tile
    pyramid on, killed at seeded points after they are ready; the
    drained folder audits clean, no worker's startup audit raised, no
@@ -121,7 +121,34 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    tpudas_torch.tools.obs_report --json`` over its root, each member's
    ring holding only its own spans and rounds.  Phase 10's workers run
    with health and the flight ring on, and each leg must replay the
-   last committed round from the ring right after its kills.
+   last committed round from the ring right after its kills; its
+   ``fused`` leg runs the live plane with 32 never-drained subscribers
+   (the control live-off);
+13. the serving and live planes (``tpudas_torch.serve.http`` / ``.pool``,
+   ``tpudas_torch.live``) over phase 12's feed, one file a round, with a
+   ``bitshuffle-deflate`` pyramid of 64-row tiles: (a) the ``fused``
+   stream with ``live=True`` over 4 rounds while a ``DASServer`` in this
+   process holds 8 ``/live`` readers (levels 0-2) and the hub a
+   subscriber that never reads: every delta equal to the hub's ring
+   frame at its level, the never-reader degraded twice then dropped,
+   the snapshot equal to ``/query`` of its window, a ``Last-Event-ID``
+   resume replaying the ring, the first encode of each level timed,
+   B3 2 kernels a block, the outputs, carry, pyramid and detect state
+   equal to a live-off control's, and a 2-round ``auto`` leg with live
+   on (B1 4 times a block); (b) every endpoint over that folder against
+   the call it fronts (``QueryEngine``, the stored ``.tpt`` blob with
+   its strong ETag and 304, ``load_events`` + ``ScoreStore``,
+   ``read_health``, ``read_flight``, ``slo_status``), cold and warm
+   latencies, and 16 client threads for 10 s against
+   ``max_inflight=8``; (c) a 2-worker ``ServePool`` fed through the
+   live bridge by 2 more rounds: ``/live`` on the shared port equal to
+   the producer's frames, the merged ``/metrics``, ``/pool/healthz``,
+   ``pool_rollup``, a SIGKILLed worker respawned, no worker holding the
+   card (``nvidia-smi --query-compute-apps`` and ``/proc/<pid>/fd``),
+   each worker's start seconds; (d) ``DASServer.for_fleet`` over a
+   batched live fleet of 10,000 + 6,001 ch and 2 rounds:
+   ``/fleet/healthz`` equal to ``fleet_rollup``, ``/s/<id>/live``
+   serving each member's hub.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -137,9 +164,10 @@ step's), ``--only fleet`` phases 1, 2 and 8 over a fresh spool and
 ``--only detect`` phases 1, 2 and 9 over a fresh spool (its batch
 references from one ``JointProc`` pass), ``--only crash`` phases 1,
 2 and 10 over a fresh spool (``--cycles N``: N killed cycles for every
-engine), ``--only pyramid`` phases 1, 2 and 11 and ``--only obs``
-phases 1, 2 and 12, each over a fresh spool; all exit 4 without the
-kernels line or the ``ok`` line.
+engine), ``--only pyramid`` phases 1, 2 and 11, ``--only obs``
+phases 1, 2 and 12 and ``--only serve`` phases 1, 2 and 13, each over
+a fresh spool; all exit 4 without the kernels line or the ``ok``
+line.
 """
 
 from __future__ import annotations
@@ -2353,7 +2381,10 @@ def batch_references(device, workdir, jcls):
 # phase 10: the SIGKILL crash drill (tpudas_torch/tools/crash_drill.py)
 # at the flagship's width and parameters, with phase 9's detection; the
 # drilled cycles of each engine (each cycle one SIGKILLed worker)
-CRASH_CYCLES = {"fused": 4, "auto": 2, "fft": 2}
+# killed cycles per engine (4 / 2 / 2 before phase 13 was added; cut
+# for its time)
+CRASH_CYCLES = {"fused": 3, "auto": 1, "fft": 1}
+CRASH_LIVE_SUBS = 32  # the fused leg's never-drained live subscribers
 
 
 def crash_feeder(pool):
@@ -2416,10 +2447,12 @@ def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
         shutil.rmtree(wd, ignore_errors=True)
         rep = run_drill(engine=engine, cycles=cycles or n, seed=0,
                         workdir=wd, device=device.type, shape=shape,
-                        tdas_output=tdas_output, feed=feed)
+                        tdas_output=tdas_output, feed=feed,
+                        live=engine == "fused", live_subs=CRASH_LIVE_SUBS)
         rec, aud = rep["recover_s"], rep["audit_seconds"]
         line = {
             "phase": "crash", "engine": engine, "n_ch": n_ch,
+            "live": rep["live"], "live_subs": rep["live_subs"],
             "cycles": rep["cycles"], "kills": rep["kills"],
             "epochs": rep["epochs"], "audit_repairs": rep["audit_repairs"],
             "audit_errors": rep["audit_errors"],
@@ -3053,13 +3086,17 @@ def obs_leg(device, link, ldir, engine, calls, obs=True, detect=True,
     return res, checks
 
 
-def obs_fleet(device, link, fdir, members):
+def obs_fleet(device, link, fdir, members, live=False, report=True,
+              rounds=1):
     """Phase 12d: a batched ``fused`` fleet of two members (10,000 and
-    6,001 ch) with health and flight on, one call over two files; then
-    ``fleet_rollup`` and ``python -m tpudas_torch.tools.obs_report
-    --json`` over its root.  Each member's ring holds one
-    ``stream.round`` span a round of its own and only its own round
-    records."""
+    6,001 ch) with health and flight on, one call over two files (in
+    ``rounds`` rounds: 1, or 2 with the second file linked at the first
+    poll's sleep); then
+    ``fleet_rollup`` and (``report``) ``python -m
+    tpudas_torch.tools.obs_report --json`` over its root.  Each member's
+    ring holds one ``stream.round`` span a round of its own and only its
+    own round records.  ``live`` turns each member's live hub on (phase
+    13d)."""
     import subprocess
 
     from tpudas_torch.fleet import FleetEngine, StreamConfig, StreamSpec
@@ -3071,31 +3108,37 @@ def obs_fleet(device, link, fdir, members):
     specs = []
     for sid, c0, w in members:
         src = os.path.join(fdir, f"src_{sid}")
-        link(src, 2)
+        link(src, 3 - rounds)
         specs.append(StreamSpec(stream_id=sid, source=src, config=StreamConfig(
             kind="lowpass", start_time=T0, output_sample_interval=1.0,
             edge_buffer=10.0, process_patch_size=60, poll_interval=0.0,
             poll_jitter=0.0, engine="fused", stateful=True, health=True,
-            distance=(c0 * D_CH, (c0 + w - 1) * D_CH))))
+            live=live, distance=(c0 * D_CH, (c0 + w - 1) * D_CH))))
     root = os.path.join(fdir, "root")
     reg = MetricsRegistry()
     zero_kernel_counts()
     t0 = time.perf_counter()
     with use_registry(reg):
-        summary = FleetEngine(root, specs, sleep_fn=lambda _s: None,
-                              batched=True, device=device).run()
+        def sleep(_s):
+            for sid, _c0, _w in members:
+                link(os.path.join(fdir, f"src_{sid}"), 2)
+
+        summary = FleetEngine(root, specs, sleep_fn=sleep, batched=True,
+                              device=device).run()
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_counts()
     rollup = fleet_rollup(root)
     t_r = time.perf_counter()
-    rep = subprocess.run(
-        [sys.executable, "-m", "tpudas_torch.tools.obs_report", "--fleet",
-         root, "--json"], capture_output=True, text=True, timeout=300,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+    rep = cli = None
+    if report:
+        rep = subprocess.run(
+            [sys.executable, "-m", "tpudas_torch.tools.obs_report",
+             "--fleet", root, "--json"], capture_output=True, text=True,
+            timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli = json.loads(rep.stdout) if rep.returncode == 0 else None
     report_s = time.perf_counter() - t_r
-    cli = json.loads(rep.stdout) if rep.returncode == 0 else None
     rings = {}
     for sid, _c0, _w in members:
         folder = os.path.join(root, sid)
@@ -3113,7 +3156,8 @@ def obs_fleet(device, link, fdir, members):
            "rounds": {sid: s["rounds"] for sid, s in
                       summary["streams"].items()},
            "parked": summary["parked"], "rings": rings,
-           "rollup": rollup, "obs_report_rc": rep.returncode,
+           "rollup": rollup,
+           "obs_report_rc": None if rep is None else rep.returncode,
            "obs_report_s": report_s,
            "obs_report_status": None if cli is None else cli["status"]}
     want_rounds = {sid: list(range(1, s["rounds"] + 1))
@@ -3123,9 +3167,10 @@ def obs_fleet(device, link, fdir, members):
         (all(r["rounds"] == want_rounds[sid] == r["round_spans"] and r["own"]
              for sid, r in rings.items()),
          f"a member's ring holds another's spans or rounds: {rings}"),
-        (cli is not None and cli["fleet"]["streams"] == rollup["streams"],
-         f"obs_report --json (rc {rep.returncode}) differs from "
-         f"fleet_rollup: {rep.stderr[-400:]}"),
+        (not report or (cli is not None
+                        and cli["fleet"]["streams"] == rollup["streams"]),
+         f"obs_report --json (rc {res['obs_report_rc']}) differs from "
+         f"fleet_rollup: {'' if rep is None else rep.stderr[-400:]}"),
         (rollup["status"] == "ok" and sorted(rollup["streams"]) == sorted(
             sid for sid, _c, _w in members), f"rollup {rollup['status']}"),
         ((counts["b3_steps"] > 0 and res["stacked_launches"] > 0) if cuda
@@ -3237,6 +3282,815 @@ def phase_obs(device, workdir, cls, members):
             "summary": summary}
 
 
+# phase 13: the serving plane (tpudas_torch.serve.http / .pool) and the
+# live push plane (tpudas_torch.live) at the flagship width, over files
+# k mod 3 of the spool under their own start times (phase 12's feed),
+# one a round
+SERVE_ROUNDS = 4  # 13a: the live fused stream and its live-off control
+SERVE_POOL_ROUNDS = 2  # 13c: the same stream, resumed, feeds the pool
+SERVE_READERS = 8  # 13a's /live subscribers, levels 0-2 in turn
+SERVE_REPS = 21  # 13b: the first request (cold), then 20 warm ones
+SERVE_LOAD_S = 10.0
+SERVE_LOAD_THREADS = 16
+SERVE_INFLIGHT = 8
+# 64-row bitshuffle-deflate tiles, so the stream completes .tpt tiles
+SERVE_ENV = {"TPUDAS_CODEC": "bitshuffle-deflate",
+             "TPUDAS_PYRAMID_TILE_LEN": "64"}
+
+
+def http_get(url, headers=(), timeout=120.0):
+    """``(status, body, headers)`` of one GET; an error status is a
+    result, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, headers=dict(headers))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        with exc:
+            return exc.code, exc.read(), dict(exc.headers)
+
+
+def sse_events(url, want, timeout=120.0, headers=()):
+    """The first ``want`` complete Server-Sent Events of ``GET url`` as
+    ``(event, id, data)``; the connection closes after them (or at the
+    stream's end)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, headers=dict(headers))
+    events, buf, scan = [], b"", 0
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        while len(events) < want:
+            chunk = resp.read1(1 << 20)
+            if not chunk:
+                break
+            buf += chunk
+            while True:
+                end = buf.find(b"\n\n", scan)
+                if end < 0:
+                    scan = max(len(buf) - 1, 0)
+                    break
+                block, buf, scan = buf[:end], buf[end + 2:], 0
+                ev = ident = data = None
+                for line in block.decode().splitlines():
+                    if line.startswith("event: "):
+                        ev = line[7:]
+                    elif line.startswith("id: "):
+                        ident = int(line[4:])
+                    elif line.startswith("data: "):
+                        data = json.loads(line[6:])
+                if ev is not None:
+                    events.append((ev, ident, data))
+    return events
+
+
+def delta_rows(d):
+    """The rows of a ``delta`` or ``snapshot`` event's codec blob."""
+    import base64
+
+    from tpudas_torch.codec import decode_tile
+
+    return decode_tile(base64.b64decode(d["blob"]))
+
+
+def serve_stream(device, link, src, out, counts, live, on_round=None,
+                 engine="fused", detect=True, pyramid=True):
+    """One ``run_lowpass_realtime`` call over the files ``counts[0]``,
+    then one more round per later count, with health, the flight ring,
+    detection and the pyramid on, as phase 12's fused leg."""
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+
+    link(src, counts[0])
+    feed = list(counts[1:])
+
+    def sleep(_s):
+        if feed:
+            link(src, feed.pop(0))
+
+    return run_lowpass_realtime(
+        src, out, T0, output_sample_interval=1.0, edge_buffer=10.0,
+        process_patch_size=60, poll_interval=0.0, sleep_fn=sleep,
+        on_round=on_round, engine=engine, stateful=True, device=device,
+        health=True, detect=detect, detect_operators=DETECT_OPS,
+        pyramid=pyramid, live=live)
+
+
+def durable_state(out):
+    """The durable products of a stream folder, as the crash drill
+    compares them: output files by bytes, the carry parsed, the pyramid
+    tree and the detect state."""
+    import hashlib
+
+    from tpudas_torch.tools.crash_drill import (
+        _carry_state,
+        _detect_state,
+        _pyramid_tree,
+    )
+
+    files = {}
+    for n in sorted(os.listdir(out)):
+        if n.startswith("LFDAS_"):
+            with open(os.path.join(out, n), "rb") as fh:
+                files[n] = hashlib.sha256(fh.read()).hexdigest()
+    return {"outputs": files, "carry": _carry_state(out),
+            "pyramid": _pyramid_tree(out), "detect": _detect_state(out)}
+
+
+def serve_live(device, link, sdir):
+    """13a: the ``fused`` stream with ``live=True`` over
+    ``SERVE_ROUNDS`` files, one a round, while a port ``DASServer`` in
+    this process holds ``SERVE_READERS`` ``/live`` subscribers (levels
+    0-2) and the hub one subscriber that never reads (depth 1); then a
+    snapshot against ``/query``, a ``Last-Event-ID`` resume, the first
+    encode of each level, a live-off control whose durable products
+    must be byte-equal, and a 2-round ``auto`` leg (B1) with live on.
+    Returns (result, checks, the running server, the stream's
+    folders)."""
+    import threading
+
+    from tpudas_torch.live.hub import LiveFrame, find_hub, register_hub
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.serve.http import DASServer
+
+    cuda = device.type == "cuda"
+    src, out = os.path.join(sdir, "src"), os.path.join(sdir, "out")
+    os.makedirs(out, exist_ok=True)
+    # registered before the runner (which reattaches to it), so the
+    # subscribers are in place before round 1
+    hub = register_hub(os.path.abspath(out))
+    srv = DASServer(out, port=0).start()
+    got, errors = [None] * SERVE_READERS, []
+
+    def read(i):
+        try:
+            got[i] = sse_events(
+                f"{srv.base_url}/live?window=0&heartbeat=1&last_id=0"
+                f"&level={i % 3}&max_frames={SERVE_ROUNDS}",
+                want=1 + SERVE_ROUNDS, timeout=600)
+        except Exception as exc:
+            errors.append(f"reader {i}: {type(exc).__name__}: {exc}")
+
+    readers = [threading.Thread(target=read, args=(i,), daemon=True)
+               for i in range(SERVE_READERS)]
+    for t in readers:
+        t.start()
+    deadline = time.time() + 120
+    while hub.n_subscribers() < SERVE_READERS and time.time() < deadline:
+        time.sleep(0.01)
+    attached = hub.n_subscribers()
+    never = hub.subscribe(depth=1)
+    reg = MetricsRegistry()
+    per_round, mark = [], [time.perf_counter()]
+
+    def on_round(rnd, lfp):
+        body = reg.histogram(
+            "tpudas_stream_round_body_seconds").snapshot()["sum"]
+        per_round.append({
+            "round": rnd, "wall_s": time.perf_counter() - mark[0],
+            "body_sum_s": body, "blocks": dict(lfp.stream_blocks),
+            "never": [never.level, never.degrades, never.dropped,
+                      never.qsize()]})
+        mark[0] = time.perf_counter()
+
+    zero_kernel_counts()
+    t_leg = time.perf_counter()
+    with use_registry(reg), mock.patch.dict(os.environ, SERVE_ENV):
+        serve_stream(device, link, src, out,
+                     list(range(1, SERVE_ROUNDS + 1)), live=True,
+                     on_round=on_round)
+    if cuda:
+        torch.cuda.synchronize()
+    leg_wall = time.perf_counter() - t_leg
+    counts = kernel_counts()
+    for t in readers:
+        t.join(timeout=120)
+    prev = 0.0
+    for r in per_round:
+        total = r.pop("body_sum_s")
+        r["body_s"], prev = total - prev, total
+    blocks = {}
+    for r in per_round:
+        for k, v in r["blocks"].items():
+            blocks[k] = blocks.get(k, 0) + v
+    ring = {f.seq: f for f in list(hub._ring)}
+    records = read_flight(out, kind="round")
+    for r, rec in zip(per_round, records):
+        r["live_s"] = rec["phases"]["live"]
+        r["live"] = rec.get("live")
+    # what each reader got, against the hub's ring at its level
+    readers_ok, reader_lines = True, []
+    for i, evs in enumerate(got):
+        deltas = [d for ev, _i, d in evs or [] if ev == "delta"]
+        same = [bool(np.array_equal(delta_rows(d), ring[d["seq"]]
+                                    .level_array(d["level"]),
+                                    equal_nan=True))
+                for d in deltas]
+        ok = (evs is not None and evs[0][0] == "hello"
+              and [d["seq"] for d in deltas]
+              == list(range(1, SERVE_ROUNDS + 1))
+              and all(d["level"] == i % 3 for d in deltas) and all(same))
+        readers_ok = readers_ok and ok
+        reader_lines.append({"level": i % 3, "deltas": len(deltas),
+                             "rows": [d["rows"] for d in deltas], "ok": ok})
+    # the first encode of one frame at each level (a fresh frame: the
+    # payload is encoded lazily, once per (level, codec))
+    last = ring[max(ring)]
+    encode_ms = {}
+    for level in range(3):
+        fresh = LiveFrame(last.seq, last.round, last.times, last.data, [],
+                          last.step_ns)
+        t0 = time.perf_counter()
+        blob = fresh.payload(level)
+        encode_ms[level] = {"ms": (time.perf_counter() - t0) * 1e3,
+                            "rows": int(fresh.level_array(level).shape[0]),
+                            "blob_bytes": len(blob)}
+    # a fresh connect: the snapshot equals /query of its window
+    evs = sse_events(f"{srv.base_url}/live?window=60&heartbeat=1", want=2)
+    snap = evs[1][2] if len(evs) > 1 and evs[1][0] == "snapshot" else None
+    snapshot_ok = False
+    if snap is not None:
+        t0_ns, n, step = snap["t0_ns"], snap["rows"], snap["step_ns"]
+        _s, body, _h = http_get(
+            f"{srv.base_url}/query?t0={t0_ns}&t1={t0_ns + n * step}")
+        import io
+
+        pulled = np.load(io.BytesIO(body))
+        snapshot_ok = bool(np.array_equal(delta_rows(snap),
+                                          pulled.astype(np.float32),
+                                          equal_nan=True))
+    # a resume inside the ring replays the missed frames
+    evs = sse_events(f"{srv.base_url}/live?window=0&heartbeat=1",
+                     want=SERVE_ROUNDS, headers={"Last-Event-ID": "1"})
+    replay = [d for ev, _i, d in evs if ev == "delta"]
+    resume_ok = ([d["seq"] for d in replay]
+                 == list(range(2, SERVE_ROUNDS + 1))
+                 and all(np.array_equal(delta_rows(d), ring[d["seq"]]
+                                        .level_array(0), equal_nan=True)
+                         for d in replay))
+    # the live-off control over the same files: durable products equal
+    ctrl = os.path.join(sdir, "ctrl")
+    t_ctrl = time.perf_counter()
+    with use_registry(MetricsRegistry()), \
+            mock.patch.dict(os.environ, SERVE_ENV):
+        serve_stream(device, link, os.path.join(sdir, "ctrl_src"), ctrl,
+                     list(range(1, SERVE_ROUNDS + 1)), live=False)
+    ctrl_wall = time.perf_counter() - t_ctrl
+    mine, theirs = durable_state(out), durable_state(ctrl)
+    differs = sorted(k for k in mine if mine[k] != theirs[k])
+    # the auto leg: 2 rounds with live on (B1 four times a block)
+    aout = os.path.join(sdir, "auto_out")
+    ablocks = {}
+    zero_kernel_counts()
+    with use_registry(MetricsRegistry()):
+        serve_stream(device, link, os.path.join(sdir, "auto_src"), aout,
+                     [1, 2], live=True, engine="auto", detect=False,
+                     pyramid=False, on_round=lambda _r, lfp: [
+                         ablocks.__setitem__(k, ablocks.get(k, 0) + v)
+                         for k, v in lfp.stream_blocks.items()])
+    if cuda:
+        torch.cuda.synchronize()
+    acounts = kernel_counts()
+    ahub = find_hub(folder=os.path.abspath(aout))
+    n_blocks = sum(blocks.values())
+    res = {
+        "rounds": per_round, "blocks": blocks, "kernel_counts": counts,
+        "leg_wall_s": leg_wall, "control_wall_s": ctrl_wall,
+        "subscribers_attached": attached, "readers": reader_lines,
+        "reader_errors": errors, "never": per_round[-1]["never"],
+        "first_encode": encode_ms, "snapshot_ok": snapshot_ok,
+        "snapshot_rows": None if snap is None else snap["rows"],
+        "resume_ok": resume_ok, "control_differs": differs,
+        "pyramid_files": len(mine["pyramid"]),
+        "published": hub.published, "fanout_p99_s": hub.fanout_p99(),
+        "auto": {"blocks": ablocks, "b1": acounts["b1"],
+                 "published": None if ahub is None else ahub.published},
+    }
+    checks = [
+        (attached == SERVE_READERS,
+         f"{attached} of {SERVE_READERS} /live subscribers attached"),
+        (readers_ok and not errors,
+         f"a /live reader's deltas differ from the ring: {reader_lines} "
+         f"{errors}"),
+        (res["never"][:3] == [2, 2, "slow"],
+         f"the never-reading subscriber did not walk the ladder to the "
+         f"drop: {[r['never'] for r in per_round]}"),
+        (len(records) == SERVE_ROUNDS and all(
+            r["live"] is not None for r in per_round),
+         "a round record lacks its live block"),
+        (snapshot_ok, "the snapshot differs from /query of its window"),
+        (resume_ok, "the Last-Event-ID resume did not replay the ring"),
+        (not differs, f"live on changed durable products: {differs}"),
+        (set(blocks) == {"fused-cuda" if cuda else "fused-torch"},
+         f"fused blocks {blocks}"),
+        (counts["b3_steps"] == (n_blocks if cuda else 0)
+         and counts["b3_kernels"] == 2 * counts["b3_steps"],
+         f"B3 {counts} for {n_blocks} blocks"),
+        (acounts["b1"] == (4 * sum(ablocks.values()) if cuda else 0),
+         f"B1 {acounts['b1']} for the auto leg's blocks {ablocks}"),
+        (ahub is not None and ahub.published == 2,
+         "the auto leg did not publish a frame a round"),
+    ]
+    return res, checks, srv, out
+
+
+def timed_requests(base, tails, reps=SERVE_REPS):
+    """Each tail's first request (cold: a fresh server's caches) and
+    the median of the next ``reps - 1`` (warm), in ms."""
+    out = {}
+    for name, tail, headers in tails:
+        walls, size, statuses = [], 0, set()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            status, body, _h = http_get(base + tail, headers)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            size = len(body)
+            statuses.add(status)
+        out[name] = {"cold_ms": walls[0],
+                     "warm_median_ms": float(np.median(walls[1:])),
+                     "bytes": size, "statuses": sorted(statuses)}
+    return out
+
+
+def serve_load(base, tail, seconds=SERVE_LOAD_S,
+               threads=SERVE_LOAD_THREADS):
+    """``threads`` clients GET ``tail`` back to back for ``seconds``:
+    requests a second answered 200, 503 sheds, and the p99 of the 200s
+    (the clients share this process with the server)."""
+    import threading
+
+    stop = time.perf_counter() + seconds
+    lock, lat, codes = threading.Lock(), [], {}
+
+    def client():
+        while time.perf_counter() < stop:
+            t0 = time.perf_counter()
+            status, _b, _h = http_get(base + tail)
+            dt = (time.perf_counter() - t0) * 1e3
+            with lock:
+                codes[status] = codes.get(status, 0) + 1
+                if status == 200:
+                    lat.append(dt)
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=client, daemon=True)
+            for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=seconds + 120)
+    wall = time.perf_counter() - t0
+    return {"seconds": wall, "threads": threads,
+            "max_inflight": SERVE_INFLIGHT,
+            "requests_per_s": codes.get(200, 0) / wall,
+            "sheds_503": codes.get(503, 0), "statuses": codes,
+            "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+            "p50_ms": float(np.median(lat)) if lat else None}
+
+
+def serve_data(out, srv):
+    """13b: every data and control endpoint held against the library
+    call it fronts, then cold/warm latencies on a fresh server and a
+    load of ``SERVE_LOAD_THREADS`` clients against ``max_inflight=8``."""
+    import io
+    import zlib
+
+    from tpudas_torch.codec import decode_tile
+    from tpudas_torch.detect.ledger import ScoreStore, load_events
+    from tpudas_torch.integrity.checksum import crc32_hex
+    from tpudas_torch.obs.collect import SLOPolicy, slo_status
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.obs.health import read_health
+    from tpudas_torch.serve.http import DASServer
+    from tpudas_torch.serve.query import QueryEngine
+    from tpudas_torch.serve.tiles import TileStore
+
+    def npy(a):
+        buf = io.BytesIO()
+        np.save(buf, np.ascontiguousarray(a))
+        return buf.getvalue()
+
+    def same_json(got, want):
+        """Equal as canonical JSON text (NaN equal to NaN)."""
+        return (json.dumps(got, sort_keys=True)
+                == json.dumps(json.loads(json.dumps(want)), sort_keys=True))
+
+    def nan_rows(rows):
+        return np.array([[np.nan if v is None else v for v in r]
+                         for r in rows], dtype=np.float64)
+
+    def finite_or_nan(a):
+        """JSON has no NaN or infinity: the server sends null for any
+        non-finite value."""
+        a = np.asarray(a, np.float64)
+        return np.where(np.isfinite(a), a, np.nan)
+
+    store = TileStore.open(out)
+    eng = QueryEngine(out)
+    win = (f"t0={np.datetime64(store.t0_ns, 'ns')}"
+           f"&t1={np.datetime64(store.head_ns, 'ns')}")
+    t0s = str(np.datetime64(store.t0_ns, "ns"))
+    t1s = str(np.datetime64(store.head_ns, "ns"))
+    ref = eng.query(t0s, t1s)
+    base = srv.base_url
+    checks, res = [], {"levels": list(store.levels),
+                       "tile_len": int(store.tile_len),
+                       "codec": store.codec}
+    st, q_npy, h = http_get(f"{base}/query?{win}")
+    checks.append((st == 200 and q_npy == npy(ref.data),
+                   "/query npy differs from QueryEngine.query"))
+    full_ms = {}
+    t0 = time.perf_counter()
+    st, body, h = http_get(f"{base}/query?{win}",
+                           {"Accept-Encoding": "deflate"})
+    full_ms["query_deflate"] = (time.perf_counter() - t0) * 1e3
+    checks.append((h.get("Content-Encoding") == "deflate"
+                   and zlib.decompress(body) == q_npy,
+                   "/query deflate differs"))
+    t0 = time.perf_counter()
+    st, q_json, h = http_get(f"{base}/query?{win}&format=json")
+    full_ms["query_json"] = (time.perf_counter() - t0) * 1e3
+    res["full_width_ms"] = full_ms
+    j = json.loads(q_json)
+    checks.append((j["times_ns"] == [int(t) for t in ref.times.astype(
+        "datetime64[ns]").astype(np.int64)] and np.array_equal(
+        nan_rows(j["data"]), finite_or_nan(ref.data), equal_nan=True),
+        "/query json differs from QueryEngine.query"))
+    st, body, h = http_get(f"{base}/query?{win}&format=json",
+                           {"Accept-Encoding": "deflate"})
+    checks.append((zlib.decompress(body) == q_json,
+                   "/query json deflate differs"))
+    st, body, h = http_get(f"{base}/waterfall?{win}&max_px=64")
+    checks.append((st == 200 and body == npy(
+        eng.query(t0s, t1s, max_samples=64).data),
+        "/waterfall differs from QueryEngine.query(max_samples=64)"))
+    # /tile: a completed level-0 tile of the bitshuffle-deflate store
+    path = store.resolve_tile_path(0, 0)
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    st, body, h = http_get(f"{base}/tile?level=0&idx=0",
+                           {"Accept-Encoding": "x-tpt"})
+    etag = h.get("ETag")
+    checks.append((st == 200 and body == blob
+                   and h.get("Content-Encoding") == "x-tpt"
+                   and etag == f'"{crc32_hex(blob)}-{len(blob)}"'
+                   and h.get("Cache-Control")
+                   == "public, max-age=31536000, immutable",
+                   f"/tile x-tpt is not the stored blob verbatim ({path})"))
+    st304, body304, _h = http_get(f"{base}/tile?level=0&idx=0",
+                                  {"Accept-Encoding": "x-tpt",
+                                   "If-None-Match": etag})
+    checks.append((st304 == 304 and body304 == b"",
+                   f"If-None-Match on /tile gave {st304}"))
+    st, body, h = http_get(f"{base}/tile?level=0&idx=0")
+    checks.append((body == npy(decode_tile(blob)),
+                   "/tile npy differs from the decoded blob"))
+    # /events with scores over 100 channels (the full width's score
+    # rows would be a ~50 MB JSON body)
+    evs = load_events(out)
+    st, body, h = http_get(f"{base}/events?scores=1&c0=0&c1=99")
+    j = json.loads(body)
+    s_t, s_v = ScoreStore.open(out).read()
+    checks += [
+        (same_json(j["events"], [e for e in evs
+                                 if 0 <= int(e["channel"]) <= 99][-1000:])
+         and j["ledger_events"] == len(evs),
+         "/events differs from the newest 1000 of load_events on "
+         "channels 0-99"),
+        (j["scores"]["times_ns"] == [int(t) for t in s_t],
+         "/events?scores=1 times differ from ScoreStore.read"),
+        (np.array_equal(nan_rows(j["scores"]["values"]),
+                        finite_or_nan(s_v[:, :100]), equal_nan=True),
+         "/events?scores=1 values differ from ScoreStore.read"),
+    ]
+    res["ledger_events"] = len(evs)
+    res["score_rows"] = int(s_t.shape[0])
+    res["score_nonfinite"] = int((~np.isfinite(s_v)).sum())
+    health = read_health(out)
+    st, body, h = http_get(f"{base}/healthz")
+    checks.append((same_json(json.loads(body), {
+        **health, "status": "degraded" if health.get("degraded")
+        else "ok"}), "/healthz differs from read_health"))
+    st, body, h = http_get(f"{base}/trace?kind=round")
+    j = json.loads(body)
+    checks.append((j["source"] == "flight" and same_json(
+        j["records"], read_flight(out, kind="round", limit=256)),
+        "/trace differs from read_flight"))
+    st, body, h = http_get(f"{base}/slo")
+    checks.append((same_json(json.loads(body),
+                             slo_status(out, SLOPolicy())),
+                   "/slo differs from slo_status"))
+    # latencies on a fresh server (cold caches), then the load; the
+    # deflate and JSON bodies of the whole width take 0.4 and 4.5 s a
+    # request, so those two are timed over 1,000 and 100 channels
+    ch1000 = f"&d0=0&d1={999 * D_CH}"
+    ch100 = f"&d0=0&d1={99 * D_CH}"
+    tails = [
+        ("query", f"/query?{win}", {}),
+        ("query_deflate_1000ch", f"/query?{win}{ch1000}",
+         {"Accept-Encoding": "deflate"}),
+        ("query_json_100ch", f"/query?{win}{ch100}&format=json", {}),
+        ("waterfall", f"/waterfall?{win}&max_px=64", {}),
+        ("tile_tpt", "/tile?level=0&idx=0", {"Accept-Encoding": "x-tpt"}),
+        ("tile_npy", "/tile?level=1&idx=0", {}),
+        ("events_scores", "/events?scores=1&c0=0&c1=99", {}),
+        ("healthz", "/healthz", {}),
+        ("trace", "/trace?kind=round", {}),
+        ("slo", "/slo", {}),
+    ]
+    with DASServer(out, port=0) as lat:
+        res["latency"] = timed_requests(lat.base_url, tails)
+    checks.append((all(v["statuses"] == [200]
+                       for v in res["latency"].values()),
+                   f"a timed request failed: {res['latency']}"))
+    with DASServer(out, port=0, max_inflight=SERVE_INFLIGHT) as busy:
+        res["load"] = serve_load(busy.base_url,
+                                 f"/waterfall?{win}&max_px=64")
+        res["load"]["tail"] = "/waterfall (max_px=64, full width)"
+    checks.append((set(res["load"]["statuses"]) <= {200, 503}
+                   and res["load"]["statuses"].get(200, 0) > 0,
+                   f"the load saw {res['load']['statuses']}"))
+    return res, checks
+
+
+def cuda_holders(pids):
+    """Which of ``pids`` hold the card: listed by ``nvidia-smi
+    --query-compute-apps`` or with a ``/dev/nvidia*`` device open.
+    Returns (holders, whether nvidia-smi lists this process)."""
+    import subprocess
+
+    listed = set()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout
+        listed = {int(x) for x in out.split() if x.strip().isdigit()}
+    except (OSError, subprocess.SubprocessError):
+        pass
+    holders = {}
+    for pid in pids:
+        fds = []
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                try:
+                    target = os.readlink(f"/proc/{pid}/fd/{fd}")
+                except OSError:
+                    continue
+                if target.startswith("/dev/nvidia"):
+                    fds.append(target)
+        except OSError:
+            pass
+        if pid in listed or fds:
+            holders[pid] = {"nvidia_smi": pid in listed,
+                            "devices": sorted(set(fds))}
+    return holders, os.getpid() in listed
+
+
+def serve_pool(device, link, sdir, out):
+    """13c: a 2-worker ``ServePool`` over 13a's folder, fed through the
+    producer's ``LiveBridge`` (``TPUDAS_LIVE_BRIDGE``) by
+    ``SERVE_POOL_ROUNDS`` more rounds of the stream; a ``/live``
+    subscriber on the shared port gets the producer's frames; the
+    merged ``/metrics``, ``/pool/healthz`` and ``pool_rollup``; one
+    worker SIGKILLed and respawned; no worker holds the card."""
+    import signal
+    import urllib.error
+
+    from tpudas_torch.live import sse as live_sse
+    from tpudas_torch.live.hub import find_hub
+    from tpudas_torch.obs.collect import pool_rollup
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.serve.pool import ServePool
+
+    cuda = device.type == "cuda"
+    hub = find_hub(folder=os.path.abspath(out))
+    bridge = live_sse.ensure_bridge("127.0.0.1:0")
+    pool = ServePool(out, port=0, workers=2, live_bridge=bridge.address)
+    checks, res = [], {}
+    t0 = time.perf_counter()
+    pool.start()
+    try:
+        res["pool_start_s"] = time.perf_counter() - t0
+        deadline = time.time() + 120
+        while len(bridge._conns) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        res["bridge_connections"] = len(bridge._conns)
+        seq0 = hub.seq
+        env = dict(SERVE_ENV, TPUDAS_LIVE_BRIDGE=bridge.address)
+        zero_kernel_counts()
+        with use_registry(MetricsRegistry()), \
+                mock.patch.dict(os.environ, env):
+            serve_stream(device, link, os.path.join(sdir, "src"), out,
+                         list(range(SERVE_ROUNDS + 1, SERVE_ROUNDS
+                                    + SERVE_POOL_ROUNDS + 1)), live=True)
+        res["kernel_counts"] = kernel_counts()
+        ring = {f.seq: f for f in list(hub._ring)}
+        want = list(range(seq0 + 1, hub.seq + 1))
+        seen = []
+        for _ in range(2):  # either worker may answer; both mirror
+            deadline = time.time() + 60
+            while True:
+                try:
+                    evs = sse_events(
+                        f"{pool.base_url}/live?window=0&heartbeat=1",
+                        want=1 + len(want), timeout=60,
+                        headers={"Last-Event-ID": str(seq0)})
+                except urllib.error.HTTPError as exc:
+                    # a worker the bridge has not reached yet has no
+                    # hub: 503 with Retry-After
+                    exc.close()
+                    if exc.code != 503 or time.time() > deadline:
+                        raise
+                    time.sleep(0.2)
+                    continue
+                deltas = [d for ev, _i, d in evs if ev == "delta"]
+                if [d["seq"] for d in deltas] == want or (
+                        time.time() > deadline):
+                    break
+                time.sleep(0.2)
+            import base64
+
+            seen.append([d["seq"] for d in deltas])
+            checks.append((
+                [d["seq"] for d in deltas] == want and all(
+                    base64.b64decode(d["blob"]) == ring[d["seq"]].payload(0)
+                    for d in deltas),
+                f"the pool's /live deltas {[d['seq'] for d in deltas]} "
+                f"are not the producer's frames {want}"))
+        res["live_seqs"] = seen
+        st, body, _h = http_get(pool.control_url + "/metrics")
+        samples = [ln for ln in body.decode().splitlines()
+                   if ln and not ln.startswith("#")]
+        workers_seen = sorted({ln.split('worker="', 1)[1].split('"', 1)[0]
+                               for ln in samples if 'worker="' in ln})
+        checks.append((st == 200 and samples and all(
+            '{worker="' in ln for ln in samples)
+            and workers_seen == ["0", "1", "pool"],
+            f"merged /metrics: workers {workers_seen}"))
+        st, body, _h = http_get(pool.control_url + "/pool/healthz")
+        health = json.loads(body)
+        rollup = pool_rollup(pool.control_url)
+        checks.append((st == 200 and health["status"] == "ok"
+                       and rollup["status"] == "ok"
+                       and sorted(rollup["workers"]) == ["0", "1"],
+                       f"/pool/healthz {st} {health}, rollup {rollup}"))
+        pids = [i["pid"] for i in pool.worker_info.values()]
+        res["worker_start_s"] = {str(k): v["start_s"] for k, v in
+                                 sorted(pool.worker_info.items())}
+        # one worker SIGKILLed: respawned, counted, healthy again
+        victim = pool.worker_info[0]["pid"]
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        deadline = time.time() + 180
+        respawned = False
+        while time.time() < deadline:
+            h = pool.health()
+            if h["status"] == "ok" and h["workers"]["0"]["pid"] != victim:
+                respawned = True
+                break
+            time.sleep(0.1)
+        res["respawn_s"] = time.perf_counter() - t_kill
+        res["restart_counts"] = pool.restart_counts()
+        res["respawned_start_s"] = pool.worker_info[0]["start_s"]
+        st, body, _h = http_get(pool.control_url + "/pool/healthz")
+        checks.append((respawned and res["restart_counts"] == {0: 1}
+                       and st == 200 and json.loads(body)["status"] == "ok",
+                       f"respawn: {respawned}, restarts "
+                       f"{res['restart_counts']}, /pool/healthz {st}"))
+        pids.append(pool.worker_info[0]["pid"])
+        holders, visible = cuda_holders(pids)
+        res["worker_pids"] = pids
+        res["workers_holding_the_card"] = holders
+        res["nvidia_smi_lists_this_process"] = visible
+        res["this_process_holds"] = cuda_holders([os.getpid()])[0]
+        checks.append((not holders,
+                       f"a pool worker holds the card: {holders}"))
+        if cuda:
+            checks.append((visible or res["this_process_holds"],
+                           "neither nvidia-smi nor /proc shows this "
+                           "process holding the card: the check is blind"))
+    finally:
+        pool.stop()
+        bridge.stop()
+        live_sse._BRIDGE = None
+    return res, checks
+
+
+def serve_fleet(device, link, fdir, members):
+    """13d: ``DASServer.for_fleet`` over a batched 2-member fleet with
+    live on (phase 12's helper): ``/fleet/healthz`` against
+    ``fleet_rollup``, and ``/s/<id>/live`` finding each member's hub."""
+    from tpudas_torch.live.hub import find_hub
+    from tpudas_torch.obs.collect import fleet_rollup
+    from tpudas_torch.serve.http import DASServer
+
+    fleet, checks = obs_fleet(device, link, fdir, members, live=True,
+                              report=False, rounds=2)
+    checks.append((all(n == 2 for n in fleet["rounds"].values()),
+                   f"the live fleet's rounds {fleet['rounds']} != 2"))
+    root = os.path.join(fdir, "root")
+    roll = json.loads(json.dumps(fleet_rollup(root)))
+    res = {"fleet": {k: fleet[k] for k in ("wall_s", "kernel_counts",
+                                           "stacked_launches", "rounds")}}
+    with DASServer.for_fleet(root, port=0) as srv:
+        st, body, _h = http_get(srv.base_url + "/fleet/healthz")
+        fh = json.loads(body)
+        same = (st == 200 and fh["status"] == roll["status"]
+                and fh["slo_counts"] == roll["slo_counts"]
+                and sorted(fh["streams"]) == sorted(roll["streams"])
+                and all(v == roll["streams"][sid][k]
+                        for sid, e in fh["streams"].items()
+                        for k, v in e.items()))
+        checks.append((same, f"/fleet/healthz differs from fleet_rollup: "
+                             f"{fh} vs {roll}"))
+        res["fleet_healthz"] = {"status": fh["status"],
+                                "counts": fh["counts"]}
+        res["live"] = {}
+        for sid, _c0, _w in members:
+            hub = find_hub(stream_id=sid)
+            evs = sse_events(
+                f"{srv.base_url}/s/{sid}/live?window=0&heartbeat=1"
+                "&last_id=0", want=1 + (0 if hub is None else hub.seq))
+            deltas = [d for ev, _i, d in evs if ev == "delta"]
+            ring = {} if hub is None else {f.seq: f for f in hub._ring}
+            ok = (hub is not None and evs[0][0] == "hello"
+                  and evs[0][2]["stream"] == sid and deltas
+                  and [d["seq"] for d in deltas] == sorted(ring)
+                  and all(np.array_equal(delta_rows(d),
+                                         ring[d["seq"]].level_array(0),
+                                         equal_nan=True) for d in deltas))
+            res["live"][sid] = {"deltas": len(deltas), "ok": bool(ok)}
+            checks.append((ok, f"/s/{sid}/live did not serve the member's "
+                               f"hub ({res['live'][sid]})"))
+    return res, checks
+
+
+def phase_serve(device, workdir, cls, members):
+    """Phase 13: the serving plane and the live push plane on the fused
+    stream at the flagship width: 13a live, 13b the data plane, 13c the
+    worker pool, 13d the fleet (see the module docstring)."""
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.live.hub import reset_hubs
+
+    cuda = device.type == "cuda"
+    sdir = os.path.join(workdir, "serve")
+    shutil.rmtree(sdir, ignore_errors=True)
+    link = obs_linker(workdir, sdir)
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    reset_hubs()
+    t_phase = time.perf_counter()
+    checks, srv = [], None
+    try:
+        link(os.path.join(sdir, "warm"), SERVE_ROUNDS + SERVE_POOL_ROUNDS)
+        live, c, srv, out = serve_live(device, link, sdir)
+        checks += c
+        emit({"phase": "serve", "leg": "live", **live})
+        data, c = serve_data(out, srv)
+        checks += c
+        emit({"phase": "serve", "leg": "data", **data})
+        srv.stop()
+        srv = None
+        pool, c = serve_pool(device, link, sdir, out)
+        checks += c
+        emit({"phase": "serve", "leg": "pool", **pool})
+        if cuda:
+            torch.cuda.empty_cache()
+        fleet, c = serve_fleet(device, link, os.path.join(sdir, "fleet"),
+                               members)
+        checks += c
+        emit({"phase": "serve", "leg": "fleet", **fleet})
+    finally:
+        if srv is not None:
+            srv.stop()
+        fleet_engine.LFProc = saved_cls
+        reset_hubs()
+    summary = {
+        "phase": "serve", "leg": "summary",
+        "wall_s": time.perf_counter() - t_phase,
+        "live_rounds": [{k: r[k] for k in ("round", "live_s", "body_s",
+                                           "live")}
+                        for r in live["rounds"]],
+        "first_encode_ms": {lvl: e["ms"] for lvl, e in
+                            live["first_encode"].items()},
+        "b3": live["kernel_counts"], "b1_auto": live["auto"]["b1"],
+        "latency_warm_ms": {k: v["warm_median_ms"]
+                            for k, v in data["latency"].items()},
+        "load": data["load"], "worker_start_s": pool["worker_start_s"],
+        "respawn_s": pool["respawn_s"],
+    }
+    emit(summary)
+    failed = [what for ok, what in checks if not ok]
+    if failed:
+        fail("serve checks failed: " + " | ".join(failed))
+    shutil.rmtree(sdir, ignore_errors=True)
+    return {"live": live, "data": data, "pool": pool, "fleet": fleet,
+            "summary": summary}
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -3260,13 +4114,13 @@ def main(argv=None):
                     help="dry run on the CPU at a small width; exits 3")
     ap.add_argument("--only",
                     choices=["fir", "fused", "fleet", "detect", "crash",
-                             "pyramid", "obs"],
+                             "pyramid", "obs", "serve"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
-                    "(fleet), 9 (detect), 10 (crash), 11 (pyramid) or 12 "
-                    "(obs) alone; exits 4")
+                    "(fleet), 9 (detect), 10 (crash), 11 (pyramid), 12 "
+                    "(obs) or 13 (serve) alone; exits 4")
     ap.add_argument("--cycles", type=int, default=None,
                     help="killed cycles of each engine's crash drill "
-                    "(default: fused 4, auto and fft 2)")
+                    "(default: fused 3, auto and fft 1)")
     args = ap.parse_args(argv)
     if args.rehearse:
         device = torch.device("cpu")
@@ -3338,7 +4192,7 @@ def main(argv=None):
 
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
     tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
-    if args.only in ("fleet", "detect", "crash", "pyramid", "obs"):
+    if args.only in ("fleet", "detect", "crash", "pyramid", "obs", "serve"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3354,6 +4208,8 @@ def main(argv=None):
             phase_pyramid(device, workdir, cls, timer)
         elif args.only == "obs":
             phase_obs(device, workdir, cls, obs_members)
+        elif args.only == "serve":
+            phase_serve(device, workdir, cls, obs_members)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -3373,6 +4229,7 @@ def main(argv=None):
     phase_crash(device, workdir, n_ch, tdas_output, args.cycles)
     pyramid = phase_pyramid(device, workdir, cls, timer)
     obs = phase_obs(device, workdir, cls, obs_members)
+    serve = phase_serve(device, workdir, cls, obs_members)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}
@@ -3404,6 +4261,8 @@ def main(argv=None):
         "pyramid_launches": pyramid["b"]["fir_decimate_launches"],
         # phase 12b: the auto stream with health and flight on
         "obs_launches": obs["legs"]["auto"]["kernel_counts"]["b1"],
+        # phase 13a: the auto leg with the live plane on
+        "serve_launches": serve["live"]["auto"]["b1"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
@@ -3447,6 +4306,12 @@ def main(argv=None):
         # phase 12a: the fused stream with health, flight, detection and
         # the pyramid on (2 calls, 4 rounds)
         "obs_launches": obs["legs"]["fused"]["kernel_counts"]["b3_steps"],
+        # phase 13: the live fused stream (13a), its 2 rounds feeding the
+        # pool (13c) and the live fleet (13d)
+        "serve_launches": serve["live"]["kernel_counts"]["b3_steps"],
+        "serve_pool_launches": serve["pool"]["kernel_counts"]["b3_steps"],
+        "serve_fleet_launches": serve["fleet"]["fleet"]["kernel_counts"][
+            "b3_steps"],
         "fleet_packed_ms": fleet["packed_step"].get("b3_packed_ms"),
         "fleet_solo_sum_ms": fleet["packed_step"].get("b3_solo_sum_ms"),
         "b1_chain_ms": full["b1_chain_ms"],

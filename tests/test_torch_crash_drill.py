@@ -109,12 +109,29 @@ def test_sigkill_fleet_drill_batched(tmp_path):
     assert rep["detect_events"] > 0 and rep["ok"]
 
 
-def test_cli_refuses_unported_options():
+def test_cli_refuses_unported_options(tmp_path, monkeypatch, capsys):
+    """``--mesh`` (ROADMAP A10) raises; ``--live`` is ported: the drilled
+    cycles run live-on with never-drained subscribers and the control
+    live-off, and the drill holds (the live plane holds nothing
+    durable)."""
+    import json
+
     from tpudas_torch.tools.crash_drill import main
 
     with pytest.raises(NotImplementedError, match="A10"):
         main(["--mesh", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8d"):
-        main(["--live", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        main(["--live", "--streams", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="engine"):
         run_drill(engine="cascade", cycles=0, device="cpu")
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
+    report = str(tmp_path / "live.json")
+    assert main(["--live", "--live-subs", "4", "--cycles", "2",
+                 "--engines", "fused", "--device", "cpu", "--workdir",
+                 str(tmp_path / "drill"), "--out", report]) == 0
+    assert "crash_drill: OK" in capsys.readouterr().out
+    payload = json.load(open(report))
+    rep = payload["engines"]["fused"]
+    assert payload["live"] is True and rep["live"] is True
+    assert rep["live_subs"] == 4
+    _assert_drill_ok(rep)

@@ -875,3 +875,111 @@ def test_obs_stream_on_card(cuda_device, tmp_path, monkeypatch):
         assert any(x["kind"] == "span" and x["name"] == "stream.round"
                    and x.get("round") == r["round"] for x in ring[:i])
     assert reg.value("tpudas_health_write_errors_total") == 0.0
+
+
+def test_live_fused_stream_on_card(cuda_device, tmp_path, monkeypatch):
+    """A 2-round ``fused`` stream on the card with ``live=True``: a
+    ``/live`` subscriber of a port ``DASServer`` gets one delta a round,
+    each equal to the hub's ring frame at its level; the snapshot equals
+    ``/query`` of its window; B3 ran every block and the round records
+    carry the ``live`` block."""
+    import base64
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from tpudas_torch.codec import decode_tile
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.live.hub import find_hub, reset_hubs
+    from tpudas_torch.obs.flight import read_flight
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+    from tpudas_torch.serve.http import DASServer
+
+    class TdasLFProc(LFProc):
+        # outputs as tdas: the card's host may lack h5py
+        def _write_output(self, patch, path):
+            patch.io.write(os.path.splitext(path)[0] + ".tdas", "tdas")
+
+    monkeypatch.setattr(fleet_engine, "LFProc", TdasLFProc)
+    monkeypatch.setenv("TPUDAS_FUSED_MIN_ELEMS", "0")
+    reset_hubs()
+    pool = str(tmp_path / "pool")
+    make_synthetic_spool(pool, n_files=3, file_duration=30.0, fs=100.0,
+                         n_ch=8, noise=0.01, format="tdas")
+    names = sorted(n for n in os.listdir(pool) if n.endswith(".tdas"))
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    os.makedirs(src)
+    for n in names[:2]:
+        os.link(os.path.join(pool, n), os.path.join(src, n))
+    os.makedirs(out)
+
+    def read_events(url, want, timeout=30.0):
+        resp = urllib.request.urlopen(url, timeout=timeout)
+        buf, events = b"", []
+        while len(events) < want:
+            chunk = resp.read(256)
+            if not chunk:
+                break
+            buf += chunk
+            *blocks, rest = buf.split(b"\n\n")
+            buf = rest
+            for block in blocks:
+                fields = dict(line.split(": ", 1) for line in
+                              block.decode().splitlines() if ": " in line)
+                if "event" in fields:
+                    events.append((fields["event"],
+                                   json.loads(fields["data"])))
+        resp.close()
+        return events
+
+    with DASServer(out, port=0) as srv:
+        got = {}
+        fed = []
+
+        def sleep(_s):
+            if not fed:
+                fed.append(1)
+                os.link(os.path.join(pool, names[2]),
+                        os.path.join(src, names[2]))
+
+        def subscribe():
+            while find_hub(folder=os.path.abspath(out)) is None:
+                threading.Event().wait(0.01)
+            got["live"] = read_events(
+                srv.base_url + "/live?window=0&heartbeat=0.5&level=1"
+                "&last_id=0&max_frames=2", want=3)
+
+        before = fused_cascade.launches
+        reader = threading.Thread(target=subscribe, daemon=True)
+        reader.start()
+        assert run_lowpass_realtime(
+            src, out, "2023-03-22T00:00:00", output_sample_interval=1.0,
+            edge_buffer=8.0, process_patch_size=40, poll_interval=0.0,
+            sleep_fn=sleep, stateful=True, engine="fused", pyramid=True,
+            live=True, device=cuda_device) == 2
+        reader.join(timeout=60)
+        assert fused_cascade.launches > before
+        hub = find_hub(folder=os.path.abspath(out))
+        ring = {f.seq: f for f in hub._ring}
+        deltas = [d for ev, d in got["live"] if ev == "delta"]
+        assert [d["seq"] for d in deltas] == [1, 2]
+        for d in deltas:
+            np.testing.assert_array_equal(
+                decode_tile(base64.b64decode(d["blob"])),
+                ring[d["seq"]].level_array(d["level"]))
+        snap = [d for ev, d in read_events(
+            srv.base_url + "/live?window=20&heartbeat=0.5&max_frames=1",
+            want=2) if ev == "snapshot"][0]
+        t0, n, step = snap["t0_ns"], snap["rows"], snap["step_ns"]
+        with urllib.request.urlopen(
+                srv.base_url + f"/query?t0={t0}&t1={t0 + n * step}",
+                timeout=30) as r:
+            pulled = np.load(io.BytesIO(r.read()))
+        np.testing.assert_array_equal(
+            decode_tile(base64.b64decode(snap["blob"])),
+            pulled.astype(np.float32))
+    rounds = [r for r in read_flight(out) if r["kind"] == "round"]
+    assert [r["live"]["published"] for r in rounds] == [1, 1]
+    reset_hubs()

@@ -98,6 +98,13 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.serve",
         "tpudas_torch.serve.tiles",
         "tpudas_torch.serve.query",
+        "tpudas_torch.serve.http",
+        "tpudas_torch.serve.pool",
+        "tpudas_torch.live",
+        "tpudas_torch.live.hub",
+        "tpudas_torch.live.protocol",
+        "tpudas_torch.live.sse",
+        "tpudas_torch.tools.serve_pool",
         "tpudas_torch.viz",
         "tpudas_torch.viz.waterfall",
     ):
@@ -143,7 +150,7 @@ def test_card_tests_import_no_jax_no_tpudas():
 def test_operator_tools_import_no_jax_no_tpudas():
     """The fsck and the crash drill, whose workers import inside
     functions: no import at any depth names JAX or the JAX package."""
-    for name in ("fsck.py", "crash_drill.py"):
+    for name in ("fsck.py", "crash_drill.py", "serve_pool.py"):
         names = _imported_modules(
             os.path.join(REPO, "tpudas_torch", "tools", name))
         assert "tpudas_torch" in {_top(n) for n in names}, name
@@ -152,9 +159,10 @@ def test_operator_tools_import_no_jax_no_tpudas():
 
 
 def test_pyramid_modules_import_no_jax_no_tpudas():
-    """codec, serve and viz: no import at any depth names JAX or the JAX
-    package, and matplotlib is imported only inside a function."""
-    for sub in ("codec", "serve", "viz"):
+    """codec, serve, live and viz: no import at any depth names JAX or
+    the JAX package, and matplotlib is imported only inside a
+    function."""
+    for sub in ("codec", "serve", "live", "viz"):
         d = os.path.join(REPO, "tpudas_torch", sub)
         for name in sorted(os.listdir(d)):
             if not name.endswith(".py"):
@@ -170,3 +178,35 @@ def test_pyramid_modules_import_no_jax_no_tpudas():
                 mods = ([a.name for a in node.names]
                         if isinstance(node, ast.Import) else [node.module])
                 assert all(_top(m) != "matplotlib" for m in mods), path
+
+
+_WORKER_PROBE = r"""
+import json, sys
+from tpudas_torch.serve import pool
+# what a spawned pool worker imports before it serves
+from tpudas_torch.serve.http import DASServer  # noqa: F401
+import tpudas_torch.live.sse  # noqa: F401  (the bridge subscriber)
+import torch
+print(json.dumps({"loaded": sorted(sys.modules),
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_pool_worker_import_path():
+    """A serve-pool worker's import path (the server, the live bridge)
+    loads neither JAX, the JAX package, matplotlib nor any kernel
+    module, and creates no CUDA context."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", _WORKER_PROBE], capture_output=True,
+        text=True, env=env, cwd=REPO, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    loaded = res["loaded"]
+    assert [n for n in loaded
+            if _top(n) in ("jax", "jaxlib", "tpudas", "matplotlib")] == []
+    assert [n for n in loaded if n.startswith("tpudas_torch.ops")] == []
+    assert "tpudas_torch.serve.http" in loaded
+    assert res["cuda_initialized"] is False

@@ -408,7 +408,26 @@ def test_unported_keywords_raise(tmp_path, keyword, value, request,
     """Every keyword whose feature is not ported raises before the driver
     writes; ``pyramid`` is ported now, and builds the tile pyramid;
     ``health`` and ``flight`` are ported now and leave the JAX driver's
-    artifacts."""
+    artifacts; ``live`` is ported now and registers a hub for the folder
+    that publishes every round, as the JAX driver's does."""
+    if keyword == "live":
+        from tpudas.live.hub import find_hub as jax_find_hub
+        from tpudas_torch.live.hub import find_hub
+
+        pool = request.getfixturevalue("env_pool")
+        outs = {}
+        for name, driver, finder in (
+                ("port", run_lowpass_realtime, find_hub),
+                ("jax", jax_realtime, jax_find_hub)):
+            outs[name] = str(tmp_path / name)
+            assert _drive(driver, pool, str(tmp_path / f"src-{name}"),
+                          outs[name], first=2, then=[3], live=value) == 2
+            hub = finder(folder=os.path.abspath(outs[name]))
+            assert hub is not None and hub.seq == 2, name
+            assert [f.n_rows() for f in hub._ring] and all(
+                f.n_rows() > 0 for f in hub._ring), name
+        _assert_same_stream(outs["port"], outs["jax"])
+        return
     if keyword in ("health", "flight"):
         pool = request.getfixturevalue("env_pool")
         monkeypatch.setenv("TPUDAS_DEVPROF", "0")
@@ -503,8 +522,8 @@ def test_single_sample_tdas_round_trips(tmp_path):
 # features the JAX runners turn on from the environment (ROADMAP C3)
 
 # variable -> (config field, what the JAX driver leaves behind); the
-# pyramid and the health files are ported: under TPUDAS_PYRAMID and
-# TPUDAS_HEALTH the port builds them too
+# pyramid, the health files and the live hub are ported: under
+# TPUDAS_PYRAMID, TPUDAS_HEALTH and TPUDAS_LIVE the port builds them too
 ENV_FEATURES = {
     "TPUDAS_HEALTH": ("health", "health.json"),
     "TPUDAS_PYRAMID": ("pyramid", ".tiles"),
@@ -571,11 +590,11 @@ def _check_env_pyramid(env_pool, tmp_path, jout):
 def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
                                             var):
     """Under the variable the JAX driver turns its feature on (and leaves
-    its artifact); every port entry point raises naming the variable
-    before it writes anything — except for the ported features
-    (``TPUDAS_PYRAMID``, ``TPUDAS_HEALTH``), which every entry point
-    turns on and the driver writes as the JAX one does."""
-    field, artifact = ENV_FEATURES[var]
+    its artifact); every one of these features is ported now
+    (``TPUDAS_PYRAMID``, ``TPUDAS_HEALTH``, ``TPUDAS_LIVE``): every port
+    entry point turns it on and the driver writes what the JAX one
+    does."""
+    _field, artifact = ENV_FEATURES[var]
     monkeypatch.setenv(var, "1")
     monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
     jout = str(tmp_path / "jax")
@@ -590,28 +609,37 @@ def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
         _check_env_pyramid(env_pool, tmp_path, jout)
         return
     out = str(tmp_path / "port")
-    if var == "TPUDAS_HEALTH":
-        # ported: every entry point turns health on, and the driver's
-        # snapshot agrees with the JAX driver's
+    if var == "TPUDAS_LIVE":
+        # ported: every entry point registers a hub for its folder, and
+        # the driver publishes its round to it
+        from tpudas_torch.live.hub import find_hub
+
         for name in ("build_runner", "LowpassStreamRunner", "FleetEngine"):
             obj = _lowpass_entry_points(
                 str(tmp_path / "src"), str(tmp_path / f"ep-{name}"))[name]()
             runners = ([st.runner for st in obj.streams.values()]
                        if name == "FleetEngine" else [obj])
-            assert all(r.edge_health.enabled for r in runners), name
-        from tpudas_torch.obs.registry import MetricsRegistry, use_registry
-
-        with use_registry(MetricsRegistry()):  # this run's metrics only
-            assert _drive(run_lowpass_realtime, env_pool,
-                          str(tmp_path / "src2"), out, flight=False) == 1
-        _assert_obs_artifacts(out, jout, "health")
+            assert all(r.live and find_hub(folder=os.path.abspath(
+                r.output_folder)) is r.live_hub for r in runners), name
+        assert _drive(run_lowpass_realtime, env_pool,
+                      str(tmp_path / "src2"), out) == 1
+        hub = find_hub(folder=os.path.abspath(out))
+        assert hub is not None and hub.seq == 1
         return
-    for name, start in _lowpass_entry_points(str(tmp_path / "src"),
-                                             out).items():
-        with pytest.raises(NotImplementedError, match=var) as err:
-            start()
-        assert field in str(err.value), name
-        assert not os.path.exists(out), name
+    # TPUDAS_HEALTH, ported: every entry point turns health on, and the
+    # driver's snapshot agrees with the JAX driver's
+    for name in ("build_runner", "LowpassStreamRunner", "FleetEngine"):
+        obj = _lowpass_entry_points(
+            str(tmp_path / "src"), str(tmp_path / f"ep-{name}"))[name]()
+        runners = ([st.runner for st in obj.streams.values()]
+                   if name == "FleetEngine" else [obj])
+        assert all(r.edge_health.enabled for r in runners), name
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+
+    with use_registry(MetricsRegistry()):  # this run's metrics only
+        assert _drive(run_lowpass_realtime, env_pool,
+                      str(tmp_path / "src2"), out, flight=False) == 1
+    _assert_obs_artifacts(out, jout, "health")
 
 
 @pytest.mark.parametrize("raw,raises", [("2", True), ("1", False),

@@ -195,14 +195,29 @@ class TestRollingRealtime:
         assert np.nanmax(np.abs(va - vb)) <= REL * np.nanmax(np.abs(vb))
 
     def test_unported_keywords_raise(self, tmp_path, monkeypatch):
-        """The unported keywords raise; ``pyramid`` is ported and builds
-        the tile pyramid over the rolling outputs; ``flight`` is ported
-        and keeps the JAX runner's ring."""
-        for kw in ({"mesh": 2}, {"live": True}):
-            with pytest.raises(NotImplementedError, match=next(iter(kw))):
-                run_rolling_realtime(
-                    source=str(tmp_path), output_folder=str(tmp_path / "o"),
-                    window=1.0, step=1.0, device="cpu", **kw)
+        """The unported keyword (``mesh``) raises; ``pyramid`` is ported
+        and builds the tile pyramid over the rolling outputs; ``flight``
+        is ported and keeps the JAX runner's ring; ``live`` is ported and
+        registers a hub for the folder that publishes every round, as
+        the JAX runner's does."""
+        with pytest.raises(NotImplementedError, match="mesh"):
+            run_rolling_realtime(
+                source=str(tmp_path), output_folder=str(tmp_path / "o"),
+                window=1.0, step=1.0, device="cpu", mesh=2)
+        from tpudas.live.hub import find_hub as jax_find_hub
+        from tpudas_torch.live.hub import find_hub
+
+        lives = {}
+        for pkg, finder in (("port", find_hub), ("jax", jax_find_hub)):
+            lsrc = str(tmp_path / f"lsrc-{pkg}")
+            make_synthetic_spool(lsrc, n_files=2, file_duration=FILE_SEC,
+                                 fs=FS, n_ch=NCH, noise=0.01)
+            lout = str(tmp_path / f"live-{pkg}")
+            assert _rolling(pkg, lsrc, lout, live=True, flight=True) == 2
+            hub = finder(folder=os.path.abspath(lout))
+            assert hub is not None and hub.seq == 2, pkg
+            lives[pkg] = lout
+        _assert_same_rolling_ring(lives["port"], lives["jax"])
         monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "16")
         src = str(tmp_path / "src")
         make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
@@ -388,10 +403,11 @@ def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
     """Under the variable the JAX rolling runner turns its feature on
     (the pyramid leaves ``.tiles/``, the live plane a hub); every port
     entry point raises naming the variable before it writes anything —
-    except ``TPUDAS_PYRAMID`` and ``TPUDAS_FLIGHT``, ported now: every
-    entry point turns the feature on, the driver's tree is the one the
-    JAX package syncs from the same output files, and its flight ring
-    has the JAX runner's records."""
+    except ``TPUDAS_PYRAMID``, ``TPUDAS_FLIGHT`` and ``TPUDAS_LIVE``,
+    ported now: every entry point turns the feature on, the driver's
+    tree is the one the JAX package syncs from the same output files,
+    its flight ring has the JAX runner's records, and its hub is
+    registered for its folder."""
     src = str(tmp_path / "src")
     make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
                          n_ch=NCH)
@@ -426,6 +442,24 @@ def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
 
             assert find_hub(folder=os.path.abspath(jout)) is not None
     out = str(tmp_path / "port")
+    if var == "TPUDAS_LIVE":
+        # ported: every entry point registers a hub for its folder, and
+        # the driver publishes its round to it, as the JAX runner does
+        from tpudas_torch.live.hub import find_hub
+
+        for name, start in _rolling_entry_points(
+                src, str(tmp_path / "ep")).items():
+            if name == "run_rolling_realtime":
+                continue
+            obj = start()
+            runners = ([st.runner for st in obj.streams.values()]
+                       if name == "FleetEngine" else [obj])
+            assert all(r.live and find_hub(folder=os.path.abspath(
+                r.output_folder)) is r.live_hub for r in runners), name
+        assert _rolling("port", src, out, sleep_fn=lambda _: None) == 1
+        hub = find_hub(folder=os.path.abspath(out))
+        assert hub is not None and hub.seq == 1
+        return
     if var == "TPUDAS_PYRAMID":
         eps = {n: _rolling_entry_points(src, str(tmp_path / f"ep-{n}"))[n]
                for n in ("build_runner", "RollingStreamRunner",

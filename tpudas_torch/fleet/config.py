@@ -51,7 +51,7 @@ class StreamConfig:
     detect_operators: object = None
     poll_jitter: object = None  # fraction; None -> TPUDAS_POLL_JITTER/0
     flight: object = None  # None -> TPUDAS_FLIGHT (on unless 0)
-    live: object = None  # not ported: None -> TPUDAS_LIVE, raises at 1
+    live: object = None  # live push hub; None -> TPUDAS_LIVE (on at 1)
     # -- lowpass only ---------------------------------------------------
     start_time: object = None
     output_sample_interval: object = None

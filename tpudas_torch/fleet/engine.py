@@ -62,11 +62,21 @@ Observability, as in the JAX runners (:mod:`tpudas_torch.obs`):
   attribution.  Until the device telemetry is ported the round does
   what the JAX runner does under ``TPUDAS_DEVPROF=0``:
   ``device_execute`` is 0.0 and ``host_wait`` carries the processing
-  call's whole residual; ``place`` and ``live`` are 0.0 (no mesh, no
-  live plane).
+  call's whole residual; ``place`` is 0.0 (no mesh).
+- **Live** (``live=True``, or ``TPUDAS_LIVE=1`` for a field left at
+  None; :mod:`tpudas_torch.live`): each runner registers a
+  :class:`~tpudas_torch.live.hub.LiveHub` under its stream id and
+  absolute output folder, and every processed round publishes its
+  captured output patches and new detect events to it after detection
+  and before the health write (the ``live`` phase; the round record's
+  ``live`` block).  A publish failure is counted and swallowed, and
+  the publish is shed while the disk is full: the hub holds no durable
+  state, so outputs, carry, pyramid and ledger are those of a live-off
+  run.  ``TPUDAS_LIVE_BRIDGE`` also starts the process's
+  :class:`~tpudas_torch.live.sse.LiveBridge` for pool workers.
 
-Not ported in this slice: the live plane, device telemetry, the mesh
-and window data parallelism, and the backfill clamps (``time_range``,
+Not ported in this slice: device telemetry, the mesh and window data
+parallelism, and the backfill clamps (``time_range``,
 ``ingest_limit_sec``).  A runner raises ``NotImplementedError`` when
 its configuration, or the environment variable the JAX runner reads
 for a field left at None (:data:`UNPORTED_ENV`), turns on one of those
@@ -127,7 +137,6 @@ __all__ = [
 UNPORTED_FIELDS = (
     "mesh",
     "window_dp",
-    "live",
 )
 
 
@@ -135,27 +144,23 @@ UNPORTED_FIELDS = (
 # left at None; window_dp has none
 UNPORTED_ENV = {
     "mesh": "TPUDAS_MESH",
-    "live": "TPUDAS_LIVE",
 }
 
 
 def _unported_from_env(name: str, kind: str):
     """The value the JAX runner of ``kind`` resolves for ``name`` left
     at None: ``TPUDAS_MESH=N`` is a mesh over N devices (0 and 1 mean
-    none, as in ``tpudas.parallel.mesh.resolve_mesh``), ``TPUDAS_LIVE``
-    is on at ``1``."""
+    none, as in ``tpudas.parallel.mesh.resolve_mesh``)."""
     env = UNPORTED_ENV.get(name)
     if env is None:
         return None
     raw = os.environ.get(env, "").strip()
-    if name == "mesh":
-        if not raw:
-            return None
-        n = int(raw)
-        if n < 0:
-            raise ValueError(f"mesh device count must be >= 0, got {n}")
-        return n if n > 1 else None
-    return True if raw == "1" else None
+    if not raw:
+        return None
+    n = int(raw)
+    if n < 0:
+        raise ValueError(f"mesh device count must be >= 0, got {n}")
+    return n if n > 1 else None
 
 
 def check_ported(spec: StreamSpec) -> None:
@@ -530,6 +535,63 @@ def _run_detect(runner, rnd, emitted, step_sec, ph):
     return _time.perf_counter() - t0
 
 
+def _live_new_events(det_state) -> list:
+    """This round's NEW ledger events (the detect summary counts them;
+    the pipeline's in-memory ledger tail holds them) — what the live
+    frame pushes alongside the decimated rows."""
+    pipe = None if det_state is None else det_state.get("pipe")
+    summary = {} if det_state is None else (
+        det_state.get("summary") or {}
+    )
+    n = int(summary.get("new_events") or 0)
+    if pipe is None or n <= 0:
+        return []
+    return [dict(ev) for ev in pipe.events[-n:]]
+
+
+def _publish_live(hub, rnd, emitted, det_state) -> None:
+    """Per-round live-plane hook: publish this round's emit capture +
+    new detect events to the stream's hub.  Mirrors the pyramid hook's
+    swallow discipline: the push plane holds no durable state, so ANY
+    failure here is counted and dropped and the round commits as if no
+    subscriber existed.  ``live.emit`` is the deterministic fault site;
+    a resource error flips the ``live`` shed flag so later rounds skip
+    the publish instead of re-failing it."""
+    try:
+        fault_point("live.emit", round=rnd)
+        hub.publish(rnd, emitted, _live_new_events(det_state))
+    except Exception as exc:
+        get_registry().counter(
+            "tpudas_live_publish_errors_total",
+            "live publish/sink callbacks that raised (swallowed; "
+            "the round loop is never poisoned)",
+        ).inc()
+        log_event(
+            "live_publish_failed",
+            round=rnd,
+            error=f"{type(exc).__name__}: {str(exc)[:200]}",
+        )
+        if _resource.is_resource_error(exc):
+            _resource.note_pressure("live", exc)
+
+
+def _run_live(runner, rnd, emitted, ph) -> None:
+    """The round's live hook, timed into the round's ``live`` phase:
+    shed while the disk is full, else :func:`_publish_live`."""
+    if not runner.live:
+        return
+    with ph.measure("live"):
+        if not _resource.should_shed("live"):
+            _publish_live(runner.live_hub, rnd, emitted, runner.det_state)
+
+
+def _live_extra(runner) -> dict:
+    """The round record's ``live`` block (empty when live is off)."""
+    if not runner.live:
+        return {}
+    return {"live": runner.live_hub.round_record()}
+
+
 def _devprof_fields() -> dict:
     """The round record's ``devprof`` fields: what the JAX runner
     stamps under ``TPUDAS_DEVPROF=0`` until the device telemetry is
@@ -577,6 +639,9 @@ class StreamRunner:
         # the in-flight round's phase timeline
         self.flight = None
         self._round_phases = None
+        # the live push hub: subclasses resolve the knob via _init_live
+        self.live = False
+        self.live_hub = None
 
     def _init_flight(self, cfg) -> None:
         """Open the on-disk flight recorder beside the carry
@@ -591,6 +656,29 @@ class StreamRunner:
             from tpudas_torch.obs.flight import FlightRecorder
 
             self.flight = FlightRecorder(self.output_folder)
+
+    def _init_live(self, cfg) -> None:
+        """Attach the live push hub (``live=`` / ``TPUDAS_LIVE``, off by
+        default): register this stream's :class:`LiveHub` under its id
+        and absolute output folder (how the serve plane finds it), and,
+        when ``TPUDAS_LIVE_BRIDGE`` names an address, start the
+        process-wide :class:`LiveBridge` so ServePool workers can
+        subscribe.  Sets ``self.live`` and ``self.live_hub``."""
+        live = cfg.live
+        if live is None:
+            live = os.environ.get("TPUDAS_LIVE", "0") == "1"
+        self.live = bool(live)
+        if not self.live:
+            return
+        from tpudas_torch.live.hub import register_hub
+
+        self.live_hub = register_hub(
+            self.stream_id, os.path.abspath(self.output_folder)
+        )
+        if os.environ.get("TPUDAS_LIVE_BRIDGE"):
+            from tpudas_torch.live.sse import ensure_bridge
+
+            ensure_bridge(os.environ["TPUDAS_LIVE_BRIDGE"])
 
     def _flight_record(self, kind: str, **fields) -> None:
         if self.flight is not None:
@@ -688,6 +776,7 @@ class LowpassStreamRunner(StreamRunner):
         self.det_state = {"pipe": None}  # cross-round detect pipeline
         self.pyramid = _pyramid_config(cfg)
         self.pyr_state = {"store": None}  # cross-round open tile store
+        self._init_live(cfg)
         stateful = cfg.stateful
         if stateful is None:
             stateful = os.environ.get("TPUDAS_STREAM_STATEFUL", "1") != "0"
@@ -826,9 +915,10 @@ class LowpassStreamRunner(StreamRunner):
         )
         lfp.set_output_folder(self.output_folder, delete_existing=False)
         emitted = []
-        if self.pyramid or self.detect:
+        if self.pyramid or self.detect or self.live:
             # the round's output patches, captured at their write site
-            # for the pyramid append and the detect operators
+            # for the pyramid append, the detect operators and the live
+            # push frame (one capture serves all three)
             lfp.add_emit_listener(emitted.append)
         if self.rolling_output_folder is not None:
             lfp.set_rolling_output_folder(
@@ -985,6 +1075,7 @@ class LowpassStreamRunner(StreamRunner):
             pyramid_seconds=pyramid_s,
             detect_seconds=detect_s,
         )
+        _run_live(self, rnd, emitted, ph)
         self.boundary.on_success()
         with ph.measure("health"):
             self.edge_health.write(
@@ -1013,6 +1104,7 @@ class LowpassStreamRunner(StreamRunner):
             ),
             phases=phases_rec,
             devprof=_devprof_fields(),
+            **_live_extra(self),
         )
         self._flight_flush()
         if self.on_round is not None:
@@ -1181,6 +1273,7 @@ class RollingStreamRunner(StreamRunner):
         self.det_state = {"pipe": None}  # cross-round detect pipeline
         self.pyramid = _pyramid_config(cfg)
         self.pyr_state = {"store": None}  # cross-round open tile store
+        self._init_live(cfg)
         self.initial_run = True
         # patches are identified by their time span, so a late file with
         # an earlier timestamp is still processed (a positional
@@ -1250,7 +1343,7 @@ class RollingStreamRunner(StreamRunner):
             ph = self._round_phases = RoundPhases()
         rnd = self.rounds + 1
         log_event("round_start", round=rnd, stream=self.stream_id)
-        emitted = []  # in-memory capture (pyramid/detect)
+        emitted = []  # in-memory capture (pyramid/detect/live)
         t0 = _time.perf_counter()
         write_s = 0.0
         # one patch at a time: each output is written as soon as it is
@@ -1267,7 +1360,7 @@ class RollingStreamRunner(StreamRunner):
             write_rolling_output(out, os.path.join(self.output_folder, fname))
             write_s += _time.perf_counter() - t_w0
             self.processed.add(keys[j])
-            if self.pyramid or self.detect:
+            if self.pyramid or self.detect or self.live:
                 emitted.append(out)
         # phase attribution: the loop is read + compute + write
         # interleaved; writes are timed at their site, the remainder is
@@ -1278,6 +1371,7 @@ class RollingStreamRunner(StreamRunner):
         ph.add("host_wait", max(loop_s - write_s, 0.0))
         pyramid_s = _run_pyramid(self, rnd, emitted, ph)
         detect_s = _run_detect(self, rnd, emitted, self.step_sec, ph)
+        _run_live(self, rnd, emitted, ph)
         self.rounds = rnd
         log_event(
             "rolling_round", round=rnd, stream=self.stream_id,
@@ -1291,6 +1385,7 @@ class RollingStreamRunner(StreamRunner):
             "round", round=rnd, mode="rolling",
             patches=len(fresh), phases=phases_rec,
             devprof=_devprof_fields(),
+            **_live_extra(self),
         )
         self._flight_flush()
 

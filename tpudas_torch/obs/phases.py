@@ -24,7 +24,7 @@ phase               what it covers (lowpass runner)
                     carry save
 ``pyramid``         the per-round tile-pyramid append
 ``detect``          the per-round detection hook
-``live``            the live-plane publish (0.0: not ported)
+``live``            the live-plane publish (``live=True``)
 ``health``          the health.json / metrics.prom write
 ==================  =================================================
 

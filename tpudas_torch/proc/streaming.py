@@ -146,12 +146,19 @@ def run_lowpass_realtime(
     (:mod:`tpudas_torch.obs.flight`): each round's spans and one
     ``round`` record with its phase timeline
     (:mod:`tpudas_torch.obs.phases`), retries and the fatal error.
+    ``live`` (None reads ``TPUDAS_LIVE``, on at ``1``) attaches the
+    round loop to the push plane (:mod:`tpudas_torch.live`): each
+    round's output rows and new detect events are published to the
+    stream's :class:`~tpudas_torch.live.hub.LiveHub`, registered under
+    the absolute output folder, for ``GET /live`` subscribers of a
+    :class:`~tpudas_torch.serve.http.DASServer`.  The hub holds no
+    durable state: its failures are counted and swallowed, and any
+    number of subscribers leave the outputs as they would be without.
 
     Not ported yet, and raising ``NotImplementedError`` when set to
     anything but their off value (None or False), or left at None while
-    the variable the JAX package reads for them turns them on
-    (``TPUDAS_MESH`` above 1, ``TPUDAS_LIVE`` at 1): ``mesh``,
-    ``window_dp`` and ``live``.
+    ``TPUDAS_MESH`` (above 1) turns a mesh on: ``mesh`` and
+    ``window_dp``.
 
     Every round runs inside the JAX package's fault boundary
     (:mod:`tpudas_torch.resilience`): ``fault_policy`` (a
@@ -163,8 +170,7 @@ def run_lowpass_realtime(
     ``quarantine_after`` failed reads or scans.  A fatal error, or one
     past the policy's ``max_consecutive``, propagates to the caller.
     """
-    check_unported(dict(mesh=mesh, window_dp=window_dp, live=live),
-                   "lowpass")
+    check_unported(dict(mesh=mesh, window_dp=window_dp), "lowpass")
     gap_tol = resolve_gap_tolerance(data_gap_tolerance, data_gap_tolorance)
     config = StreamConfig(
         kind="lowpass",
@@ -251,18 +257,19 @@ def run_rolling_realtime(
     divides the file duration.
 
     ``pyramid`` (None reads ``TPUDAS_PYRAMID``) keeps the tile pyramid
-    over the rolling outputs, and ``flight`` (None reads
-    ``TPUDAS_FLIGHT``, on unless ``0``) the flight ring, as in
+    over the rolling outputs, ``flight`` (None reads ``TPUDAS_FLIGHT``,
+    on unless ``0``) the flight ring and ``live`` (None reads
+    ``TPUDAS_LIVE``) the live push hub, as in
     :func:`run_lowpass_realtime`; the rolling runner writes no health
     snapshot (the JAX one neither).
 
     Not ported yet, and raising ``NotImplementedError`` when set, or
-    left at None while ``TPUDAS_MESH`` (above 1) or ``TPUDAS_LIVE`` (at
-    1) turns them on: ``mesh`` (the JAX package's batched rolling over a
-    device mesh) and ``live``.  The output folder is audited before the
-    first round, as in :func:`run_lowpass_realtime`.
+    left at None while ``TPUDAS_MESH`` (above 1) turns it on: ``mesh``
+    (the JAX package's batched rolling over a device mesh).  The output
+    folder is audited before the first round, as in
+    :func:`run_lowpass_realtime`.
     """
-    check_unported(dict(mesh=mesh, live=live), "rolling")
+    check_unported(dict(mesh=mesh), "rolling")
     config = StreamConfig(
         kind="rolling",
         window=window,

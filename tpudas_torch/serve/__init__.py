@@ -1,7 +1,6 @@
 """tpudas_torch.serve — the read side of the streaming stack.
 
-The port's counterpart of :mod:`tpudas.serve`, in this slice its
-pyramid and query halves:
+The port's counterpart of :mod:`tpudas.serve`:
 
 - :mod:`tpudas_torch.serve.tiles` — the incremental multi-resolution
   pyramid (mean/min/max) over the processed output, appended round by
@@ -10,11 +9,20 @@ pyramid and query halves:
 - :mod:`tpudas_torch.serve.query` — time x distance window reads that
   pick the coarsest pyramid level satisfying a requested resolution,
   backed by an LRU tile cache with single-flight request coalescing
-  and a full-resolution file fallback.
+  and a full-resolution file fallback;
+- :mod:`tpudas_torch.serve.http` — the zero-dependency threaded HTTP
+  server (``/query``, ``/waterfall``, ``/tile``, ``/events``,
+  ``/live``, ``/healthz``, ``/metrics``, ``/trace``, ``/slo``, the
+  ``/s/<stream_id>/`` mounts and ``/fleet/healthz``) with the bounded
+  admission gate, strong ETags and immutable-tile ``Cache-Control``;
+- :mod:`tpudas_torch.serve.pool` — N server processes over one
+  read-only store sharing a single ``SO_REUSEPORT`` data port, with a
+  merged ``/metrics`` + aggregate ``/healthz`` control plane
+  (``tpudas_torch/tools/serve_pool.py``).
 
-The HTTP server and the worker pool (``ServePool``, ``start_server``,
-``serve_forever``) are ROADMAP step A8c; until then each raises
-``NotImplementedError`` naming it.
+``ServePool``, ``start_server`` and ``serve_forever`` are lazy
+factories, as in the JAX package: ``import tpudas_torch.serve`` stays
+free of multiprocessing and http.server.
 """
 
 from tpudas_torch.serve.query import QueryEngine, QueryResult
@@ -32,23 +40,22 @@ __all__ = [
 ]
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"tpudas_torch.serve.{name}: the HTTP server and worker pool are "
-        "not ported to tpudas_torch yet (ROADMAP A8c)"
-    )
-
-
 def ServePool(*args, **kwargs):  # noqa: N802 - class-shaped factory
-    """Not ported yet (A8c): raises ``NotImplementedError``."""
-    _not_ported("ServePool")
+    """Lazy re-export of :class:`tpudas_torch.serve.pool.ServePool`."""
+    from tpudas_torch.serve.pool import ServePool as _Pool
+
+    return _Pool(*args, **kwargs)
 
 
 def start_server(*args, **kwargs):
-    """Not ported yet (A8c): raises ``NotImplementedError``."""
-    _not_ported("start_server")
+    """Lazy re-export of :func:`tpudas_torch.serve.http.start_server`."""
+    from tpudas_torch.serve.http import start_server as _start
+
+    return _start(*args, **kwargs)
 
 
 def serve_forever(*args, **kwargs):
-    """Not ported yet (A8c): raises ``NotImplementedError``."""
-    _not_ported("serve_forever")
+    """Lazy re-export of :func:`tpudas_torch.serve.http.serve_forever`."""
+    from tpudas_torch.serve.http import serve_forever as _serve
+
+    return _serve(*args, **kwargs)

@@ -69,15 +69,22 @@ the last committed round's ``round`` record must carry every phase and
 be preceded by that round's ``stream.round`` span.  Its keys are the
 report's ``flight`` entry and its ``ok`` joins the drill's; the flight
 repairs the workers' startup audits made are in ``flight_repairs``.
-Not ported yet: ``--mesh`` (the sharded path) and ``--live`` (the live
-push plane) raise ``NotImplementedError``.
+
+``--live`` drills the live push plane: every drilled cycle runs with
+``TPUDAS_LIVE=1`` and ``--live-subs`` in-process subscribers attached
+after its first round and never drained (``TPUDAS_CRASH_DRILL_SUBS``),
+so kills land while the degrade ladder sheds, and the control replays
+live-off.  The live plane holds no durable state, so the comparisons
+above are the whole claim for it.  Not with ``--streams``.
+Not ported yet: ``--mesh`` (the sharded path) raises
+``NotImplementedError``.
 
 CLI:
 
     python3 tpudas_torch/tools/crash_drill.py [--cycles 25] [--seed 0] \\
         [--engines fused,auto,fft] [--device cuda|cpu] [--streams N \\
-        [--batched]] [--async-ingest] [--tdas-output] [--workdir DIR] \\
-        [--out PATH] [--log PATH]
+        [--batched]] [--async-ingest] [--live [--live-subs 32]] \\
+        [--tdas-output] [--workdir DIR] [--out PATH] [--log PATH]
 
 ``tests/test_torch_crash_drill.py`` runs a small seeded smoke on the
 CPU in tier-1 and more cycles under ``-m slow``; ``chip_smoke.py --only
@@ -280,6 +287,21 @@ def _worker(slot: str, engine: str, cfg: dict) -> int:
         fh.write(str(os.getpid()))
     kw = _stream_kwargs(cfg, engine)
     sleep = lambda _s: time.sleep(0.01)  # noqa: E731
+    # --live: a roster of never-drained subscribers, attached once the
+    # hub exists, so kills land while the degrade ladder sheds (the
+    # live plane is memory only: nothing durable may change for it)
+    n_subs = int(os.environ.get("TPUDAS_CRASH_DRILL_SUBS", "0"))
+    attached: list = []
+
+    def on_round(rnd, _lfp):
+        if n_subs and not attached:
+            from tpudas_torch.live.hub import find_hub
+
+            hub = find_hub(folder=out)
+            if hub is not None:
+                attached.extend(hub.subscribe() for _ in range(n_subs))
+        _say("round", t_ready, round=rnd)
+
     if streams:
         from tpudas_torch.fleet import FleetEngine, StreamConfig, StreamSpec
 
@@ -296,9 +318,7 @@ def _worker(slot: str, engine: str, cfg: dict) -> int:
 
         run_lowpass_realtime(
             src, out, kw.pop("start_time"), device=device, sleep_fn=sleep,
-            max_rounds=WORKER_MAX_ROUNDS,
-            on_round=lambda rnd, _lfp: _say("round", t_ready, round=rnd),
-            **kw)
+            max_rounds=WORKER_MAX_ROUNDS, on_round=on_round, **kw)
     _say("exit", t_ready)
     return 0
 
@@ -765,7 +785,8 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
               async_ingest: bool = False, device=None, shape=None,
               tdas_output: bool = False, feed=None,
               ready_timeout=READY_TIMEOUT_S,
-              run_timeout=RUN_TIMEOUT_S) -> dict:
+              run_timeout=RUN_TIMEOUT_S, live: bool = False,
+              live_subs: int = 32) -> dict:
     """One full drill for ``engine``; returns the report with ``ok``
     True when the final audit is clean, no startup audit raised, and the
     outputs, the stream carry, the pyramid and the detect state match
@@ -780,21 +801,31 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
     on into ``src`` and returns their names (default: synthesized at
     ``shape``).  ``async_ingest`` runs every drilled cycle with
     ``TPUDAS_INGEST_PREFETCH=2`` and the control with the synchronous
-    slice loop (``0``)."""
+    slice loop (``0``).  ``live`` runs every drilled cycle with the live
+    push plane on and ``live_subs`` never-drained subscribers
+    (``TPUDAS_LIVE=1``), the control live-off."""
     from tpudas_torch.integrity.audit import audit
 
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} not in {ENGINES}")
     cfg = {**SMALL, **(shape or {}), "device": device,
            "tdas_output": bool(tdas_output)}
-    tag = f"crash_drill_{engine}_" + ("async_" if async_ingest else "")
+    tag = (f"crash_drill_{engine}_" + ("async_" if async_ingest else "")
+           + ("live_" if live else ""))
     workdir = workdir or tempfile.mkdtemp(prefix=tag)
     src = os.path.join(workdir, "src")
     out = os.path.join(workdir, "out")
     ctrl = os.path.join(workdir, "ctrl")
     logs = os.path.join(workdir, "logs")
-    drill_env = {"TPUDAS_INGEST_PREFETCH": "2"} if async_ingest else None
-    ctrl_env = {"TPUDAS_INGEST_PREFETCH": "0"} if async_ingest else None
+    drill_env: dict = {}
+    ctrl_env: dict = {}
+    if async_ingest:
+        drill_env["TPUDAS_INGEST_PREFETCH"] = "2"
+        ctrl_env["TPUDAS_INGEST_PREFETCH"] = "0"
+    if live:
+        drill_env["TPUDAS_LIVE"] = "1"
+        drill_env["TPUDAS_CRASH_DRILL_SUBS"] = str(int(live_subs))
+        ctrl_env["TPUDAS_LIVE"] = "0"
     limits = dict(log_path=log_path, ready_timeout=ready_timeout,
                   run_timeout=run_timeout)
 
@@ -864,6 +895,8 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         "engine": engine,
         "device": str(device) if device is not None else "cuda",
         "async_ingest": bool(async_ingest),
+        "live": bool(live),
+        "live_subs": int(live_subs) if live else 0,
         "cycles": int(cycles),
         "seed": int(seed),
         "kills": sum(int(r["killed"]) for r in log),
@@ -1047,20 +1080,24 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", type=int, default=0,
                     help="not ported yet (the sharded path)")
     ap.add_argument("--live", action="store_true",
-                    help="not ported yet (the live push plane)")
+                    help="drilled cycles with the live push plane on "
+                    "(TPUDAS_LIVE=1) and --live-subs never-drained "
+                    "subscribers, the control live-off; not with "
+                    "--streams")
+    ap.add_argument("--live-subs", type=int, default=32,
+                    help="in-process subscribers per drilled cycle for "
+                    "--live")
     args = ap.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
             "crash_drill --mesh: the sharded path is not ported to "
             "tpudas_torch yet (ROADMAP A10)")
-    if args.live:
-        raise NotImplementedError(
-            "crash_drill --live: the live push plane is not ported to "
-            "tpudas_torch yet (ROADMAP A8d)")
     if args.batched and not args.streams:
         ap.error("--batched drills the fleet scheduler; requires --streams")
     if args.streams and args.async_ingest:
         ap.error("--async-ingest drills the single-stream worker")
+    if args.streams and args.live:
+        ap.error("--live drills the single-stream worker")
     if args.device in (None, "cuda"):
         from tpudas_torch.device import resolve_device
         from tpudas_torch.ops._build import build_libraries
@@ -1089,9 +1126,10 @@ def main(argv=None) -> int:
                   f"(events={rep['detect_events']})", flush=True)
         else:
             print(f"crash_drill: engine={engine} cycles={args.cycles} "
-                  f"seed={args.seed} async_ingest={args.async_ingest}",
-                  flush=True)
-            rep = run_drill(async_ingest=args.async_ingest, **common)
+                  f"seed={args.seed} async_ingest={args.async_ingest} "
+                  f"live={args.live}", flush=True)
+            rep = run_drill(async_ingest=args.async_ingest, live=args.live,
+                            live_subs=args.live_subs, **common)
             print(f"crash_drill: {engine}: kills={rep['kills']} "
                   f"audit_clean={rep['audit_clean']} "
                   f"audit_errors={rep['audit_errors']} "
@@ -1108,7 +1146,8 @@ def main(argv=None) -> int:
         ok = ok and rep["ok"]
     payload = {"cycles": args.cycles, "seed": args.seed,
                "streams": args.streams, "batched": args.batched,
-               "async_ingest": args.async_ingest, "device": args.device,
+               "async_ingest": args.async_ingest, "live": args.live,
+               "device": args.device,
                "ok": ok, "engines": results}
     if args.out:
         with open(args.out, "w") as fh:
