@@ -148,7 +148,33 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    each worker's start seconds; (d) ``DASServer.for_fleet`` over a
    batched live fleet of 10,000 + 6,001 ch and 2 rounds:
    ``/fleet/healthz`` equal to ``fleet_rollup``, ``/s/<id>/live``
-   serving each member's hub.
+   serving each member's hub;
+14. the object store and the cluster backfill (``tpudas_torch.store``,
+   ``tpudas_torch.backfill``) over phase 12's feed, 4 files of 60 s x
+   10,000 ch hard-linked and cut into 4 shards of 60 s, with pyramid
+   (64-row tiles) and detection in the plan: (a) ``plan_backfill``
+   under ``fused`` drained by 2 ``run_worker`` interpreters on the card
+   (one SIGKILLed a seeded 0.5-4 s after it is ready, one replacement
+   started), stitched by the workers: ``audit_backfill`` clean, the
+   stitched outputs, ``.tiles/`` tree, events ledger, score tiles and
+   detect carry byte-equal to the sequential ``run_lowpass_realtime(
+   engine="fused", pyramid=True, detect=True)`` on the card, the
+   workers' B3 at 2 kernels a step; the shard walls,
+   ``tpudas_backfill_shard_seconds`` and the overhead fraction from the
+   done markers; (b) the same under ``auto`` on the object-store queue:
+   2 workers sharing only a ``replica:`` ``file://`` store (one
+   mirror) and private scratch directories, each riding a ``store.op``
+   network storm the retry layer absorbs, one SIGKILLed:
+   ``audit_backfill_store`` clean, the materialized result byte-equal
+   to the sequential ``auto`` run, B1 launched in the workers; (c)
+   (a)'s ``.tiles/`` published by ``PyramidPublisher`` and served by a
+   ``DASServer(store_url=...)``: ``/query`` of the whole window and two
+   ``/tile``s byte-equal to a server over the folder, cold and warm
+   ms, ``/healthz``'s ``store`` block; a 1-worker ``ServePool`` with
+   ``store_url`` answering the same ``/query`` and holding no card;
+   (d) ``python -m tpudas_torch.tools.fsck --backfill`` and ``--store``,
+   ``obs_report --backfill`` (the queue's own shard counts) and
+   ``store_scrub`` (nothing to repair), run in parallel.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -165,9 +191,9 @@ step's), ``--only fleet`` phases 1, 2 and 8 over a fresh spool and
 references from one ``JointProc`` pass), ``--only crash`` phases 1,
 2 and 10 over a fresh spool (``--cycles N``: N killed cycles for every
 engine), ``--only pyramid`` phases 1, 2 and 11, ``--only obs``
-phases 1, 2 and 12 and ``--only serve`` phases 1, 2 and 13, each over
-a fresh spool; all exit 4 without the kernels line or the ``ok``
-line.
+phases 1, 2 and 12, ``--only serve`` phases 1, 2 and 13 and ``--only
+backfill`` phases 1, 2 and 14, each over a fresh spool; all exit 4
+without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -2893,6 +2919,7 @@ def phase_pyramid(device, workdir, cls, timer):
 # real-time path.  4 files of 60 s x 10,000 ch, one a round: files 0-2
 # are phase 4's spool, file 3 a copy of file 0 under its own start time
 OBS_FILES = 4
+OBS_TURN_ROUNDS = 2  # 12c: rounds of each A B B A overhead turn
 OBS_MEMBERS = (("a", 0, 10000), ("b", 1, 6001))
 REHEARSE_OBS_MEMBERS = (("a", 0, 32), ("b", 1, 17))
 # the artifacts that hold wall-clock times (never compared by bytes)
@@ -3194,7 +3221,8 @@ def phase_obs(device, workdir, cls, members):
     ``auto`` (B1 4 times a block) and ``fft``, one call of 2 rounds
     each.  (c) the overhead: the fused stream (no detection, no
     pyramid) with health and flight off (A) and on (B), A B B A, one
-    call of 4 rounds each.  (d) a batched 2-member fleet, rolled up."""
+    call of ``OBS_TURN_ROUNDS`` rounds each.  (d) a batched 2-member
+    fleet, rolled up."""
     from tpudas_torch.fleet import engine as fleet_engine
 
     cuda = device.type == "cuda"
@@ -3220,7 +3248,7 @@ def phase_obs(device, workdir, cls, members):
         turns = []
         for i, obs in enumerate((False, True, True, False)):
             leg, c = obs_leg(device, link, os.path.join(odir, f"ab{i}"),
-                             "fused", [list(range(1, OBS_FILES + 1))],
+                             "fused", [list(range(1, OBS_TURN_ROUNDS + 1))],
                              obs=obs, detect=False, pyramid=False)
             checks += c
             turns.append({"obs": obs, "round_walls_s": [
@@ -3289,7 +3317,7 @@ def phase_obs(device, workdir, cls, members):
 SERVE_ROUNDS = 4  # 13a: the live fused stream and its live-off control
 SERVE_POOL_ROUNDS = 2  # 13c: the same stream, resumed, feeds the pool
 SERVE_READERS = 8  # 13a's /live subscribers, levels 0-2 in turn
-SERVE_REPS = 21  # 13b: the first request (cold), then 20 warm ones
+SERVE_REPS = 11  # 13b: the first request (cold), then 10 warm ones
 SERVE_LOAD_S = 10.0
 SERVE_LOAD_THREADS = 16
 SERVE_INFLIGHT = 8
@@ -4091,6 +4119,482 @@ def phase_serve(device, workdir, cls, members):
             "summary": summary}
 
 
+# phase 14: the object store and the cluster backfill (tpudas_torch.store,
+# tpudas_torch.backfill) over phase 12's feed: 4 files of 60 s x 10,000
+# ch int16 (files k mod 3 of the spool under their own start times),
+# hard-linked, cut into 4 shards of 60 s
+BACKFILL_FILES = 4
+BACKFILL_SHARD_S = 60.0
+BACKFILL_WORKERS = 2  # each leg: 2 workers, one SIGKILLed, one respawned
+BACKFILL_LEASE_TTL = 10.0  # a killed worker's shard is reclaimed after it
+BACKFILL_INGEST_S = 60.0  # data-seconds a shard round ingests
+BACKFILL_REPS = 11  # 14c: the mount's first request (cold), then 10 warm
+# 64-row tiles, so the 240-row result completes tiles the store serves
+BACKFILL_ENV = {"TPUDAS_PYRAMID_TILE_LEN": "64"}
+BACKFILL_STREAM = dict(output_sample_interval=1.0, edge_buffer=10.0,
+                       process_patch_size=60, pyramid=True, detect=True,
+                       detect_operators=DETECT_OPS)
+
+
+def backfill_chaos(spawn, ready_dir, done, seed, deadline):
+    """Start ``BACKFILL_WORKERS`` workers (``spawn(worker_id)`` returns
+    the process), SIGKILL one of them a seeded 0.5-4 s after it is
+    READY (the kill timer starts at READY, as the JAX drill's does),
+    start one replacement, then wait for every worker to exit; a worker
+    is started again only after a death, until ``done()``.  Returns
+    (kills, victim, spawned ids, wall seconds)."""
+    from tpudas_torch.tools.backfill_drill import is_ready, stop_all
+
+    rng = np.random.default_rng(seed)
+    procs, spawned = {}, []
+    t0 = time.perf_counter()
+
+    def start():
+        wid = f"w{len(spawned):02d}"
+        procs[wid] = spawn(wid)
+        spawned.append(wid)
+
+    kills, victim = 0, None
+    try:
+        for _ in range(BACKFILL_WORKERS):
+            start()
+        while True:
+            if time.time() > deadline:
+                fail(f"backfill workers outlived their limit: "
+                     f"{sorted(procs)}")
+            ready = [w for w in sorted(procs) if is_ready(ready_dir, w)]
+            if victim is None and ready:
+                victim = ready[int(rng.integers(0, len(ready)))]
+                time.sleep(float(rng.uniform(0.5, 4.0)))
+                if procs[victim].poll() is None:  # else no kill lands
+                    procs[victim].kill()
+                    procs[victim].wait()
+                    kills = 1
+                    del procs[victim]
+                    start()  # the one replacement
+            for wid in list(procs):
+                rc = procs[wid].poll()
+                if rc is not None:
+                    del procs[wid]
+                    if rc != 0:
+                        fail(f"backfill worker {wid} died with rc {rc}")
+            if not procs:
+                if done():
+                    break
+                start()  # a resolved-but-unstitched queue: one more
+            time.sleep(0.05)
+    finally:
+        stop_all(procs)
+    return kills, victim, spawned, time.perf_counter() - t0
+
+
+def backfill_compare(res, ref):
+    """The byte-identity checks of a stitched result against the
+    sequential run: merged output content, pyramid tree, detect
+    state, and where the outputs first differ."""
+    from tpudas_torch.tools.crash_drill import (
+        _content_hash,
+        _detect_state,
+        _output_difference,
+        _pyramid_tree,
+    )
+
+    tree = _pyramid_tree(res)
+    det = _detect_state(res)
+    match = _content_hash(res) == _content_hash(ref)
+    return {
+        "outputs_match": match,
+        # where the outputs first differ, and by how much
+        "difference": None if match else _output_difference(res, ref),
+        "pyramid_match": tree == _pyramid_tree(ref),
+        "pyramid_files": len(tree),
+        "detect_match": det == _detect_state(ref),
+        "detect_events": sum(1 for _ in open(os.path.join(
+            res, ".detect", "events.jsonl"))) if det.get("ledger_sha")
+        else 0,
+    }
+
+
+def backfill_worker_summary(reports):
+    """The workers' reports folded: kernel launches, shard walls and
+    store retries summed over every worker that exited on its own."""
+    launches = {"fused_cascade": 0, "fused_cascade_kernels": 0,
+                "fir_decimate": 0}
+    shard = {"count": 0, "sum": 0.0}
+    retries = net_errors = 0
+    for rep in reports.values():
+        for k in launches:
+            launches[k] += rep["launches"][k]
+        m = rep["metrics"]
+        shard["count"] += m["tpudas_backfill_shard_seconds"]["count"]
+        shard["sum"] += m["tpudas_backfill_shard_seconds"]["sum"]
+        retries += m["tpudas_store_retries_total"]
+        net_errors += m["tpudas_store_network_errors_total"]
+    return {
+        "launches": launches,
+        "tpudas_backfill_shard_seconds": shard,
+        "store_retries": retries, "store_network_errors": net_errors,
+        "worker_start_s": {w: r["start_s"] for w, r in reports.items()},
+        "worker_drain_s": {w: r["drain_s"] for w, r in reports.items()},
+        "committed": {w: r["tally"]["committed"]
+                      for w, r in reports.items()},
+        "stitch": {w: r["tally"].get("stitch_status")
+                   for w, r in reports.items()},
+    }
+
+
+def backfill_sequential(device, src, out, engine):
+    """The sequential reference: ``run_lowpass_realtime`` over the same
+    files in one call, with the plan's parameters."""
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+
+    t0 = time.perf_counter()
+    run_lowpass_realtime(source=src, output_folder=out, start_time=T0,
+                         poll_interval=0.0, sleep_fn=lambda _s: None,
+                         engine=engine, device=device, **BACKFILL_STREAM)
+    return time.perf_counter() - t0
+
+
+def backfill_fs(device, bdir, src, tdas_output, log_fh):
+    """14a: the shared-filesystem backfill under ``fused``."""
+    from tpudas_torch.backfill import BackfillQueue, plan_backfill
+    from tpudas_torch.backfill.queue import DONE_DIRNAME
+    from tpudas_torch.integrity.audit import audit_backfill
+    from tpudas_torch.integrity.checksum import read_json_verified
+    from tpudas_torch.tools import backfill_drill as drill
+
+    cuda = device.type == "cuda"
+    root = os.path.join(bdir, "queue")
+    t_end = np.datetime64(T0) + np.timedelta64(
+        int(BACKFILL_FILES * 60), "s")
+    plan = plan_backfill(root, src, T0, t_end, shard_seconds=BACKFILL_SHARD_S,
+                         engine="fused", ingest_limit_sec=BACKFILL_INGEST_S,
+                         **BACKFILL_STREAM)
+    seq = os.path.join(bdir, "seq_fused")
+    zero_kernel_counts()
+    seq_s = backfill_sequential(device, src, seq, "fused")
+    seq_counts = kernel_counts()
+    ready_dir = os.path.join(root, drill.WORKERS_DIRNAME)
+    cfg = {"mode": "fs", "root": root, "device": device.type,
+           "tdas_output": tdas_output, "ready_dir": ready_dir,
+           "lease_ttl": BACKFILL_LEASE_TTL, "settle": 0.02}
+    queue = BackfillQueue(root, worker="smoke", settle=0.0)
+    kills, victim, spawned, wall = backfill_chaos(
+        lambda wid: drill.spawn_worker(dict(cfg, worker=wid), log_fh),
+        ready_dir,
+        lambda: queue.resolved() and os.path.isfile(
+            os.path.join(root, "result.done.json")),
+        seed=14, deadline=time.time() + 600)
+    t_audit = time.perf_counter()
+    report = audit_backfill(root, repair=True)
+    audit_s = time.perf_counter() - t_audit
+    over_s, shard_wall_s = drill.overhead_fraction(root)
+    shard_walls = {}
+    for sh in plan["shards"]:
+        payload, _ = read_json_verified(
+            os.path.join(root, DONE_DIRNAME, sh["id"] + ".json"),
+            "backfill_done")
+        shard_walls[sh["id"]] = payload.get("wall_s")
+    workers = backfill_worker_summary(drill.worker_reports(ready_dir))
+    comp = backfill_compare(os.path.join(root, "result"), seq)
+    res = {
+        "engine": "fused", "shards": len(plan["shards"]),
+        "lead_seconds": plan["lead_seconds"],
+        "tail_seconds": plan["tail_seconds"], "kills": kills,
+        "victim": victim, "spawned": spawned, "workers_wall_s": wall,
+        "sequential_s": seq_s, "sequential_b3": seq_counts,
+        "audit_clean": report["clean"], "audit_issues": report["issues"],
+        "audit_s": audit_s, "parked": report["parked"],
+        "shard_walls_s": shard_walls, "overhead_s": over_s,
+        "shard_wall_sum_s": shard_wall_s,
+        "overhead_fraction": over_s / shard_wall_s if shard_wall_s else None,
+        **workers, **comp,
+    }
+    launches = workers["launches"]
+    checks = [
+        (report["clean"] and not report["parked"],
+         f"audit_backfill is not clean: {report['issues']}"),
+        (kills == 1, "the SIGKILL did not land"),
+        (comp["outputs_match"], "14a outputs differ from the sequential run"),
+        (comp["pyramid_match"] and comp["pyramid_files"] > 0,
+         "14a pyramid differs from the sequential run's (or is empty)"),
+        (comp["detect_match"] and comp["detect_events"] > 0,
+         "14a detect state differs from the sequential run's (or is "
+         "empty)"),
+        ((launches["fused_cascade"] > 0) == cuda
+         and launches["fused_cascade_kernels"]
+         == 2 * launches["fused_cascade"],
+         f"14a workers' B3 launches {launches}"),
+    ]
+    return res, checks
+
+
+def backfill_store(device, bdir, src, tdas_output, log_fh):
+    """14b: the object-store backfill under ``auto``: workers share only
+    a replicated ``file://`` store (one mirror) and private scratch
+    directories, each rides a ``store.op`` network storm."""
+    from tpudas_torch.backfill.objqueue import (
+        StoreBackfillQueue,
+        plan_backfill_store,
+    )
+    from tpudas_torch.integrity.audit import audit_backfill_store
+    from tpudas_torch.store import store_from_url
+    from tpudas_torch.tools import backfill_drill as drill
+
+    cuda = device.type == "cuda"
+    url = (f"replica:file://{os.path.join(bdir, 'bucket')},"
+           f"file://{os.path.join(bdir, 'bucket_m1')}")
+    store = store_from_url(url)
+    t_end = np.datetime64(T0) + np.timedelta64(
+        int(BACKFILL_FILES * 60), "s")
+    plan = plan_backfill_store(
+        store, "job", src, T0, t_end, shard_seconds=BACKFILL_SHARD_S,
+        engine="auto", ingest_limit_sec=BACKFILL_INGEST_S,
+        **BACKFILL_STREAM)
+    seq = os.path.join(bdir, "seq_auto")
+    zero_kernel_counts()
+    seq_s = backfill_sequential(device, src, seq, "auto")
+    seq_counts = kernel_counts()
+    ready_dir = os.path.join(bdir, "store-workers")
+    rng = np.random.default_rng(15)
+    storms = {}
+
+    def spawn(wid):
+        storms[wid] = f"store:{int(rng.integers(3, 40))}x3"
+        return drill.spawn_worker(
+            {"mode": "store", "url": url, "prefix": "job",
+             "scratch": os.path.join(bdir, "scratch", wid),
+             "ready_dir": ready_dir, "worker": wid, "fault": storms[wid],
+             "device": device.type, "tdas_output": tdas_output,
+             "lease_ttl": BACKFILL_LEASE_TTL}, log_fh)
+
+    queue = StoreBackfillQueue(store, "job", worker="smoke")
+    kills, victim, spawned, wall = backfill_chaos(
+        spawn, ready_dir,
+        lambda: queue.resolved() and store.head(
+            queue._key("result.done.json")) is not None,
+        seed=15, deadline=time.time() + 600)
+    report = audit_backfill_store(store, "job", repair=True)
+    res_dir = os.path.join(bdir, "store-result")
+    drill.materialize_result(store, "job", res_dir)
+    over_s, shard_wall_s = drill.store_overhead(store, "job")
+    workers = backfill_worker_summary(drill.worker_reports(ready_dir))
+    comp = backfill_compare(res_dir, seq)
+    res = {
+        "engine": "auto", "url": url, "shards": len(plan["shards"]),
+        "kills": kills, "victim": victim, "spawned": spawned,
+        "storms": storms, "workers_wall_s": wall, "sequential_s": seq_s,
+        "sequential_b1": seq_counts["b1"],
+        "audit_clean": report["clean"], "audit_issues": report["issues"],
+        "replication": report.get("replication"),
+        "parked": report["parked"], "overhead_s": over_s,
+        "shard_wall_sum_s": shard_wall_s,
+        "overhead_fraction": over_s / shard_wall_s if shard_wall_s else None,
+        **workers, **comp,
+    }
+    launches = workers["launches"]
+    checks = [
+        (report["clean"] and not report["parked"],
+         f"audit_backfill_store is not clean: {report['issues']}"),
+        (kills == 1, "the SIGKILL did not land (store leg)"),
+        (workers["store_retries"] > 0,
+         f"the store storms were not absorbed by retries: {workers}"),
+        (comp["outputs_match"], "14b outputs differ from the sequential run"),
+        (comp["pyramid_match"] and comp["detect_match"],
+         "14b pyramid or detect state differs from the sequential run's"),
+        ((launches["fir_decimate"] > 0) == cuda,
+         f"14b workers' B1 launches {launches}"),
+    ]
+    return res, checks, url
+
+
+def backfill_mounts(device, bdir, result):
+    """14c: (a)'s stitched ``.tiles/`` published to a store, served by a
+    store-mounted ``DASServer`` (bodies equal to a server over the
+    folder), and by a 1-worker ``ServePool`` that never touches the
+    card."""
+    from tpudas_torch.serve.http import DASServer
+    from tpudas_torch.serve.pool import ServePool, has_reuse_port
+    from tpudas_torch.store import PosixStore, PyramidPublisher
+
+    cuda = device.type == "cuda"
+    bucket = os.path.join(bdir, "tiles-bucket")
+    t0 = time.perf_counter()
+    published = PyramidPublisher(PosixStore(bucket), "streams/bf",
+                                 result).publish()
+    publish_s = time.perf_counter() - t0
+    t1 = np.datetime64(T0) + np.timedelta64(int(BACKFILL_FILES * 60), "s")
+    tails = [("query", f"/query?t0={T0}&t1={t1}", ()),
+             ("tile", "/tile?level=0&idx=0", ()),
+             ("tile-l1", "/tile?level=1&idx=0", ())]
+    kw = dict(store_url=f"file://{bucket}", store_prefix="streams/bf",
+              port=0)
+    checks, res = [], {"published": published, "publish_s": publish_s}
+    with DASServer(result, port=0) as local:
+        want = {n: http_get(local.base_url + t, h) for n, t, h in tails}
+        t0 = time.perf_counter()
+        with DASServer(cache_dir=os.path.join(bdir, "mount-cache"),
+                       **kw) as remote:
+            res["mount_s"] = time.perf_counter() - t0
+            res["latency_ms"] = timed_requests(remote.base_url, tails,
+                                               reps=BACKFILL_REPS)
+            for name, tail, headers in tails:
+                st, body, _h = http_get(remote.base_url + tail, headers)
+                checks.append((st == want[name][0] == 200
+                               and body == want[name][1],
+                               f"14c {name}: the store mount's body "
+                               f"({st}, {len(body)} B) is not the local "
+                               f"server's ({want[name][0]}, "
+                               f"{len(want[name][1])} B)"))
+            st, body, _h = http_get(remote.base_url + "/healthz")
+            health = json.loads(body)
+            res["healthz"] = health
+            checks.append((st == 200 and health["status"] == "ok"
+                           and health["store"]["status"] == "ok",
+                           f"14c /healthz {st} {health}"))
+        res["query_bytes"] = len(want["query"][1])
+    if has_reuse_port():
+        pool = ServePool(None, port=0, workers=1, store_url=kw["store_url"],
+                         store_prefix="streams/bf",
+                         cache_dir=os.path.join(bdir, "pool-cache"))
+        t0 = time.perf_counter()
+        with pool:
+            res["pool_start_s"] = time.perf_counter() - t0
+            st, body, _h = http_get(pool.base_url + tails[0][1])
+            checks.append((st == 200 and body == want["query"][1],
+                           "14c the store pool's /query is not the local "
+                           "server's"))
+            pids = [i["pid"] for i in pool.worker_info.values()]
+            holders, _visible = cuda_holders(pids)
+            res["pool_worker_start_s"] = [
+                i["start_s"] for i in pool.worker_info.values()]
+            res["pool_workers_holding_the_card"] = holders
+            checks.append((not holders,
+                           f"a store pool worker holds the card: "
+                           f"{holders}"))
+            if cuda:
+                checks.append((bool(cuda_holders([os.getpid()])[0])
+                               or _visible,
+                               "the card-holder check is blind"))
+    return res, checks
+
+
+def backfill_tools(root, url, journal):
+    """14d: the operator tools as a user runs them, in parallel:
+    ``fsck --backfill``, ``fsck --store``, ``obs_report --backfill``
+    and ``store_scrub``."""
+    import subprocess
+
+    from tpudas_torch.backfill import BackfillQueue
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPUDAS_REPLICA_JOURNAL=journal)
+    cmds = {
+        "fsck_backfill": ["tpudas_torch.tools.fsck", root, "--backfill"],
+        "fsck_store": ["tpudas_torch.tools.fsck", "job", "--store", url],
+        "obs_report": ["tpudas_torch.tools.obs_report", "--backfill", root,
+                       "--json"],
+        "store_scrub": ["tpudas_torch.tools.store_scrub", url],
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", *v], cwd=here,
+                                 env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, v in cmds.items()}
+    out = {}
+    for k, p in procs.items():
+        stdout, stderr = p.communicate(timeout=300)
+        out[k] = {"rc": p.returncode, "stdout": stdout,
+                  "stderr": stderr[-2000:]}
+    wall = time.perf_counter() - t0
+    counts = BackfillQueue(root, worker="smoke").counts()
+    rollup = json.loads(out["obs_report"]["stdout"])["backfill"]
+    scrub = json.loads(out["store_scrub"]["stdout"])
+    res = {"wall_s": wall, "rc": {k: v["rc"] for k, v in out.items()},
+           "obs_report_shards": rollup.get("shards"),
+           "queue_counts": counts, "scrub_repairs": scrub.get("repairs"),
+           "scrub_clean": scrub.get("clean")}
+    checks = [(v["rc"] == 0, f"14d {k} exited {v['rc']}: {v['stderr']}")
+              for k, v in out.items()]
+    checks += [
+        (rollup.get("shards") == counts and rollup["status"] == "done",
+         f"14d obs_report's shards {rollup} are not the queue's {counts}"),
+        (scrub.get("clean") and not any(scrub.get("repairs", {}).values()),
+         f"14d store_scrub repaired something: {scrub}"),
+    ]
+    return res, checks
+
+
+def phase_backfill(device, workdir, cls, tdas_output):
+    """Phase 14: the object store and the cluster backfill at the
+    flagship width (see the module docstring): 14a the shared-FS queue
+    under ``fused``, 14b the object-store queue under ``auto``, 14c the
+    tile plane and the store mounts, 14d the tools."""
+    from tpudas_torch.fleet import engine as fleet_engine
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()  # the workers need the card's memory
+    bdir = os.path.join(workdir, "backfill")
+    shutil.rmtree(bdir, ignore_errors=True)
+    link = obs_linker(workdir, bdir)
+    src = os.path.join(bdir, "src")
+    link(src, BACKFILL_FILES)
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    journal = os.path.join(bdir, "handoff-journal")
+    env = dict(BACKFILL_ENV, TPUDAS_REPLICA_JOURNAL=journal)
+    checks = []
+    t_phase = time.perf_counter()
+    log_path = os.path.join(bdir, "workers.log")
+    try:
+        with open(log_path, "ab") as log_fh, \
+                mock.patch.dict(os.environ, env):
+            fs, c = backfill_fs(device, bdir, src, tdas_output, log_fh)
+            checks += c
+            emit({"phase": "backfill", "leg": "fs", **fs})
+            if cuda:
+                torch.cuda.empty_cache()
+            st, c, url = backfill_store(device, bdir, src, tdas_output,
+                                        log_fh)
+            checks += c
+            emit({"phase": "backfill", "leg": "store", **st})
+            mounts, c = backfill_mounts(
+                device, bdir, os.path.join(bdir, "queue", "result"))
+            checks += c
+            emit({"phase": "backfill", "leg": "mounts", **mounts})
+            tools, c = backfill_tools(os.path.join(bdir, "queue"), url,
+                                      journal)
+            checks += c
+            emit({"phase": "backfill", "leg": "tools", **tools})
+    finally:
+        fleet_engine.LFProc = saved_cls
+    summary = {
+        "phase": "backfill", "leg": "summary",
+        "wall_s": time.perf_counter() - t_phase,
+        "fs": {k: fs[k] for k in (
+            "kills", "shard_walls_s", "tpudas_backfill_shard_seconds",
+            "overhead_fraction", "worker_start_s", "launches",
+            "workers_wall_s", "sequential_s", "outputs_match",
+            "pyramid_match", "detect_match")},
+        "store": {k: st[k] for k in (
+            "kills", "store_retries", "store_network_errors",
+            "overhead_fraction", "worker_start_s", "launches",
+            "workers_wall_s", "sequential_s", "outputs_match")},
+        "mount_query_ms": mounts["latency_ms"]["query"],
+        "mount_tile_ms": mounts["latency_ms"]["tile"],
+        "tools_wall_s": tools["wall_s"],
+    }
+    emit(summary)
+    failed = [what for ok, what in checks if not ok]
+    if failed:
+        fail(f"backfill checks failed (workdir {bdir}, worker log "
+             f"{log_path}): " + " | ".join(failed))
+    shutil.rmtree(bdir, ignore_errors=True)
+    return {"fs": fs, "store": st, "mounts": mounts, "tools": tools,
+            "summary": summary}
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -4114,10 +4618,10 @@ def main(argv=None):
                     help="dry run on the CPU at a small width; exits 3")
     ap.add_argument("--only",
                     choices=["fir", "fused", "fleet", "detect", "crash",
-                             "pyramid", "obs", "serve"],
+                             "pyramid", "obs", "serve", "backfill"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
                     "(fleet), 9 (detect), 10 (crash), 11 (pyramid), 12 "
-                    "(obs) or 13 (serve) alone; exits 4")
+                    "(obs), 13 (serve) or 14 (backfill) alone; exits 4")
     ap.add_argument("--cycles", type=int, default=None,
                     help="killed cycles of each engine's crash drill "
                     "(default: fused 3, auto and fft 1)")
@@ -4192,7 +4696,8 @@ def main(argv=None):
 
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
     tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
-    if args.only in ("fleet", "detect", "crash", "pyramid", "obs", "serve"):
+    if args.only in ("fleet", "detect", "crash", "pyramid", "obs", "serve",
+                     "backfill"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4210,6 +4715,8 @@ def main(argv=None):
             phase_obs(device, workdir, cls, obs_members)
         elif args.only == "serve":
             phase_serve(device, workdir, cls, obs_members)
+        elif args.only == "backfill":
+            phase_backfill(device, workdir, cls, tdas_output)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -4230,6 +4737,7 @@ def main(argv=None):
     pyramid = phase_pyramid(device, workdir, cls, timer)
     obs = phase_obs(device, workdir, cls, obs_members)
     serve = phase_serve(device, workdir, cls, obs_members)
+    phase_backfill(device, workdir, cls, tdas_output)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}

@@ -21,6 +21,7 @@ import importlib
 import json
 import os
 import shutil
+import sys
 
 import jax  # noqa: F401  (conftest pins JAX to the CPU)
 import numpy as np
@@ -46,6 +47,7 @@ from tpudas_torch.resilience.quarantine import (
 # the modules (tpudas.integrity re-exports the function under the name)
 jaudit = importlib.import_module("tpudas.integrity.audit")
 taudit = importlib.import_module("tpudas_torch.integrity.audit")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T0 = "2023-03-22T00:00:00"
 OPS = [
     ("stalta", {"sta": 2.0, "lta": 10.0, "on": 2.0, "off": 1.2}),
@@ -692,9 +694,33 @@ def test_fsck_cli_roundtrip(port_folder, tmp_path, capsys):
     _fleet_root(port_folder[1], root, _stale_tmp)
     assert fsck_main([root, "--fleet", "--no-rebuild"]) == 0
     assert json.loads(capsys.readouterr().out)["stream_count"] == 2
-    for flag in (["--backfill"], ["--store", "file:///x"]):
-        with pytest.raises(NotImplementedError, match="A8e"):
-            fsck_main([out, *flag])
+    # --backfill and --store are ported: over a folder that holds no
+    # queue both CLIs report the same unclean (or empty) verdict
+    jax_fsck = _jax_fsck()
+    bucket = f"file://{tmp_path / 'bucket'}"
+    for flag in (["--backfill"], ["--store", bucket]):
+        tp, jp = str(tmp_path / "t.json"), str(tmp_path / "j.json")
+        rc_t = fsck_main([out, *flag, "--out", tp])
+        rc_j = jax_fsck([out, *flag, "--out", jp])
+        assert rc_t == rc_j, flag
+        rep_t, rep_j = json.load(open(tp)), json.load(open(jp))
+        for rep in (rep_t, rep_j):  # the one wall-clock field
+            rep.pop("elapsed_s", None)
+        assert rep_t == rep_j, flag
+    capsys.readouterr()
+    for bad in (["--fleet", "--backfill"], ["--fleet", "--store", bucket]):
+        with pytest.raises(SystemExit):
+            fsck_main([out, *bad])
+
+
+def _jax_fsck():
+    """The JAX package's ``tools/fsck.py`` ``main``."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import fsck as jax_fsck_mod
+    finally:
+        sys.path.pop(0)
+    return jax_fsck_mod.main
 
 
 # ---------------------------------------------------------------------------
@@ -798,3 +824,67 @@ def test_raising_audit_is_swallowed_and_counted(port_folder, tmp_path,
     assert reg.value("tpudas_integrity_audit_errors_total") == 1
     failed = [e for e in events if e["event"] == "integrity_audit_failed"]
     assert len(failed) == 1 and "audit exploded" in failed[0]["error"]
+
+
+@pytest.mark.parametrize("sidecar", [".tiles/tails.npy.crc",
+                                     CARRY_FILENAME + SIDECAR_SUFFIX])
+def test_kill_at_a_sidecar_write_keeps_the_pair(tmp_path, sidecar):
+    """A kill while a checksummed payload's sidecar is written (a
+    KeyboardInterrupt at that write's ``fs.write_enospc`` site, the
+    in-process stand-in for SIGKILL): the port writes the payload and
+    its sidecar as a pair, both renamed after both are written, so the
+    old pair stands, the resumed run needs no rebuild and every artifact
+    equals an uninterrupted control's, ``.tiles/manifest.json``
+    included.  (Where the payload lands before its sidecar is written,
+    as in the JAX package, the next audit finds a tails file its
+    sidecar does not vouch for and rebuilds the pyramid with
+    ``generation`` 1; on the card phase 10's drill found that window
+    twice.)"""
+    from tpudas_torch.resilience.faults import (
+        FaultPlan,
+        FaultSpec,
+        install_fault_plan,
+    )
+    from tpudas_torch.tools.crash_drill import (
+        _carry_state,
+        _content_hash,
+        _detect_state,
+        _pyramid_tree,
+    )
+
+    pool = str(tmp_path / "pool")
+    make_synthetic_spool(pool, n_files=4, file_duration=20.0, fs=50.0,
+                         n_ch=4, noise=0.01)
+    names = sorted(n for n in os.listdir(pool) if n.endswith(".h5"))
+
+    def link(src, upto):
+        os.makedirs(src, exist_ok=True)
+        for name in names[:upto]:
+            if not os.path.exists(os.path.join(src, name)):
+                os.link(os.path.join(pool, name), os.path.join(src, name))
+
+    runs = {}
+    for name in ("ctrl", "killed"):
+        src, out = str(tmp_path / f"src-{name}"), str(tmp_path / name)
+        link(src, 2)
+        _drive("port", src, out, pyramid=True)
+        link(src, 4)
+        if name == "killed":
+            plan = FaultPlan(FaultSpec("fs.write_enospc",
+                                       exc=KeyboardInterrupt,
+                                       times=1 << 30, match=sidecar))
+            with install_fault_plan(plan):
+                with pytest.raises(KeyboardInterrupt):
+                    _drive("port", src, out, pyramid=True)
+            assert plan.fired
+            rep = taudit.audit(out)
+            assert rep["clean"]
+            assert "rebuilt_pyramid" not in {i["action"]
+                                             for i in rep["issues"]}
+        _drive("port", src, out, pyramid=True)
+        runs[name] = out
+    a, b = runs["killed"], runs["ctrl"]
+    assert _content_hash(a) == _content_hash(b)
+    assert _carry_state(a) == _carry_state(b)
+    assert _pyramid_tree(a) == _pyramid_tree(b)
+    assert _detect_state(a) == _detect_state(b)

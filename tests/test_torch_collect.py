@@ -175,13 +175,63 @@ def test_pool_rollup_unreachable():
     assert snap["status"] == "degraded" and snap["pool"] == got
 
 
-def test_backfill_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8e"):
-        tcollect.backfill_rollup(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="backfill"):
-        tcollect.cluster_snapshot(backfill_root=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        port_report.main(["--backfill", str(tmp_path)])
+@pytest.fixture(scope="module")
+def backfill_roots(tmp_path_factory):
+    """{"open": a planned, undrained queue; "parked": one shard drained
+    and one parked; "done": drained and stitched} over a small archive,
+    all planned and drained by the port on the CPU."""
+    import numpy as np
+
+    from tpudas_torch.backfill import plan_backfill, run_worker
+
+    tmp = tmp_path_factory.mktemp("bf-roots")
+    src = str(tmp / "src")
+    make_synthetic_spool(src, n_files=4, file_duration=FILE_SEC, fs=FS,
+                         n_ch=4, noise=0.01, start=np.datetime64(T0))
+    t1 = np.datetime64(T0) + np.timedelta64(80, "s")
+    roots = {}
+    for name in ("open", "parked", "done"):
+        roots[name] = str(tmp / name)
+        plan_backfill(roots[name], src, T0, t1, shard_seconds=40.0,
+                      output_sample_interval=1.0, edge_buffer=5.0,
+                      process_patch_size=20, pyramid=False,
+                      ingest_limit_sec=40.0)
+    plan = FaultPlan(FaultSpec("round.body", exc=ValueError("bad"), at=1))
+    with install_fault_plan(plan):
+        run_worker(roots["parked"], worker="w0", settle=0.0, max_wall=300,
+                   device="cpu")
+    assert run_worker(roots["done"], worker="w0", settle=0.0, max_wall=300,
+                      device="cpu")["stitched"]
+    return roots
+
+
+@pytest.mark.parametrize("state", ["open", "parked", "done", "unreadable"])
+def test_backfill_not_ported(backfill_roots, tmp_path, state):
+    """The backfill rollup is ported: over each queue state the port's
+    ``backfill_rollup``, ``cluster_snapshot(backfill_root=)`` and
+    ``obs_report --backfill`` (text and JSON) equal the JAX package's,
+    and a root without a readable plan is a status, not an
+    exception."""
+    root = backfill_roots.get(state, str(tmp_path / "no-plan"))
+    got = tcollect.backfill_rollup(root)
+    assert got == jcollect.backfill_rollup(root)
+    assert got["status"] == {"open": "in_progress", "parked": "parked",
+                             "done": "done",
+                             "unreadable": "unreadable"}[state]
+    snap_p = tcollect.cluster_snapshot(backfill_root=root)
+    snap_j = jcollect.cluster_snapshot(backfill_root=root)
+    assert snap_p.pop("generated_at") <= snap_j.pop("generated_at")
+    assert snap_p == snap_j
+    for argv in (["--backfill", root], ["--backfill", root, "--json"]):
+        rc_p, out_p = _cli(port_report.main, argv)
+        rc_j, out_j = _cli(_jax_report().main, argv)
+        assert rc_p == rc_j == 0
+        if "--json" in argv:
+            a, b = json.loads(out_p), json.loads(out_j)
+            assert a.pop("generated_at") <= b.pop("generated_at")
+            assert a == b
+        else:
+            assert out_p == out_j
 
 
 # ---------------------------------------------------------------------------

@@ -983,3 +983,100 @@ def test_live_fused_stream_on_card(cuda_device, tmp_path, monkeypatch):
     rounds = [r for r in read_flight(out) if r["kind"] == "round"]
     assert [r["live"]["published"] for r in rounds] == [1, 1]
     reset_hubs()
+
+
+@pytest.mark.parametrize("engine", ["fused", "auto"])
+def test_backfill_shards_on_card_equal_sequential(cuda_device, tmp_path,
+                                                  monkeypatch, engine):
+    """A backfill of 2 shards drained on the card (B3 under ``fused``,
+    B1 under ``auto``), each shard opening its stream cold at its lead
+    and draining in bounded rounds, stitched with pyramid and
+    detection: byte-equal to the sequential realtime run on the card
+    over the same archive (outputs, pyramid tree, detect state); tdas
+    outputs through the drill's seam (the card's host may lack h5py)."""
+    from tpudas_torch.backfill import plan_backfill, run_worker
+    from tpudas_torch.backfill import stitch as stitch_mod
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.integrity.audit import audit_backfill
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+    from tpudas_torch.tools import backfill_drill as drill
+    from tpudas_torch.tools.crash_drill import (
+        _atomic_tdas_class,
+        _content_hash,
+        _detect_state,
+        _pyramid_tree,
+    )
+
+    monkeypatch.setenv("TPUDAS_FUSED_MIN_ELEMS", "0")
+    monkeypatch.setattr(fleet_engine, "LFProc",
+                        _atomic_tdas_class(fleet_engine.LFProc))
+    monkeypatch.setattr(stitch_mod, "_write_rows", drill._atomic_tdas_rows)
+    t0 = "2023-03-22T00:00:00"
+    src, root, seq = (str(tmp_path / n) for n in ("src", "q", "seq"))
+    make_synthetic_spool(src, n_files=6, file_duration=20.0, fs=50.0,
+                         n_ch=64, noise=0.01, format="tdas")
+    t1 = np.datetime64(t0) + np.timedelta64(120, "s")
+    kw = dict(output_sample_interval=1.0, edge_buffer=5.0,
+              process_patch_size=20, engine=engine, pyramid=True,
+              detect=True, detect_operators=drill.DETECT_OPS)
+    plan_backfill(root, src, t0, t1, shard_seconds=60.0,
+                  ingest_limit_sec=35.0, **kw)
+    launches = (fused_cascade.launches, fir_decimate.launches)
+    tally = run_worker(root, worker="card", settle=0.0, max_wall=300,
+                       device=cuda_device)
+    assert tally["committed"] == 2 and tally["stitched"], tally
+    if engine == "fused":
+        assert fused_cascade.launches > launches[0]
+    else:
+        assert fir_decimate.launches > launches[1]
+    assert audit_backfill(root, repair=False)["clean"]
+    run_lowpass_realtime(source=src, output_folder=seq, start_time=t0,
+                         poll_interval=0.0, sleep_fn=lambda _s: None,
+                         device=cuda_device, **kw)
+    res = os.path.join(root, "result")
+    assert _content_hash(res) == _content_hash(seq)
+    assert _pyramid_tree(res) == _pyramid_tree(seq)
+    assert _detect_state(res) == _detect_state(seq)
+
+
+def _fused_stream(x, plan, splits, qscale):
+    """The fused step over ``x`` cut into blocks of ``splits`` outputs,
+    from a zero carry: (concatenated outputs, final carry)."""
+    from tpudas_torch.ops.fir import cascade_stream_init, stream_carry_sizes
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    sizes = stream_carry_sizes(plan)
+    carry = cascade_stream_init(plan, x.shape[1], x.device)
+    ys, r0 = [], 0
+    for n in splits:
+        rows = n * plan.ratio
+        y, carry = fused_cascade(x[r0:r0 + rows].contiguous(), carry,
+                                 plan.stages, sizes, qscale=qscale)
+        ys.append(y)
+        r0 += rows
+    return torch.cat(ys), carry
+
+
+@pytest.mark.parametrize("int16", [False, True], ids=["f32", "int16"])
+def test_fused_kernel_is_chunk_invariant(cuda_device, int16):
+    """B3 at the flagship plan: the same stream cut into blocks three
+    ways (whole minutes, ragged, single outputs) gives bit-equal
+    outputs and carries, as the backfill's stitch needs (a shard's
+    blocks start elsewhere than the sequential run's).  Kernel B's ring
+    read once assigned taps to partial sums by where the ring wrapped,
+    which differed with the split."""
+    from tpudas_torch.proc.lfproc import output_corner
+
+    plan = fir.design_cascade(1000.0, 1000, output_corner(1.0))
+    n_out = 120
+    x = torch.from_numpy(
+        _window(n_out * plan.ratio, 256, seed=9, int16=int16)).to(
+        cuda_device)
+    qs = 1e-4 if int16 else None
+    splits = ([60, 60], [7, 53, 29, 31], [1, 1, 1, 57, 3, 57])
+    runs = [_fused_stream(x, plan, s, qs) for s in splits]
+    y0, c0 = runs[0]
+    for (y, c), s in zip(runs[1:], splits[1:]):
+        assert torch.equal(y, y0), s
+        assert all(torch.equal(a, b) for a, b in zip(c, c0)), s

@@ -105,6 +105,22 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.live.protocol",
         "tpudas_torch.live.sse",
         "tpudas_torch.tools.serve_pool",
+        "tpudas_torch.tools.store_scrub",
+        "tpudas_torch.tools.backfill_drill",
+        "tpudas_torch.store",
+        "tpudas_torch.store.base",
+        "tpudas_torch.store.posix",
+        "tpudas_torch.store.fake",
+        "tpudas_torch.store.retry",
+        "tpudas_torch.store.replica",
+        "tpudas_torch.store.cache",
+        "tpudas_torch.store.s3",
+        "tpudas_torch.store.tileplane",
+        "tpudas_torch.backfill",
+        "tpudas_torch.backfill.queue",
+        "tpudas_torch.backfill.runner",
+        "tpudas_torch.backfill.stitch",
+        "tpudas_torch.backfill.objqueue",
         "tpudas_torch.viz",
         "tpudas_torch.viz.waterfall",
     ):
@@ -116,6 +132,9 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
     assert [n for n in loaded if _top(n) in ("h5py", "pandas")] == []
     # the waterfall draws with matplotlib, imported only when it draws
     assert [n for n in loaded if _top(n) == "matplotlib"] == []
+    # S3 has no client on either machine: boto3 is imported only when
+    # an S3Store is built without an injected client
+    assert [n for n in loaded if _top(n) in ("boto3", "botocore")] == []
     assert "torch" in loaded
 
 
@@ -150,7 +169,8 @@ def test_card_tests_import_no_jax_no_tpudas():
 def test_operator_tools_import_no_jax_no_tpudas():
     """The fsck and the crash drill, whose workers import inside
     functions: no import at any depth names JAX or the JAX package."""
-    for name in ("fsck.py", "crash_drill.py", "serve_pool.py"):
+    for name in ("fsck.py", "crash_drill.py", "serve_pool.py",
+                 "store_scrub.py", "backfill_drill.py", "obs_report.py"):
         names = _imported_modules(
             os.path.join(REPO, "tpudas_torch", "tools", name))
         assert "tpudas_torch" in {_top(n) for n in names}, name
@@ -159,10 +179,10 @@ def test_operator_tools_import_no_jax_no_tpudas():
 
 
 def test_pyramid_modules_import_no_jax_no_tpudas():
-    """codec, serve, live and viz: no import at any depth names JAX or
-    the JAX package, and matplotlib is imported only inside a
-    function."""
-    for sub in ("codec", "serve", "live", "viz"):
+    """codec, serve, live, viz, store and backfill: no import at any
+    depth names JAX or the JAX package, and matplotlib is imported only
+    inside a function."""
+    for sub in ("codec", "serve", "live", "viz", "store", "backfill"):
         d = os.path.join(REPO, "tpudas_torch", sub)
         for name in sorted(os.listdir(d)):
             if not name.endswith(".py"):
@@ -186,6 +206,7 @@ from tpudas_torch.serve import pool
 # what a spawned pool worker imports before it serves
 from tpudas_torch.serve.http import DASServer  # noqa: F401
 import tpudas_torch.live.sse  # noqa: F401  (the bridge subscriber)
+import tpudas_torch.store  # noqa: F401  (a store_url worker's mount)
 import torch
 print(json.dumps({"loaded": sorted(sys.modules),
                   "cuda_initialized": torch.cuda.is_initialized()}))
@@ -193,8 +214,8 @@ print(json.dumps({"loaded": sorted(sys.modules),
 
 
 def test_pool_worker_import_path():
-    """A serve-pool worker's import path (the server, the live bridge)
-    loads neither JAX, the JAX package, matplotlib nor any kernel
+    """A serve-pool worker's import path (the server, the live bridge,
+    the object-store mount) loads neither JAX, the JAX package, matplotlib nor any kernel
     module, and creates no CUDA context."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

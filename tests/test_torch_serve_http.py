@@ -17,7 +17,10 @@ The two packages count into their own registries, so ``/metrics`` is
 compared by its ``tpudas_serve_*`` families after the same request
 sequence (names, help, label sets, counter values, histogram counts).
 ``/devprof`` and ``/profile`` answer 501 in the port (the device
-telemetry is ROADMAP A9) and ``store_url`` raises (A8e).
+telemetry is ROADMAP A9).  A ``file://`` store holding the port folder's
+published pyramid is mounted by both packages' ``store_url`` servers:
+their pyramid answers, ``/tile`` and ``/healthz`` ``store`` block agree
+with each other and with a server over the folder itself.
 
 The rest ports the JAX server's own tests against the port: ``TestHTTP``
 of ``tests/test_serve.py``, the ``/tile`` / ETag / deflate cases of
@@ -399,23 +402,115 @@ def test_devprof_and_profile_answer_501(servers, endpoint):
     assert "ROADMAP A9" in json.loads(body)["error"]
 
 
-def test_store_url_refused(folders):
-    """Object-store serving is ROADMAP A8e: ``store_url`` raises before
-    anything binds, in the server, the pool and both CLIs."""
+def test_store_url_refused(folders, store_servers):
+    """Object-store serving is ported: ``store_url`` mounts a remote
+    pyramid in the server (a mirror folder, or a private one) and the
+    pool takes it too; a server still needs a folder, streams or a
+    store URL."""
     from tpudas_torch.serve import pool as tpool
 
-    with pytest.raises(NotImplementedError, match="A8e"):
-        thttp.DASServer(folders["pw"], store_url="file:///nowhere")
-    with pytest.raises(NotImplementedError, match="A8e"):
-        thttp.DASServer(store_url="file:///nowhere")
-    with pytest.raises(NotImplementedError, match="A8e"):
-        thttp.main([folders["pw"], "--port", "0",
-                    "--store-url", "file:///nowhere"])
+    p, j, _local, _bucket = store_servers
+    assert p.remote is not None and j.remote is not None
+    assert p._httpd.mount.remote is p.remote
+    assert os.path.isdir(p.folder)
     if tpool.has_reuse_port():
-        with pytest.raises(NotImplementedError, match="A8e"):
-            tpool.ServePool(folders["pw"], store_url="file:///nowhere")
+        pool = tpool.ServePool(folders["pw"], store_url="file:///nowhere")
+        assert pool._cfg["store_url"] == "file:///nowhere"
     with pytest.raises(ValueError, match="folder, streams"):
         thttp.DASServer()
+
+
+@pytest.fixture(scope="module")
+def store_servers(folders, tmp_path_factory):
+    """(port store server, JAX store server, port local server, bucket):
+    the port folder's pyramid published by the port's
+    ``PyramidPublisher`` into a ``file://`` store, mounted by both
+    packages' ``DASServer(store_url=...)`` (each with its own cache
+    directory), beside a port server over the folder itself."""
+    from tpudas_torch.store import PosixStore, PyramidPublisher
+
+    tmp = tmp_path_factory.mktemp("store-mount")
+    bucket = str(tmp / "bucket")
+    assert PyramidPublisher(
+        PosixStore(bucket), "streams/pw", folders["pw"]).publish()["tiles"]
+    kw = dict(store_url=f"file://{bucket}", store_prefix="streams/pw",
+              port=0, store_refresh_s=0.0)
+    with thttp.DASServer(cache_dir=str(tmp / "pc"), **kw) as port, \
+            jhttp.DASServer(cache_dir=str(tmp / "jc"), **kw) as jaxs, \
+            thttp.DASServer(folders["pw"], port=0) as local:
+        yield port, jaxs, local, bucket
+
+
+# requests whose answers come from the pyramid alone (a remote mount
+# holds no output files): the store servers answer them as the JAX
+# store server does, and as a server over the local folder does
+STORE_ROWS = [
+    ("query-resolution", f"/query?{_WIN}&resolution=4", ()),
+    ("query-max-samples", f"/query?{_WIN}&max_samples=4&agg=max", ()),
+    ("query-min", f"/query?{_WIN}&resolution=16&agg=min", ()),
+    ("query-json", f"/query?{_WIN}&resolution=4&format=json", ()),
+    ("query-deflate", f"/query?{_WIN}&resolution=4",
+     (("Accept-Encoding", "deflate"),)),
+    ("waterfall", f"/waterfall?{_WIN}&max_px=4", ()),
+    ("tile-l0", "/tile?level=0&idx=0", ()),
+    ("tile-l0-tpt", "/tile?level=0&idx=1", (("Accept-Encoding", "x-tpt"),)),
+    ("tile-l1", "/tile?level=1&idx=0", ()),
+    ("tile-head", "/tile?level=0&idx=5", ()),
+    ("tile-beyond", "/tile?level=0&idx=10000", ()),
+]
+
+
+@pytest.mark.parametrize("name,tail,headers", STORE_ROWS,
+                         ids=[r[0] for r in STORE_ROWS])
+def test_store_mount_equals_jax_and_local(store_servers, name, tail,
+                                          headers):
+    p, j, local, _bucket = store_servers
+    a = _get(p.base_url + tail, headers)
+    b = _get(j.base_url + tail, headers)
+    c = _get(local.base_url + tail, headers)
+    assert a[0] == b[0] == c[0], (name, a[0], b[0], c[0], a[1][:300])
+    assert a[1] == b[1], name
+    assert _headers(a[2]) == _headers(b[2]), name
+    assert a[1] == c[1], name
+
+
+def test_store_healthz_block_equals_jax(store_servers):
+    """A serving replica has no realtime health snapshot: ``/healthz``
+    answers from its ``store`` block, with the JAX server's keys and
+    status."""
+    p, j, _local, _bucket = store_servers
+    a, b = _get(p.base_url + "/healthz"), _get(j.base_url + "/healthz")
+    assert a[0] == b[0] == 200
+    pa, pb = json.loads(a[1]), json.loads(b[1])
+    assert pa["status"] == pb["status"] == "ok"
+    assert pa["detail"] == pb["detail"]
+    assert sorted(pa["store"]) == sorted(pb["store"])
+    assert pa["store"]["status"] == pb["store"]["status"] == "ok"
+    assert sorted(pa["store"]["cache"]) == sorted(pb["store"]["cache"])
+
+
+def test_store_mount_degrades_then_recovers(store_servers, tmp_path):
+    """The cold tier goes away: the mirror keeps serving the same bytes
+    and ``/healthz`` says ``degraded``, in both packages; back, ``ok``."""
+    p, j, _local, bucket = store_servers
+    tail = f"/query?{_WIN}&resolution=4"
+    before = _get(p.base_url + tail)[1]
+    os.rename(bucket, bucket + ".away")
+    try:
+        with open(bucket, "w") as fh:
+            fh.write("not a directory\n")
+        for srv in (p, j):
+            status, body, _ = _get(srv.base_url + tail)
+            assert status == 200 and body == before
+            health = json.loads(_get(srv.base_url + "/healthz")[1])
+            assert health["status"] == "degraded", health
+    finally:
+        os.remove(bucket)
+        os.rename(bucket + ".away", bucket)
+    for srv in (p, j):
+        assert _get(srv.base_url + tail)[1] == before
+        health = json.loads(_get(srv.base_url + "/healthz")[1])
+        assert health["status"] == "ok", health
 
 
 def test_mount_is_never_remote(servers):

@@ -7,7 +7,8 @@ it from a producer), must answer every request on the shared port with
 the same bytes, serve ``/live`` frames equal to the producer's ring,
 and expose the merged ``/metrics`` (each sample tagged ``worker=``),
 ``/healthz`` and ``/pool/healthz``; both packages' ``pool_rollup`` read
-it.  ``TestServePoolRespawn`` of ``tests/test_serve.py`` is ported with
+it.  A 1-worker pool over an object store (``store_url``) answers with
+the bytes of a store-mounted server.  ``TestServePoolRespawn`` of ``tests/test_serve.py`` is ported with
 the JAX package's ``slow`` marks.  Every network read carries a
 timeout; the pools have at most 2 workers.  Everything runs on the CPU.
 """
@@ -215,17 +216,72 @@ def test_live_over_the_pool_equals_producer_ring(fed_pool):
 
 def test_serve_pool_cli_entry_point(monkeypatch, tmp_path):
     """``tpudas_torch/tools/serve_pool.py`` is the pool's ``main``; its
-    ``--store-url`` is refused (ROADMAP A8e)."""
+    ``--store-url`` (with ``--store-prefix``, ``--cache-dir``,
+    ``--cache-bytes``) reaches ``ServePool`` as the JAX CLI's does, and
+    ``--store-url`` with ``--fleet`` is a usage error."""
     from tpudas_torch.tools import serve_pool
 
-    if tpool.has_reuse_port():
-        with pytest.raises(NotImplementedError, match="A8e"):
-            serve_pool.main([str(tmp_path), "--store-url", "file:///n"])
+    made = {}
+
+    class _Stop(Exception):
+        pass
+
+    class _Recorder:
+        def __init__(self, folder, **kw):
+            made.update(kw, folder=folder)
+
+        def __enter__(self):
+            raise _Stop
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(tpool, "ServePool", _Recorder)
+    with pytest.raises(_Stop):
+        tpool.main([str(tmp_path), "--store-url", "file:///n",
+                    "--store-prefix", "streams/a", "--cache-dir",
+                    str(tmp_path / "c"), "--cache-bytes", "1000"])
+    assert made["store_url"] == "file:///n"
+    assert made["store_prefix"] == "streams/a"
+    assert made["cache_dir"] == str(tmp_path / "c")
+    assert made["cache_bytes"] == 1000
+    with pytest.raises(SystemExit):
+        tpool.main([str(tmp_path), "--store-url", "file:///n", "--fleet"])
     seen = {}
     monkeypatch.setattr(tpool, "main",
                         lambda argv=None: seen.setdefault("argv", argv) and 0)
     assert serve_pool.main(["x", "--workers", "1"]) == 0
     assert seen["argv"] == ["x", "--workers", "1"]
+
+
+@needs_reuse_port
+def test_store_pool_answers_as_the_store_server(folder, tmp_path):
+    """A 1-worker pool over an object store (``store_url``): the worker
+    hydrates its own mirror and cache and answers ``/query`` and
+    ``/tile`` with the bytes of an in-process ``DASServer`` over the
+    same store (and of a server over the published folder)."""
+    from tpudas_torch.serve.http import DASServer
+    from tpudas_torch.store import PosixStore, PyramidPublisher
+
+    bucket = str(tmp_path / "bucket")
+    assert PyramidPublisher(PosixStore(bucket), "s/a", folder).publish()
+    url = f"file://{bucket}"
+    tails = ["/query?t0=2023-03-22T00:00:08&t1=2023-03-22T00:00:40"
+             "&resolution=4", "/tile?level=0&idx=0"]
+    with DASServer(store_url=url, store_prefix="s/a", port=0,
+                   cache_dir=str(tmp_path / "c0")) as one, \
+            DASServer(folder, port=0) as local:
+        want = [_get(one.base_url + t)[1] for t in tails]
+        assert want == [_get(local.base_url + t)[1] for t in tails]
+    pool = tpool.ServePool(None, port=0, workers=1, store_url=url,
+                           store_prefix="s/a",
+                           cache_dir=str(tmp_path / "cache"))
+    with pool:
+        assert [_get(pool.base_url + t)[1] for t in tails] == want
+        health = json.loads(_get(f"{pool.base_url}/healthz")[1])
+        assert health["store"]["status"] == "ok"
+    # each worker hydrated its own cache directory
+    assert os.path.isdir(str(tmp_path / "cache" / "worker0"))
 
 
 class TestServePoolRespawn:

@@ -166,30 +166,33 @@ __device__ __forceinline__ float val_z0(uint32_t v, long long r, int p0,
   return r < p0 ? __uint_as_float(v) : from_raw_x(v, qs, x);
 }
 
-// sum_{j < L} h[j] * buf[((start + j) mod cap) * TC], the ring read as
-// its two contiguous runs; a linear buffer passes cap > start + L
+// sum_{j < L} h[j] * buf[((start + j) mod cap) * TC]; a linear buffer
+// passes cap > start + L.  Tap j feeds partial sum j mod 4 when it lies
+// in a full group of four (j < L & ~3) and partial 0 otherwise: the
+// assignment depends on j alone, never on where the ring wraps, so an
+// output sums in one order whatever block split put its rows where in
+// the ring (the step is chunk-invariant, as a backfill shard's stitch
+// needs).
 __device__ __forceinline__ float dot_taps(const float* __restrict__ h,
                                           const float* __restrict__ buf,
                                           int start, int L, int cap) {
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  const int n1 = min(L, cap - start);
-  const float* p = buf + start * TC;
-  int j = 0;
-  for (; j + 4 <= n1; j += 4) {
-    a0 = fmaf(h[j], p[j * TC], a0);
-    a1 = fmaf(h[j + 1], p[(j + 1) * TC], a1);
-    a2 = fmaf(h[j + 2], p[(j + 2) * TC], a2);
-    a3 = fmaf(h[j + 3], p[(j + 3) * TC], a3);
+  const int L4 = L & ~3;
+  int r = start;  // ring row of tap j
+  for (int j = 0; j < L4; j += 4) {
+    const int r1 = r + 1 < cap ? r + 1 : r + 1 - cap;
+    const int r2 = r + 2 < cap ? r + 2 : r + 2 - cap;
+    const int r3 = r + 3 < cap ? r + 3 : r + 3 - cap;
+    a0 = fmaf(h[j], buf[r * TC], a0);
+    a1 = fmaf(h[j + 1], buf[r1 * TC], a1);
+    a2 = fmaf(h[j + 2], buf[r2 * TC], a2);
+    a3 = fmaf(h[j + 3], buf[r3 * TC], a3);
+    r = r + 4 < cap ? r + 4 : r + 4 - cap;
   }
-  for (; j < n1; ++j) a0 = fmaf(h[j], p[j * TC], a0);
-  // past the wrap, tap j reads ring row j - n1
-  for (; j + 4 <= L; j += 4) {
-    a0 = fmaf(h[j], buf[(j - n1) * TC], a0);
-    a1 = fmaf(h[j + 1], buf[(j + 1 - n1) * TC], a1);
-    a2 = fmaf(h[j + 2], buf[(j + 2 - n1) * TC], a2);
-    a3 = fmaf(h[j + 3], buf[(j + 3 - n1) * TC], a3);
+  for (int j = L4; j < L; ++j) {
+    a0 = fmaf(h[j], buf[r * TC], a0);
+    r = r + 1 < cap ? r + 1 : r + 1 - cap;
   }
-  for (; j < L; ++j) a0 = fmaf(h[j], buf[(j - n1) * TC], a0);
   return (a0 + a1) + (a2 + a3);
 }
 

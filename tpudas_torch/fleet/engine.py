@@ -75,9 +75,34 @@ Observability, as in the JAX runners (:mod:`tpudas_torch.obs`):
   run.  ``TPUDAS_LIVE_BRIDGE`` also starts the process's
   :class:`~tpudas_torch.live.sse.LiveBridge` for pool workers.
 
-Not ported in this slice: device telemetry, the mesh and window data
-parallelism, and the backfill clamps (``time_range``,
-``ingest_limit_sec``).  A runner raises ``NotImplementedError`` when
+Drain mode (:mod:`tpudas_torch.backfill`): whoever drives the rounds
+may set ``time_range`` (a cap on the source slice) and
+``ingest_limit_sec`` (the data-seconds one stateful round may ingest);
+a round that stopped at that limit sets ``_more_to_drain``, so the next
+poll without spool growth keeps draining instead of terminating, as
+in the JAX runner.
+
+Parity with the JAX runner (each row a test that runs both runners
+over the same spool):
+
+==============================  ========================================
+behaviour                       held by
+==============================  ========================================
+rounds, outputs, carry, resume  ``tests/test_torch_realtime.py``
+fault boundary, quarantine      ``tests/test_torch_faults.py``
+startup audit                   ``tests/test_torch_audit.py``
+health, flight, phases          ``tests/test_torch_health.py``,
+                                ``tests/test_torch_flight.py``,
+                                ``tests/test_torch_phases.py``
+drain clamps: ``time_range``,   ``tests/test_torch_backfill.py::
+``ingest_limit_sec``,           test_drain_clamps_match_jax_sequence``
+``_more_to_drain`` and the      (the step sequence of statuses, rounds
+``terminate`` decision          and ``_more_to_drain`` flags, and the
+                                emitted time grid), ``TestDrainModeHooks``
+==============================  ========================================
+
+Not ported in this slice: device telemetry and the mesh and window
+data parallelism.  A runner raises ``NotImplementedError`` when
 its configuration, or the environment variable the JAX runner reads
 for a field left at None (:data:`UNPORTED_ENV`), turns on one of those
 features (see :data:`UNPORTED_FIELDS`).
@@ -629,6 +654,15 @@ class StreamRunner:
             self.stream_id, resolve_poll_jitter(spec.config.poll_jitter)
         )
         self.interval = 0.0  # subclasses set the clamped poll cadence
+        # drain-mode hooks (tpudas_torch.backfill): a time cap on the
+        # source slice this runner may ingest, and a bound on the
+        # data-seconds one round may consume (so a multi-hour archive
+        # shard drains in lease-renewable chunks instead of one
+        # unbounded round).  Run control, not configuration: set by
+        # whoever drives the rounds, like max_rounds/sleep_fn.
+        self.time_range = None  # (lo, hi) numpy datetime64 or None
+        self.ingest_limit_sec = None  # max data-seconds per round
+        self._more_to_drain = False  # last round hit the ingest limit
         # batched fleet service: the fleet's group service installs its
         # BatchStepExecutor here for one step; _process_round hands it
         # to the round's LFProc so the stream's device steps rendezvous.
@@ -824,11 +858,14 @@ class LowpassStreamRunner(StreamRunner):
                         sp.select(distance=self.distance)
                         if self.distance is not None else sp
                     )
+                    if self.time_range is not None:
+                        sub = sub.select(time=self.time_range)
                     n_now = len(sub)
                 if (
                     self.len_last is not None
                     and n_now == self.len_last
                     and self.boundary.consecutive == 0
+                    and not self._more_to_drain
                 ):
                     log_event(
                         "stream_terminated", stream=self.stream_id,
@@ -931,6 +968,23 @@ class LowpassStreamRunner(StreamRunner):
         # the newest timestamp from the index — no file data is read
         rows = sub.contents()
         t2 = max(np.datetime64(r["time_max"], "ns") for r in rows)
+        # drain-mode clamps (tpudas_torch.backfill): never ingest past
+        # the slice cap, and never more than ingest_limit_sec of data in
+        # one round (bounded rounds keep the shard lease renewable)
+        self._more_to_drain = False
+        if self.time_range is not None and self.time_range[1] is not None:
+            hi = np.datetime64(self.time_range[1], "ns")
+            t2 = min(t2, hi)
+        if self.ingest_limit_sec is not None and self.stateful:
+            if (self.carry is not None
+                    and self.carry.next_ingest_ns is not None):
+                base = np.datetime64(int(self.carry.next_ingest_ns), "ns")
+            else:
+                base = np.datetime64(self.start_time, "ns")
+            cap2 = base + to_timedelta64(float(self.ingest_limit_sec))
+            if cap2 < t2:
+                t2 = cap2
+                self._more_to_drain = True
         # host prep so far (LFProc build, carry resolution, index
         # metadata) charges the read_decode phase; the in-call read and
         # decode wait is mirrored out of lfp.timings below

@@ -71,7 +71,16 @@ The flight ring (``.flight/``, :mod:`tpudas_torch.obs.flight`) is
 checked line by line: a segment with unverifiable lines (a torn tail
 after a SIGKILL, bit rot) is **truncated** to its verified prefix, one
 with none left (or unreadable) is **removed**, as in the JAX audit.
-Not ported yet: the backfill queue's audits come with the backfill.
+
+Backfill queues (:mod:`tpudas_torch.backfill`): :func:`audit_backfill`
+checks one queue root (the plan, stale and torn leases, orphan staging
+directories, torn or bodiless done markers, a commit whose marker is
+missing (**adopted**), a half-stitched result, each committed shard
+and the result through :func:`audit`; parked shards are reported, not
+repaired), and :func:`audit_backfill_store` does the same over an
+object-store job prefix, under the ``backfill.audit`` span.  Reports
+and repairs are the JAX audit's, so either package fscks a queue the
+other wrote.
 
 Run the CLI only while the driver is stopped (the tmp sweep cannot
 tell a crashed writer's leftovers from a live writer's in-flight
@@ -105,7 +114,13 @@ from tpudas_torch.obs.trace import span
 from tpudas_torch.utils.atomicio import is_tmp_name
 from tpudas_torch.utils.logging import log_event
 
-__all__ = ["audit", "audit_fleet", "fleet_stream_dirs"]
+__all__ = [
+    "audit",
+    "audit_backfill",
+    "audit_backfill_store",
+    "audit_fleet",
+    "fleet_stream_dirs",
+]
 
 _TILE_NAME_RE = re.compile(r"^(\d{8})\.npy$")
 # compressed pyramid tiles (tpudas_torch.codec blobs): the crc is
@@ -1131,5 +1146,620 @@ def audit_fleet(root, repair: bool = True, rebuild: bool = True) -> dict:
             clean=report["clean"],
             streams=len(streams),
             repaired=repaired_total,
+        )
+    return report
+
+
+# backfill queue fsck (tpudas_torch.backfill)
+
+_STAGING_NAME_RE = re.compile(r"^(sh\d{5}|result)\.work\..+$")
+
+
+def _backfill_shard_check(
+    root, shard_id, queue, issues, repair, clock, rebuild=True
+) -> None:
+    """One shard's queue-side state: lease, done marker, committed
+    directory, crash windows between them."""
+    from tpudas_torch.backfill.queue import DONE_DIRNAME, LEASES_DIRNAME
+
+    lease_path = os.path.join(root, LEASES_DIRNAME, shard_id + ".json")
+    done_path = os.path.join(root, DONE_DIRNAME, shard_id + ".json")
+    sdir = queue.shard_dir(shard_id)
+    done = queue.is_done(shard_id)
+    # -- the done marker ------------------------------------------------
+    if os.path.isfile(done_path) and not done:
+        # torn marker: remove it — the committed directory (if any) is
+        # re-adopted below, an absent one re-executes
+        if repair:
+            _remove_all(done_path)
+        _issue(
+            issues, "backfill_done", done_path, "torn",
+            _repair_action(repair, "removed"), "crc32 mismatch",
+        )
+        done = False
+    if done and not os.path.isdir(sdir):
+        # a marker with no bytes behind it can only mislead the stitch
+        if repair:
+            _remove_all(done_path)
+        _issue(
+            issues, "backfill_done", done_path, "corrupt",
+            _repair_action(repair, "removed"),
+            "done marker without a committed shard directory",
+        )
+        done = False
+    # -- the lease ------------------------------------------------------
+    if os.path.isfile(lease_path):
+        lease = queue.read_lease(shard_id)
+        now_ns = int(float(clock()) * 1e9)
+        if lease is None:
+            if repair:
+                _remove_all(lease_path)
+            _issue(
+                issues, "backfill_lease", lease_path, "torn",
+                _repair_action(repair, "removed"), "unparseable lease",
+            )
+        elif done:
+            if repair:
+                _remove_all(lease_path)
+            _issue(
+                issues, "backfill_lease", lease_path, "stale_lease",
+                _repair_action(repair, "removed"),
+                "lease outlived its shard's commit",
+            )
+        elif int(lease.get("deadline_ns", 0)) < now_ns:
+            if repair:
+                _remove_all(lease_path)
+            _issue(
+                issues, "backfill_lease", lease_path, "stale_lease",
+                _repair_action(repair, "removed"),
+                f"deadline passed (worker {lease.get('worker')!r})",
+            )
+    # -- a committed directory without its marker -----------------------
+    if os.path.isdir(sdir) and not done and not queue.is_parked(shard_id):
+        # the crash window between the commit rename and the marker
+        # write: verify the directory and adopt it (exactly what a
+        # claiming worker would do)
+        sub = audit(sdir, repair=repair, rebuild=rebuild)
+        if sub["clean"]:
+            if repair:
+                from tpudas_torch.backfill.queue import Lease
+
+                queue._write_done(
+                    shard_id,
+                    Lease(shard=shard_id, token="fsck", worker="fsck"),
+                    {"adopted": True},
+                )
+            _issue(
+                issues, "backfill_commit", sdir, "torn",
+                _repair_action(repair, "adopted_commit"),
+                "committed directory without a done marker",
+            )
+        else:
+            if repair:
+                import shutil
+
+                shutil.rmtree(sdir, ignore_errors=True)
+            _issue(
+                issues, "backfill_commit", sdir, "corrupt",
+                _repair_action(repair, "removed"),
+                "unverifiable committed directory (re-executes)",
+            )
+
+
+def audit_backfill(root, repair: bool = True, rebuild: bool = True,
+                   clock=time.time) -> dict:
+    """Fsck one backfill queue root (tpudas_torch.backfill): verify the
+    plan, sweep stale/torn leases and orphan staging directories,
+    finish crashed commits (committed directory without its marker →
+    verified + adopted; torn/bodiless done markers → removed so the
+    shard re-executes), audit every committed shard and the stitched
+    result with the standard per-folder :func:`audit`, and classify a
+    half-stitched result.  Parked shards are REPORTED (counted, never
+    "repaired" — re-running a parked shard is an operator decision).
+
+    Run only while no worker is active on the root — live staging
+    directories are distinguishable from orphans only by their lease,
+    and the lease of a mid-drain worker may renew between our read
+    and the sweep."""
+    from tpudas_torch.backfill.queue import (
+        PARKED_DIRNAME,
+        RESULT_DIRNAME,
+        RESULT_DONE_FILENAME,
+        SHARDS_DIRNAME,
+        BackfillQueue,
+    )
+
+    root = str(root)
+    t0 = time.perf_counter()
+    issues: list = []
+    shard_reports: dict = {}
+    parked: list = []
+    error = None
+    with span("backfill.audit", root=root):
+        try:
+            queue = BackfillQueue(root, worker="fsck", clock=clock)
+        except Exception as exc:
+            queue = None
+            error = (
+                f"unreadable backfill plan: {type(exc).__name__}: "
+                f"{str(exc)[:200]}"
+            )
+            log_event(
+                "backfill_audit_plan_unreadable",
+                root=root,
+                error=error,
+            )
+            _issue(
+                issues, "backfill_plan",
+                os.path.join(root, "backfill.json"), "corrupt",
+                "failed", error,
+            )
+        if queue is not None:
+            from tpudas_torch.backfill.queue import (
+                DONE_DIRNAME,
+                LEASES_DIRNAME,
+            )
+
+            # crashed bookkeeping writers leave tmp files beside the
+            # leases/markers; sweep them (shard/result directories get
+            # their own full audit below, tmp sweep included)
+            for d in (LEASES_DIRNAME, DONE_DIRNAME, PARKED_DIRNAME):
+                p = os.path.join(root, d)
+                if os.path.isdir(p):
+                    _sweep_tmp(p, issues, repair)
+            shard_ids = [sh["id"] for sh in queue.plan["shards"]]
+            live_tokens = set()
+            for sid in shard_ids:
+                lease = queue.read_lease(sid)
+                now_ns = int(float(clock()) * 1e9)
+                if (
+                    lease is not None
+                    and int(lease.get("deadline_ns", 0)) >= now_ns
+                    and not queue.is_done(sid)
+                ):
+                    live_tokens.add(str(lease.get("token")))
+                _backfill_shard_check(
+                    root, sid, queue, issues, repair, clock,
+                    rebuild=rebuild,
+                )
+                if queue.is_parked(sid):
+                    parked.append(sid)
+                if queue.is_done(sid):
+                    shard_reports[sid] = audit(
+                        queue.shard_dir(sid), repair=repair,
+                        rebuild=rebuild,
+                    )
+            # orphan staging sweep: shard and result work dirs whose
+            # token no live lease references (their writer is gone —
+            # crashed, reclaimed, or lost the commit race)
+            shards_dir = os.path.join(root, SHARDS_DIRNAME)
+            candidates = []
+            if os.path.isdir(shards_dir):
+                candidates += [
+                    os.path.join(shards_dir, n)
+                    for n in sorted(os.listdir(shards_dir))
+                ]
+            candidates += [
+                os.path.join(root, n) for n in sorted(os.listdir(root))
+            ]
+            for path in candidates:
+                name = os.path.basename(path)
+                m = _STAGING_NAME_RE.match(name)
+                if m is None or not os.path.isdir(path):
+                    continue
+                token = name.split(".work.", 1)[1]
+                if token in live_tokens:
+                    continue
+                if repair:
+                    import shutil
+
+                    shutil.rmtree(path, ignore_errors=True)
+                _issue(
+                    issues, "backfill_staging", path, "orphan",
+                    _repair_action(repair, "removed"),
+                    "staging directory with no live lease",
+                )
+            # the stitched result: half-committed states + a standard
+            # per-folder audit of a committed one
+            result_dir = os.path.join(root, RESULT_DIRNAME)
+            done_path = os.path.join(root, RESULT_DONE_FILENAME)
+            result_done = False
+            if os.path.isfile(done_path):
+                try:
+                    _, status = read_json_verified(
+                        done_path, "backfill_result"
+                    )
+                    result_done = status != "mismatch"
+                except (OSError, ValueError):
+                    result_done = False
+                if not result_done:
+                    if repair:
+                        _remove_all(done_path)
+                    _issue(
+                        issues, "backfill_result", done_path, "torn",
+                        _repair_action(repair, "removed"),
+                        "unreadable result marker",
+                    )
+            if os.path.isdir(result_dir):
+                if result_done:
+                    shard_reports["result"] = audit(
+                        result_dir, repair=repair, rebuild=rebuild,
+                    )
+                else:
+                    # rename landed, marker missing: the stitch is a
+                    # deterministic pure function of committed shards,
+                    # so the cheap, always-correct repair is re-stitch
+                    if repair:
+                        import shutil
+
+                        shutil.rmtree(result_dir, ignore_errors=True)
+                    _issue(
+                        issues, "backfill_result", result_dir, "torn",
+                        _repair_action(repair, "removed"),
+                        "half-committed result (re-stitch)",
+                    )
+            elif result_done:
+                if repair:
+                    _remove_all(done_path)
+                _issue(
+                    issues, "backfill_result", done_path, "corrupt",
+                    _repair_action(repair, "removed"),
+                    "result marker without a result directory",
+                )
+    elapsed = time.perf_counter() - t0
+    get_registry().counter(
+        "tpudas_integrity_audit_runs_total",
+        "integrity audits (startup fsck) executed",
+    ).inc()
+    sub_clean = all(r["clean"] for r in shard_reports.values())
+    repaired = sum(
+        1 for it in issues if it["action"] in _REPAIRED_ACTIONS
+    ) + sum(r["repaired"] for r in shard_reports.values())
+    clean = (
+        error is None
+        and sub_clean
+        and all(it["action"] in _REPAIRED_ACTIONS for it in issues)
+    )
+    report = {
+        "root": root,
+        "repair": bool(repair),
+        "clean": bool(clean),
+        "elapsed_s": round(elapsed, 4),
+        "repaired": repaired,
+        "parked": parked,
+        "issues": issues,
+        "shards": shard_reports,
+        "issues_total": len(issues) + sum(
+            len(r["issues"]) for r in shard_reports.values()
+        ),
+    }
+    if error is not None:
+        report["error"] = error
+    if report["issues_total"]:
+        log_event(
+            "integrity_audit_backfill",
+            root=root,
+            clean=report["clean"],
+            repaired=repaired,
+            parked=len(parked),
+        )
+    return report
+
+
+def _store_shard_check(queue, shard_id, issues, repair, clock) -> None:
+    """One shard's object-store queue state: torn/bodiless done
+    markers, torn/stale leases, crashed commits (verifying upload
+    manifest without its marker → adopt), unverifiable manifests
+    (→ removed, shard re-executes), orphan objects beyond the
+    manifest.  Everything is read through ``list()`` + token
+    verification — there is no directory to walk."""
+    from tpudas_torch.backfill.objqueue import SHARD_MANIFEST_NAME
+    from tpudas_torch.backfill.queue import Lease
+
+    store = queue.store
+    done_key = queue._done_key(shard_id)
+    lease_key = queue._lease_key(shard_id)
+    manifest_key = queue._manifest_key(shard_id)
+    base = queue.shard_prefix(shard_id)
+    # -- the done marker ------------------------------------------------
+    done_payload, done_token = queue._get_verified(done_key)
+    done = done_payload is not None
+    if done_token is not None and not done:
+        if repair:
+            store.delete(done_key)
+        _issue(
+            issues, "backfill_done", done_key, "torn",
+            _repair_action(repair, "removed"), "crc32 mismatch",
+        )
+    manifest = queue.shard_manifest(shard_id)
+    verified = manifest is not None and queue.manifest_verifies(shard_id)
+    if done and not verified:
+        # a marker with no verifying bytes behind it can only mislead
+        # the stitch — remove it, the shard re-executes
+        if repair:
+            store.delete(done_key)
+        _issue(
+            issues, "backfill_done", done_key, "corrupt",
+            _repair_action(repair, "removed"),
+            "done marker without a verifying upload manifest",
+        )
+        done = False
+    # -- the lease ------------------------------------------------------
+    lease_token = store.head(lease_key)
+    if lease_token is not None:
+        lease = queue.read_lease(shard_id)
+        now_ns = int(float(clock()) * 1e9)
+        if lease is None:
+            if repair:
+                store.delete(lease_key)
+            _issue(
+                issues, "backfill_lease", lease_key, "torn",
+                _repair_action(repair, "removed"), "unparseable lease",
+            )
+        elif done:
+            if repair:
+                store.delete(lease_key)
+            _issue(
+                issues, "backfill_lease", lease_key, "stale_lease",
+                _repair_action(repair, "removed"),
+                "lease outlived its shard's commit",
+            )
+        elif int(lease.get("deadline_ns", 0)) < now_ns:
+            if repair:
+                store.delete(lease_key)
+            _issue(
+                issues, "backfill_lease", lease_key, "stale_lease",
+                _repair_action(repair, "removed"),
+                f"deadline passed (worker {lease.get('worker')!r})",
+            )
+    # -- a verifying manifest without its marker ------------------------
+    if not done:
+        if verified and not queue.is_parked(shard_id):
+            # the crash window between the manifest upload and the
+            # marker put: adopt (exactly what a claiming worker does)
+            if repair:
+                queue._write_done(
+                    shard_id,
+                    Lease(shard=shard_id, token="fsck", worker="fsck"),
+                    {"adopted": True},
+                )
+                done = True
+            _issue(
+                issues, "backfill_commit", manifest_key, "torn",
+                _repair_action(repair, "adopted_commit"),
+                "verifying upload manifest without a done marker",
+            )
+        elif manifest is not None and not verified:
+            # mid-upload crash (or torn/tampered object): the manifest
+            # protects nothing — remove it so the shard re-executes
+            # cleanly over the debris (uploads are idempotent)
+            if repair:
+                store.delete(manifest_key)
+                manifest = None
+            _issue(
+                issues, "backfill_commit", manifest_key, "corrupt",
+                _repair_action(repair, "removed"),
+                "upload manifest fails token verification "
+                "(re-executes)",
+            )
+        elif (
+            manifest is None
+            and store.head(manifest_key) is not None
+        ):
+            # present but unparseable — same verdict
+            if repair:
+                store.delete(manifest_key)
+            _issue(
+                issues, "backfill_commit", manifest_key, "torn",
+                _repair_action(repair, "removed"),
+                "unparseable upload manifest (re-executes)",
+            )
+    # -- orphan objects beyond the manifest -----------------------------
+    listed = set((manifest or {}).get("objects", {}))
+    for key in store.list(base):
+        rel = key[len(base) + 1:]
+        if rel == SHARD_MANIFEST_NAME or rel in listed:
+            continue
+        if repair:
+            store.delete(key)
+        _issue(
+            issues, "store_object", key, "orphan",
+            _repair_action(repair, "removed"),
+            "object not named by the shard's upload manifest",
+        )
+
+
+def audit_backfill_store(store, prefix, repair: bool = True,
+                         clock=time.time) -> dict:
+    """Fsck one OBJECT-STORE backfill job prefix
+    (:mod:`tpudas_torch.backfill.objqueue`): verify the plan, sweep
+    torn/stale leases, finish crashed commits (verifying upload
+    manifest without its done marker → adopted; torn/bodiless markers
+    → removed so the shard re-executes), classify orphan objects (not
+    named by any upload manifest) and torn partial uploads
+    (``store.list_uploads`` → aborted), and audit the stitched
+    result's manifest the same way.  Everything is classified from
+    ``list()`` + content-token verification — the store-plane
+    equivalent of the directory walks in :func:`audit_backfill`.
+
+    Committed shard BYTES are verified against their manifests'
+    content tokens (that is what ``manifest_verifies`` does); the
+    deep per-folder :func:`audit` runs on materialized local copies
+    at stitch time instead.
+
+    Run only while no worker is active on the prefix — same caveat
+    as the POSIX fsck."""
+    from tpudas_torch.backfill.objqueue import (
+        RESULT_DONE_KEY,
+        RESULT_MANIFEST_KEY,
+        RESULT_PREFIX,
+        SHARDS_PREFIX,
+        StoreBackfillQueue,
+    )
+
+    prefix = str(prefix).strip("/")
+    root = f"store:{prefix}"
+    t0 = time.perf_counter()
+    issues: list = []
+    parked: list = []
+    error = None
+    queue = None
+    with span("backfill.audit", root=root):
+        try:
+            queue = StoreBackfillQueue(
+                store, prefix, worker="fsck", clock=clock
+            )
+        except Exception as exc:
+            error = (
+                f"unreadable backfill plan: {type(exc).__name__}: "
+                f"{str(exc)[:200]}"
+            )
+            log_event(
+                "backfill_audit_plan_unreadable", root=root, error=error,
+            )
+            _issue(
+                issues, "backfill_plan",
+                f"{prefix}/backfill.json" if prefix else "backfill.json",
+                "corrupt", "failed", error,
+            )
+        if queue is not None:
+            shard_ids = [sh["id"] for sh in queue.plan["shards"]]
+            for sid in shard_ids:
+                _store_shard_check(queue, sid, issues, repair, clock)
+                if queue.is_parked(sid):
+                    parked.append(sid)
+            # shard prefixes the plan does not know — debris from a
+            # re-plan under a reused prefix, or key corruption
+            known = set(shard_ids)
+            shards_base = queue._key(SHARDS_PREFIX)
+            for key in store.list(shards_base):
+                sid = key[len(shards_base) + 1:].split("/", 1)[0]
+                if sid in known:
+                    continue
+                if repair:
+                    store.delete(key)
+                _issue(
+                    issues, "store_object", key, "orphan",
+                    _repair_action(repair, "removed"),
+                    f"object under unknown shard {sid!r}",
+                )
+            # torn partial uploads anywhere under the job prefix
+            for key in store.list_uploads(prefix):
+                if repair:
+                    store.abort_upload(key)
+                _issue(
+                    issues, "store_upload", key, "torn",
+                    _repair_action(repair, "aborted"),
+                    "partial upload (crashed writer)",
+                )
+            # -- the stitched result -----------------------------------
+            result_done_key = queue._key(RESULT_DONE_KEY)
+            result_manifest_key = queue._key(RESULT_MANIFEST_KEY)
+            result_base = queue._key(RESULT_PREFIX)
+            done_payload, done_token = queue._get_verified(
+                result_done_key
+            )
+            result_done = done_payload is not None
+            if done_token is not None and not result_done:
+                if repair:
+                    store.delete(result_done_key)
+                _issue(
+                    issues, "backfill_result", result_done_key, "torn",
+                    _repair_action(repair, "removed"),
+                    "unreadable result marker",
+                )
+            rman, rman_token = queue._get_verified(result_manifest_key)
+            rverified = rman is not None and all(
+                store.head(f"{result_base}/{rel}") == tok
+                for rel, tok in rman.get("objects", {}).items()
+            )
+            if result_done and not rverified:
+                # marker without verifying bytes: the stitch is a
+                # deterministic pure function of committed shards, so
+                # the cheap, always-correct repair is re-stitch
+                if repair:
+                    store.delete(result_done_key)
+                    store.delete(result_manifest_key)
+                _issue(
+                    issues, "backfill_result", result_done_key,
+                    "corrupt", _repair_action(repair, "removed"),
+                    "result marker without a verifying manifest "
+                    "(re-stitch)",
+                )
+                result_done = False
+            if not result_done and rman_token is not None:
+                if repair:
+                    store.delete(result_manifest_key)
+                    rman = None
+                _issue(
+                    issues, "backfill_result", result_manifest_key,
+                    "torn", _repair_action(repair, "removed"),
+                    "half-committed result (re-stitch)",
+                )
+            listed = set((rman or {}).get("objects", {}))
+            for key in store.list(result_base):
+                rel = key[len(result_base) + 1:]
+                if rel in listed:
+                    continue
+                if repair:
+                    store.delete(key)
+                _issue(
+                    issues, "store_object", key, "orphan",
+                    _repair_action(repair, "removed"),
+                    "result object not named by the result manifest",
+                )
+    # replicated store: follow the structural audit with an
+    # anti-entropy scrub so fsck leaves every mirror converged too
+    # (the scrub drains the handoff journal first; repair follows the
+    # fsck repair flag)
+    replication = None
+    from tpudas_torch.store.replica import find_replicated
+
+    repl = find_replicated(store)
+    if repl is not None:
+        try:
+            replication = repl.scrub(prefix, repair=repair)
+        except Exception as exc:
+            log_event(
+                "store_scrub_failed",
+                error=f"{type(exc).__name__}: {str(exc)[:200]}",
+            )
+            replication = {
+                "clean": False,
+                "error": f"{type(exc).__name__}: {str(exc)[:200]}",
+            }
+    elapsed = time.perf_counter() - t0
+    get_registry().counter(
+        "tpudas_integrity_audit_runs_total",
+        "integrity audits (startup fsck) executed",
+    ).inc()
+    repaired = sum(
+        1 for it in issues if it["action"] in _REPAIRED_ACTIONS
+    )
+    clean = error is None and all(
+        it["action"] in _REPAIRED_ACTIONS for it in issues
+    ) and (replication is None or bool(replication.get("clean")))
+    report = {
+        "root": root,
+        "repair": bool(repair),
+        "clean": bool(clean),
+        "elapsed_s": round(elapsed, 4),
+        "repaired": repaired,
+        "parked": parked,
+        "issues": issues,
+        "counts": queue.counts() if queue is not None else {},
+        "issues_total": len(issues),
+    }
+    if replication is not None:
+        report["replication"] = replication
+    if error is not None:
+        report["error"] = error
+    if report["issues_total"]:
+        log_event(
+            "integrity_audit_backfill",
+            root=root,
+            clean=report["clean"],
+            repaired=repaired,
+            parked=len(parked),
         )
     return report

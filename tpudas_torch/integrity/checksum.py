@@ -34,7 +34,7 @@ import os
 import zlib
 
 from tpudas_torch.obs.registry import get_registry
-from tpudas_torch.utils.atomicio import atomic_write_bytes, atomic_write_text
+from tpudas_torch.utils.atomicio import atomic_write_pair, atomic_write_text
 from tpudas_torch.utils.logging import log_event
 
 __all__ = [
@@ -165,12 +165,16 @@ def sidecar_path(path: str) -> str:
 def write_bytes_checksummed(
     path: str, payload: bytes, durable: bool | None = None
 ) -> None:
-    """Atomic payload write, then the ``<path>.crc`` sidecar."""
-    atomic_write_bytes(path, payload, durable=durable)
-    atomic_write_text(
-        sidecar_path(path),
-        f"crc32 {crc32_hex(payload)} {len(payload)}\n",
-        durable=durable,
+    """Atomic payload write with its ``<path>.crc`` sidecar, as a pair
+    (:func:`~tpudas_torch.utils.atomicio.atomic_write_pair`): a payload
+    its sidecar does not vouch for makes the readers fall back or
+    rebuild, so the two are renamed back to back after both are
+    written, rather than the sidecar written (and possibly blocked on
+    the disk) after the payload has landed.  The files and their bytes
+    are the JAX package's."""
+    atomic_write_pair(
+        path, payload, sidecar_path(path),
+        f"crc32 {crc32_hex(payload)} {len(payload)}\n", durable=durable,
     )
 
 

@@ -10,6 +10,9 @@ side that folds them into ONE operator view:
   freshness SLO status, flight-ring freshness, park/unpark events;
 - :func:`fleet_rollup` — every stream under a fleet root, with counts
   and an overall status that is ``ok`` only when every stream is;
+- :func:`backfill_rollup` — a backfill queue root's progress (shard
+  counts by state, workers holding live leases, parked shards, the
+  stitched result's state);
 - :func:`pool_rollup` — a live serve pool's ``/pool/healthz`` (a plain
   HTTP GET; ``unreachable`` is a status, not an exception);
 - :func:`cluster_snapshot` — all of the above in one dict.
@@ -27,9 +30,7 @@ if the current round is under target.
 Everything here reads the crash-only on-disk formats, which both
 packages write alike: over the same folder the port's snapshot equals
 the JAX package's, dict for dict.  ``tpudas_torch.tools.obs_report`` is
-the operator CLI.  Not ported yet: :func:`backfill_rollup` (and
-``cluster_snapshot(backfill_root=...)``) raise ``NotImplementedError``
-until the backfill queue is ported (ROADMAP A8e).
+the operator CLI.
 """
 
 from __future__ import annotations
@@ -360,12 +361,58 @@ def fleet_rollup(root, policy: SLOPolicy | None = None) -> dict:
 
 
 def backfill_rollup(root) -> dict:
-    """One backfill queue root's progress.  Not ported yet: raises
-    ``NotImplementedError`` until the backfill queue is."""
-    raise NotImplementedError(
-        f"backfill_rollup({str(root)!r}): the backfill queue is not "
-        "ported to tpudas_torch yet (ROADMAP A8e)"
+    """One backfill queue root's progress: per-state shard counts,
+    workers currently holding live leases, parked shard ids, and the
+    stitched-result state.  An unreadable plan is a status, not an
+    exception (a half-provisioned root must not crash the report)."""
+    from tpudas_torch.backfill.queue import (
+        RESULT_DONE_FILENAME,
+        BackfillQueue,
     )
+
+    root = str(root)
+    try:
+        queue = BackfillQueue(root, worker="obs-report")
+    except Exception as exc:
+        return {
+            "status": "unreadable",
+            "error": f"{type(exc).__name__}: {str(exc)[:200]}",
+        }
+    counts = queue.counts()
+    workers = set()
+    parked = []
+    now_ns = int(time.time() * 1e9)
+    for sh in queue.plan["shards"]:
+        sid = sh["id"]
+        if queue.is_parked(sid):
+            parked.append(sid)
+        lease = queue.read_lease(sid)
+        if (
+            lease is not None
+            and int(lease.get("deadline_ns", 0)) >= now_ns
+            and not queue.is_done(sid)
+        ):
+            workers.add(str(lease.get("worker")))
+    result_done = os.path.isfile(os.path.join(root, RESULT_DONE_FILENAME))
+    total = len(queue.plan["shards"])
+    if result_done:
+        status = "done"
+    elif counts.get("parked"):
+        status = "parked"
+    elif counts.get("done") == total:
+        status = "stitching"
+    else:
+        status = "in_progress"
+    return {
+        "status": status,
+        "shards": counts,
+        "shards_total": total,
+        "done_fraction": round(counts.get("done", 0) / total, 4)
+        if total else 0.0,
+        "workers": sorted(workers),
+        "parked": parked,
+        "result_done": result_done,
+    }
 
 
 def pool_rollup(url, timeout: float = 5.0) -> dict:
@@ -403,10 +450,7 @@ def cluster_snapshot(fleet_root=None, backfill_root=None, pool_url=None,
                      policy: SLOPolicy | None = None) -> dict:
     """The one cluster view: fleet + backfill + serve pool, each
     optional, with an overall status that is ``ok`` only when every
-    present plane is healthy.  ``backfill_root`` raises
-    ``NotImplementedError`` until the backfill queue is ported."""
-    if backfill_root is not None:
-        backfill_rollup(backfill_root)
+    present plane is healthy."""
     with span("obs.rollup"):
         snap: dict = {"generated_at": time.time()}
         if fleet_root is not None:

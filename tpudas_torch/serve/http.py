@@ -5,10 +5,10 @@ rule and error string of the JAX server, over the port's query engine,
 ledger, score store and observability plane.  Over one folder the two
 servers answer with the same status, body bytes and cache/provenance
 headers.  Serving is host code: nothing on a request's path touches
-``torch.cuda``.  Three features of the JAX server are refused, never
-faked: object-store mounts (``store_url`` and its knobs raise
-``NotImplementedError``), and ``/devprof`` and ``/profile``, which
-answer 501 until the device telemetry is ported.
+``torch.cuda``.  Object-store mounts (``store_url`` and its knobs,
+:mod:`tpudas_torch.store`) serve as the JAX server's do.  Two features
+of the JAX server are refused, never faked: ``/devprof`` and
+``/profile`` answer 501 until the device telemetry is ported.
 
 ``ThreadingHTTPServer`` (stdlib, thread per connection) fronted by a
 **bounded admission gate**: at most ``max_inflight`` data-plane
@@ -145,16 +145,20 @@ class _Mount:
     ledger/score-store caches.  The root mount serves the bare
     endpoints; stream mounts serve ``/s/<stream_id>/...``.
 
-    ``remote`` is always None: the JAX server's object-store replica
-    mount is not ported (ROADMAP A8e)."""
+    ``remote`` (a :class:`tpudas_torch.store.tileplane.RemotePyramid`)
+    makes this a stateless serving replica: ``folder`` is the remote's
+    local mirror directory, tile objects materialize lazily per query
+    through the read-through cache, and the mount's whole durable state
+    can be wiped and re-hydrated from the object store."""
 
     def __init__(self, folder, stream_id=None, cache_tiles=256,
-                 engine=None):
+                 engine=None, remote=None):
         self.folder = str(folder)
         self.stream_id = stream_id
-        self.remote = None
+        self.remote = remote
         self.engine = QueryEngine(
             self.folder, cache_tiles=cache_tiles, engine=engine,
+            tile_prefetch=None if remote is None else remote.prefetch,
         )
         self._events_cache = None
         self._score_store_cache = None
@@ -456,6 +460,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._account(reg, endpoint, 503, t_start)
             return
         try:
+            if mount is not None and mount.remote is not None and gated:
+                # rate-limited manifest probe (min_refresh_s); a cold
+                # tier outage flips the remote stale and the mirror
+                # keeps serving
+                mount.remote.refresh()
             with span(
                 "serve.request", endpoint=endpoint,
                 stream=stream_id or "",
@@ -574,9 +583,40 @@ class _Handler(BaseHTTPRequestHandler):
         return serve_live(self, hub, mount, params)
 
     # -- control plane -------------------------------------------------
+    @staticmethod
+    def _store_block(mount):
+        """The ``store`` health block for a remote-pyramid mount:
+        refresh state, generation, and the read-through cache's
+        hit/stale/degraded snapshot — plus whether the mount is
+        currently degraded (cold tier unreachable, serving
+        stale-but-verified bytes)."""
+        if mount is None or mount.remote is None:
+            return None, False
+        snap = mount.remote.snapshot()
+        degraded = bool(
+            snap.get("stale")
+            or (snap.get("cache") or {}).get("degraded")
+        )
+        snap["status"] = "degraded" if degraded else "ok"
+        return snap, degraded
+
     def _healthz(self, mount) -> int:
         payload = read_health(mount.folder)
+        store_block, store_degraded = self._store_block(mount)
         if payload is None:
+            if store_block is not None:
+                # a stateless serving replica has no realtime health
+                # snapshot; its liveness IS the store plane's
+                self._send_json(
+                    200,
+                    {"status": (
+                        "degraded" if store_degraded else "ok"
+                    ),
+                     "detail": "serving replica (no local realtime "
+                               "health snapshot)",
+                     "store": store_block},
+                )
+                return 200
             self._send_json(
                 503,
                 {"status": "unknown",
@@ -585,7 +625,12 @@ class _Handler(BaseHTTPRequestHandler):
             )
             return 503
         body = dict(payload)
-        body["status"] = "degraded" if payload.get("degraded") else "ok"
+        body["status"] = (
+            "degraded" if payload.get("degraded") or store_degraded
+            else "ok"
+        )
+        if store_block is not None:
+            body["store"] = store_block
         self._send_json(200, body)
         return 200
 
@@ -913,6 +958,11 @@ class _Handler(BaseHTTPRequestHandler):
                  "tile_len": int(store.tile_len)},
             )
             return 404
+        if mount.remote is not None and valid == store.tile_len:
+            # materialize the addressed completed-tile object into the
+            # mirror (read-through cached; no-op when already local —
+            # the partial head tile serves from mirrored tails)
+            mount.remote._fetch_tile(store, level, idx)
         headers = [
             ("X-Tpudas-Level", level),
             ("X-Tpudas-Tile", idx),
@@ -1109,11 +1159,19 @@ class DASServer:
     from a fleet root's directory layout.  All mounts share one
     admission gate and the one process registry.
 
-    ``store_url`` (with ``store_prefix``, ``cache_dir``,
-    ``cache_bytes`` and ``store_refresh_s``) would mount an
-    object-store pyramid as in the JAX server; the object-store plane
-    is not ported (ROADMAP A8e), so a ``store_url`` raises
-    ``NotImplementedError`` before anything is bound.
+    ``store_url`` (+ ``store_prefix``) mounts an object-store pyramid
+    instead of (or on top of) a local folder: the server becomes a
+    stateless serving replica that hydrates a local mirror through a
+    read-through cache (``cache_dir``/``cache_bytes``), probes the
+    remote manifest at most every ``store_refresh_s`` seconds before
+    data queries, and keeps serving the mirror (flagged ``degraded`` in
+    ``/healthz``'s ``store`` block) when the cold tier is unreachable.
+    A ``replica:urlA,urlB,...`` store URL serves through a
+    :class:`~tpudas_torch.store.replica.ReplicatedStore` — reads fail
+    over primary → mirrors → the cache's stale-but-verified rung, and
+    the ``store`` block of ``/healthz`` grows a ``replication`` entry
+    (mirror list, handoff backlog, failover/divergence counts, last
+    scrub).
     """
 
     def __init__(self, folder=None, host="127.0.0.1", port=0,
@@ -1126,17 +1184,46 @@ class DASServer:
             raise ValueError(
                 "DASServer needs a folder, streams, or a store_url"
             )
-        if store_url is not None:
-            raise NotImplementedError(
-                f"store_url={store_url!r}: object-store serving is not "
-                "ported to tpudas_torch yet (ROADMAP A8e)"
-            )
-        # always None: the object-store replica plane is not ported
         self.remote = None
+        if store_url is not None:
+            # stateless serving replica: hydrate a local mirror and a
+            # read-through cache from the object store; `folder` (when
+            # given) IS the mirror directory, otherwise a private temp
+            # dir — either can be wiped freely
+            import tempfile
+
+            from tpudas_torch.store import (
+                ReadThroughCache,
+                RemotePyramid,
+                store_from_url,
+            )
+
+            base = (
+                str(cache_dir) if cache_dir is not None
+                else tempfile.mkdtemp(prefix="tpudas-serve-store-")
+            )
+            cache_kwargs = (
+                {} if cache_bytes is None
+                else {"max_bytes": int(cache_bytes)}
+            )
+            cache = ReadThroughCache(
+                os.path.join(base, "cache"), **cache_kwargs
+            )
+            mirror = (
+                str(folder) if folder is not None
+                else os.path.join(base, "mirror")
+            )
+            self.remote = RemotePyramid(
+                store_from_url(store_url), store_prefix, cache,
+                mirror, min_refresh_s=float(store_refresh_s),
+            )
+            self.remote.refresh(force=True)
+            folder = mirror
         self.folder = None if folder is None else str(folder)
         mount = (
             None if folder is None
-            else _Mount(folder, cache_tiles=cache_tiles, engine=engine)
+            else _Mount(folder, cache_tiles=cache_tiles, engine=engine,
+                        remote=self.remote)
         )
         mounts = {}
         for sid, sfolder in (streams or {}).items():
@@ -1274,9 +1361,9 @@ def main(argv=None) -> int:
                     help="serve a fleet root: mount every "
                          "<root>/<stream_id>/ at /s/<stream_id>/...")
     ap.add_argument("--store-url", default=None,
-                    help="serve a remote pyramid from an object store "
-                         "(not ported: raises NotImplementedError, "
-                         "ROADMAP A8e)")
+                    help="serve a remote pyramid from this object "
+                         "store (file:///path, s3://bucket/..., "
+                         "fake:tag); FOLDER becomes the local mirror")
     ap.add_argument("--store-prefix", default="",
                     help="stream prefix inside the store")
     ap.add_argument("--cache-dir", default=None,

@@ -26,8 +26,9 @@ worker 0 is decoded again on first touch in worker 1.  That is the
 stateless-worker property that makes the pool trivially scalable —
 the shared cache tier is the CDN/edge cache the immutable-tile HTTP
 headers (:mod:`tpudas_torch.serve.http`) are built for, not process
-memory.  Object-store workers (``store_url``) are not ported
-(ROADMAP A8e) and raise ``NotImplementedError``.
+memory.  With ``store_url`` each worker is a stateless replica that
+hydrates its own mirror and read-through cache from the object store
+(:mod:`tpudas_torch.store`).
 
 Operator entry point (see also ``tpudas_torch/tools/serve_pool.py``)::
 
@@ -115,6 +116,20 @@ def _worker_main(cfg: dict, report_q) -> None:
         max_inflight=cfg["max_inflight"],
         cache_tiles=cfg["cache_tiles"],
     )
+    if cfg.get("store_url"):
+        # stateless replica workers: each worker hydrates its OWN
+        # mirror + read-through cache from the object store — workers
+        # share nothing but the store (and whatever CDN sits in front)
+        base = cfg.get("cache_dir")
+        kwargs.update(
+            store_url=cfg["store_url"],
+            store_prefix=cfg.get("store_prefix", ""),
+            cache_dir=(
+                os.path.join(base, f"worker{cfg['index']}")
+                if base else None
+            ),
+            cache_bytes=cfg.get("cache_bytes"),
+        )
     dkw = dict(kwargs)
     if cfg.get("live_bridge"):
         # live push plane: ONLY the data server subscribes
@@ -127,6 +142,18 @@ def _worker_main(cfg: dict, report_q) -> None:
             cfg["folder"], port=cfg["port"], reuse_port=True, **dkw
         )
         control = DASServer.for_fleet(cfg["folder"], port=0, **kwargs)
+    elif cfg.get("store_url"):
+        data = DASServer(
+            cfg["folder"], port=cfg["port"], reuse_port=True, **dkw
+        )
+        # the control plane serves /metrics from THIS process's
+        # registry; mount the data server's mirror rather than build
+        # a second remote (one store plane per worker)
+        control = DASServer(
+            data.folder, port=0, host=cfg["host"],
+            max_inflight=cfg["max_inflight"],
+            cache_tiles=cfg["cache_tiles"],
+        )
     else:
         data = DASServer(
             cfg["folder"], port=cfg["port"], reuse_port=True, **dkw
@@ -220,11 +247,6 @@ class ServePool:
             )
         if folder is None and store_url is None:
             raise ValueError("ServePool needs a folder or a store_url")
-        if store_url is not None:
-            raise NotImplementedError(
-                f"store_url={store_url!r}: object-store serving is not "
-                "ported to tpudas_torch yet (ROADMAP A8e)"
-            )
         self.folder = None if folder is None else str(folder)
         self.host = str(host)
         self.workers = int(workers)
@@ -236,6 +258,9 @@ class ServePool:
             max_inflight=int(max_inflight),
             cache_tiles=int(cache_tiles),
             live_bridge=None if live_bridge is None else str(live_bridge),
+            store_url=store_url, store_prefix=str(store_prefix),
+            cache_dir=None if cache_dir is None else str(cache_dir),
+            cache_bytes=cache_bytes,
         )
         self.port = int(port) or self._pick_port()
         self._control_addr = (self.host, int(control_port))
@@ -541,9 +566,11 @@ def main(argv=None) -> int:
                     help="serve a fleet root: every worker mounts "
                          "every <root>/<stream_id>/")
     ap.add_argument("--store-url", default=None,
-                    help="serve a remote pyramid from an object store "
-                         "(not ported: raises NotImplementedError, "
-                         "ROADMAP A8e)")
+                    help="serve a remote pyramid from this object "
+                         "store; each worker hydrates its own "
+                         "mirror + cache (stateless replicas); "
+                         "replica:urlA,urlB,... serves through a "
+                         "replicated store with mirror failover")
     ap.add_argument("--store-prefix", default="",
                     help="stream prefix inside the store")
     ap.add_argument("--cache-dir", default=None,

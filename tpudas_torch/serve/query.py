@@ -96,8 +96,9 @@ class QueryEngine:
         self.folder = str(folder)
         self.engine = engine
         # optional hook ``(store, level, lo, hi)`` called before a
-        # pyramid read, e.g. to materialize the window's tiles from an
-        # object store into the local folder (None on a plain folder)
+        # pyramid read: a RemotePyramid materializes the window's tile
+        # objects into the local mirror so TileStore finds them
+        # (tpudas_torch.store.tileplane; None on a plain local folder)
         self.tile_prefetch = tile_prefetch
         self._store = TileStore.open(self.folder, engine=engine)
         self._index = DirectoryIndex(self.folder)

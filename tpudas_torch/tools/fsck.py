@@ -19,10 +19,19 @@ Options:
     --no-rebuild    repair everything except pyramid rebuilds
     --fleet         treat the folder as a fleet root: audit every
                     <root>/<stream_id>/ on its own and aggregate
+    --backfill      treat the folder as a backfill queue root: sweep
+                    stale leases and orphan stagings, finish crashed
+                    commits, audit committed shards and the stitched
+                    result (tpudas_torch.integrity.audit.audit_backfill)
+    --store URL     audit an object-store backfill job instead: the
+                    positional argument is the job prefix inside the
+                    store named by URL (file:///path, s3://bucket/...,
+                    fake:tag, replica:urlA,urlB,...); a replica: URL
+                    also runs the anti-entropy scrub and folds its
+                    verdict into "clean"
+                    (tpudas_torch.integrity.audit.audit_backfill_store;
+                    tpudas_torch/tools/store_scrub.py scrubs alone)
     --out PATH      also write the JSON report to PATH
-
-``--backfill`` and ``--store`` (the backfill queue's audits) are not
-ported yet and raise ``NotImplementedError``.
 
 Run only while the driver is stopped: the stale-tmp sweep cannot tell
 a crashed writer's leftovers from a live writer's in-flight file.
@@ -55,22 +64,41 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet", action="store_true",
                     help="audit every <folder>/<stream_id>/ as a fleet root")
     ap.add_argument("--backfill", action="store_true",
-                    help="not ported yet (the backfill queue's audit)")
+                    help="audit the folder as a backfill queue root")
     ap.add_argument("--store", default=None, metavar="URL",
-                    help="not ported yet (the object-store backfill audit)")
+                    help="audit an object-store backfill job: FOLDER is "
+                         "the job prefix inside this store URL")
     ap.add_argument("--out", default=None, help="write JSON report here")
     args = ap.parse_args(argv)
-    if args.backfill or args.store:
-        raise NotImplementedError(
-            "fsck --backfill / --store: the backfill queue and its audits "
-            "are not ported to tpudas_torch yet (ROADMAP A8e)"
-        )
+    if args.fleet and args.backfill:
+        ap.error("--fleet and --backfill are mutually exclusive")
+    if args.store and args.fleet:
+        ap.error("--store and --fleet are mutually exclusive")
 
-    from tpudas_torch.integrity.audit import audit, audit_fleet
-
-    report = (audit_fleet if args.fleet else audit)(
-        args.folder, repair=not args.no_repair, rebuild=not args.no_rebuild,
+    from tpudas_torch.integrity.audit import (
+        audit,
+        audit_backfill,
+        audit_backfill_store,
+        audit_fleet,
     )
+
+    if args.store:
+        from tpudas_torch.store import store_from_url
+
+        report = audit_backfill_store(
+            store_from_url(args.store), args.folder,
+            repair=not args.no_repair,
+        )
+    elif args.backfill:
+        report = audit_backfill(
+            args.folder, repair=not args.no_repair,
+            rebuild=not args.no_rebuild,
+        )
+    else:
+        report = (audit_fleet if args.fleet else audit)(
+            args.folder, repair=not args.no_repair,
+            rebuild=not args.no_rebuild,
+        )
     text = json.dumps(report, indent=1)
     print(text)
     if args.out:

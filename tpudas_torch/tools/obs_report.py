@@ -1,22 +1,22 @@
-"""Cluster observability report: one snapshot over a fleet root and a
-serve-pool control plane.
+"""Cluster observability report: one snapshot over a fleet root, a
+backfill queue root, and a serve-pool control plane.
 
 The operator CLI over :mod:`tpudas_torch.obs.collect`, the port's
 counterpart of ``tools/obs_report.py`` with the same options and the
 same output.  It reads the crash-only on-disk formats directly —
-per-stream ``health.json`` and flight-recorder rings — plus
+per-stream ``health.json``, flight-recorder rings, the backfill
+queue's plan, lease and done markers — plus
 (optionally) a live serve pool's ``/pool/healthz``.  No process
 cooperation needed: point it at a live cluster or a post-mortem copy.
 
     python -m tpudas_torch.tools.obs_report --fleet /data/fleet \
-        [--pool http://host:9100] [--slo-head-lag 300] \
-        [--objective 0.99] [--json] [--strict]
+        [--backfill /data/backfill] [--pool http://host:9100] \
+        [--slo-head-lag 300] [--objective 0.99] [--json] [--strict]
 
 Text mode prints a per-stream table (status, rounds, realtime factor,
-head lag, SLO status + error-budget burn, last error) and the pool
-summary; ``--json`` dumps the full snapshot.  ``--strict`` exits 1
-unless the overall status is ``ok``.  ``--backfill`` is not ported yet
-(the backfill queue) and raises ``NotImplementedError``.
+head lag, SLO status + error-budget burn, last error) and the
+backfill and pool summaries; ``--json`` dumps the full snapshot.
+``--strict`` exits 1 unless the overall status is ``ok``.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ def main(argv=None) -> int:
                     help="one single-stream output folder (reported as "
                          "a fleet of one)")
     ap.add_argument("--backfill", default=None,
-                    help="backfill queue root (not ported yet)")
+                    help="backfill queue root (tpudas_torch.backfill)")
     ap.add_argument("--pool", default=None,
                     help="serve pool control-plane base URL")
     ap.add_argument("--slo-head-lag", type=float, default=None,

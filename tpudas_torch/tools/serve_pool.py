@@ -13,8 +13,9 @@ a CUDA context.
 
 ``--live-bridge host:port`` subscribes every data worker to a
 producer's live bridge (``TPUDAS_LIVE_BRIDGE`` on the producer), so
-``/live`` fans out across the pool.  ``--store-url`` is not ported and
-raises ``NotImplementedError``.
+``/live`` fans out across the pool.  ``--store-url URL`` (with
+``--store-prefix``, ``--cache-dir``, ``--cache-bytes``) makes every
+worker a stateless replica of an object-store pyramid.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ import re
 
 __all__ = [
     "atomic_write_bytes",
+    "atomic_write_pair",
     "atomic_write_text",
     "durable_default",
     "is_tmp_name",
@@ -77,8 +78,8 @@ def _fault_point(path: str) -> None:
     fault_point("fs.write_enospc", path=path)
 
 
-def _write(path: str, payload, mode: str, durable) -> None:
-    durable = durable_default() if durable is None else bool(durable)
+def _stage(path: str, payload, mode: str, durable: bool) -> str:
+    """Write ``payload`` in full to ``path``'s tmp name; returns it."""
     _fault_point(path)
     tmp = tmp_path_for(path)
     with open(tmp, mode) as fh:
@@ -86,9 +87,40 @@ def _write(path: str, payload, mode: str, durable) -> None:
         if durable:
             fh.flush()
             os.fsync(fh.fileno())
+    return tmp
+
+
+def _commit(tmp: str, path: str, durable: bool) -> None:
     os.replace(tmp, path)
     if durable:
         _fsync_dir(path)
+
+
+def _write(path: str, payload, mode: str, durable) -> None:
+    durable = durable_default() if durable is None else bool(durable)
+    _commit(_stage(path, payload, mode, durable), path, durable)
+
+
+def atomic_write_pair(path: str, payload: bytes, side: str, text: str,
+                      durable: bool | None = None) -> None:
+    """Write a binary ``payload`` to ``path`` and ``text`` to ``side``
+    (its checksum sidecar) so the two land together: both tmps are
+    written in full before either rename, so a crash can part the pair
+    only between two adjacent renames, never across a data write that
+    may block on the disk.  A failure before the renames removes the
+    payload's tmp and leaves the old pair."""
+    durable = durable_default() if durable is None else bool(durable)
+    tmp = _stage(path, payload, "wb", durable)
+    try:
+        tmp_side = _stage(side, text, "w", durable)
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    _commit(tmp, path, durable)
+    _commit(tmp_side, side, durable)
 
 
 def atomic_write_text(path: str, text: str, durable: bool | None = None) -> (
