@@ -40,6 +40,9 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
 4. ``LFProc`` over 180 s x 10,000 channels: every window on the CUDA
    kernel, ``fir_decimate.launches == 4 x windows``, the output tiles
    the 1 Hz grid, the synthetic LF component is recovered within 0.01;
+   then one more window with ``TPUDAS_TRACE_DIR`` set, whose Chrome
+   trace must hold this thread's host ops and B1's kernel
+   (``fir_v2_kernel``);
 5. ``run_lowpass_realtime`` over the same spool: engine="fused" over
    files 1-2, then a second call that resumes from the saved carry over
    file 3; every block launches the fused step (kernels A and B); an
@@ -65,7 +68,10 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    its member's width; the fused fleet again with every wave's steps
    run one by one (threads kept, packing taken away); one packed
    60-output B3 step timed against its members' solo steps; the FFT's
-   packed transform held against the per-member one;
+   packed transform held against the per-member one; in each batched
+   fleet the device telemetry's launches, summed over the members,
+   equal the steps the kernel wrappers saw (the stacked ones labelled
+   ``stacked="1"``), printed beside the device seconds and the wall;
 9. the real-time derived products over the same spool: (a)
    ``run_lowpass_realtime(engine="fused", detect=True)`` with STA/LTA
    and RMS (thresholds that yield events here) over files 1-2, then a
@@ -119,7 +125,14 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    difference; (d) a batched ``fused`` fleet of 10,000 and 6,001 ch with
    health on, ``fleet_rollup`` and ``python -m
    tpudas_torch.tools.obs_report --json`` over its root, each member's
-   ring holding only its own spans and rounds.  Phase 10's workers run
+   ring holding only its own spans and rounds; (e) the device
+   telemetry (``tpudas_torch.obs.devprof``): every round of (a)-(b)
+   carries one launch a stream step, and every warm round device
+   seconds in (0, 1.05 x ``device_s``]; each leg's device busy and idle
+   share; the snapshot's calibration and each leg's utilization and
+   bound, with the probes and with the peaks pinned to phase 3c's read
+   rate and 67 TFLOP/s; a turn pair with ``TPUDAS_DEVPROF=0`` against
+   the plane on.  Phase 10's workers run
    with health and the flight ring on, and each leg must replay the
    last committed round from the ring right after its kills; its
    ``fused`` leg runs the live plane with 32 never-drained subscribers
@@ -148,7 +161,10 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    each worker's start seconds; (d) ``DASServer.for_fleet`` over a
    batched live fleet of 10,000 + 6,001 ch and 2 rounds:
    ``/fleet/healthz`` equal to ``fleet_rollup``, ``/s/<id>/live``
-   serving each member's hub;
+   serving each member's hub; (e) on 13b's server, ``/devprof`` with
+   the JAX body's keys and ``/profile?seconds=2`` (200, then 409 while
+   it records), B3 run during the capture and both of its kernels in
+   the written Chrome trace;
 14. the object store and the cluster backfill (``tpudas_torch.store``,
    ``tpudas_torch.backfill``) over phase 12's feed, 4 files of 60 s x
    10,000 ch hard-linked and cut into 4 shards of 60 s, with pyramid
@@ -537,28 +553,33 @@ def phase_kernels(device, widths, timer):
     return plan, main, paths
 
 
-def stages_bound_ms(stages, sizes, T, C, in_bytes):
-    """Least time for a stateful step of ``stages`` over T input rows:
-    the input read once, the output and the new carry written once, the
-    old carry read once; flops over the true taps of every stage.  The
-    whole cascade is B3's bound; stages 0-1 and 2-3 are kernel A's and
-    kernel B's."""
-    flops, rows = 0.0, T
-    for R, h in stages:
-        rows //= int(R)
-        flops += 2.0 * len(h) * rows * C
-    by = T * C * in_bytes + rows * C * 4 + 2 * sum(sizes) * C * 4
+def cost_bound_ms(cost):
+    """(bound ms, what bounds it, bound ms at the measured read rate) of
+    a ``{"flops", "bytes"}`` cost."""
+    by, flops = cost["bytes"], cost["flops"]
     t_b, t_o = by / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"),
             bound_at_measured(by, flops))
 
 
-def cascade_bound_ms(plan, T, C, in_bytes):
-    """Least time for one fused step (:func:`stages_bound_ms`)."""
-    from tpudas_torch.ops.fir import stream_carry_sizes
+def stages_bound_ms(stages, sizes, T, C, in_bytes):
+    """Least time for a stateful step of ``stages`` over T input rows,
+    from the work ``tpudas_torch.ops.fir.stages_step_cost`` counts: the
+    input read once, the output and the new carry written once, the old
+    carry read once; flops over the true taps of every stage.  Stages
+    0-1 and 2-3 are kernel A's and kernel B's."""
+    from tpudas_torch.ops.fir import stages_step_cost
 
-    return stages_bound_ms(plan.stages, stream_carry_sizes(plan), T, C,
-                           in_bytes)
+    return cost_bound_ms(stages_step_cost(stages, sizes, T, C, in_bytes))
+
+
+def cascade_bound_ms(plan, T, C, in_bytes):
+    """Least time for one fused step (B3's bound), from
+    ``tpudas_torch.ops.fir.stream_step_cost``: the formula the device
+    telemetry's utilization reads too."""
+    from tpudas_torch.ops.fir import stream_step_cost
+
+    return cost_bound_ms(stream_step_cost(plan, T, C, in_bytes))
 
 
 def warm_blocks(plan, n_list, C, device, seed, quantized, warm=30):
@@ -1216,7 +1237,93 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
     for ok, what in checks:
         if not ok:
             fail(f"main path check failed: {what}")
+    res["trace"] = main_path_trace(device, cls, src, workdir)
     return res
+
+
+def trace_events(folder):
+    """(file names, events) of the Chrome traces in ``folder``."""
+    names = sorted(n for n in os.listdir(folder)
+                   if n.endswith(".pt.trace.json"))
+    events = []
+    for n in names:
+        with open(os.path.join(folder, n)) as fh:
+            events += json.load(fh)["traceEvents"]
+    return names, events
+
+
+def kernel_event_names(events):
+    """The names of a trace's device kernels, without the return type
+    and the parameter list (``void stage01_kernel<short>(...)`` ->
+    ``stage01_kernel<short>``)."""
+    def strip(name):
+        name = name.removeprefix("void ")
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):  # the last (...) group
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0 and name[i] == "(":
+                return name[:i]
+        return name
+
+    return sorted({strip(e.get("name", "")) for e in events
+                   if e.get("cat") == "kernel"})
+
+
+def main_path_trace(device, cls, src, workdir):
+    """Phase 4's trace leg: one more batch window (the spool's first 60
+    s) with ``TPUDAS_TRACE_DIR`` set.  The folder must hold a Chrome
+    trace whose device kernels name B1's entry (``fir_v2_kernel``), and
+    whose host ops are those of this thread."""
+    import threading
+
+    from tpudas_torch.io.spool import spool
+
+    tdir = os.path.join(workdir, "trace")
+    out = os.path.join(workdir, "out_trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    lfp = cls(spool(src).sort("time").update(), device=device)
+    lfp.update_processing_parameter(output_sample_interval=1.0,
+                                    process_patch_size=60, edge_buff_size=10)
+    lfp.set_output_folder(out, delete_existing=True)
+    bg = np.datetime64(T0, "ns")
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"TPUDAS_TRACE_DIR": tdir}):
+        lfp.process_time_range(bg, bg + np.timedelta64(WINDOW_SECONDS, "s"))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names, events = trace_events(tdir) if os.path.isdir(tdir) else ([], [])
+    me = threading.get_native_id()
+    kernels = kernel_event_names(events)
+    rec = {
+        "phase": "main_path_trace", "wall_s": wall,
+        "windows": sum(lfp.engine_counts.values()), "files": names,
+        "trace_bytes": sum(os.path.getsize(os.path.join(tdir, n))
+                           for n in names),
+        "events": len(events),
+        "cpu_ops_this_thread": sum(1 for e in events
+                                   if e.get("cat") == "cpu_op"
+                                   and e.get("tid") == me),
+        "kernel_events": sum(1 for e in events if e.get("cat") == "kernel"),
+        "kernel_names": [k[:80] for k in kernels][:12],
+        "memcpy_events": sum(1 for e in events
+                             if e.get("cat") == "gpu_memcpy"),
+    }
+    emit(rec)
+    checks = [
+        (rec["windows"] == 1, f"trace leg ran {rec['windows']} windows"),
+        (len(names) == 1 and rec["trace_bytes"] > 0,
+         f"TPUDAS_TRACE_DIR holds {names}"),
+        (rec["cpu_ops_this_thread"] > 0, "no host op of this thread"),
+    ]
+    if device.type == "cuda":
+        checks.append((any("fir_v2_kernel" in k for k in kernels),
+                       f"no B1 kernel event in the trace: {kernels[:8]}"))
+    for ok, what in checks:
+        if not ok:
+            fail(f"main path trace check failed: {what}")
+    shutil.rmtree(out, ignore_errors=True)
+    return rec
 
 
 def interior_rel(p_a, p_b):
@@ -1691,6 +1798,32 @@ def zero_kernel_counts():
     cascade_decimate_stream_stacked.launches.clear()
 
 
+def devprof_launch_sums(reg):
+    """The device telemetry's counters in ``reg``, summed over streams:
+    launches (all, stacked), device seconds, and launches by engine.
+    Parked launches are finalized first."""
+    from tpudas_torch.obs import devprof
+
+    devprof.devprof_snapshot(calibrate=False)
+
+    def series(name):
+        m = reg.get(name)
+        return m._series() if m is not None else []
+
+    launches = series("tpudas_devprof_launches_total")
+    by_engine = {}
+    for labels, v in launches:
+        by_engine[labels["engine"]] = by_engine.get(labels["engine"], 0) + v
+    return {
+        "launches": sum(v for _l, v in launches),
+        "stacked_launches": sum(v for lab, v in launches
+                                if lab["stacked"] == "1"),
+        "device_s": sum(v for _l, v in series(
+            "tpudas_devprof_device_seconds_total")),
+        "launches_by_engine": by_engine,
+    }
+
+
 def _run_wave_unstacked(ex, key, pend):
     """A stacked wave's members run one by one, for the leg that keeps
     the batched fleet's threads and rendezvous and takes the packing
@@ -1707,6 +1840,7 @@ def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched,
     Kernel counts are set to 0 just before and read just after."""
     from tpudas_torch.fleet import FleetEngine, build_runner, drive
     from tpudas_torch.fleet.batch import BatchStepExecutor
+    from tpudas_torch.obs import devprof
     from tpudas_torch.obs.registry import MetricsRegistry, use_registry
 
     root = os.path.join(fdir, tag)
@@ -1726,6 +1860,7 @@ def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     zero_kernel_counts()
+    devprof.reset()
     summaries = []
     waves = (mock.patch.object(BatchStepExecutor, "_run_stacked",
                                _run_wave_unstacked) if unstacked
@@ -1754,9 +1889,13 @@ def fleet_leg(device, fdir, src_all, members, tag, engine, calls, batched,
             walls.append(time.perf_counter() - t0)
             data_s[0] += sum(r.counters.data_seconds for r in runners)
     counts = kernel_counts()
+    dev = devprof_launch_sums(reg)
     peak = torch.cuda.max_memory_allocated() if cuda else None
     wall = sum(walls)
     return root, {
+        # the device telemetry's launches and device seconds, summed
+        # over the members (a stacked launch counts 1/N to each)
+        "devprof": dev,
         "calls": len(calls), "unstacked": unstacked, "wall_s": wall,
         "walls_s": walls,
         "member_data_s": data_s[0],
@@ -1943,6 +2082,28 @@ def phase_fleet(device, workdir, cls, members, timer):
                 (not any(vs_ctrl.values()),
                  f"({engine}) members differ from solo controls: {vs_ctrl}"),
                 (rb["parked"] == [], f"({engine}) parked {rb['parked']}"),
+            ]
+            # the device telemetry counted every step the kernel
+            # wrappers saw (B3 steps and B1 chains of 4: a fused
+            # member's block under the size threshold runs the chain;
+            # FFT steps at the member's width), the stacked ones
+            # labelled so
+            dv, kc = rb["devprof"], rb["kernel_counts"]
+            steps = (sum(v.get("fft", 0) for v in rb["blocks"].values())
+                     if engine == "fft" else kc["b3_steps"] + kc["b1"] / 4)
+            if not cuda and engine != "fft":
+                steps = sum(sum(v.values()) for v in rb["blocks"].values())
+                steps -= rb["stacked_members"] - rb["stacked_launches"]
+            checks += [
+                (abs(dv["launches"] - steps) < 1e-6,
+                 f"({engine}) devprof launches {dv['launches']} != the "
+                 f"steps the wrappers saw {steps}"),
+                (abs(dv["stacked_launches"] - (
+                    sum(kc["stacked"].values()) if cuda
+                    else rb["stacked_launches"])) < 1e-6,
+                 f"({engine}) devprof stacked launches "
+                 f"{dv['stacked_launches']} != {kc['stacked']}"),
+                (dv["device_s"] > 0, f"({engine}) no device seconds"),
             ]
             if engine == "fft":
                 fft_blocks = sum(v.get("fft", 0)
@@ -3077,11 +3238,37 @@ def obs_leg(device, link, ldir, engine, calls, obs=True, detect=True,
                        "obs off left a health file or a flight ring"))
         return res, checks
     rounds, ordered, ring = ring_checks(out)
-    for r, rec in zip(per_round, rounds):
+    # the device telemetry of each round: one launch a stream step, and
+    # in a warm round (not a call's first) device seconds inside the
+    # round's device_s (lfp.timings: the steps' dispatch and host sync)
+    firsts = {sum(len(c) for c in calls[:k]) for k in range(len(calls))}
+    for i, (r, rec) in enumerate(zip(per_round, rounds)):
         ph = rec["phases"]
         r["phases"] = ph
         # the body covers every phase but the poll, which precedes it
         r["unphased_s"] = r["body_s"] - (sum(ph.values()) - ph["poll"])
+        r["devprof"] = dp = rec["devprof"]
+        r["warm"] = i not in firsts
+        steps = sum(r["blocks"].values())
+        checks.append((dp["launches"] == steps,
+                       f"{engine} round {i + 1}: devprof launches "
+                       f"{dp['launches']} != steps {steps}"))
+        if r["warm"]:
+            checks.append((
+                0 < dp["device_execute_s"] <= 1.05 * r["device_s"],
+                f"{engine} round {i + 1}: device_execute_s "
+                f"{dp['device_execute_s']} outside (0, 1.05 x device_s "
+                f"{r['device_s']}]"))
+    warm = [r for r in per_round if r.get("warm")]
+    for key, rs in (("", per_round), ("warm_", warm)):
+        body = sum(r["body_s"] for r in rs)
+        busy = (sum(r["phases"]["device_execute"] for r in rs) / body
+                if body else None)
+        res[key + "device_busy_share"] = busy
+        res[key + "device_idle_share"] = None if busy is None else 1 - busy
+    from tpudas_torch.proc.streaming import _shim_stream_id
+
+    res["stream_id"] = _shim_stream_id(out)
     prom = parse_prom(os.path.join(out, "metrics.prom"))
     phase_counts = {p: prom.get(("tpudas_stream_round_phase_seconds_count",
                                  f'phase="{p}"')) for p in PHASES}
@@ -3208,6 +3395,54 @@ def obs_fleet(device, link, fdir, members, live=False, report=True,
     return res, checks
 
 
+def obs_devprof(legs, checks):
+    """12's device telemetry read: each leg's device busy and idle
+    share (Σ device_execute / Σ body), the snapshot's calibration, and
+    each leg's stream's utilization and bound twice: with the probes,
+    and with the peaks pinned to phase 3c's read rate and 67 TFLOP/s."""
+    from tpudas_torch.obs import devprof
+
+    def read(snap):
+        return {name: {k: snap["streams"].get(leg["stream_id"], {}).get(k)
+                       for k in ("launches", "device_seconds", "flops",
+                                 "bytes", "mean_launch_seconds",
+                                 "utilization", "bound")}
+                for name, leg in legs.items()}
+
+    probes = devprof.devprof_snapshot(calibrate=True)
+    devprof._reset_calibration()
+    pins = {"TPUDAS_DEVPROF_PEAK_BYTES": repr(float(
+                MEASURED["read_bytes_per_s"] or HBM_BYTES_PER_S)),
+            "TPUDAS_DEVPROF_PEAK_FLOPS": repr(F32_FLOPS_PER_S)}
+    with mock.patch.dict(os.environ, pins):
+        pinned = devprof.devprof_snapshot(calibrate=True)
+    devprof._reset_calibration()
+    res = {
+        "busy": {name: {k: leg[k] for k in (
+            "device_busy_share", "device_idle_share",
+            "warm_device_busy_share", "warm_device_idle_share")}
+            for name, leg in legs.items()},
+        "calibration": probes["calibration"],
+        "streams": read(probes),
+        "pinned_calibration": pinned["calibration"],
+        "pinned_streams": read(pinned),
+        "compile": {k: probes["compile"][k] for k in
+                    ("count", "seconds", "by_trigger", "storms",
+                     "storm_active")},
+        "pending": probes["pending"],
+    }
+    cal = probes["calibration"]
+    checks.append((all(cal[k] for k in ("launch_floor_s", "peak_flops",
+                                         "peak_bytes_per_s")),
+                   f"devprof calibration {cal}"))
+    for which in ("streams", "pinned_streams"):
+        for name, st in res[which].items():
+            checks.append((st["utilization"] is not None
+                           and st["bound"] is not None,
+                           f"devprof {which} {name}: {st}"))
+    return res
+
+
 def phase_obs(device, workdir, cls, members):
     """Phase 12: the observability plane on the real-time path at the
     flagship width.  (a) ``fused`` with health, the flight ring (its
@@ -3245,6 +3480,7 @@ def phase_obs(device, workdir, cls, members):
             emit({"phase": "obs", "leg": name, **leg})
             if cuda:
                 torch.cuda.empty_cache()
+        dp = obs_devprof(legs, checks)
         turns = []
         for i, obs in enumerate((False, True, True, False)):
             leg, c = obs_leg(device, link, os.path.join(odir, f"ab{i}"),
@@ -3255,6 +3491,35 @@ def phase_obs(device, workdir, cls, members):
                 r["wall_s"] for r in leg["per_round"]],
                 "health_s": [r.get("phases", {}).get("health")
                              for r in leg["per_round"]]})
+        # the device telemetry's own cost: the plane off
+        # (TPUDAS_DEVPROF=0) and on in A B B A turns, health and flight
+        # off in all
+        dp_turns = []
+        for i, on in enumerate((False, True, True, False)):
+            env = {} if on else {"TPUDAS_DEVPROF": "0"}
+            with mock.patch.dict(os.environ, env):
+                leg, c = obs_leg(device, link,
+                                 os.path.join(odir, f"dp{i}"), "fused",
+                                 [list(range(1, OBS_TURN_ROUNDS + 1))],
+                                 obs=False, detect=False, pyramid=False)
+            checks += c
+            dp_turns.append({"devprof": on, "round_walls_s": [
+                r["wall_s"] for r in leg["per_round"]]})
+        def dp_walls(on, first=0):
+            return [x for t in dp_turns if t["devprof"] == on
+                    for x in t["round_walls_s"][first:]]
+
+        off_w, on_w = dp_walls(False), dp_walls(True)
+        dp["overhead"] = {
+            "turns": dp_turns,
+            "difference_s": float(np.mean(on_w) - np.mean(off_w)),
+            "difference_frac": float((np.mean(on_w) - np.mean(off_w))
+                                     / np.mean(off_w)),
+            "steady_difference_s": float(np.mean(dp_walls(True, 1))
+                                         - np.mean(dp_walls(False, 1))),
+            "steady_spread_off_s": float(np.ptp(dp_walls(False, 1))),
+        }
+        emit({"phase": "obs", "leg": "devprof", **dp})
         fleet, c = obs_fleet(device, link, os.path.join(odir, "fleet"),
                              members)
         checks += c
@@ -3300,6 +3565,9 @@ def phase_obs(device, workdir, cls, members):
         "b1": legs["auto"]["kernel_counts"]["b1"],
         "b1_blocks": legs["auto"]["blocks"],
         "overhead_difference_s": overhead["difference_s"],
+        "device_busy_share": {name: b["device_busy_share"]
+                              for name, b in dp["busy"].items()},
+        "devprof_overhead_difference_s": dp["overhead"]["difference_s"],
     }
     emit(summary)
     for ok, what in checks:
@@ -3307,6 +3575,7 @@ def phase_obs(device, workdir, cls, members):
             fail(f"obs check failed: {what}")
     shutil.rmtree(odir, ignore_errors=True)
     return {"legs": legs, "overhead": overhead, "fleet": fleet,
+            "devprof": dp,
             "summary": summary}
 
 
@@ -3877,6 +4146,113 @@ def cuda_holders(pids):
     return holders, os.getpid() in listed
 
 
+# the top-level keys of the JAX server's /devprof body
+# (tpudas/obs/devprof.py devprof_snapshot)
+DEVPROF_KEYS = ("calibration", "compile", "costs", "enabled", "launches",
+                "pending", "profile", "streams")
+PROFILE_S = 2.0  # 13's /profile capture
+
+
+def serve_devprof(device, srv, sdir, n_ch):
+    """13's device telemetry endpoints on the live server: ``/devprof``
+    answers 200 with the JAX body's top-level keys and the live stream's
+    launches; ``/profile?seconds=2`` answers 200 and a second request
+    during the capture 409; B3 steps run while it records, and the
+    written Chrome trace names both of B3's kernels
+    (``stage01_kernel``, ``fused_cascade_kernel``)."""
+    import threading
+
+    from tpudas_torch.ops.fir import (
+        cascade_stream_init,
+        design_cascade,
+        stream_carry_sizes,
+    )
+    from tpudas_torch.ops.fused_kernel import fused_cascade, fused_cascade_plain
+    from tpudas_torch.proc.lfproc import output_corner
+
+    cuda = device.type == "cuda"
+    base = srv.base_url
+    t0 = time.perf_counter()
+    st, body, _h = http_get(base + "/devprof")
+    snap = json.loads(body) if st == 200 else {}
+    devprof_ms = (time.perf_counter() - t0) * 1e3
+    pdir = os.path.join(sdir, "profile")
+    t_p = time.perf_counter()
+    first, body1, _h = http_get(
+        base + f"/profile?seconds={PROFILE_S}&dir={pdir}")
+    second, body2, _h = http_get(
+        base + f"/profile?seconds={PROFILE_S}&dir={pdir}")
+    # B3 on the card for as long as the capture records, as a running
+    # stream would (outside every counted path: the wrapper's counts
+    # are restored)
+    plan = design_cascade(1000.0, 1000, output_corner(1.0))
+    step = fused_cascade if cuda else fused_cascade_plain
+    x = synthetic_window(60 * plan.ratio, n_ch, device, 31, True)
+    carry = cascade_stream_init(plan, n_ch, device)
+    saved = (fused_cascade.launches, fused_cascade.kernel_launches)
+    steps = 0
+    while steps < 5 or time.perf_counter() - t_p < PROFILE_S - 0.25:
+        _y, carry = step(x, carry, plan.stages, stream_carry_sizes(plan),
+                         qscale=QSCALE)
+        steps += 1
+        if cuda and steps % 10 == 0:
+            torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.synchronize()
+    fused_cascade.launches, fused_cascade.kernel_launches = saved
+    status = None
+    while time.perf_counter() - t_p < PROFILE_S + 60:
+        _s, b, _h = http_get(base + "/profile")
+        status = json.loads(b)
+        if status is None:
+            break
+        time.sleep(0.1)
+    capture_s = time.perf_counter() - t_p
+    names, events = (trace_events(pdir) if os.path.isdir(pdir)
+                     else ([], []))
+    kernels = kernel_event_names(events)
+    # whose host ops the capture holds: this thread launched the B3
+    # steps, the capture thread only slept
+    me = threading.get_native_id()
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    res = {
+        "devprof_status": st, "devprof_ms": devprof_ms,
+        "devprof_keys": sorted(snap),
+        "calibration": snap.get("calibration"),
+        "streams": {sid: {k: v.get(k) for k in (
+            "launches", "device_seconds", "utilization", "bound")}
+            for sid, v in snap.get("streams", {}).items()},
+        "profile_status": [first, second], "b3_steps_during_capture": steps,
+        "profile_second_error": (json.loads(body2).get("error")
+                                 if second != 200 else None),
+        "capture_s": capture_s, "trace_files": names,
+        "trace_bytes": sum(os.path.getsize(os.path.join(pdir, n))
+                           for n in names),
+        "trace_events": len(events),
+        "cpu_ops_this_thread": sum(1 for e in ops if e.get("tid") == me),
+        "cpu_ops_other_threads": sum(1 for e in ops if e.get("tid") != me),
+        "kernel_names": [k[:80] for k in kernels][:12],
+    }
+    checks = [
+        (st == 200 and tuple(sorted(snap)) == DEVPROF_KEYS,
+         f"/devprof {st} keys {sorted(snap)}"),
+        (any(v.get("launches", 0) > 0
+             for v in snap.get("streams", {}).values()),
+         "/devprof counts no launch of the live stream"),
+        (first == 200 and second == 409,
+         f"/profile answered {first} then {second}: {body1[:200]!r}"),
+        (status is None, f"the capture never ended: {status}"),
+        (len(names) == 1 and res["trace_bytes"] > 0,
+         f"the capture wrote {names}"),
+    ]
+    if cuda:
+        checks.append((
+            all(any(n in k for k in kernels)
+                for n in ("stage01_kernel", "fused_cascade_kernel")),
+            f"B3's kernels are not in the capture: {kernels[:8]}"))
+    return res, checks
+
+
 def serve_pool(device, link, sdir, out):
     """13c: a 2-worker ``ServePool`` over 13a's folder, fed through the
     producer's ``LiveBridge`` (``TPUDAS_LIVE_BRIDGE``) by
@@ -4080,6 +4456,9 @@ def phase_serve(device, workdir, cls, members):
         data, c = serve_data(out, srv)
         checks += c
         emit({"phase": "serve", "leg": "data", **data})
+        dev, c = serve_devprof(device, srv, sdir, members[0][2])
+        checks += c
+        emit({"phase": "serve", "leg": "devprof", **dev})
         srv.stop()
         srv = None
         pool, c = serve_pool(device, link, sdir, out)

@@ -1080,3 +1080,87 @@ def test_fused_kernel_is_chunk_invariant(cuda_device, int16):
     for (y, c), s in zip(runs[1:], splits[1:]):
         assert torch.equal(y, y0), s
         assert all(torch.equal(a, b) for a, b in zip(c, c0)), s
+
+
+def test_devprof_event_path_on_card(cuda_device, monkeypatch):
+    """The device telemetry on the card: each CUDA stream step (B3 under
+    ``fused``, the B1 chain under ``auto``, a stacked B3 step over two
+    members, the FFT step) is one launch bracketed by a pair of timing
+    events on the current stream; ``round_collect`` waits on the parked
+    end events, never on the whole device (``torch.cuda.synchronize`` is
+    made to raise), and gives positive device seconds no larger than
+    the steps' host wall."""
+    import time
+
+    from tpudas_torch.obs import devprof
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.ops.filter import fft_pass_filter_stream
+
+    devprof.reset()
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    C = 2048
+    x = torch.from_numpy(_window(60000, C, 5, int16=True)).to(cuda_device)
+    carry = fir.cascade_stream_init(plan, C, cuda_device)
+    reg = MetricsRegistry()
+    with use_registry(reg), devprof.stream_scope("card"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for eng in ("fused", "auto"):
+            _y, carry = fir.cascade_decimate_stream(x, carry, plan, eng,
+                                                    qscale=1e-4)
+        with devprof.wave_scope(["a", "b"]):
+            fir.cascade_decimate_stream_stacked(
+                [x[:, :1000].contiguous(), x[:, 1000:].contiguous()],
+                [tuple(c[:, :1000].contiguous() for c in carry),
+                 tuple(c[:, 1000:].contiguous() for c in carry)],
+                plan, "fused-cuda", qscale=1e-4)
+        fft_pass_filter_stream(x, torch.zeros((2000, C), device=cuda_device),
+                               0.001, high=0.45, qscale=1e-4)
+
+        def refuse(*_a, **_k):
+            raise AssertionError("round_collect synchronized the device")
+
+        monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+        d = devprof.round_collect()
+        wall = time.perf_counter() - t0
+        monkeypatch.undo()
+    snap = devprof.devprof_snapshot(calibrate=False)
+    assert d["launches"] == 3.0 and 0 < d["device_execute_s"] <= wall
+    assert snap["pending"] == 0
+    engines = {(e["engine"], e["stacked"], e["stream"]): e["launches"]
+               for e in snap["launches"]}
+    assert engines == {("fused-cuda", "0", "card"): 1.0,
+                       ("cuda", "0", "card"): 1.0,
+                       ("fft", "0", "card"): 1.0,
+                       ("fused-cuda", "1", "a"): 0.5,
+                       ("fused-cuda", "1", "b"): 0.5}
+    assert all(s["device_seconds"] > 0 for s in snap["streams"].values())
+    devprof.reset()
+
+
+def test_devprof_never_blocks_the_dispatching_thread(cuda_device):
+    """A launch still running on the card is parked: ``note_launch``
+    returns at once (``Event.query()`` does not wait), the entry stays
+    pending, and ``round_collect`` then waits for it and counts its
+    device seconds."""
+    import time
+
+    from tpudas_torch.obs import devprof
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+
+    devprof.reset()
+    with use_registry(MetricsRegistry()), devprof.stream_scope("busy"):
+        torch.cuda.synchronize()
+        t0 = devprof.launch_start(cuda_device)
+        torch.cuda._sleep(int(1e9))  # about half a second of device spin
+        t_host = time.perf_counter()
+        devprof.note_launch("probe", t0, None)
+        devprof.note_launch("probe", devprof.launch_start(cuda_device),
+                            None)
+        host_s = time.perf_counter() - t_host
+        parked = len(devprof._state.pending)
+        d = devprof.round_collect()
+    assert host_s < 0.05, host_s
+    assert parked == 2
+    assert d["launches"] == 2.0 and d["device_execute_s"] > 0.1
+    devprof.reset()

@@ -88,6 +88,7 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.obs.phases",
         "tpudas_torch.obs.registry",
         "tpudas_torch.obs.trace",
+        "tpudas_torch.obs.devprof",
         "tpudas_torch.tools.obs_report",
         "tpudas_torch.resilience.faults",
         "tpudas_torch.resilience.quarantine",

@@ -267,3 +267,39 @@ def test_parameters_surface_matches_reference():
     assert port.parameters["data_gap_tolorance"] == 4.0
     with pytest.raises(Exception, match="output folder"):
         port.process_time_range(np.datetime64(T1), np.datetime64(T2))
+
+
+def test_trace_dir_writes_a_trace_in_both(tmp_path, monkeypatch):
+    """``TPUDAS_TRACE_DIR`` makes each package's ``process_time_range``
+    write a profiler trace of the run into that folder (the JAX package
+    a TensorBoard profile, the port a Chrome trace); the port's trace
+    holds the torch ops of the thread that called it."""
+    import json
+    import threading
+
+    d = tmp_path / "src"
+    make_synthetic_spool(d, n_files=2, file_duration=30.0, fs=200.0,
+                         n_ch=16, noise=0.02)
+    traces = {}
+    for name in ("port", "jax"):
+        traces[name] = tmp_path / f"trace-{name}"
+        monkeypatch.setenv("TPUDAS_TRACE_DIR", str(traces[name]))
+        if name == "port":
+            _run_port(str(d), tmp_path / name, t2=TMID)
+        else:
+            lfp = _configure(JLFProc(jspool(str(d)).sort("time").update()),
+                             tmp_path / name)
+            lfp.process_time_range(np.datetime64(T1), np.datetime64(TMID))
+    for name, folder in traces.items():
+        files = [os.path.join(r, f) for r, _, fs in os.walk(folder)
+                 for f in fs]
+        assert files and all(os.path.getsize(f) > 0 for f in files), name
+    (path,) = [os.path.join(traces["port"], f)
+               for f in os.listdir(traces["port"])]
+    assert path.endswith(".pt.trace.json")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    me = threading.get_native_id()
+    ops = {e["name"] for e in events
+           if e.get("cat") == "cpu_op" and e.get("tid") == me}
+    assert "aten::einsum" in ops  # the plain FIR stage, on this thread

@@ -6,10 +6,12 @@ accumulates and finishes every phase, and a 3-round real-time run of
 each package emits every phase exactly once a round into the registry
 and into each round's flight record, with ``device_execute +
 host_wait > 0`` and each round's ``stream.round`` span flushed ahead of
-its record.  The JAX driver runs with ``TPUDAS_DEVPROF=0`` (the port
-has no device telemetry yet), so both packages stamp the same devprof
-fields; the phase key sets and the round-record key sets must be equal
-between the packages.  The ingest pipeline's counters (the prefetcher's
+its record.  Both drivers run with ``TPUDAS_DEVPROF=0`` there, so both
+packages stamp the same devprof fields; the phase key sets and the
+round-record key sets must be equal between the packages.  With the
+device telemetry on (its default) both packages measure a positive
+``device_execute`` on the CPU, count the same launches a round and
+export the ``tpudas_devprof_*`` counters.  The ingest pipeline's counters (the prefetcher's
 close) are recorded as in the JAX package.  Everything runs on the CPU.
 """
 
@@ -172,7 +174,7 @@ def test_realtime_rounds_emit_all_phases_exactly_once(three_rounds, pkg):
 
 def test_phase_and_record_keys_equal_between_packages(three_rounds):
     """The same phase keys, the same round-record keys and the same
-    devprof fields (the JAX driver's under ``TPUDAS_DEVPROF=0``); the
+    devprof fields (both drivers under ``TPUDAS_DEVPROF=0``); the
     port's device_execute is 0.0 and host_wait carries the residual."""
     port = read_flight(three_rounds["port"][1], kind="round")
     jax_ = read_flight(three_rounds["jax"][1], kind="round")
@@ -280,3 +282,30 @@ def test_rolling_rounds_emit_all_phases(tmp_path, monkeypatch):
     assert [r["patches"] for r in port] == [r["patches"] for r in jax_]
     for r in port:
         assert r["phases"]["commit"] > 0.0 and r["phases"]["host_wait"] > 0
+
+
+def test_device_telemetry_on_in_both(tmp_path, monkeypatch):
+    """The plane on (``TPUDAS_DEVPROF`` unset): every round of each
+    package carries a positive ``device_execute`` (the CPU step's own
+    seconds), equal to its record's ``device_execute_s``, the same
+    launches a round in both, and both registries export the launch and
+    device-second counters of the stream."""
+    monkeypatch.delenv("TPUDAS_DEVPROF", raising=False)
+    got = {}
+    for pkg, (_phases, registry) in PKGS.items():
+        src, out = str(tmp_path / f"src-{pkg}"), str(tmp_path / pkg)
+        _feed_files(src, 0, 2)
+        reg = registry.MetricsRegistry()
+        with registry.use_registry(reg):
+            assert _run_stream(pkg, src, out, rounds=2) == 2
+        recs = read_flight(out, kind="round")
+        for r in recs:
+            assert r["phases"]["device_execute"] > 0.0
+            assert r["phases"]["device_execute"] == pytest.approx(
+                r["devprof"]["device_execute_s"], abs=1e-6)
+        prom = reg.to_prometheus()
+        for name in ("tpudas_devprof_launches_total",
+                     "tpudas_devprof_device_seconds_total"):
+            assert f"# TYPE {name} counter" in prom, (pkg, name)
+        got[pkg] = [r["devprof"]["launches"] for r in recs]
+    assert got["port"] == got["jax"] and all(n > 0 for n in got["port"])

@@ -358,11 +358,13 @@ def _assert_obs_artifacts(out, jout, keyword):
     """The port's run ``out`` left the artifact of ``keyword`` as the JAX
     run ``jout`` did: the same names in the folder; a ``health.json``
     that each package reads and validates, with the JAX keys, and a
-    ``metrics.prom`` naming metrics of the JAX one's; a flight ring whose
-    records the JAX reader verifies, with the JAX record kinds and the
-    same round-record keys."""
+    ``metrics.prom`` naming metrics of the JAX one's (the device
+    telemetry's among them unless ``TPUDAS_DEVPROF=0``); a flight ring
+    whose records the JAX reader verifies, with the JAX record kinds,
+    the same round-record keys and the same launches a round."""
     from tpudas.obs.flight import read_flight as jax_read_flight
     from tpudas.obs.health import read_health as jax_read_health
+    from tpudas_torch.obs.devprof import devprof_enabled
     from tpudas_torch.obs.flight import read_flight
     from tpudas_torch.obs.health import read_health
 
@@ -383,11 +385,16 @@ def _assert_obs_artifacts(out, jout, keyword):
 
         # the round's own metrics are the JAX runner's; the port's lower
         # layers (spool, window, block counters) emit fewer than the JAX
-        # package's do
+        # package's do.  The device telemetry's launch and device-second
+        # counters are in both
         assert names(out) <= names(jout)
         assert {"tpudas_stream_rounds_total", "tpudas_health_writes_total",
                 "tpudas_stream_round_phase_seconds",
                 "tpudas_stream_head_lag_seconds"} <= names(out)
+        devprof_names = {"tpudas_devprof_launches_total",
+                         "tpudas_devprof_device_seconds_total"}
+        for folder in (out, jout):
+            assert (devprof_names <= names(folder)) == devprof_enabled()
         return
     recs, jrecs = jax_read_flight(out), jax_read_flight(jout)
     assert recs == read_flight(out) and recs
@@ -397,6 +404,21 @@ def _assert_obs_artifacts(out, jout, keyword):
     jrounds = [r for r in jrecs if r["kind"] == "round"]
     assert [sorted(r) for r in rounds] == [sorted(r) for r in jrounds]
     assert [r["round"] for r in rounds] == [r["round"] for r in jrounds]
+    # the round's device telemetry: the same launches, and device
+    # seconds of the port's own, the round's device_execute; under
+    # TPUDAS_DEVPROF=0 both packages stamp the same zero fields
+    for r, j in zip(rounds, jrounds):
+        assert sorted(r["devprof"]) == sorted(j["devprof"])
+        assert r["devprof"]["launches"] == j["devprof"]["launches"]
+        if devprof_enabled():
+            assert r["devprof"]["launches"] > 0
+            assert r["devprof"]["device_execute_s"] > 0.0
+        else:
+            assert r["devprof"] == j["devprof"] == {
+                "launches": 0.0, "device_execute_s": 0.0, "bound": None,
+                "utilization": None}
+        assert r["phases"]["device_execute"] == pytest.approx(
+            r["devprof"]["device_execute_s"], abs=1e-6)
 
 
 @pytest.mark.parametrize("keyword,value", [
@@ -430,7 +452,8 @@ def test_unported_keywords_raise(tmp_path, keyword, value, request,
         return
     if keyword in ("health", "flight"):
         pool = request.getfixturevalue("env_pool")
-        monkeypatch.setenv("TPUDAS_DEVPROF", "0")
+        # the device telemetry is on in both packages (its default)
+        monkeypatch.delenv("TPUDAS_DEVPROF", raising=False)
         from tpudas.obs import registry as jax_registry
         from tpudas_torch.obs import registry as port_registry
 

@@ -16,8 +16,8 @@ the same host arithmetic.
 The two packages count into their own registries, so ``/metrics`` is
 compared by its ``tpudas_serve_*`` families after the same request
 sequence (names, help, label sets, counter values, histogram counts).
-``/devprof`` and ``/profile`` answer 501 in the port (the device
-telemetry is ROADMAP A9).  A ``file://`` store holding the port folder's
+``/devprof`` and ``/profile`` answer as the JAX server's do, with the
+JAX bodies' keys.  A ``file://`` store holding the port folder's
 published pyramid is mounted by both packages' ``store_url`` servers:
 their pyramid answers, ``/tile`` and ``/healthz`` ``store`` block agree
 with each other and with a server over the folder itself.
@@ -390,16 +390,38 @@ def test_metrics_endpoint_is_the_live_registry(servers):
     assert 'endpoint="/query"' in text
 
 
-@pytest.mark.parametrize("endpoint", ["/devprof", "/profile",
-                                      "/profile?seconds=1"])
-def test_devprof_and_profile_answer_501(servers, endpoint):
-    """Documented difference (ROADMAP C): the device telemetry is not
-    ported, so the port answers 501 naming A9 where the JAX server
-    serves its devprof snapshot."""
-    p, _ = servers
-    status, body, _ = _get(p.base_url + endpoint)
-    assert status == 501
-    assert "ROADMAP A9" in json.loads(body)["error"]
+@pytest.mark.parametrize("endpoint", ["/devprof?calibrate=0", "/devprof",
+                                      "/profile", "/profile?seconds=1"])
+def test_devprof_and_profile_answer_as_the_jax_server(servers, endpoint):
+    """The device telemetry is ported: each server answers with the same
+    status, and a 200 body with the JAX body's keys — the snapshot's
+    top-level, calibration and compile keys (uncalibrated and
+    calibrated, both on the CPU), the bare ``/profile``'s null status.
+    A capture with no ``dir`` and no ``TPUDAS_PROFILE_DIR`` is a 400 in
+    both."""
+    from tpudas.obs import devprof as jdevprof
+    from tpudas_torch.obs import devprof as tdevprof
+
+    p, j = servers
+    for dp in (tdevprof, jdevprof):
+        dp.reset()  # no calibration from an earlier test of the process
+    a = _get(p.base_url + endpoint)
+    b = _get(j.base_url + endpoint)
+    assert a[0] == b[0] == (400 if "seconds" in endpoint else 200)
+    got, want = json.loads(a[1]), json.loads(b[1])
+    if endpoint == "/profile":
+        assert got is None and want is None
+    elif endpoint.startswith("/devprof"):
+        assert sorted(got) == sorted(want)
+        for key in ("calibration", "compile"):
+            assert sorted(got[key]) == sorted(want[key])
+        assert got["enabled"] is want["enabled"] is True
+        calibrated = endpoint == "/devprof"
+        for doc in (got, want):
+            assert (doc["calibration"]["launch_floor_s"] is not None) \
+                == calibrated
+    else:
+        assert "directory" in got["error"] and "directory" in want["error"]
 
 
 def test_store_url_refused(folders, store_servers):

@@ -44,15 +44,17 @@ Every step of a wave runs on the dispatching member's thread, on that
 thread's current CUDA stream: the stream path makes its blocks with a
 synchronous copy on the same (default) stream, so the packing copy is
 ordered after them, and each member's flush copies its output to the
-host, which waits for the stacked step.  Not ported yet: the JAX
-package's device-profile attribution of a wave to its members
-(``devprof.wave_scope``).
+host, which waits for the stacked step.  Each stacked step runs under
+the device telemetry's ``wave_scope`` of its members (a launch counted
+1/N to each, labelled stacked), each solo step under its own member's,
+since the dispatching thread runs the steps of other members.
 """
 
 from __future__ import annotations
 
 import threading
 
+from tpudas_torch.obs.devprof import wave_scope
 from tpudas_torch.obs.registry import get_registry
 
 __all__ = ["BatchGroupFormer", "BatchStepExecutor"]
@@ -258,15 +260,19 @@ class BatchStepExecutor:
                     "tpudas_fleet_batch_stacked_members_total",
                     "stream steps served by a stacked launch",
                 ).inc(len(pend))
-                _settle(pend, lambda: self._run_stacked(key, pend))
+                # the wave's launches run on this one thread: the
+                # member list, not its stream scope, is the truth
+                with wave_scope(members):
+                    _settle(pend, lambda: self._run_stacked(key, pend))
                 continue
-            for p in pend:
+            for m, p in zip(members, pend):
                 reg.counter(
                     "tpudas_fleet_batch_solo_launches_total",
                     "stream steps the batch executor ran alone (no "
                     "co-shaped peer in the rendezvous, or an FFT step)",
                 ).inc()
-                _settle([p], lambda p=p: [self._run_solo(key, p)])
+                with wave_scope([m]):
+                    _settle([p], lambda p=p: [self._run_solo(key, p)])
 
     def _run_stacked(self, key, pend):
         from tpudas_torch.obs.trace import span

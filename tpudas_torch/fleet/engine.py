@@ -59,10 +59,13 @@ Observability, as in the JAX runners (:mod:`tpudas_torch.obs`):
   head lag, realtime factor, device-telemetry fields) and ONE flush.
 - **Phases**: every processed round times the ten phases of
   :data:`tpudas_torch.obs.phases.PHASES` with the JAX runners'
-  attribution.  Until the device telemetry is ported the round does
-  what the JAX runner does under ``TPUDAS_DEVPROF=0``:
-  ``device_execute`` is 0.0 and ``host_wait`` carries the processing
-  call's whole residual; ``place`` is 0.0 (no mesh).
+  attribution.  Each round runs under the device telemetry's
+  ``stream_scope`` of its stream (:mod:`tpudas_torch.obs.devprof`);
+  its ``round_collect`` splits the processing call's residual into
+  ``device_execute`` (the round's device seconds, at most the
+  residual) and ``host_wait`` (the rest), and stamps the round
+  record's ``devprof`` fields (all zero under ``TPUDAS_DEVPROF=0``, as
+  in the JAX runner); ``place`` is 0.0 (no mesh).
 - **Live** (``live=True``, or ``TPUDAS_LIVE=1`` for a field left at
   None; :mod:`tpudas_torch.live`): each runner registers a
   :class:`~tpudas_torch.live.hub.LiveHub` under its stream id and
@@ -124,6 +127,7 @@ from tpudas_torch.device import resolve_device
 from tpudas_torch.fleet.config import StreamSpec
 from tpudas_torch.integrity import resource as _resource
 from tpudas_torch.io.spool import spool as make_spool
+from tpudas_torch.obs import devprof as _devprof
 from tpudas_torch.obs.flight import capture as flight_capture
 from tpudas_torch.obs.health import write_health, write_prom
 from tpudas_torch.obs.phases import RoundPhases
@@ -617,16 +621,22 @@ def _live_extra(runner) -> dict:
     return {"live": runner.live_hub.round_record()}
 
 
-def _devprof_fields() -> dict:
-    """The round record's ``devprof`` fields: what the JAX runner
-    stamps under ``TPUDAS_DEVPROF=0`` until the device telemetry is
-    ported (no launches counted, no device seconds, no bound, no
-    utilization)."""
+def _device_split(ph, stream_id, compute_s: float) -> dict:
+    """The device telemetry's round boundary: the stream's device
+    seconds this round (``round_collect``, which waits on the round's
+    parked launches) split ``compute_s``, the processing call's
+    residual, into ``device_execute`` (clamped to the residual) and
+    ``host_wait``.  Returns the round record's ``devprof`` fields."""
+    dev = _devprof.round_collect(stream_id)
+    compute_s = max(compute_s, 0.0)
+    dev_s = min(float(dev.get("device_execute_s", 0.0)), compute_s)
+    ph.add("device_execute", dev_s)
+    ph.add("host_wait", compute_s - dev_s)
     return {
-        "launches": 0.0,
-        "device_execute_s": 0.0,
-        "bound": None,
-        "utilization": None,
+        "launches": dev.get("launches", 0.0),
+        "device_execute_s": round(dev_s, 6),
+        "bound": dev.get("bound"),
+        "utilization": dev.get("utilization"),
     }
 
 
@@ -847,7 +857,10 @@ class LowpassStreamRunner(StreamRunner):
         # step land in this stream's flight recorder
         ph = self._round_phases = RoundPhases()
         try:
-            with flight_capture(self.flight):
+            # devprof stream scope: launches dispatched on this
+            # thread during the round are attributed to this stream
+            with flight_capture(self.flight), \
+                    _devprof.stream_scope(self.stream_id):
                 fault_point("round.body", poll=self.polls)
                 # quarantine exclusion + index update + scan-failure
                 # strikes + slow-schedule probe bookkeeping
@@ -1060,15 +1073,15 @@ class LowpassStreamRunner(StreamRunner):
             proc_wall = _time.perf_counter() - t_proc0
         # phase attribution of the processing call: the round's fresh
         # LFProc timings ARE its read/decode wait and output writes; the
-        # rest of the call is host_wait (kernel dispatch through host
-        # sync, engine glue).  device_execute stays 0.0 and place 0.0
-        # until the device telemetry and a mesh are ported (the JAX
-        # runner's TPUDAS_DEVPROF=0 split, unsharded)
+        # rest of the call splits into what the device executed and
+        # what the host spent dispatching, waiting and gluing (place
+        # stays 0.0 until a mesh is ported)
         assemble_s = float(lfp.timings.get("assemble_s", 0.0))
         write_s = float(lfp.timings.get("write_s", 0.0))
         ph.add("read_decode", assemble_s)
         ph.add("commit", write_s)
-        ph.add("host_wait", max(proc_wall - assemble_s - write_s, 0.0))
+        devprof_rec = _device_split(
+            ph, self.stream_id, proc_wall - assemble_s - write_s)
         self.prev_t2 = t2
         self.rounds = rnd
         self.round_rt = (
@@ -1157,7 +1170,7 @@ class LowpassStreamRunner(StreamRunner):
                 else round(self.head_lag, 3)
             ),
             phases=phases_rec,
-            devprof=_devprof_fields(),
+            devprof=devprof_rec,
             **_live_extra(self),
         )
         self._flight_flush()
@@ -1338,7 +1351,8 @@ class RollingStreamRunner(StreamRunner):
         self.polls += 1
         ph = self._round_phases = RoundPhases()
         try:
-            with flight_capture(self.flight):
+            with flight_capture(self.flight), \
+                    _devprof.stream_scope(self.stream_id):
                 fault_point("round.body", poll=self.polls)
                 with ph.measure("poll"):
                     sp = self.boundary.begin_round(
@@ -1418,11 +1432,12 @@ class RollingStreamRunner(StreamRunner):
                 emitted.append(out)
         # phase attribution: the loop is read + compute + write
         # interleaved; writes are timed at their site, the remainder is
-        # host_wait (device_execute 0.0 until the device telemetry is
-        # ported, as in the JAX runner)
+        # compute.  The rolling ops launch no instrumented step, so the
+        # round's device seconds are 0 and the remainder lands in
+        # host_wait, as in the JAX runner
         loop_s = _time.perf_counter() - t0
         ph.add("commit", write_s)
-        ph.add("host_wait", max(loop_s - write_s, 0.0))
+        devprof_rec = _device_split(ph, self.stream_id, loop_s - write_s)
         pyramid_s = _run_pyramid(self, rnd, emitted, ph)
         detect_s = _run_detect(self, rnd, emitted, self.step_sec, ph)
         _run_live(self, rnd, emitted, ph)
@@ -1438,7 +1453,7 @@ class RollingStreamRunner(StreamRunner):
         self._flight_record(
             "round", round=rnd, mode="rolling",
             patches=len(fresh), phases=phases_rec,
-            devprof=_devprof_fields(),
+            devprof=devprof_rec,
             **_live_extra(self),
         )
         self._flight_flush()

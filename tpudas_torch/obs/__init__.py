@@ -16,10 +16,14 @@ The port's counterpart of :mod:`tpudas.obs`:
 - :mod:`tpudas_torch.obs.phases` — the round-phase timeline
   (``tpudas_stream_round_phase_seconds{phase}``);
 - :mod:`tpudas_torch.obs.collect` — the fleet rollup with per-stream
-  freshness SLO status (``tpudas_torch.tools.obs_report``).
+  freshness SLO status (``tpudas_torch.tools.obs_report``);
+- :mod:`tpudas_torch.obs.devprof` — the device telemetry plane: launch,
+  compile and utilization accounting of every stream step, the round's
+  ``device_execute`` phase, ``GET /devprof`` and the ``GET /profile``
+  capture (``TPUDAS_DEVPROF=0`` disables).
 
-Kill switch: ``TPUDAS_OBS=0``.  Not ported yet: the device telemetry
-(``tpudas.obs.devprof``).
+Kill switch: ``TPUDAS_OBS=0``.  As in the JAX package, the devprof
+names are not re-exported here.
 """
 
 from tpudas_torch.obs.collect import (

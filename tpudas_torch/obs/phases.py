@@ -15,11 +15,14 @@ phase               what it covers (lowpass runner)
                     (``LFProc.timings["assemble_s"]``)
 ``place``           explicit H2D placement onto a device mesh (0.0:
                     the port has no mesh)
-``device_execute``  device seconds of the round's launches, from the
-                    device telemetry (0.0 until that is ported, as in
-                    the JAX package under ``TPUDAS_DEVPROF=0``)
-``host_wait``       the remainder of the processing call: kernel
-                    dispatch through host sync, engine glue
+``device_execute``  device seconds of the round's stream steps, from
+                    the device telemetry's CUDA event pairs
+                    (:func:`tpudas_torch.obs.devprof.round_collect`;
+                    the host bracket on the CPU), at most the
+                    processing call's residual; 0.0 under
+                    ``TPUDAS_DEVPROF=0``
+``host_wait``       the rest of that residual: kernel dispatch,
+                    waiting on the card, host sync, engine glue
 ``commit``          output writes (``timings["write_s"]``) + the
                     carry save
 ``pyramid``         the per-round tile-pyramid append

@@ -10,11 +10,16 @@ histogram, are handed to every registered span sink
 :mod:`tpudas_torch.obs.flight`), and export one ``log_event("span",
 ...)`` line each when a log handler is installed.
 
+``TPUDAS_TRACE_ANNOTATE=1`` additionally wraps each span in
+``torch.profiler.record_function`` (and, on a CUDA build of torch, an
+NVTX range), so spans line up with the ``device_trace`` /
+``TPUDAS_TRACE_DIR`` and ``/profile`` traces; the variable is read
+once, at the first span, as the JAX package's
+``jax.profiler.TraceAnnotation`` pass-through is.
+
 ``TPUDAS_OBS=0`` disables recording entirely (the registry's kill
 switch); ``TPUDAS_SPAN_RING`` sizes the ring (default 2048 finished
-spans).  Not ported yet: the device annotation around each span (the
-JAX package's ``TPUDAS_TRACE_ANNOTATE``), which comes with the device
-telemetry.
+spans).
 """
 
 from __future__ import annotations
@@ -72,6 +77,55 @@ def remove_span_sink(fn) -> None:
             _sinks.remove(fn)
 
 
+# the device annotation factory, resolved once (None = unresolved,
+# False = disabled/unavailable): a span must not pay for an import on
+# the hot path
+_annotation = None
+
+
+class _DeviceRange:
+    """A span's device half: a ``record_function`` range, and an NVTX
+    range when torch was built with CUDA."""
+
+    __slots__ = ("name", "_rf", "_nvtx")
+
+    def __init__(self, name, record_function, nvtx):
+        self.name = name
+        self._rf = record_function(name)
+        self._nvtx = nvtx
+
+    def __enter__(self):
+        self._rf.__enter__()
+        if self._nvtx is not None:
+            self._nvtx.range_push(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._nvtx is not None:
+            self._nvtx.range_pop()
+        self._rf.__exit__(None, None, None)
+        return False
+
+
+def _trace_annotation():
+    global _annotation
+    if _annotation is None:
+        if os.environ.get("TPUDAS_TRACE_ANNOTATE", "0") != "1":
+            _annotation = False
+        else:
+            try:
+                import torch
+                from torch.profiler import record_function
+
+                nvtx = torch.cuda.nvtx if torch.version.cuda else None
+
+                def _annotation(name, _rf=record_function, _nvtx=nvtx):
+                    return _DeviceRange(name, _rf, _nvtx)
+            except Exception:  # pragma: no cover - build specific
+                _annotation = False
+    return _annotation
+
+
 def _span_stack():
     st = getattr(_local, "stack", None)
     if st is None:
@@ -114,7 +168,7 @@ class _Span:
     """Hand-rolled context manager (no ``@contextmanager`` generator
     machinery) for the hot path.  Yields the mutable span record."""
 
-    __slots__ = ("name", "attrs", "rec", "_t0", "_reg")
+    __slots__ = ("name", "attrs", "rec", "_cm", "_t0", "_reg")
 
     def __init__(self, name, attrs):
         self.name = name
@@ -142,6 +196,10 @@ class _Span:
         }
         stack.append(rec)
         self._reg = reg
+        ann = _trace_annotation()
+        self._cm = ann(rec["name"]) if ann else None
+        if self._cm is not None:
+            self._cm.__enter__()
         rec["start"] = time.time()
         self._t0 = time.perf_counter()
         return rec
@@ -151,6 +209,8 @@ class _Span:
         if rec is None:
             return False
         dur = time.perf_counter() - self._t0
+        if self._cm is not None:
+            self._cm.__exit__(None, None, None)
         if exc is not None:
             rec["error"] = repr(exc)[:200]
         rec["duration_s"] = dur

@@ -6,7 +6,10 @@ at first use, into ``build/tpudas_torch/`` beside the package; the
 library is loaded with ``ctypes``.  The file name carries a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
 is reused; :func:`build_libraries` compiles several sources at once,
-one nvcc process each.  Nothing here runs at import time: the CPU-only test
+one nvcc process each.  Each nvcc build and each library's first load
+is reported to the device telemetry as one compile of its seconds
+(:mod:`tpudas_torch.obs.devprof`), attributed to the calling thread's
+declared kernel key.  Nothing here runs at import time: the CPU-only test
 environment has no ``nvcc`` and imports every module.
 """
 
@@ -22,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+from tpudas_torch.obs import devprof
+
 __all__ = [
     "NVCC_FLAGS", "build_dir", "build_libraries", "load_library", "build_info",
     "kernel_resources",
@@ -36,6 +41,9 @@ _PKG = Path(__file__).resolve().parents[1]
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _INFO: dict[str, dict] = {}
+# the device telemetry's compile event (a name ending as the JAX
+# package's backend-compile duration event does)
+_COMPILE_EVENT = "/tpudas_torch/kernel/backend_compile_duration"
 
 
 def build_dir() -> Path:
@@ -108,6 +116,7 @@ def build_libraries(names) -> None:
                 or "spill" in ln
             ]
             os.replace(tmp, so)
+            devprof._on_compile_duration(_COMPILE_EVENT, info["seconds"])
         if failed:
             raise RuntimeError("\n".join(failed))
 
@@ -119,7 +128,10 @@ def load_library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             lib = _LIBS[name] = ctypes.CDLL(str(_so_path(name)[1]))
+            devprof._on_compile_duration(
+                _COMPILE_EVENT, time.perf_counter() - t0)
         return lib
 
 

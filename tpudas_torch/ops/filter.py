@@ -17,15 +17,21 @@ Entry points take a torch tensor (its device is used) or a numpy array
 (:func:`fft_pass_filter_stream_stacked`) validates several streams'
 blocks as one wave and runs each member's step at the member's own
 width; the mesh path of the stream step is a later slice of the port.
+Both stream steps report each step to the device telemetry
+(:mod:`tpudas_torch.obs.devprof`), with the work a step must do counted
+by :func:`fft_step_cost`.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from tpudas_torch.core import units as _units
 from tpudas_torch.device import resolve_device
+from tpudas_torch.obs import devprof
 from tpudas_torch.ops.fftlen import next_tpu_fft_len
 
 __all__ = [
@@ -35,6 +41,7 @@ __all__ = [
     "fft_stream_init",
     "fft_pass_filter_stream",
     "fft_pass_filter_stream_stacked",
+    "fft_step_cost",
 ]
 
 
@@ -132,6 +139,13 @@ def fft_stream_init(edge: int, n_ch: int) -> np.ndarray:
     return np.zeros((2 * int(edge), int(n_ch)), np.float32)
 
 
+def _carry_tensor(carry, dev):
+    """An overlap-save carry (numpy or tensor) as float32 on ``dev``."""
+    c = carry if isinstance(carry, torch.Tensor) else torch.from_numpy(
+        np.asarray(carry))
+    return c.to(device=dev, dtype=torch.float32)
+
+
 def fft_pass_filter_stream(block, carry, d_sec, low=None, high=None,
                            order=4, qscale=None, device=None):
     """One streaming step of the zero-phase FFT band filter.
@@ -154,23 +168,50 @@ def fft_pass_filter_stream(block, carry, d_sec, low=None, high=None,
     x = _as_tensor(block, device)
     dev = x.device
     _check_quantized(x, qscale)
-    c = carry if isinstance(carry, torch.Tensor) else torch.from_numpy(
-        np.asarray(carry))
-    c = c.to(device=dev, dtype=torch.float32)
+    c = _carry_tensor(carry, dev)
     if c.dim() != 2 or c.shape[0] % 2:
         raise ValueError(f"carry must be (2*edge, C), got {tuple(c.shape)}")
     if x.dim() != 2 or x.shape[1] != c.shape[1]:
         raise ValueError(
             f"block {tuple(x.shape)} does not match carry {tuple(c.shape)}"
         )
+    T, rows_carry, n_ch = int(x.shape[0]), int(c.shape[0]), int(x.shape[1])
+    shape_key = (T, rows_carry, n_ch, float(d_sec), low, high, int(order),
+                 int(qscale is not None))
+    devprof.note_kernel("fft", shape_key, ())
+    cost = devprof.kernel_cost("fft", shape_key, fft_step_cost,
+                               (T, rows_carry, n_ch, x.element_size()))
+    t0 = devprof.launch_start(dev)
+    out = _fft_step(x, c, d_sec, low, high, order, qscale)
+    devprof.note_launch("fft", t0, out, cost=cost)
+    return out
+
+
+def _fft_step(x, c, d_sec, low, high, order, qscale):
+    """One overlap-save step on a block and a float32 carry on its
+    device -> ``(filtered, new_carry)``."""
     x = x.to(torch.float32)
     if qscale is not None:
-        x = x * _f32(qscale, dev)
+        x = x * _f32(qscale, x.device)
     T = int(x.shape[0])
     edge = int(c.shape[0]) // 2
     xc = torch.cat([c, x], dim=0)
     filt = _filter_rows(xc, d_sec, low, high, order)
     return filt[edge : edge + T].clone(), xc[xc.shape[0] - 2 * edge :].clone()
+
+
+def fft_step_cost(T: int, rows_carry: int, C: int, in_bytes: int) -> dict:
+    """The least work of one overlap-save FFT step over a ``(T, C)``
+    block of ``in_bytes`` a sample with a ``(rows_carry, C)`` float32
+    carry: ``{"flops", "bytes"}``.  Bytes: the block and the carry read
+    once, the filtered block and the new carry written once; flops: two
+    real FFTs of the step's ``nfft`` a channel, 2.5 nfft log2(nfft)
+    each.  A property of the work, not of its implementation."""
+    nfft = next_tpu_fft_len(int(T) + int(rows_carry))
+    by = (int(T) * int(C) * (int(in_bytes) + 4)
+          + 2 * int(rows_carry) * int(C) * 4)
+    flops = int(C) * 2 * 2.5 * nfft * math.log2(max(nfft, 2))
+    return {"flops": float(flops), "bytes": float(by)}
 
 
 def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
@@ -214,11 +255,22 @@ def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
                 f"carry {tuple(np.shape(c))}"
             )
         _check_quantized(b, qscale)
-    return [
-        fft_pass_filter_stream(b, c, d_sec, low=low, high=high,
-                               order=order, qscale=qscale)
+    widths = tuple(int(b.shape[1]) for b in blocks)
+    dev = blocks[0].device
+    shape_key = (T, rows_carry, widths, float(d_sec), low, high,
+                 int(order), int(qscale is not None))
+    devprof.note_kernel("fft_stacked", shape_key, ())
+    cost = devprof.kernel_cost(
+        "fft_stacked", shape_key, fft_step_cost,
+        (T, rows_carry, sum(widths), blocks[0].element_size()))
+    t0 = devprof.launch_start(dev)
+    out = [
+        _fft_step(b, _carry_tensor(c, b.device), d_sec, low, high, order,
+                  qscale)
         for b, c in zip(blocks, carries)
     ]
+    devprof.note_launch("fft", t0, out, cost=cost, stacked=True)
+    return out
 
 
 def _host_sosfiltfilt(data, d_sec, low, high, order):

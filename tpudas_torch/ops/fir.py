@@ -49,6 +49,9 @@ Both share one carry layout, so a stream may switch engines at any
 block.  :func:`cascade_decimate_stream_stacked` runs one resolved engine
 once over several streams' blocks packed along channels (the batched
 fleet's stacked launch), each member's bytes equal to its solo step.
+Both stream steps report each step to the device telemetry
+(:mod:`tpudas_torch.obs.devprof`), with the work a step must do counted
+by :func:`stream_step_cost`.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ import numpy as np
 import torch
 
 from tpudas_torch.device import resolve_device
+from tpudas_torch.obs import devprof
 
 __all__ = [
     "CascadePlan",
@@ -88,6 +92,8 @@ __all__ = [
     "cascade_decimate_stream",
     "STACKED_ENGINES",
     "cascade_decimate_stream_stacked",
+    "stages_step_cost",
+    "stream_step_cost",
 ]
 
 # engine literals the batch entry point (cascade_decimate) accepts
@@ -577,6 +583,53 @@ def cascade_stream_init(plan: CascadePlan, n_ch: int, device=None) -> tuple:
     )
 
 
+def stages_step_cost(stages, sizes, T: int, C: int, in_bytes: int) -> dict:
+    """The least work of one stateful step of ``stages`` (``(R, taps)``
+    pairs with carry rows ``sizes``) over ``T`` input rows of ``C``
+    channels of ``in_bytes`` each: ``{"flops", "bytes"}``.  Bytes: the
+    input read once, the output and the new carry written once, the old
+    carry read once; flops: two per true tap and output of every stage.
+    A property of the work, not of the engine that does it: the device
+    telemetry's cost and the bound of ``chip_smoke.py`` both read it."""
+    flops, rows = 0.0, int(T)
+    for R, h in stages:
+        rows //= int(R)
+        flops += 2.0 * len(h) * rows * int(C)
+    by = (int(T) * int(C) * int(in_bytes) + rows * int(C) * 4
+          + 2 * sum(int(p) for p in sizes) * int(C) * 4)
+    return {"flops": flops, "bytes": float(by)}
+
+
+def stream_step_cost(plan: CascadePlan, T: int, C: int,
+                     in_bytes: int) -> dict:
+    """:func:`stages_step_cost` of the whole cascade: one stream step of
+    ``plan`` over a ``(T, C)`` block."""
+    return stages_step_cost(plan.stages, stream_carry_sizes(plan), T, C,
+                            in_bytes)
+
+
+def _plan_tag(plan: CascadePlan) -> str:
+    """Compact stable tag of a plan for the device telemetry's kernel
+    keys: distinct plans read as distinct shapes, and the key stays
+    printable (the /devprof kernel log shows it)."""
+    return (
+        f"r{plan.ratio}s{len(plan.stages)}"
+        f"h{hash(plan) & 0xFFFFFF:06x}"
+    )
+
+
+# the env knobs that change what a stream step runs
+_KNOB_ENVS = ("TPUDAS_FUSED_MIN_ELEMS", "TPUDAS_FUSED_CHUNK")
+
+
+def knob_fingerprint() -> tuple:
+    """The current value of every knob of :data:`_KNOB_ENVS`, as one
+    tuple: the device telemetry's ``knobs`` of a stream step."""
+    import os
+
+    return tuple(os.environ.get(n, "").strip() for n in _KNOB_ENVS)
+
+
 def fused_min_elems() -> int:
     """Block elements (T*C) below which a ``fused`` request runs the
     per-stage chain instead (the JAX package's measured crossover,
@@ -722,7 +775,15 @@ def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
         )
     eng = resolve_stream_engine(engine, plan, T, n_ch, dev)
     bufs = tuple(_carry_leaf(b, dev) for b in carry)
-    return _stream_step(x.contiguous(), bufs, plan, eng, qscale)
+    x = x.contiguous()
+    shape_key = (T, n_ch, eng, int(qscale is not None), _plan_tag(plan))
+    devprof.note_kernel("cascade", shape_key, knob_fingerprint())
+    cost = devprof.kernel_cost("cascade", shape_key, stream_step_cost,
+                               (plan, T, n_ch, x.element_size()))
+    t0 = devprof.launch_start(dev)
+    out = _stream_step(x, bufs, plan, eng, qscale)
+    devprof.note_launch(eng, t0, out, cost=cost)
+    return out
 
 
 def _stream_step(x, bufs, plan: CascadePlan, eng: str, qscale):
@@ -840,6 +901,15 @@ def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
         raise ValueError(
             f"engine={engine!r} needs CUDA tensors, got device {dev}"
         )
+    # one stacked launch: the packing, the step and the unpacking, as
+    # the JAX package's stacked program holds all three
+    shape_key = (T, tuple(widths), engine, int(qscale is not None),
+                 _plan_tag(plan))
+    devprof.note_kernel("cascade_stacked", shape_key, knob_fingerprint())
+    cost = devprof.kernel_cost(
+        "cascade_stacked", shape_key, stream_step_cost,
+        (plan, T, sum(widths), blocks[0].element_size()))
+    t0 = devprof.launch_start(dev)
     x = torch.cat(blocks, dim=1) if len(blocks) > 1 else blocks[0]
     bufs = tuple(
         torch.cat([_carry_leaf(c[i], dev) for c in carries], dim=1)
@@ -858,6 +928,7 @@ def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
             tuple(leaf[:, o : o + w].contiguous() for leaf in new),
         ))
         o += w
+    devprof.note_launch(engine, t0, out, cost=cost, stacked=True)
     return out
 
 

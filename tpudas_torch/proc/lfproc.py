@@ -31,10 +31,16 @@ Beside the window path, :meth:`LFProc.open_stream` and
 through a carried per-stage state.  ``engine="fused"`` runs that stream
 through the fused cascade kernel; batch windows under ``"fused"`` run
 the ordinary cascade.
+
+``TPUDAS_TRACE_DIR`` wraps :meth:`LFProc.process_time_range` in
+:func:`tpudas_torch.utils.profiling.device_trace`: a ``torch.profiler``
+Chrome trace of the run (the card's kernels and copies included) is
+written into that folder.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -525,10 +531,20 @@ class LFProc:
                 )
         else:
             segments = [(0, len(time_grid))]
+        # TPUDAS_TRACE_DIR: a profiler trace of the whole run
+        # (torch.profiler, on this thread; utils/profiling.py)
+        trace_dir = os.environ.get("TPUDAS_TRACE_DIR")
+        if trace_dir:
+            from tpudas_torch.utils.profiling import device_trace
+
+            trace_cm = device_trace(trace_dir)
+        else:
+            trace_cm = contextlib.nullcontext()
         total_windows = 0
         try:
-            with span("lfproc.process_time_range",
-                      grid_points=len(time_grid), segments=len(segments)):
+            with trace_cm, span("lfproc.process_time_range",
+                                grid_points=len(time_grid),
+                                segments=len(segments)):
                 for s_i, (g_lo, g_hi) in enumerate(segments):
                     if len(segments) > 1:
                         print(

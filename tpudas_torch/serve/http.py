@@ -5,10 +5,11 @@ rule and error string of the JAX server, over the port's query engine,
 ledger, score store and observability plane.  Over one folder the two
 servers answer with the same status, body bytes and cache/provenance
 headers.  Serving is host code: nothing on a request's path touches
-``torch.cuda``.  Object-store mounts (``store_url`` and its knobs,
-:mod:`tpudas_torch.store`) serve as the JAX server's do.  Two features
-of the JAX server are refused, never faked: ``/devprof`` and
-``/profile`` answer 501 until the device telemetry is ported.
+``torch.cuda``; ``/devprof`` and ``/profile`` read the process's
+device telemetry (:mod:`tpudas_torch.obs.devprof`), whose probes and
+captures touch the card only in a process that already runs on it.
+Object-store mounts (``store_url`` and its knobs,
+:mod:`tpudas_torch.store`) serve as the JAX server's do.
 
 ``ThreadingHTTPServer`` (stdlib, thread per connection) fronted by a
 **bounded admission gate**: at most ``max_inflight`` data-plane
@@ -782,24 +783,52 @@ class _Handler(BaseHTTPRequestHandler):
         return 200
 
     def _devprof(self, params: dict) -> int:
-        """Device telemetry snapshot: not ported yet (ROADMAP A9), so
-        501 with an error naming it — the JAX ``/profile`` already
-        answers 501 when its profiler is missing.  Control plane."""
-        return self._not_ported("/devprof")
+        """Device telemetry snapshot: per-kernel launch and device
+        seconds, compile / recompile-storm state, the kernel costs and
+        the live launch-bound vs compute-bound classification per
+        stream.  Process-wide (the device is shared) and control plane:
+        bypasses the admission gate — profiling a saturated server is
+        the point."""
+        from tpudas_torch.obs import devprof
+
+        calibrate = str(params.get("calibrate", "1")).lower() not in (
+            "0", "false", "no",
+        )
+        self._send_json(
+            200, devprof.devprof_snapshot(calibrate=calibrate)
+        )
+        return 200
 
     def _profile(self, params: dict) -> int:
-        """Time-boxed device profile: not ported yet (ROADMAP A9), so
-        501 as :meth:`_devprof`."""
-        return self._not_ported("/profile")
+        """Time-boxed ``torch.profiler`` trace into TPUDAS_PROFILE_DIR
+        without restarting the stream: ``?seconds=N`` starts one,
+        bare ``/profile`` reports status.  501 when the profiler is
+        unavailable in this runtime, 409 while a capture is already
+        running, 503 when disk pressure sheds the write (or the
+        profiler fails to start)."""
+        from tpudas_torch.obs import devprof
 
-    def _not_ported(self, endpoint: str) -> int:
-        self._send_json(
-            501,
-            {"error": f"{endpoint}: the device telemetry is not ported "
-                      "to tpudas_torch yet (ROADMAP A9); read the "
-                      "devprof column of /fleet/healthz instead"},
-        )
-        return 501
+        if "seconds" not in params:
+            self._send_json(200, devprof.profile_status())
+            return 200
+        if not devprof.profiler_available():
+            self._send_json(
+                501,
+                {"error": "torch.profiler is unavailable in this "
+                          "runtime; install a torch build with profiler "
+                          "support or inspect /devprof instead"},
+            )
+            return 501
+        seconds = float(params["seconds"])
+        out_dir = params.get("dir") or None
+        try:
+            info = devprof.start_profile(seconds, out_dir=out_dir)
+        except RuntimeError as exc:
+            status = 409 if "already" in str(exc).lower() else 503
+            self._send_json(status, {"error": str(exc)[:300]})
+            return status
+        self._send_json(200, info)
+        return 200
 
     # -- data plane ----------------------------------------------------
     def _events(self, mount, params: dict) -> int:

@@ -1,22 +1,48 @@
-"""Throughput counters for the processing drivers.
+"""Wall-clock timing, throughput counters and the device trace.
 
-The port's copy of :class:`tpudas.utils.profiling.Counters` (the
-notebooks' tic/toc harness plus the channel-samples/s and real-time
-factor metrics).  As in the JAX package, every accumulation is mirrored
-into the obs registry (``tpudas_proc_channel_samples_total`` /
+The port's copy of :mod:`tpudas.utils.profiling`: :class:`Timer` (the
+notebooks' tic/toc), :class:`Counters` (channel-samples/s and the
+real-time factor) and :func:`device_trace`.  As in the JAX package,
+every accumulation of :class:`Counters` is mirrored into the obs
+registry (``tpudas_proc_channel_samples_total`` /
 ``_data_seconds_total`` / ``_wall_seconds_total`` /
 ``_samples_redundant_total``), so ``metrics.prom`` and
 :func:`tpudas_torch.obs.registry.headline` report from one substrate.
+
+:func:`device_trace` records the enclosed block with
+``torch.profiler`` (CPU activity, and the card's kernels and copies
+when CUDA is available) and writes a Chrome trace
+(``<host>.<pid>.<ns>.pt.trace.json``) into its folder, where the JAX
+package writes a TensorBoard profile.  The capture starts and stops on
+the calling thread: ``torch.profiler`` records the host ranges of the
+thread that started it only, while the card's activity is process
+wide.
 """
 
 from __future__ import annotations
 
+import os
+import socket
 import time
 from contextlib import contextmanager
 
 from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.utils.logging import log_event
 
-__all__ = ["Counters"]
+__all__ = ["Timer", "Counters", "device_trace"]
+
+
+class Timer:
+    """``with Timer() as t: ...; t.elapsed`` — tic/toc."""
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        self.elapsed = None
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.start
+        return False
 
 
 class Counters:
@@ -93,3 +119,66 @@ class Counters:
             self.data_seconds / self.wall_seconds if self.wall_seconds
             else 0.0
         )
+
+
+def profiler_activities(cuda: bool) -> list:
+    """``torch.profiler`` activities: the host's, plus the card's when
+    ``cuda``."""
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+def trace_path(folder) -> str:
+    """A fresh Chrome-trace file name in ``folder``."""
+    return os.path.join(
+        str(folder),
+        f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}"
+        ".pt.trace.json",
+    )
+
+
+@contextmanager
+def device_trace(logdir=None):
+    """Capture a profiler trace of the enclosed block with
+    ``torch.profiler`` into ``logdir`` as a Chrome trace.
+
+    ``logdir=None`` reads ``TPUDAS_TRACE_DIR`` (operators enable
+    tracing by environment alone; a ``ValueError`` if neither is set).
+    The card's activity is recorded when CUDA is available.  Robust by
+    design: a profiler that fails to start logs a ``trace_failed``
+    event and the block still runs; a written trace logs
+    ``trace_written``."""
+    if logdir is None:
+        logdir = os.environ.get("TPUDAS_TRACE_DIR")
+        if not logdir:
+            raise ValueError(
+                "device_trace needs a logdir (argument or "
+                "TPUDAS_TRACE_DIR)"
+            )
+    prof = None
+    try:
+        import torch
+        from torch.profiler import profile
+
+        prof = profile(
+            activities=profiler_activities(torch.cuda.is_available())
+        )
+        prof.start()
+    except Exception as exc:
+        prof = None
+        log_event("trace_failed", error=str(exc)[:200])
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                os.makedirs(str(logdir), exist_ok=True)
+                prof.export_chrome_trace(trace_path(logdir))
+                log_event("trace_written", logdir=str(logdir))
+            except Exception as exc:
+                log_event("trace_failed", error=str(exc)[:200])
