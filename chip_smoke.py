@@ -191,6 +191,18 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    (d) ``python -m tpudas_torch.tools.fsck --backfill`` and ``--store``,
    ``obs_report --backfill`` (the queue's own shard counts) and
    ``store_scrub`` (nothing to repair), run in parallel.
+15. the multi-device layer over phase 4's spool, every mesh a
+   ``DeviceMesh`` of shards all on the one card (the host has one: no
+   copy between cards, no NCCL): (a) ``LFProc`` over 2 channel shards,
+   (b) a (time=2, ch=2) mesh with the halo, (c) a (time=2, ch=1) mesh
+   with ``window_dp``, each byte-equal to phase 4's files with its B1
+   launches counted; (d) ``run_lowpass_realtime`` under 2 channel shards
+   for ``fused`` and ``auto`` and 6,001 ch over 4 shards under
+   ``fused``, a round a file, ``carry_save_every=2``: outputs and the
+   saved carry byte-equal to a single-device control, no gather bytes in
+   the round that does not save, one devprof launch a sharded step; (e)
+   the ``fft`` stream over 2 shards against phase 6's (byte-equal, or
+   the gap reported); each leg's wall beside its control's.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -207,9 +219,10 @@ step's), ``--only fleet`` phases 1, 2 and 8 over a fresh spool and
 references from one ``JointProc`` pass), ``--only crash`` phases 1,
 2 and 10 over a fresh spool (``--cycles N``: N killed cycles for every
 engine), ``--only pyramid`` phases 1, 2 and 11, ``--only obs``
-phases 1, 2 and 12, ``--only serve`` phases 1, 2 and 13 and ``--only
-backfill`` phases 1, 2 and 14, each over a fresh spool; all exit 4
-without the kernels line or the ``ok`` line.
+phases 1, 2 and 12, ``--only serve`` phases 1, 2 and 13, ``--only
+backfill`` phases 1, 2 and 14 and ``--only mesh`` phases 1, 2 and 15
+(with its own single-device controls), each over a fresh spool; all
+exit 4 without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1531,10 +1544,11 @@ def run_lfproc(device, cls, src, out, **para):
     from tpudas_torch.proc.lfproc import schedule_windows
     from tpudas_torch.proc.naming import get_filename
 
+    mesh = para.pop("mesh", None)
     kw = dict(output_sample_interval=1.0, process_patch_size=60,
               edge_buff_size=10)
     kw.update(para)
-    lfp = cls(spool(src).sort("time").update(), device=device)
+    lfp = cls(spool(src).sort("time").update(), mesh=mesh, device=device)
     lfp.update_processing_parameter(**kw)
     lfp.set_output_folder(out, delete_existing=True)
     bg = np.datetime64(T0, "ns")
@@ -2571,6 +2585,10 @@ def batch_references(device, workdir, jcls):
 # killed cycles per engine (4 / 2 / 2 before phase 13 was added; cut
 # for its time)
 CRASH_CYCLES = {"fused": 3, "auto": 1, "fft": 1}
+# files the drill's stream starts with: the fft leg starts from one
+# (each of its worker rounds saves an 800 MB carry at 10,000 ch), which
+# keeps the whole script inside its time limit with phase 15
+CRASH_FILES_INIT = {"fused": 2, "auto": 2, "fft": 1}
 CRASH_LIVE_SUBS = 32  # the fused leg's never-drained live subscribers
 
 
@@ -2635,6 +2653,7 @@ def phase_crash(device, workdir, n_ch, tdas_output, cycles=None):
         rep = run_drill(engine=engine, cycles=cycles or n, seed=0,
                         workdir=wd, device=device.type, shape=shape,
                         tdas_output=tdas_output, feed=feed,
+                        files_init=CRASH_FILES_INIT[engine],
                         live=engine == "fused", live_subs=CRASH_LIVE_SUBS)
         rec, aud = rep["recover_s"], rep["audit_seconds"]
         line = {
@@ -4974,6 +4993,327 @@ def phase_backfill(device, workdir, cls, tdas_output):
             "summary": summary}
 
 
+# phase 15: the multi-device layer over one card.  The card's host has
+# one H100, so every mesh here is a DeviceMesh whose shards all live on
+# cuda:0: it proves the sharding code (pad-and-mask, placement, per-shard
+# launches, halo copies, gather) and byte-identity to the single-device
+# run, not copies between cards.
+MESH_ODD = (1, 6001)  # (first channel, width) of the pad-and-mask leg
+REHEARSE_MESH_ODD = (1, 17)
+
+
+def one_card_mesh(device, time_shards, ch_shards):
+    """A (time, ch) DeviceMesh of ``time_shards x ch_shards`` shards, all
+    on the one device (cuda:0 on the card)."""
+    from tpudas_torch.parallel.mesh import DeviceMesh
+
+    dev = (torch.device("cuda", 0) if device.type == "cuda"
+           else torch.device("cpu"))
+    return DeviceMesh([[dev] * ch_shards for _ in range(time_shards)])
+
+
+def carry_differs(a, b):
+    """Whether the saved ``.stream_carry.npz`` of ``a`` and ``b`` differ
+    in bytes (or one is missing)."""
+    import filecmp
+
+    from tpudas_torch.proc.stream import CARRY_FILENAME
+
+    pa, pb = os.path.join(a, CARRY_FILENAME), os.path.join(b, CARRY_FILENAME)
+    return not (os.path.isfile(pa) and os.path.isfile(pb)
+                and filecmp.cmp(pa, pb, shallow=False))
+
+
+def stream_leg(device, cls, src_all, src, out, engine, calls, mesh=None,
+               **para):
+    """``run_lowpass_realtime`` calls over ``src`` (hard links into
+    ``src_all``): ``calls`` is a list of (files linked before the call,
+    files linked at each later poll).  Returns walls, blocks, kernel
+    launches, and per round the carry saves and the transfer bytes
+    (place, gather) it moved, from a registry of the leg's own."""
+    from tpudas_torch.fleet import engine as fleet_engine
+    from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+    from tpudas_torch.proc.streaming import run_lowpass_realtime
+
+    reg = MetricsRegistry()
+    rounds, blocks, wall = [], {}, 0.0
+
+    def moved(direction):
+        return reg.value("tpudas_parallel_transfer_bytes_total",
+                         direction=direction)
+
+    def on_round(_rnd, lfp):
+        for k, v in lfp.stream_blocks.items():
+            blocks[k] = blocks.get(k, 0) + v
+        rounds.append((reg.value("tpudas_stream_carry_saves_total"),
+                       moved("place"), moved("gather")))
+
+    saved_cls = fleet_engine.LFProc
+    fleet_engine.LFProc = cls
+    zero_kernel_counts()
+    try:
+        with use_registry(reg):
+            for upto, feed in calls:
+                link_files(src_all, src, upto)
+                feed = list(feed)
+
+                def sleep(_, feed=feed):
+                    if feed:
+                        link_files(src_all, src, feed.pop(0))
+
+                t0 = time.perf_counter()
+                run_lowpass_realtime(
+                    src, out, T0, output_sample_interval=1.0,
+                    edge_buffer=10.0, process_patch_size=60,
+                    poll_interval=0.0, sleep_fn=sleep, on_round=on_round,
+                    engine=engine, stateful=True, device=device, mesh=mesh,
+                    **para)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+            dev = devprof_launch_sums(reg)
+    finally:
+        fleet_engine.LFProc = saved_cls
+    per_round, prev = [], (0.0, 0.0, 0.0)
+    for cur in rounds:
+        per_round.append({"saves": cur[0] - prev[0],
+                          "place_bytes": cur[1] - prev[1],
+                          "gather_bytes": cur[2] - prev[2]})
+        prev = cur
+    return {"wall_s": wall, "rounds": len(rounds), "blocks": blocks,
+            "kernel_counts": kernel_counts(), "per_round": per_round,
+            "place_bytes": moved("place"), "gather_bytes": moved("gather"),
+            "carry_saves": reg.value("tpudas_stream_carry_saves_total"),
+            "devprof_launches": dev["launches"]}
+
+
+def phase_mesh(device, workdir, cls, main=None, fft=None):
+    """Phase 15: the multi-device layer (A10) over phase 4's spool, with
+    meshes of shards all on the one card.  (a) ``LFProc`` over a 2-shard
+    channel mesh: files byte-equal to phase 4's single-device run, 2x
+    its B1 launches; (b) a (time=2, ch=2) mesh: the time-sharded cascade
+    with its halo, byte-equal; (c) a (time=2, ch=1) mesh with
+    ``window_dp``: at least one batch, byte-equal to the serial run; (d)
+    ``run_lowpass_realtime`` under a 2-shard channel mesh for ``fused``
+    (B3) and ``auto`` (B1) over files 1, 2, 3 (a round each) with
+    ``carry_save_every=2``: outputs and the saved carry byte-equal to a
+    single-device control, gather bytes 0 in the round that does not
+    save, one devprof launch per sharded step; then 6,001 channels over
+    4 shards under ``fused`` (pad-and-mask: 1,501 a shard); (e) the
+    ``fft`` stream under a 2-shard mesh against phase 6's stream (the
+    same two calls): byte-equal, or the gap reported.  ``main`` and
+    ``fft`` are phases 4's and 6's results: their outputs are the
+    controls; without them (``--only mesh``) the controls run here."""
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.parallel import pipeline as pipeline_mod
+    from tpudas_torch.utils.logging import set_log_handler
+
+    cuda = device.type == "cuda"
+    src_all = os.path.join(workdir, "src")
+    mdir = os.path.join(workdir, "mesh")
+    shutil.rmtree(mdir, ignore_errors=True)
+    t_phase = time.perf_counter()
+    checks, legs = [], {}
+    ch2, ch4 = one_card_mesh(device, 1, 2), one_card_mesh(device, 1, 4)
+    tc, dp = one_card_mesh(device, 2, 2), one_card_mesh(device, 2, 1)
+
+    # the batch control: phase 4's first run, or one run here
+    single = os.path.join(workdir, "out")
+    if main is not None and os.path.isdir(single):
+        single_wall = main["wall_s"]
+    else:
+        single = os.path.join(mdir, "batch_single")
+        single_wall = run_lfproc(device, cls, src_all, single)[1]
+
+    def batch_leg(tag, mesh, expect, **para):
+        out = os.path.join(mdir, tag)
+        events = []
+        fir_decimate.launches = 0
+        set_log_handler(events.append)
+        try:
+            lfp, wall, wins, _stems = run_lfproc(device, cls, src_all, out,
+                                                 mesh=mesh, **para)
+        finally:
+            set_log_handler(None)
+        launches = fir_decimate.launches
+        differ = same_files(single, out)
+        shards = mesh.size
+        leg = {"mesh": mesh.shape, "wall_s": wall,
+               "single_wall_s": single_wall, "windows": len(wins),
+               "dp_windows": sum(e["windows"] for e in events
+                                 if e["event"] == "window_dp_batch"),
+               "engine_counts": dict(lfp.engine_counts),
+               "staged_windows": lfp.staged_windows,
+               "fir_decimate_launches": launches,
+               "launches_per_shard": launches / shards,
+               "dp_batches": sum(e["event"] == "window_dp_batch"
+                                 for e in events),
+               "differing_files": differ}
+        ran = "cascade-cuda" if cuda else "cascade-torch"
+        checks.extend([
+            (not differ, f"({tag}) files differ from single device: {differ}"),
+            (lfp.engine_counts.get(ran) == len(wins),
+             f"({tag}) engine counts {lfp.engine_counts}"),
+            (lfp.staged_windows == 0, f"({tag}) a mesh window was staged"),
+            (launches == (expect if cuda else 0),
+             f"({tag}) B1 launches {launches} != {expect}"),
+        ])
+        emit({"phase": "mesh", "leg": tag, **leg})
+        return leg
+
+    # (a) channels over 2 shards: every window's 4 stages on each shard
+    legs["a_batch_ch2"] = batch_leg("a_batch_ch2", ch2, 4 * 4 * 2)
+    # (b) time x channels: a window whose layout fits runs 4 shards
+    fits = []
+    plain_sharded = pipeline_mod.sharded_cascade_decimate
+
+    def counting(*a, **k):
+        out = plain_sharded(*a, **k)
+        fits.append(out is not None)
+        return out
+
+    pipeline_mod.sharded_cascade_decimate = counting
+    try:
+        n_fit = 4  # the flagship's four windows all fit (checked below)
+        legs["b_batch_time2_ch2"] = batch_leg(
+            "b_batch_time2_ch2", tc, n_fit * 4 * 4 + (4 - n_fit) * 4 * 2)
+    finally:
+        pipeline_mod.sharded_cascade_decimate = plain_sharded
+    legs["b_batch_time2_ch2"]["time_sharded_windows"] = sum(fits)
+    checks.append((fits == [True] * 4,
+                   f"(b) the time-sharded layout fit {fits}"))
+    # (c) window data parallelism: the two interior windows go as one
+    # batch, a window a slot (4 launches each); the two edge windows run
+    # one by one, time-sharded over the mesh's 2 time slots (8 each)
+    legs["c_window_dp"] = batch_leg("c_window_dp", dp, 2 * 4 + 2 * 4 * 2,
+                                    window_dp=True)
+    checks.append((legs["c_window_dp"]["dp_windows"] == 2,
+                   "(c) the two interior windows did not run as a batch"))
+
+    # (d) the stateful stream, a round a file, carry_save_every=2
+    odd0, odd_w = MESH_ODD if cuda else REHEARSE_MESH_ODD
+    d_legs = (
+        ("fused_ch2", "fused", ch2, None),
+        ("auto_ch2", "auto", ch2, None),
+        (f"fused_{odd_w}ch_4shards", "fused", ch4,
+         (odd0 * D_CH, (odd0 + odd_w - 1) * D_CH)),
+    )
+    for tag, engine, mesh, distance in d_legs:
+        para = {"carry_save_every": 2}
+        if distance is not None:
+            para["distance"] = distance
+        runs = {}
+        for which, m in (("single", None), ("mesh", mesh)):
+            out = os.path.join(mdir, f"{tag}_{which}")
+            runs[which] = stream_leg(
+                device, cls, src_all, os.path.join(mdir, f"src_{tag}_{which}"),
+                out, engine, [(1, [2, 3])], mesh=m, **para)
+            runs[which]["out"] = out
+        sh, sg = runs["mesh"], runs["single"]
+        nc = mesh.shape["ch"]
+        n_blocks = sum(sh["blocks"].values())
+        kc = sh["kernel_counts"]
+        differ = same_files(sg["out"], sh["out"])
+        carry_diff = carry_differs(sg["out"], sh["out"])
+        # blocks below the fused size threshold run the B1 chain, in the
+        # mesh leg exactly where they do in the control
+        fused_blocks = sum(v for k, v in sh["blocks"].items()
+                           if k.startswith("fused"))
+        chain_blocks = n_blocks - fused_blocks
+        leg = {"engine": engine, "mesh": mesh.shape,
+               "channels": odd_w if distance else None,
+               "wall_s": sh["wall_s"], "single_wall_s": sg["wall_s"],
+               "rounds": sh["rounds"], "blocks": sh["blocks"],
+               "kernel_counts": kc, "launches_per_shard": {
+                   "b3_steps": kc["b3_steps"] / nc, "b1": kc["b1"] / nc},
+               "devprof_launches": sh["devprof_launches"],
+               "place_bytes": sh["place_bytes"],
+               "gather_bytes": sh["gather_bytes"],
+               "single_gather_bytes": sg["gather_bytes"],
+               "carry_saves": sh["carry_saves"],
+               "per_round": sh["per_round"],
+               "differing_files": differ, "carry_differs": carry_diff}
+        quiet = [r for r in sh["per_round"] if not r["saves"]]
+        want_eng = ((("fused-cuda" if cuda else "fused-torch")
+                     if engine == "fused" else
+                     ("cascade-cuda" if cuda else "cascade-torch")))
+        checks.extend([
+            (not differ, f"(d {tag}) files differ: {differ}"),
+            (not carry_diff, f"(d {tag}) the saved carry differs"),
+            (sh["rounds"] == sg["rounds"] == 3,
+             f"(d {tag}) rounds {sh['rounds']} / {sg['rounds']}"),
+            (sh["blocks"] == sg["blocks"] and want_eng in sh["blocks"],
+             f"(d {tag}) blocks {sh['blocks']} vs the control's "
+             f"{sg['blocks']}"),
+            (quiet and all(r["gather_bytes"] == 0 for r in quiet),
+             f"(d {tag}) gather bytes in a round without a save: "
+             f"{sh['per_round']}"),
+            (sh["gather_bytes"] > 0 and sh["place_bytes"] > 0,
+             f"(d {tag}) no place/gather traffic"),
+            ((kc["b3_steps"], kc["b1"])
+             == ((nc * fused_blocks, 4 * nc * chain_blocks) if cuda
+                 else (0, 0)),
+             f"(d {tag}) B3 steps / B1 launches {kc['b3_steps']} / "
+             f"{kc['b1']} != {nc} shards x {fused_blocks} fused / "
+             f"{chain_blocks} chain blocks"),
+            (sh["devprof_launches"] == n_blocks,
+             f"(d {tag}) devprof launches {sh['devprof_launches']} != "
+             f"{n_blocks} sharded steps"),
+        ])
+        emit({"phase": "mesh", "leg": f"d_{tag}", **leg})
+        legs[f"d_{tag}"] = leg
+
+    # (e) the FFT stream: phase 6c's two calls (files 1-2, then 3)
+    ctrl = os.path.join(workdir, "fft", "rt")
+    if fft is not None and os.path.isdir(ctrl):
+        ctrl_wall = fft["realtime_fft"]["wall_s"]
+    else:
+        ctrl = os.path.join(mdir, "fft_single")
+        ctrl_wall = stream_leg(device, cls, src_all,
+                               os.path.join(mdir, "src_fft_single"), ctrl,
+                               "fft", [(2, []), (3, [])])["wall_s"]
+    out_e = os.path.join(mdir, "fft_ch2")
+    sh = stream_leg(device, cls, src_all, os.path.join(mdir, "src_fft_ch2"),
+                    out_e, "fft", [(2, []), (3, [])], mesh=ch2)
+    p_c, _ = grid_checks(ctrl, "fft single")
+    p_e, _ = grid_checks(out_e, "fft mesh")
+    differ = same_files(ctrl, out_e)
+    rel = per_channel_rel(torch.from_numpy(p_e.host_data()),
+                          torch.from_numpy(p_c.host_data()))[0]
+    leg = {"engine": "fft", "mesh": ch2.shape, "wall_s": sh["wall_s"],
+           "single_wall_s": ctrl_wall, "rounds": sh["rounds"],
+           "blocks": sh["blocks"], "devprof_launches": sh["devprof_launches"],
+           "place_bytes": sh["place_bytes"],
+           "gather_bytes": sh["gather_bytes"],
+           "byte_equal": not differ and not carry_differs(ctrl, out_e),
+           "differing_files": len(differ), "max_rel_gap": rel}
+    checks.extend([
+        (rel <= REL_TOL, f"(e) fft mesh vs single gap {rel:.3e} > 1e-5"),
+        (sh["devprof_launches"] == sum(sh["blocks"].values()),
+         "(e) one devprof launch per sharded FFT step"),
+    ])
+    emit({"phase": "mesh", "leg": "e_fft_ch2", **leg})
+    legs["e_fft_ch2"] = leg
+    res = {"phase": "mesh", "wall_s": time.perf_counter() - t_phase,
+           "one_card": True,
+           "b1_launches": sum(legs[k]["fir_decimate_launches"]
+                              for k in ("a_batch_ch2", "b_batch_time2_ch2",
+                                        "c_window_dp"))
+           + sum(v["kernel_counts"]["b1"] for k, v in legs.items()
+                 if k.startswith("d_")),
+           "b3_steps": sum(v["kernel_counts"]["b3_steps"]
+                           for k, v in legs.items() if k.startswith("d_"))}
+    emit({**res, "summary": {k: {kk: v.get(kk) for kk in (
+        "wall_s", "single_wall_s", "launches_per_shard", "place_bytes",
+        "gather_bytes")} for k, v in legs.items()}})
+    for ok, what in checks:
+        if not ok:
+            fail(f"mesh check failed: {what}")
+    shutil.rmtree(mdir, ignore_errors=True)
+    res["legs"] = legs
+    return res
+
+
 def short_kernel_name(mangled):
     """``stage01_kernel<int16>`` or ``fir_v2_kernel<int16,16,8,6>`` from
     a mangled entry name (the kernels of csrc/ are templates over the
@@ -4997,10 +5337,11 @@ def main(argv=None):
                     help="dry run on the CPU at a small width; exits 3")
     ap.add_argument("--only",
                     choices=["fir", "fused", "fleet", "detect", "crash",
-                             "pyramid", "obs", "serve", "backfill"],
+                             "pyramid", "obs", "serve", "backfill", "mesh"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
                     "(fleet), 9 (detect), 10 (crash), 11 (pyramid), 12 "
-                    "(obs), 13 (serve) or 14 (backfill) alone; exits 4")
+                    "(obs), 13 (serve), 14 (backfill) or 15 (mesh) alone; "
+                    "exits 4")
     ap.add_argument("--cycles", type=int, default=None,
                     help="killed cycles of each engine's crash drill "
                     "(default: fused 3, auto and fft 1)")
@@ -5076,7 +5417,7 @@ def main(argv=None):
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
     tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
     if args.only in ("fleet", "detect", "crash", "pyramid", "obs", "serve",
-                     "backfill"):
+                     "backfill", "mesh"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5096,6 +5437,8 @@ def main(argv=None):
             phase_serve(device, workdir, cls, obs_members)
         elif args.only == "backfill":
             phase_backfill(device, workdir, cls, tdas_output)
+        elif args.only == "mesh":
+            phase_mesh(device, workdir, cls)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -5108,7 +5451,7 @@ def main(argv=None):
     fused_cases = phase_fused_kernel(device, widths, timer)
     res = phase_main_path(device, n_ch, MAIN_PATH_SECONDS, workdir, cls)
     rt = phase_realtime(device, workdir, cls)
-    phase_fft(device, workdir, cls)
+    fft = phase_fft(device, workdir, cls)
     phase_joint(device, workdir, jcls)
     fleet = phase_fleet(device, workdir, cls, members, timer)
     detect = phase_detect(device, workdir, timer, cls, jcls)
@@ -5117,6 +5460,7 @@ def main(argv=None):
     obs = phase_obs(device, workdir, cls, obs_members)
     serve = phase_serve(device, workdir, cls, obs_members)
     phase_backfill(device, workdir, cls, tdas_output)
+    mesh = phase_mesh(device, workdir, cls, res, fft)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}
@@ -5150,6 +5494,11 @@ def main(argv=None):
         "obs_launches": obs["legs"]["auto"]["kernel_counts"]["b1"],
         # phase 13a: the auto leg with the live plane on
         "serve_launches": serve["live"]["auto"]["b1"],
+        # phase 15: every mesh leg's B1 launches (shards on one card)
+        "mesh_launches": mesh["b1_launches"],
+        "mesh_launches_per_shard": {
+            k: v["launches_per_shard"] for k, v in mesh["legs"].items()
+            if "launches_per_shard" in v},
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
@@ -5199,6 +5548,8 @@ def main(argv=None):
         "serve_pool_launches": serve["pool"]["kernel_counts"]["b3_steps"],
         "serve_fleet_launches": serve["fleet"]["fleet"]["kernel_counts"][
             "b3_steps"],
+        # phase 15d: the fused stream's sharded steps (2 and 4 shards)
+        "mesh_launches": mesh["b3_steps"],
         "fleet_packed_ms": fleet["packed_step"].get("b3_packed_ms"),
         "fleet_solo_sum_ms": fleet["packed_step"].get("b3_solo_sum_ms"),
         "b1_chain_ms": full["b1_chain_ms"],

@@ -71,6 +71,18 @@ def test_sigkill_drill_smoke(tmp_path, monkeypatch):
     assert all(s > 0 for s in rep["worker_start_s"])
 
 
+def test_sigkill_drill_mesh_smoke(tmp_path, monkeypatch):
+    """The ``--mesh`` drill under the fused engine (the JAX package's
+    ``test_smoke_fused_mesh_drill``): seeded SIGKILL cycles on the
+    channel-sharded stream (2 logical CPU shards, 4 channels: 2 a
+    shard) end audit-clean and equal to the single-device control."""
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
+    rep = run_drill(engine="fused", cycles=2, seed=7, mesh=2,
+                    workdir=str(tmp_path / "drill"), **LIMITS)
+    assert rep["mesh"] == 2
+    _assert_drill_ok(rep)
+
+
 def test_sigkill_drill_compressed_pyramid(tmp_path, monkeypatch):
     """The drill under a compressed store (workers and control alike):
     the ``.tpt`` tiles match file for file."""
@@ -110,16 +122,28 @@ def test_sigkill_fleet_drill_batched(tmp_path):
 
 
 def test_cli_refuses_unported_options(tmp_path, monkeypatch, capsys):
-    """``--mesh`` (ROADMAP A10) raises; ``--live`` is ported: the drilled
-    cycles run live-on with never-drained subscribers and the control
+    """Every option is ported.  ``--mesh 2`` runs the drilled cycles
+    channel-sharded over two logical CPU shards and the control on one
+    device, and the drill holds (the sharded path survives the kills
+    byte-identical to the unsharded run); ``--live`` runs the drilled
+    cycles live-on with never-drained subscribers and the control
     live-off, and the drill holds (the live plane holds nothing
     durable)."""
     import json
 
     from tpudas_torch.tools.crash_drill import main
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        main(["--mesh", "2", "--device", "cpu"])
+    monkeypatch.setenv("TPUDAS_PYRAMID_TILE_LEN", "8")
+    report = str(tmp_path / "mesh.json")
+    assert main(["--mesh", "2", "--cycles", "2", "--engines", "auto",
+                 "--device", "cpu", "--workdir", str(tmp_path / "mesh"),
+                 "--out", report]) == 0
+    payload = json.load(open(report))
+    rep = payload["engines"]["auto"]
+    assert payload["mesh"] == 2 and rep["mesh"] == 2
+    _assert_drill_ok(rep)
+    with pytest.raises(SystemExit):
+        main(["--mesh", "2", "--streams", "2", "--device", "cpu"])
     with pytest.raises(SystemExit):
         main(["--live", "--streams", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="engine"):

@@ -10,8 +10,8 @@ byte for byte; the file names equal the JAX ``FleetEngine``'s and the
 data agree within 1e-5 of each channel's scale.  Then the ports of the
 JAX fleet cases: deficit round-robin under a stalled spool, fatal
 parking, a ``KeyboardInterrupt`` mid-fleet resumed byte-identical, the
-unpark probe, and the port's own rule that a spec asking for an
-unported feature raises when the fleet is built.
+unpark probe, and members sharded over a mesh or running window data
+parallelism.
 """
 
 import hashlib
@@ -34,7 +34,6 @@ from tpudas_torch.fleet import (
     drive,
     run_fleet,
 )
-from tpudas_torch.fleet.engine import UNPORTED_FIELDS
 from tpudas_torch.io.spool import spool as tspool
 from tpudas_torch.obs.registry import MetricsRegistry, use_registry
 from tpudas_torch.obs.trace import get_spans
@@ -204,23 +203,69 @@ class TestFleetByteIdentity:
 class TestFleetBuild:
     def test_unported_spec_raises_at_build_never_parked(self, pools,
                                                         tmp_path):
-        """A spec asking for a feature the port lacks is the caller's
-        error: NotImplementedError at build, before any runner exists."""
-        root = str(tmp_path / "root")
-        good = _specs(pools, tmp_path, sids=("s0",))[0]
-        for field in UNPORTED_FIELDS:
-            bad = StreamSpec(stream_id="b0", source=good.source,
-                             config=StreamConfig(kind="lowpass",
-                                                 **{**PARAMS, field: True}))
-            with pytest.raises(NotImplementedError, match=field):
-                FleetEngine(root, [good, bad], device="cpu")
-            rolling = StreamSpec(
-                stream_id="r0", source=good.source,
-                config=StreamConfig(kind="rolling", window=1.0, step=1.0,
-                                    **{field: True}))
-            with pytest.raises(NotImplementedError, match=field):
-                FleetEngine(root, [good, rolling], device="cpu")
-        assert not os.path.exists(os.path.join(root, "s0"))
+        """``mesh`` and ``window_dp``, the last fields the port lacked,
+        are ported: a fleet member asking for either builds and runs
+        (low-pass and rolling), its files byte-equal to the unsharded
+        member's over the same spool, and named as the JAX fleet's
+        member with data within 1e-5 per channel."""
+        from tpudas.parallel.mesh import make_mesh as jax_make_mesh
+        from tpudas_torch.parallel.mesh import make_mesh
+
+        good = _specs(pools, tmp_path, sids=("s0",), poll_jitter=0.0)[0]
+        legs = {
+            "mesh": ({"mesh": 2}, {"mesh": 2}, {}),
+            # window DP runs the window path: its control is stateless
+            "window_dp": (
+                {"window_dp": True,
+                 "mesh": make_mesh(4, time_shards=2, device="cpu")},
+                {"window_dp": True, "mesh": jax_make_mesh(4, time_shards=2)},
+                {"stateful": False}),
+        }
+        for field, (mine, theirs, ctrl) in legs.items():
+            root = str(tmp_path / f"root-{field}")
+            base = {**PARAMS, "poll_jitter": 0.0}
+            specs = [
+                StreamSpec(stream_id="c0", source=good.source,
+                           config=StreamConfig(kind="lowpass", **base,
+                                               **ctrl)),
+                StreamSpec(stream_id="b0", source=good.source,
+                           config=StreamConfig(kind="lowpass", **base,
+                                               **mine)),
+                StreamSpec(stream_id="r0", source=good.source,
+                           config=StreamConfig(kind="rolling", window=1.0,
+                                               step=1.0, poll_interval=0.0,
+                                               mesh=2)),
+                StreamSpec(stream_id="r1", source=good.source,
+                           config=StreamConfig(kind="rolling", window=1.0,
+                                               step=1.0, poll_interval=0.0)),
+            ]
+            summary = FleetEngine(root, specs, sleep_fn=lambda _s: None,
+                                  device="cpu").run()
+            assert summary["parked"] == [], field
+            b0, c0 = os.path.join(root, "b0"), os.path.join(root, "c0")
+            got, want = _shas(b0), _shas(c0)
+            assert got == want and len(got) > 1, field
+
+            def rolled(sid):
+                folder = os.path.join(root, sid)
+                return {n: open(os.path.join(folder, n), "rb").read()
+                        for n in os.listdir(folder) if n.startswith("LFDAS_")}
+
+            assert rolled("r0") == rolled("r1") and rolled("r0"), field
+            jroot = str(tmp_path / f"jax-{field}")
+            JaxFleetEngine(jroot, [JaxStreamSpec(
+                stream_id="b0", source=good.source,
+                config=JaxStreamConfig(kind="lowpass", **base, **theirs,
+                                       flight=False))],
+                sleep_fn=lambda _s: None).run()
+            ref = os.path.join(jroot, "b0")
+            names = sorted(n for n in os.listdir(b0) if n.startswith("LFDAS_"))
+            assert names == sorted(
+                n for n in os.listdir(ref) if n.startswith("LFDAS_"))
+            a, b = _merged(b0), _merged(ref)
+            da, db = a.host_data(), b.host_data()
+            scale = np.abs(db).max(axis=0)
+            assert (np.abs(da - db).max(axis=0) <= REL_TOL * scale).all()
 
     def test_no_device_raises_without_a_card(self, pools, tmp_path,
                                              monkeypatch):

@@ -1164,3 +1164,136 @@ def test_devprof_never_blocks_the_dispatching_thread(cuda_device):
     assert parked == 2
     assert d["launches"] == 2.0 and d["device_execute_s"] > 0.1
     devprof.reset()
+
+
+def _card_mesh(cuda_device, time_shards, ch_shards):
+    """Shards all on the one card: the mesh layout a one-card host can
+    run (copies between cards are not exercised)."""
+    from tpudas_torch.parallel.mesh import DeviceMesh
+
+    dev = torch.device("cuda", 0)
+    return DeviceMesh([[dev] * ch_shards for _ in range(time_shards)])
+
+
+@pytest.mark.parametrize("C", [10000, 6001, 1001])
+def test_mesh_b1_byte_equal_to_single_on_card(cuda_device, C):
+    """B1 under a [cuda:0] x 2 channel mesh, a (time=2, ch=2) mesh (each
+    time shard from its own first row, another tile phase) and window
+    DP: bit-equal to the unsharded kernel path, and that path within
+    1e-5 of the plain version.  Widths whose shards change the copy
+    width (10000/2 int16 vs 1001/2 padded) included."""
+    from tpudas_torch.parallel.batch import batched_cascade_decimate
+    from tpudas_torch.parallel.pipeline import sharded_cascade_decimate
+
+    plan = fir.design_cascade(1000.0, 1000, 0.45)
+    rng = np.random.default_rng(C)
+    # 70 outputs: each of 2 time shards holds 35,000 rows, more than the
+    # flagship cascade's right halo, so the time-sharded layout fits
+    x = rng.integers(-3000, 3000, (70 * 1000 + 9001, C), dtype=np.int16)
+    phase, n_out = 9000, 70
+    ref = fir.cascade_decimate(torch.from_numpy(x).to(cuda_device), plan,
+                               phase, n_out, qscale=1e-4)
+    if C <= 1001:  # the plain version on the host, at a narrow width
+        plain = fir.cascade_decimate(x, plan, phase, n_out, qscale=1e-4,
+                                     device="cpu")
+        assert _rel(ref, plain) <= REL_TOL
+    before = fir_decimate.launches
+    got = fir.cascade_decimate(x, plan, phase, n_out, qscale=1e-4,
+                               mesh=_card_mesh(cuda_device, 1, 2))
+    assert fir_decimate.launches - before == 2 * 4
+    assert torch.equal(got, ref)
+    tsh = sharded_cascade_decimate(_card_mesh(cuda_device, 2, 2), x, plan,
+                                   phase, n_out, qscale=1e-4)
+    assert tsh is not None and torch.equal(tsh, ref)
+    dp = batched_cascade_decimate(_card_mesh(cuda_device, 2, 1),
+                                  np.stack([x, x]), plan, phase, n_out,
+                                  qscale=1e-4)
+    assert torch.equal(dp[0], ref) and torch.equal(dp[1], ref)
+
+
+@pytest.mark.parametrize("C,shards", [(10000, 2), (6001, 4)])
+def test_mesh_b3_stream_byte_equal_to_single_on_card(cuda_device, C,
+                                                     shards):
+    """B3 (and the B1 chain) as sharded stream steps: outputs and every
+    carry leaf bit-equal to the unsharded step over an uneven block
+    sequence; 6001 channels over 4 shards are 1501 a shard, not a
+    multiple of 8 (kernel A's scalar loads)."""
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+    from tpudas_torch.parallel.sharding import ShardedTensor, gather_leaves
+    from tpudas_torch.proc.lfproc import output_corner
+
+    plan = fir.design_cascade(1000.0, 1000, output_corner(1.0))
+    mesh = _card_mesh(cuda_device, 1, shards)
+    rng = np.random.default_rng(11)
+    x = rng.integers(-3000, 3000, (24 * plan.ratio, C), dtype=np.int16)
+    for engine in ("fused-cuda", "cuda"):
+        ref = fir.cascade_stream_init(plan, C, cuda_device)
+        sh = fir.cascade_stream_init(plan, C, cuda_device)
+        off = 0
+        for n in (16, 3, 5):
+            blk = x[off * plan.ratio:(off + n) * plan.ratio]
+            off += n
+            before = fused_cascade.launches
+            y_ref, ref = fir.cascade_decimate_stream(
+                torch.from_numpy(blk).to(cuda_device), ref, plan, engine,
+                qscale=1e-4)
+            if engine == "fused-cuda":
+                assert fused_cascade.launches - before == 1
+            before = fused_cascade.launches
+            y, sh = fir.cascade_decimate_stream(blk, sh, plan, engine,
+                                                qscale=1e-4, mesh=mesh)
+            if engine == "fused-cuda":
+                assert fused_cascade.launches - before == shards
+            assert torch.equal(y, y_ref), (engine, n)
+            assert all(isinstance(b, ShardedTensor) for b in sh)
+        for a, b in zip(gather_leaves(sh, C), gather_leaves(ref, C)):
+            assert np.array_equal(a, b), engine
+
+
+def test_window_dp_reraises_a_kernel_launch_error(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """A kernel that fails to launch inside a window-DP batch is
+    re-raised: window DP is not latched off around a broken kernel."""
+    import tpudas_torch.parallel.batch as batch_mod
+    from tpudas_torch.ops import fir_kernel
+    from tpudas_torch.ops._build import KernelError
+    from tpudas_torch.utils.logging import set_log_handler
+
+    class TdasLFProc(LFProc):
+        # outputs as tdas: the card's host may lack h5py
+        def _write_output(self, patch, path):
+            patch.io.write(os.path.splitext(path)[0] + ".tdas", "tdas")
+
+    d = tmp_path / "raw"
+    make_synthetic_spool(d, n_files=6, file_duration=30.0, fs=100.0,
+                         n_ch=6, noise=0.01, format="tdas")
+    armed = {"on": False}
+    real_launch, real_batch = fir_kernel._launch, batch_mod.batched_cascade_decimate
+
+    def launch(*a, **k):
+        if armed["on"]:
+            raise KernelError("fir_decimate kernel launch failed: injected")
+        return real_launch(*a, **k)
+
+    def batch(*a, **k):
+        armed["on"] = True
+        return real_batch(*a, **k)
+
+    monkeypatch.setattr(fir_kernel, "_launch", launch)
+    monkeypatch.setattr(batch_mod, "batched_cascade_decimate", batch)
+    events = []
+    set_log_handler(events.append)
+    lfp = TdasLFProc(spool(str(d)).sort("time").update(),
+                     mesh=_card_mesh(cuda_device, 2, 1), device=cuda_device)
+    lfp.update_processing_parameter(output_sample_interval=1.0,
+                                    process_patch_size=60, edge_buff_size=10,
+                                    window_dp=True)
+    lfp.set_output_folder(str(tmp_path / "out"), delete_existing=True)
+    try:
+        with pytest.raises(KernelError, match="injected"):
+            lfp.process_time_range(np.datetime64("2023-03-22T00:00:00"),
+                                   np.datetime64("2023-03-22T00:03:00"))
+    finally:
+        set_log_handler(None)
+    assert armed["on"] and lfp._window_dp_ok
+    assert not [e for e in events if e["event"] == "window_dp_fallback"]

@@ -124,6 +124,13 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.backfill.objqueue",
         "tpudas_torch.viz",
         "tpudas_torch.viz.waterfall",
+        "tpudas_torch.parallel",
+        "tpudas_torch.parallel.mesh",
+        "tpudas_torch.parallel.sharding",
+        "tpudas_torch.parallel.halo",
+        "tpudas_torch.parallel.pipeline",
+        "tpudas_torch.parallel.batch",
+        "tpudas_torch.parallel.distributed",
     ):
         assert mod in res["mods"]
     loaded = res["loaded"]
@@ -177,6 +184,27 @@ def test_operator_tools_import_no_jax_no_tpudas():
         assert "tpudas_torch" in {_top(n) for n in names}, name
         assert [n for n in names
                 if _top(n) in ("jax", "jaxlib", "tpudas")] == [], name
+
+
+def test_parallel_modules_import_no_jax_no_tpudas():
+    """The parallel layer: no import at any depth (the distributed hooks
+    import inside functions) names JAX or the JAX package, and the
+    package exports the eight names of ``tpudas/parallel/__init__.py``;
+    the JAX ``compat`` shim has no counterpart (there is no
+    ``shard_map``)."""
+    import tpudas.parallel as jpar
+    import tpudas_torch.parallel as tpar
+
+    d = os.path.join(REPO, "tpudas_torch", "parallel")
+    for name in sorted(os.listdir(d)):
+        if name.endswith(".py"):
+            names = _imported_modules(os.path.join(d, name))
+            assert [n for n in names
+                    if _top(n) in ("jax", "jaxlib", "tpudas")] == [], name
+    assert sorted(tpar.__all__) == sorted(jpar.__all__)
+    assert len(tpar.__all__) == 8
+    assert all(callable(getattr(tpar, n)) for n in tpar.__all__)
+    assert not os.path.exists(os.path.join(d, "compat.py"))
 
 
 def test_pyramid_modules_import_no_jax_no_tpudas():

@@ -259,7 +259,7 @@ def test_parameters_surface_matches_reference():
     port, ref = LFProc(device="cpu"), JLFProc()
     for key in ("output_sample_interval", "process_patch_size",
                 "edge_buff_size", "data_gap_tolorance", "on_gap",
-                "filter_order", "engine"):
+                "filter_order", "engine", "window_dp"):
         assert port.parameters[key] == ref.parameters[key]
     with pytest.raises(TypeError):
         port.parameters["edge_buff_size"] = 3  # type: ignore[index]

@@ -195,7 +195,7 @@ def test_phase_and_record_keys_equal_between_packages(three_rounds):
     jnames = {r["name"] for r in read_flight(three_rounds["jax"][1],
                                              kind="span")}
     assert {"stream.round", "stream.increment",
-            "stream.carry_save"} <= names <= jnames
+            "stream.carry_save", "parallel.gather"} <= names <= jnames
 
 
 @pytest.mark.parametrize("pkg", sorted(PKGS))

@@ -391,6 +391,11 @@ def _assert_obs_artifacts(out, jout, keyword):
         assert {"tpudas_stream_rounds_total", "tpudas_health_writes_total",
                 "tpudas_stream_round_phase_seconds",
                 "tpudas_stream_head_lag_seconds"} <= names(out)
+        # the parallel layer's gauge and the carry save's gather bytes
+        parallel_names = {"tpudas_parallel_shards",
+                          "tpudas_parallel_transfer_bytes_total"}
+        for folder in (out, jout):
+            assert parallel_names <= names(folder), folder
         devprof_names = {"tpudas_devprof_launches_total",
                          "tpudas_devprof_device_seconds_total"}
         for folder in (out, jout):
@@ -427,11 +432,35 @@ def _assert_obs_artifacts(out, jout, keyword):
 ])
 def test_unported_keywords_raise(tmp_path, keyword, value, request,
                                  monkeypatch):
-    """Every keyword whose feature is not ported raises before the driver
-    writes; ``pyramid`` is ported now, and builds the tile pyramid;
-    ``health`` and ``flight`` are ported now and leave the JAX driver's
-    artifacts; ``live`` is ported now and registers a hub for the folder
-    that publishes every round, as the JAX driver's does."""
+    """Every keyword of the JAX driver is ported: ``mesh`` shards the
+    stateful stream (``tpudas_parallel_shards`` 2 in both packages) and
+    ``window_dp`` sends it to the window path, each giving the JAX
+    driver's stream; ``pyramid`` builds the tile pyramid; ``health`` and
+    ``flight`` leave the JAX driver's artifacts; ``live`` registers a hub
+    for the folder that publishes every round, as the JAX driver's
+    does."""
+    if keyword in ("mesh", "window_dp"):
+        from tpudas.obs import registry as jax_registry
+        from tpudas_torch.obs import registry as port_registry
+
+        pool = request.getfixturevalue("env_pool")
+        outs = {}
+        for name, driver, registry in (
+                ("port", run_lowpass_realtime, port_registry),
+                ("jax", jax_realtime, jax_registry)):
+            outs[name] = str(tmp_path / name)
+            reg = registry.MetricsRegistry()
+            with registry.use_registry(reg):
+                assert _drive(driver, pool, str(tmp_path / f"src-{name}"),
+                              outs[name], first=2, then=[3],
+                              **{keyword: value}) == 2
+            shards = reg.get("tpudas_parallel_shards").value()
+            assert shards == (2 if keyword == "mesh" else 1), name
+            # window_dp runs the window path in both packages: no carry
+            assert os.path.exists(os.path.join(
+                outs[name], tstream.CARRY_FILENAME)) == (keyword == "mesh"), name
+        _assert_same_stream(outs["port"], outs["jax"])
+        return
     if keyword == "live":
         from tpudas.live.hub import find_hub as jax_find_hub
         from tpudas_torch.live.hub import find_hub
@@ -482,12 +511,7 @@ def test_unported_keywords_raise(tmp_path, keyword, value, request,
                       out, first=2, then=[3], pyramid=value) == 2
         _assert_pyramid_of_outputs(out, str(tmp_path))
         return
-    with pytest.raises(NotImplementedError, match=keyword):
-        run_lowpass_realtime(
-            source=str(tmp_path / "src"), output_folder=str(tmp_path / "o"),
-            start_time=T0, sleep_fn=lambda _: None, device="cpu",
-            **{keyword: value}, **PARAMS)
-    assert not os.path.exists(tmp_path / "o")
+    raise AssertionError(f"no case for {keyword!r}")
 
 
 @pytest.mark.parametrize("keyword", ["rolling_window", "rolling_step"])
@@ -665,24 +689,47 @@ def test_env_feature_jax_writes_port_raises(env_pool, tmp_path, monkeypatch,
     _assert_obs_artifacts(out, jout, "health")
 
 
-@pytest.mark.parametrize("raw,raises", [("2", True), ("1", False),
-                                        ("0", False), ("", False)])
-def test_env_mesh(env_pool, tmp_path, monkeypatch, raw, raises):
-    """``TPUDAS_MESH=N`` is a mesh over N devices in the JAX package (0
-    and 1: none); the port has no mesh, so N > 1 raises naming it."""
+@pytest.mark.parametrize("raw,sharded", [("2", True), ("1", False),
+                                         ("0", False), ("", False)])
+def test_env_mesh(env_pool, tmp_path, monkeypatch, raw, sharded):
+    """``TPUDAS_MESH=N`` is a mesh over N devices in both packages (0
+    and 1: none; the port's CPU runs take N logical CPU shards): every
+    port entry point holds the mesh, both drivers set
+    ``tpudas_parallel_shards`` to N, and the port's sharded stream is
+    byte for byte its unsharded one and the JAX driver's within 1e-5."""
+    from tpudas.obs import registry as jax_registry
+    from tpudas_torch.obs import registry as port_registry
+
     monkeypatch.setenv("TPUDAS_MESH", raw)
     src, out = str(tmp_path / "src"), str(tmp_path / "port")
     _link(env_pool, src, 3)
-    if raises:
-        for name, start in _lowpass_entry_points(src, out).items():
-            with pytest.raises(NotImplementedError, match="TPUDAS_MESH"):
-                start()
-            assert not os.path.exists(out), name
-        return
-    assert _drive(run_lowpass_realtime, env_pool, src, out) == 1
-    jout = str(tmp_path / "jax")
-    assert _drive(jax_realtime, env_pool, src, jout) == 1
-    _assert_same_stream(out, jout)
+    for name, start in _lowpass_entry_points(
+            src, str(tmp_path / "ep")).items():
+        if name == "run_lowpass_realtime":
+            continue
+        obj = start()
+        runners = ([st.runner for st in obj.streams.values()]
+                   if name == "FleetEngine" else [obj])
+        assert all((r.mesh is not None) == sharded for r in runners), name
+    want = 2 if sharded else 1
+    outs = {}
+    for name, driver, registry in (
+            ("port", run_lowpass_realtime, port_registry),
+            ("jax", jax_realtime, jax_registry)):
+        outs[name] = str(tmp_path / name)
+        reg = registry.MetricsRegistry()
+        with registry.use_registry(reg):
+            assert _drive(driver, env_pool, src, outs[name]) == 1
+        assert reg.get("tpudas_parallel_shards").value() == want, name
+    _assert_same_stream(outs["port"], outs["jax"])
+    monkeypatch.setenv("TPUDAS_MESH", "0")
+    ctrl = str(tmp_path / "single")
+    assert _drive(run_lowpass_realtime, env_pool, src, ctrl) == 1
+    assert _products(ctrl) == _products(outs["port"])
+    for name in (*_products(ctrl), tstream.CARRY_FILENAME):
+        with open(os.path.join(ctrl, name), "rb") as a, \
+                open(os.path.join(outs["port"], name), "rb") as b:
+            assert a.read() == b.read(), name
 
 
 @pytest.mark.parametrize("raw,ring", [("1", True), ("0", False)])

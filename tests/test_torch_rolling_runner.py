@@ -195,15 +195,49 @@ class TestRollingRealtime:
         assert np.nanmax(np.abs(va - vb)) <= REL * np.nanmax(np.abs(vb))
 
     def test_unported_keywords_raise(self, tmp_path, monkeypatch):
-        """The unported keyword (``mesh``) raises; ``pyramid`` is ported
-        and builds the tile pyramid over the rolling outputs; ``flight``
-        is ported and keeps the JAX runner's ring; ``live`` is ported and
-        registers a hub for the folder that publishes every round, as
-        the JAX runner's does."""
-        with pytest.raises(NotImplementedError, match="mesh"):
-            run_rolling_realtime(
-                source=str(tmp_path), output_folder=str(tmp_path / "o"),
-                window=1.0, step=1.0, device="cpu", mesh=2)
+        """Every keyword of the JAX rolling runner is ported: ``mesh``
+        rolls each round's fresh patches as one batch over the mesh,
+        byte-equal to the per-patch run and within 1e-6 of the JAX
+        runner's mesh run; ``pyramid`` builds the tile pyramid over the
+        rolling outputs; ``flight`` keeps the JAX runner's ring;
+        ``live`` registers a hub for the folder that publishes every
+        round, as the JAX runner's does."""
+        from tpudas.obs.registry import MetricsRegistry as JaxRegistry
+        from tpudas.obs.registry import use_registry as jax_use
+        from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+        from tpudas_torch.utils.logging import set_log_handler
+
+        meshes = {}
+        events = []
+        set_log_handler(events.append)
+        try:
+            for pkg, mesh, reg, use in (
+                    ("port", 2, MetricsRegistry(), use_registry),
+                    ("plain", None, MetricsRegistry(), use_registry),
+                    ("jax", 2, JaxRegistry(), jax_use)):
+                msrc = str(tmp_path / f"msrc-{pkg}")
+                make_synthetic_spool(msrc, n_files=2, file_duration=FILE_SEC,
+                                     fs=FS, n_ch=NCH, noise=0.01)
+                meshes[pkg] = str(tmp_path / f"mesh-{pkg}")
+                with use(reg):
+                    assert _rolling("jax" if pkg == "jax" else "port", msrc,
+                                    meshes[pkg], mesh=mesh) == 2
+                assert reg.get("tpudas_parallel_shards").value() == (
+                    1 if mesh is None else 2), pkg
+        finally:
+            set_log_handler(None)
+        assert any(e["event"] == "rolling_batched" for e in events)
+        assert _outputs(meshes["port"]) == _outputs(meshes["plain"])
+        for name in _outputs(meshes["port"]):
+            with open(os.path.join(meshes["port"], name), "rb") as a, \
+                    open(os.path.join(meshes["plain"], name), "rb") as b:
+                assert a.read() == b.read(), name
+        assert _outputs(meshes["port"]) == _outputs(meshes["jax"])
+        for a, b in zip(tspool(meshes["port"]).sort("time").update(),
+                        tspool(meshes["jax"]).sort("time").update()):
+            da, db = a.host_data(), b.host_data()
+            assert np.array_equal(np.isnan(da), np.isnan(db))
+            assert np.nanmax(np.abs(da - db)) <= REL * np.nanmax(np.abs(db))
         from tpudas.live.hub import find_hub as jax_find_hub
         from tpudas_torch.live.hub import find_hub
 
@@ -401,13 +435,12 @@ def _rolling_entry_points(src, out):
                                      ("TPUDAS_FLIGHT", "1")])
 def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
     """Under the variable the JAX rolling runner turns its feature on
-    (the pyramid leaves ``.tiles/``, the live plane a hub); every port
-    entry point raises naming the variable before it writes anything —
-    except ``TPUDAS_PYRAMID``, ``TPUDAS_FLIGHT`` and ``TPUDAS_LIVE``,
-    ported now: every entry point turns the feature on, the driver's
+    (the pyramid leaves ``.tiles/``, the live plane a hub, the mesh a
+    sharded batch), and so does every port entry point: the driver's
     tree is the one the JAX package syncs from the same output files,
-    its flight ring has the JAX runner's records, and its hub is
-    registered for its folder."""
+    its flight ring has the JAX runner's records, its hub is registered
+    for its folder, and under ``TPUDAS_MESH=2`` every runner holds a
+    2-shard mesh and the outputs equal the JAX runner's."""
     src = str(tmp_path / "src")
     make_synthetic_spool(src, n_files=2, file_duration=FILE_SEC, fs=FS,
                          n_ch=NCH)
@@ -474,10 +507,29 @@ def test_env_feature_raises(tmp_path, monkeypatch, var, raw):
                         sleep_fn=lambda _: None) == 1
         _assert_pyramid_of_outputs(out, str(tmp_path))
         return
-    for name, start in _rolling_entry_points(src, out).items():
-        with pytest.raises(NotImplementedError, match=var):
-            start()
-        assert not os.path.exists(out), name
+    # TPUDAS_MESH=2: every entry point shards, and the driver's outputs
+    # are the JAX runner's under the same variable
+    for name, start in _rolling_entry_points(
+            src, str(tmp_path / "ep")).items():
+        if name == "run_rolling_realtime":
+            continue
+        obj = start()
+        runners = ([st.runner for st in obj.streams.values()]
+                   if name == "FleetEngine" else [obj])
+        assert all(r.mesh is not None and r.mesh.shape["ch"] == 2
+                   for r in runners), name
+    jout = str(tmp_path / "jax")
+    jsrc = str(tmp_path / "jsrc")
+    make_synthetic_spool(jsrc, n_files=2, file_duration=FILE_SEC, fs=FS,
+                         n_ch=NCH)
+    assert _rolling("port", src, out) == 2
+    assert _rolling("jax", jsrc, jout) == 2
+    assert _outputs(out) == _outputs(jout)
+    for a, b in zip(tspool(out).sort("time").update(),
+                    tspool(jout).sort("time").update()):
+        da, db = a.host_data(), b.host_data()
+        assert np.array_equal(np.isnan(da), np.isnan(db))
+        assert np.nanmax(np.abs(da - db)) <= REL * np.nanmax(np.abs(db))
 
 
 @pytest.mark.parametrize("var,raw", [("TPUDAS_HEALTH", "1"),

@@ -65,7 +65,18 @@ Observability, as in the JAX runners (:mod:`tpudas_torch.obs`):
   ``device_execute`` (the round's device seconds, at most the
   residual) and ``host_wait`` (the rest), and stamps the round
   record's ``devprof`` fields (all zero under ``TPUDAS_DEVPROF=0``, as
-  in the JAX runner); ``place`` is 0.0 (no mesh).
+  in the JAX runner); ``place`` is the round's ``parallel.place`` span
+  seconds (the explicit H2D placement of a sharded stream step; 0.0
+  without a mesh), taken out of the residual first, as in the JAX
+  runner.
+- **Mesh** (``mesh=``, or ``TPUDAS_MESH=N`` for a field left at None;
+  :mod:`tpudas_torch.parallel`): each runner resolves its mesh once
+  (:func:`~tpudas_torch.parallel.mesh.resolve_mesh`, on the runner's
+  device type).  A channel-only mesh keeps the stateful path with the
+  carry sharded on the devices; a time-sharded mesh (or ``window_dp``)
+  sends the low-pass runner to the window path, which owns the halo
+  exchange; the rolling runner rolls each chunk of fresh patches as one
+  batch over the mesh.
 - **Live** (``live=True``, or ``TPUDAS_LIVE=1`` for a field left at
   None; :mod:`tpudas_torch.live`): each runner registers a
   :class:`~tpudas_torch.live.hub.LiveHub` under its stream id and
@@ -103,12 +114,6 @@ drain clamps: ``time_range``,   ``tests/test_torch_backfill.py::
 ``terminate`` decision          and ``_more_to_drain`` flags, and the
                                 emitted time grid), ``TestDrainModeHooks``
 ==============================  ========================================
-
-Not ported in this slice: device telemetry and the mesh and window
-data parallelism.  A runner raises ``NotImplementedError`` when
-its configuration, or the environment variable the JAX runner reads
-for a field left at None (:data:`UNPORTED_ENV`), turns on one of those
-features (see :data:`UNPORTED_FIELDS`).
 """
 
 from __future__ import annotations
@@ -147,78 +152,15 @@ from tpudas_torch.utils.profiling import Counters
 
 __all__ = [
     "POLL_FLOOR_SEC",
-    "UNPORTED_ENV",
-    "UNPORTED_FIELDS",
     "LowpassStreamRunner",
     "PollJitter",
     "RollingStreamRunner",
     "StepResult",
     "StreamRunner",
     "build_runner",
-    "check_ported",
-    "check_unported",
     "clamp_poll_interval",
     "drive",
 ]
-
-# configuration fields whose features the port does not have yet; each
-# must stay at its off value (None or False)
-UNPORTED_FIELDS = (
-    "mesh",
-    "window_dp",
-)
-
-
-# the environment variable the JAX runners read for an unported field
-# left at None; window_dp has none
-UNPORTED_ENV = {
-    "mesh": "TPUDAS_MESH",
-}
-
-
-def _unported_from_env(name: str, kind: str):
-    """The value the JAX runner of ``kind`` resolves for ``name`` left
-    at None: ``TPUDAS_MESH=N`` is a mesh over N devices (0 and 1 mean
-    none, as in ``tpudas.parallel.mesh.resolve_mesh``)."""
-    env = UNPORTED_ENV.get(name)
-    if env is None:
-        return None
-    raw = os.environ.get(env, "").strip()
-    if not raw:
-        return None
-    n = int(raw)
-    if n < 0:
-        raise ValueError(f"mesh device count must be >= 0, got {n}")
-    return n if n > 1 else None
-
-
-def check_ported(spec: StreamSpec) -> None:
-    """Raise ``NotImplementedError`` when ``spec`` asks for a feature
-    (:data:`UNPORTED_FIELDS`) the port lacks, by its configuration or by
-    the environment."""
-    cfg = spec.config
-    check_unported({n: getattr(cfg, n) for n in UNPORTED_FIELDS}, cfg.kind)
-
-
-def check_unported(values: dict, kind: str = "lowpass") -> None:
-    """Raise ``NotImplementedError`` for any :data:`UNPORTED_FIELDS`
-    entry of ``values`` that is not at its off value (None or False),
-    resolving a None from its environment variable
-    (:data:`UNPORTED_ENV`) as the JAX runner of ``kind`` does."""
-    for name in UNPORTED_FIELDS:
-        v = values.get(name)
-        what = f"{name}={v!r}"
-        if v is None:
-            v = _unported_from_env(name, kind)
-            if v is not None:
-                env = UNPORTED_ENV[name]
-                what = f"{env}={os.environ[env]!r} ({name}={v!r})"
-        if v is not None and v is not False:
-            raise NotImplementedError(
-                f"{what}: this feature of the realtime driver is not "
-                "ported to tpudas_torch yet"
-            )
-
 
 @dataclass
 class StepResult:
@@ -640,6 +582,16 @@ def _device_split(ph, stream_id, compute_s: float) -> dict:
     }
 
 
+def _place_span_seconds(reg) -> float:
+    """Cumulative ``parallel.place`` span seconds from the span
+    histogram: the delta around one processing call is that round's
+    placement time (0 unsharded, or under a no-op registry)."""
+    hist = reg.get("tpudas_span_seconds")
+    if hist is None:
+        return 0.0
+    return float(hist.snapshot(name="parallel.place")["sum"])
+
+
 def write_rolling_output(patch, path) -> None:
     """Write one rolling-stream output patch: dasdae HDF5 at the
     ``LFDAS_*.h5`` name, as the JAX package does.  A module-level
@@ -766,7 +718,6 @@ class LowpassStreamRunner(StreamRunner):
             raise ValueError(
                 f"LowpassStreamRunner needs kind='lowpass', got {cfg.kind!r}"
             )
-        check_ported(spec)
         self.device = resolve_device(device)
         self.on_round = on_round
         self.d_t = float(cfg.output_sample_interval)
@@ -790,9 +741,13 @@ class LowpassStreamRunner(StreamRunner):
                 ("on_gap", cfg.on_gap),
                 ("filter_order", cfg.filter_order),
                 ("data_gap_tolerance", cfg.data_gap_tolerance),
+                ("window_dp", cfg.window_dp),
             )
             if v is not None
         }
+        from tpudas_torch.parallel.mesh import resolve_mesh
+
+        self.mesh = resolve_mesh(cfg.mesh, device=self.device)
         self.counters = counters if counters is not None else Counters()
         health = cfg.health
         if health is None:
@@ -825,8 +780,16 @@ class LowpassStreamRunner(StreamRunner):
         if stateful is None:
             stateful = os.environ.get("TPUDAS_STREAM_STATEFUL", "1") != "0"
         # the joint product runs the window (rewind) path: its rolling
-        # windows need the loaded halo, which the carry does not keep
-        self.stateful = bool(stateful) and self.rolling_output_folder is None
+        # windows need the loaded halo, which the carry does not keep.  A
+        # channel-only mesh keeps the stateful path (the carry shards
+        # over it, on the devices); a time-sharded mesh or window_dp
+        # takes the window path, which owns the halo exchange
+        self.stateful = bool(stateful) and (
+            self.rolling_output_folder is None
+            and not cfg.window_dp
+            and (self.mesh is None
+                 or int(self.mesh.shape.get("time", 1)) <= 1)
+        )
         carry_save_every = cfg.carry_save_every
         if carry_save_every is None:
             carry_save_every = int(
@@ -943,7 +906,7 @@ class LowpassStreamRunner(StreamRunner):
         t_prep0 = t_body  # host prep until the processing call
         joint_extra = {}
         if self.rolling_output_folder is not None:
-            lfp = JointProc(sub, device=self.device)
+            lfp = JointProc(sub, mesh=self.mesh, device=self.device)
             joint_extra = {
                 k: v
                 for k, v in (
@@ -953,7 +916,7 @@ class LowpassStreamRunner(StreamRunner):
                 if v is not None
             }
         else:
-            lfp = LFProc(sub, device=self.device)
+            lfp = LFProc(sub, mesh=self.mesh, device=self.device)
         # the processor is rebuilt every round: re-install the handoff
         lfp._batch_executor = self._batch_executor
         lfp.update_processing_parameter(
@@ -1002,6 +965,7 @@ class LowpassStreamRunner(StreamRunner):
         # metadata) charges the read_decode phase; the in-call read and
         # decode wait is mirrored out of lfp.timings below
         ph.add("read_decode", _time.perf_counter() - t_prep0)
+        place0 = _place_span_seconds(reg)
         redundant = 0.0
         if self.stateful:
             # carried state: only NEW samples are read and filtered
@@ -1073,15 +1037,18 @@ class LowpassStreamRunner(StreamRunner):
             proc_wall = _time.perf_counter() - t_proc0
         # phase attribution of the processing call: the round's fresh
         # LFProc timings ARE its read/decode wait and output writes; the
-        # rest of the call splits into what the device executed and
-        # what the host spent dispatching, waiting and gluing (place
-        # stays 0.0 until a mesh is ported)
+        # parallel.place span delta is the explicit H2D placement of a
+        # sharded step; the rest of the call splits into what the device
+        # executed and what the host spent dispatching, waiting and
+        # gluing
         assemble_s = float(lfp.timings.get("assemble_s", 0.0))
         write_s = float(lfp.timings.get("write_s", 0.0))
+        place_s = max(_place_span_seconds(reg) - place0, 0.0)
         ph.add("read_decode", assemble_s)
+        ph.add("place", place_s)
         ph.add("commit", write_s)
         devprof_rec = _device_split(
-            ph, self.stream_id, proc_wall - assemble_s - write_s)
+            ph, self.stream_id, proc_wall - assemble_s - write_s - place_s)
         self.prev_t2 = t2
         self.rounds = rnd
         self.round_rt = (
@@ -1293,12 +1260,18 @@ class LowpassStreamRunner(StreamRunner):
         )
 
 
+# fresh patches rolled as one mesh batch (host memory stays O(chunk))
+_ROLLING_BATCH_CHUNK = 32
+
+
 class RollingStreamRunner(StreamRunner):
     """One stateless rolling-mean stream: the ``run_rolling_realtime``
     round loop (see that driver's docstring).  Each new input patch is
     rolled on ``device`` (default the CUDA card) and written by
-    :func:`write_rolling_output`; the JAX package's mesh-batched path is
-    not ported."""
+    :func:`write_rolling_output`; under a mesh each chunk of fresh
+    patches is rolled as one batch over its ``ch`` axis
+    (:func:`~tpudas_torch.ops.rolling.rolling_mean_patches_batched`),
+    byte-identical to the per-patch path."""
 
     kind = "rolling"
 
@@ -1309,8 +1282,16 @@ class RollingStreamRunner(StreamRunner):
             raise ValueError(
                 f"RollingStreamRunner needs kind='rolling', got {cfg.kind!r}"
             )
-        check_ported(spec)
         self.device = resolve_device(device)
+        from tpudas_torch.parallel.mesh import resolve_mesh
+
+        self.mesh = resolve_mesh(cfg.mesh, device=self.device)
+        if self.mesh is not None and "ch" not in self.mesh.shape:
+            raise ValueError(
+                "run_rolling_realtime mesh needs a 'ch' axis (use "
+                "tpudas_torch.parallel.mesh.make_mesh); got axes "
+                f"{tuple(self.mesh.shape)}"
+            )
         self.window = cfg.window
         self.step_param = cfg.step
         self.scale = float(cfg.scale)
@@ -1414,14 +1395,9 @@ class RollingStreamRunner(StreamRunner):
         emitted = []  # in-memory capture (pyramid/detect/live)
         t0 = _time.perf_counter()
         write_s = 0.0
-        # one patch at a time: each output is written as soon as it is
-        # computed, so a retry resumes at the first unwritten patch
-        for j in fresh:
-            log_event("rolling_patch", index=j, stream=self.stream_id)
-            out = sub[j].rolling(
-                time=self.window, step=self.step_param,
-                engine=self.engine, device=self.device,
-            ).mean()
+
+        def write_out(j, out):
+            nonlocal write_s
             out = out.new(data=np.asarray(out.data) * self.scale)
             fname = get_filename(out.attrs["time_min"], out.attrs["time_max"])
             t_w0 = _time.perf_counter()
@@ -1430,6 +1406,35 @@ class RollingStreamRunner(StreamRunner):
             self.processed.add(keys[j])
             if self.pyramid or self.detect or self.live:
                 emitted.append(out)
+
+        # bounded chunks: each output is written as soon as its chunk is
+        # computed, so a retry resumes at the first unwritten patch
+        for c0 in range(0, len(fresh), _ROLLING_BATCH_CHUNK):
+            chunk = fresh[c0 : c0 + _ROLLING_BATCH_CHUNK]
+            outs = None
+            if (self.mesh is not None
+                    and self.engine not in ("numpy", "host")
+                    and len(chunk) > 1):
+                from tpudas_torch.ops.rolling import (
+                    rolling_mean_patches_batched,
+                )
+
+                outs = rolling_mean_patches_batched(
+                    self.mesh, [sub[j] for j in chunk], self.window,
+                    self.step_param)
+                if outs is not None:
+                    log_event("rolling_batched", patches=len(chunk),
+                              mesh=dict(self.mesh.shape))
+                    for j, out in zip(chunk, outs):
+                        write_out(j, out)
+            if outs is None:
+                for j in chunk:
+                    log_event("rolling_patch", index=j,
+                              stream=self.stream_id)
+                    write_out(j, sub[j].rolling(
+                        time=self.window, step=self.step_param,
+                        engine=self.engine, device=self.device,
+                    ).mean())
         # phase attribution: the loop is read + compute + write
         # interleaved; writes are timed at their site, the remainder is
         # compute.  The rolling ops launch no instrumented step, so the
@@ -1470,7 +1475,6 @@ def build_runner(
     stream's carry is resolved on its first round); ``device`` defaults
     to the CUDA card."""
     folder = spec.resolve_output_folder(root if root is not None else ".")
-    check_ported(spec)
     if spec.config.kind == "lowpass":
         return LowpassStreamRunner(
             spec, folder, counters=counters, on_round=on_round,

@@ -54,11 +54,9 @@ in batched service every member thread writes only its own ring.
 
 Not ported: the JAX package's persistent compile cache
 (``utils/compile_cache``) has no counterpart, because the nvcc-built
-kernel libraries are already shared by every stream of the process.  A
-spec that asks for an unported feature (any
-:data:`tpudas_torch.fleet.engine.UNPORTED_FIELDS` entry) raises
-``NotImplementedError`` when the fleet is built, rather than parking.
-Rolling streams and joint low-pass streams are always serviced solo.
+kernel libraries are already shared by every stream of the process.
+Rolling streams, joint low-pass streams and mesh-sharded streams are
+always serviced solo.
 """
 
 from __future__ import annotations
@@ -72,7 +70,7 @@ from dataclasses import replace
 from tpudas_torch.device import resolve_device
 from tpudas_torch.fleet.batch import BatchGroupFormer, BatchStepExecutor
 from tpudas_torch.fleet.config import StreamSpec
-from tpudas_torch.fleet.engine import StreamRunner, build_runner, check_ported
+from tpudas_torch.fleet.engine import StreamRunner, build_runner
 from tpudas_torch.obs.registry import get_registry
 from tpudas_torch.obs.trace import span
 from tpudas_torch.utils.logging import log_event
@@ -185,10 +183,6 @@ class FleetEngine:
         if len(set(ids)) != len(ids):
             dupes = sorted({i for i in ids if ids.count(i) > 1})
             raise ValueError(f"duplicate stream_id(s): {dupes}")
-        # a missing feature is the caller's error, not a stream fault:
-        # raise before any runner exists instead of parking the stream
-        for spec in specs:
-            check_ported(spec)
         self.root = str(root)
         os.makedirs(self.root, exist_ok=True)
         self.max_rounds = max_rounds

@@ -424,6 +424,18 @@ class _Bracket:
         self.device = device
 
 
+class _MeshBracket:
+    """A sharded step's start over several cards: one :class:`_Bracket`
+    per card.  The step's device seconds are the largest of the
+    cards' brackets (the cards run their shards concurrently)."""
+
+    __slots__ = ("t0", "parts")
+
+    def __init__(self, t0, parts):
+        self.t0 = t0
+        self.parts = parts
+
+
 def _take_event(device):
     import torch
 
@@ -452,8 +464,18 @@ def launch_start(device=None):
     """The start of one step's bracket, taken immediately before the
     step: on a CUDA ``device`` a timing event recorded on its current
     stream, otherwise a ``perf_counter`` stamp (what
-    :func:`note_launch` takes as ``t0``)."""
+    :func:`note_launch` takes as ``t0``).  ``device`` may be a list (a
+    sharded step's devices): each distinct card gets its own event,
+    and the step counts as one launch timed by its slowest card."""
     t0 = time.perf_counter()
+    if isinstance(device, (list, tuple)):
+        cards = []
+        for d in device:
+            if getattr(d, "type", None) == "cuda" and d not in cards:
+                cards.append(d)
+        if len(cards) > 1 and devprof_enabled():
+            return _MeshBracket(t0, [launch_start(d) for d in cards])
+        device = cards[0] if cards else None
     if device is None or getattr(device, "type", None) != "cuda" \
             or not devprof_enabled():
         return t0
@@ -520,14 +542,18 @@ def note_launch(engine: str, t0, out, cost=None,
     if comp:
         _TLS.bracket_compile_s = 0.0
     keys = _attribution(stacked)
-    if isinstance(t0, _Bracket):
+    if isinstance(t0, (_Bracket, _MeshBracket)):
         import torch
 
-        end = _take_event(t0.device)
-        end.record(torch.cuda.current_stream(t0.device))
+        parts = t0.parts if isinstance(t0, _MeshBracket) else (t0,)
+        ends = []
+        for br in parts:
+            end = _take_event(br.device)
+            end.record(torch.cuda.current_stream(br.device))
+            ends.append(end)
         with _state.lock:
             _state.pending.append(
-                [keys, str(engine), t0, end, comp, cost]
+                [keys, str(engine), parts, ends, comp, cost]
             )
     else:
         if comp:
@@ -546,14 +572,17 @@ def _drain_pending(block: bool) -> None:
         pending, _state.pending = _state.pending, []
     kept = []
     for entry in pending:
-        keys, engine, br, end, comp, cost = entry
-        if not block and not end.query():
+        keys, engine, parts, ends, comp, cost = entry
+        if not block and not all(end.query() for end in ends):
             kept.append(entry)
             continue
         if block:
-            end.synchronize()
-        seconds = br.start.elapsed_time(end) / 1e3 - comp
-        _give_events(br.device, br.start, end)
+            for end in ends:
+                end.synchronize()
+        seconds = max(br.start.elapsed_time(end)
+                      for br, end in zip(parts, ends)) / 1e3 - comp
+        for br, end in zip(parts, ends):
+            _give_events(br.device, br.start, end)
         _record(keys, engine, seconds, cost)
     if kept:
         with _state.lock:

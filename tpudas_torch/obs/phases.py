@@ -13,8 +13,9 @@ phase               what it covers (lowpass runner)
                     resolution, index metadata) plus the in-round
                     window read / int16 decode / prefetch wait
                     (``LFProc.timings["assemble_s"]``)
-``place``           explicit H2D placement onto a device mesh (0.0:
-                    the port has no mesh)
+``place``           explicit H2D placement onto a device mesh: the
+                    round's ``parallel.place`` span seconds (0.0
+                    without a mesh)
 ``device_execute``  device seconds of the round's stream steps, from
                     the device telemetry's CUDA event pairs
                     (:func:`tpudas_torch.obs.devprof.round_collect`;

@@ -28,8 +28,8 @@ from pathlib import Path
 from tpudas_torch.obs import devprof
 
 __all__ = [
-    "NVCC_FLAGS", "build_dir", "build_libraries", "load_library", "build_info",
-    "kernel_resources",
+    "NVCC_FLAGS", "KernelError", "build_dir", "build_libraries",
+    "load_library", "build_info", "kernel_resources",
 ]
 
 NVCC_FLAGS = (
@@ -44,6 +44,13 @@ _INFO: dict[str, dict] = {}
 # the device telemetry's compile event (a name ending as the JAX
 # package's backend-compile duration event does)
 _COMPILE_EVENT = "/tpudas_torch/kernel/backend_compile_duration"
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build or to launch.  Callers that
+    degrade on other failures (the window-DP latch of
+    :class:`tpudas_torch.proc.lfproc.LFProc`) re-raise it: a fallback
+    around a broken kernel would hide it."""
 
 
 def build_dir() -> Path:
@@ -62,7 +69,7 @@ def _nvcc() -> str:
 
     if CUDA_HOME and os.path.isfile(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (PATH, CUDA_HOME); the CUDA kernels are built "
         "with nvcc at first use on the machine with the card"
     )
@@ -118,7 +125,7 @@ def build_libraries(names) -> None:
             os.replace(tmp, so)
             devprof._on_compile_duration(_COMPILE_EVENT, info["seconds"])
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelError("\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -16,8 +16,10 @@ Entry points take a torch tensor (its device is used) or a numpy array
 (moved to ``device``, default the CUDA card).  The stacked fleet step
 (:func:`fft_pass_filter_stream_stacked`) validates several streams'
 blocks as one wave and runs each member's step at the member's own
-width; the mesh path of the stream step is a later slice of the port.
-Both stream steps report each step to the device telemetry
+width.  With a mesh (:mod:`tpudas_torch.parallel`) the stream step
+splits channels over the mesh's ``ch`` axis and keeps its carry sharded
+on the devices.  Both stream steps report each step to the device
+telemetry
 (:mod:`tpudas_torch.obs.devprof`), with the work a step must do counted
 by :func:`fft_step_cost`.
 """
@@ -89,7 +91,15 @@ def _rfft_freqs(nfft, d_sec, device):
 
 
 def _filter_rows(x, d_sec, low, high, order):
-    """(T, C) float32 tensor filtered along dim 0 -> (T, C)."""
+    """(T, C) float32 tensor filtered along dim 0 -> (T, C).
+
+    A one-column input is filtered as two columns (the second zero):
+    the CPU FFT takes another code path for a single column, whose
+    last bits differ from the same column's in a wider batch, and a
+    channel shard one column wide must give its column's bits."""
+    if x.shape[1] == 1:
+        pad = torch.nn.functional.pad(x, (0, 1))
+        return _filter_rows(pad, d_sec, low, high, order)[:, :1]
     n = x.shape[0]
     nfft = next_tpu_fft_len(n)
     dev = x.device
@@ -147,7 +157,8 @@ def _carry_tensor(carry, dev):
 
 
 def fft_pass_filter_stream(block, carry, d_sec, low=None, high=None,
-                           order=4, qscale=None, device=None):
+                           order=4, qscale=None, device=None, mesh=None,
+                           ch_axis="ch"):
     """One streaming step of the zero-phase FFT band filter.
 
     block: (T, C) new input samples (a tensor, or numpy moved to
@@ -162,9 +173,20 @@ def fft_pass_filter_stream(block, carry, d_sec, low=None, high=None,
 
     ``qscale`` takes a raw int16 block: it crosses to the device as
     int16 and is dequantized there (``block.float() * qscale``, float32
-    scale), as the JAX step does; the carry stays float32."""
+    scale), as the JAX step does; the carry stays float32.
+
+    With ``mesh``, channels are split over the mesh's ``ch_axis``
+    (pad-and-mask): the block is placed with
+    :func:`~tpudas_torch.parallel.sharding.place_block`, a host carry is
+    placed once, and the returned carry is a
+    :class:`~tpudas_torch.parallel.sharding.ShardedTensor` at the padded
+    width (feed it back as it is); ``filtered`` is gathered on the first
+    shard's device at the logical width."""
     from tpudas_torch.ops.fir import _check_quantized
 
+    if mesh is not None:
+        return _fft_stream_sharded(block, carry, d_sec, low, high, order,
+                                   qscale, mesh, ch_axis)
     x = _as_tensor(block, device)
     dev = x.device
     _check_quantized(x, qscale)
@@ -185,6 +207,71 @@ def fft_pass_filter_stream(block, carry, d_sec, low=None, high=None,
     out = _fft_step(x, c, d_sec, low, high, order, qscale)
     devprof.note_launch("fft", t0, out, cost=cost)
     return out
+
+
+def _fft_stream_sharded(block, carry, d_sec, low, high, order, qscale, mesh,
+                        ch_axis):
+    """:func:`fft_pass_filter_stream` over the column shards of
+    ``mesh``'s ``ch_axis``: one step (one devprof launch, one span)
+    whose shards are all launched before the output is gathered."""
+    from tpudas_torch.obs.trace import span
+
+    T, C = int(np.shape(block)[0]), int(np.shape(block)[1])
+    rows_carry = int(np.shape(carry)[0])
+    nc = int(mesh.shape[ch_axis])
+    Cp = C + (-C % nc)
+    elem = 2 if qscale is not None else 4
+    shape_key = (T, rows_carry, Cp, float(d_sec), low, high, int(order),
+                 int(qscale is not None), nc)
+    devprof.note_kernel("fft", shape_key, ())
+    cost = devprof.kernel_cost("fft", shape_key, fft_step_cost,
+                               (T, rows_carry, Cp, elem))
+    t0 = devprof.launch_start(mesh.unique_devices())
+    with span("op.fft_stream", rows=T, edge=rows_carry // 2, shards=nc):
+        out = _fft_shards(block, carry, d_sec, low, high, order, qscale,
+                          mesh, ch_axis)
+    devprof.note_launch("fft", t0, out, cost=cost)
+    return out
+
+
+def _fft_shards(block, carry, d_sec, low, high, order, qscale, mesh,
+                ch_axis):
+    """Place one stream block (and a host carry, once) on ``mesh``'s
+    ``ch_axis`` and run :func:`_fft_step` on every shard ->
+    ``(filtered at the logical width, sharded new carry)``."""
+    from tpudas_torch.ops.fir import _dtype_of
+    from tpudas_torch.parallel.sharding import (
+        ShardedTensor,
+        channel_pad,
+        gather_columns,
+        gather_leaves,
+        place_block,
+    )
+
+    quantized = qscale is not None
+    if quantized and _dtype_of(block) != torch.int16:
+        raise ValueError(f"qscale given but data dtype is {block.dtype}")
+    if len(np.shape(carry)) != 2 or int(np.shape(carry)[0]) % 2:
+        raise ValueError(
+            f"carry must be (2*edge, C), got {tuple(np.shape(carry))}")
+    T, C = int(np.shape(block)[0]), int(np.shape(block)[1])
+    Cp = C + channel_pad(C, mesh, ch_axis)
+    if int(np.shape(carry)[1]) not in (C, Cp):
+        raise ValueError(
+            f"block {(T, C)} does not match carry {tuple(np.shape(carry))}")
+    devices = mesh.axis_devices(ch_axis)
+    xs = place_block(block, mesh, ch_axis, keep_dtype=quantized)
+    if not (isinstance(carry, ShardedTensor) and carry.devices == devices
+            and carry.shape[1] == Cp):
+        # first step after open/resume: place the host carry once; every
+        # later step feeds back the sharded carry this step returns
+        if isinstance(carry, ShardedTensor):
+            carry = gather_leaves((carry,), C)[0]
+        carry = place_block(carry, mesh, ch_axis)
+    outs = [_fft_step(x, c, d_sec, low, high, order, qscale)
+            for x, c in zip(xs, carry)]
+    return (gather_columns([o[0] for o in outs], C),
+            ShardedTensor(o[1] for o in outs))
 
 
 def _fft_step(x, c, d_sec, low, high, order, qscale):
@@ -216,7 +303,7 @@ def fft_step_cost(T: int, rows_carry: int, C: int, in_bytes: int) -> dict:
 
 def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
                                    high=None, order=4, qscale=None,
-                                   device=None):
+                                   device=None, mesh=None, ch_axis="ch"):
     """N streams' overlap-save FFT filter steps in one call, validated
     as one wave as the JAX package's stacked step is.  ``blocks`` share
     T and the filter parameters; each keeps its own channel width.
@@ -226,9 +313,13 @@ def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
     CPU a one-channel member at 2,048 points differs in the last bit),
     and packing would share only the elementwise dequantize, so no
     member is packed.  ``qscale`` is one scale shared by every
-    member."""
+    member.  With ``mesh`` each member's step splits its channels over
+    the mesh's ``ch_axis`` (its carry comes back sharded), as
+    :func:`fft_pass_filter_stream` does with ``mesh``."""
     from tpudas_torch.ops.fir import _check_quantized
 
+    if mesh is not None and device is None:
+        device = mesh.axis_devices(ch_axis)[0]
     blocks = [_as_tensor(b, device) for b in blocks]
     carries = list(carries)
     if not blocks or len(blocks) != len(carries):
@@ -249,7 +340,9 @@ def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
                 f"{tuple(np.shape(c))} do not match the wave's "
                 f"T={T}, 2*edge={rows_carry}"
             )
-        if b.dim() != 2 or int(b.shape[1]) != int(np.shape(c)[1]):
+        pad = 0 if mesh is None else -int(b.shape[1]) % int(mesh.shape[ch_axis])
+        if b.dim() != 2 or int(np.shape(c)[1]) not in (
+                int(b.shape[1]), int(b.shape[1]) + pad):
             raise ValueError(
                 f"member {i} block {tuple(b.shape)} does not match "
                 f"carry {tuple(np.shape(c))}"
@@ -263,12 +356,19 @@ def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
     cost = devprof.kernel_cost(
         "fft_stacked", shape_key, fft_step_cost,
         (T, rows_carry, sum(widths), blocks[0].element_size()))
-    t0 = devprof.launch_start(dev)
-    out = [
-        _fft_step(b, _carry_tensor(c, b.device), d_sec, low, high, order,
-                  qscale)
-        for b, c in zip(blocks, carries)
-    ]
+    if mesh is None:
+        t0 = devprof.launch_start(dev)
+        out = [
+            _fft_step(b, _carry_tensor(c, b.device), d_sec, low, high, order,
+                      qscale)
+            for b, c in zip(blocks, carries)
+        ]
+    else:
+        t0 = devprof.launch_start(mesh.unique_devices())
+        out = [
+            _fft_shards(b, c, d_sec, low, high, order, qscale, mesh, ch_axis)
+            for b, c in zip(blocks, carries)
+        ]
     devprof.note_launch("fft", t0, out, cost=cost, stacked=True)
     return out
 

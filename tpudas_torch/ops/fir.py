@@ -64,6 +64,7 @@ import torch
 
 from tpudas_torch.device import resolve_device
 from tpudas_torch.obs import devprof
+from tpudas_torch.obs.trace import span
 
 __all__ = [
     "CascadePlan",
@@ -474,7 +475,7 @@ def blocked_taps(plan: CascadePlan, device) -> list:
 
 def cascade_decimate(
     x, plan: CascadePlan, phase: int, n_out: int, engine="auto",
-    qscale=None, device=None,
+    qscale=None, device=None, mesh=None, ch_axis="ch",
 ):
     """Zero-phase filtered + decimated samples of ``x`` (T, C).
 
@@ -496,7 +497,16 @@ def cascade_decimate(
     scale multiplies its decimated output, as the TPU kernel's contract
     has it (tpudas/ops/fir.py:529-547); the plain path dequantizes
     first, as the JAX package's XLA path does.
+
+    With ``mesh`` (a :class:`~tpudas_torch.parallel.mesh.DeviceMesh`),
+    channels are split over the mesh's ``ch_axis`` (pad-and-mask: C is
+    zero-padded to a multiple of the shard count and trimmed after);
+    each shard runs this cascade on its device, and the (n_out, C)
+    result is gathered on the first shard's device.
     """
+    if mesh is not None:
+        return _cascade_decimate_sharded(x, plan, phase, n_out, engine,
+                                         qscale, mesh, ch_axis)
     if isinstance(x, torch.Tensor):
         dev = x.device
         if device is not None and torch.device(device).type != dev.type:
@@ -529,6 +539,18 @@ def cascade_decimate(
         if i == 0 and qscale is not None:
             x = x * float(np.float32(qscale))
     return x
+
+
+def _cascade_decimate_sharded(x, plan, phase, n_out, engine, qscale, mesh,
+                              ch_axis):
+    """:func:`cascade_decimate` over the column shards of ``mesh``'s
+    ``ch_axis``: every shard's chain is launched before the outputs are
+    gathered."""
+    from tpudas_torch.parallel.sharding import column_shards, gather_columns
+
+    parts = [cascade_decimate(xs, plan, phase, n_out, engine, qscale=qscale)
+             for xs in column_shards(x, mesh, ch_axis)]
+    return gather_columns(parts, int(x.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -724,7 +746,7 @@ def _carry_leaf(b, dev):
 
 
 def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
-                            qscale=None, device=None):
+                            qscale=None, device=None, mesh=None, ch_axis="ch"):
     """One stateful streaming step of the cascade.
 
     ``x`` is a (T, C) block, T a multiple of ``plan.ratio`` (a tensor,
@@ -745,7 +767,21 @@ def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
     ``x.float() * qscale``.  The chain dequantizes the block first; the
     fused kernel dequantizes as it reads (bit-equal).  The carry stays
     float32 either way.
+
+    With ``mesh``, channels are split over the mesh's ``ch_axis``
+    (pad-and-mask for non-divisible counts): the block is placed with
+    :func:`~tpudas_torch.parallel.sharding.place_block`, a host carry is
+    placed once, and the returned carry leaves are
+    :class:`~tpudas_torch.parallel.sharding.ShardedTensor` s at the
+    padded width — feed them back as they are and they stay on the
+    devices with no host round trip.  ``y`` is gathered on the first
+    shard's device at the logical width.  Every shard runs the engine
+    the unsharded step resolves for the whole block (the fused size
+    threshold sees the logical width), so the sharded step is
+    byte-identical to the unsharded one.
     """
+    if mesh is not None:
+        return _stream_sharded(x, carry, plan, engine, qscale, mesh, ch_axis)
     if isinstance(x, torch.Tensor):
         dev = x.device
         if device is not None and torch.device(device).type != dev.type:
@@ -760,14 +796,7 @@ def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
             f"stream block length {T} is not a multiple of the "
             f"decimation ratio {plan.ratio}"
         )
-    sizes = stream_carry_sizes(plan)
-    if len(carry) != len(sizes) or any(
-        int(np.shape(b)[0]) != p for b, p in zip(carry, sizes)
-    ):
-        raise ValueError(
-            "carry does not match this plan's stream_carry_sizes "
-            f"({[int(np.shape(b)[0]) for b in carry]} vs {list(sizes)})"
-        )
+    _check_rows(carry, plan)
     if any(int(np.shape(b)[1]) != n_ch for b in carry):
         raise ValueError(
             f"carry channel widths {[np.shape(b)[1] for b in carry]} do not "
@@ -784,6 +813,97 @@ def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
     out = _stream_step(x, bufs, plan, eng, qscale)
     devprof.note_launch(eng, t0, out, cost=cost)
     return out
+
+
+def _dtype_of(x):
+    """``x``'s dtype as a torch dtype (numpy int16 -> torch.int16)."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    return torch.from_numpy(np.zeros(0, np.asarray(x).dtype)).dtype
+
+
+def _check_rows(carry, plan: CascadePlan) -> None:
+    """Raise unless ``carry`` has the plan's carry sizes."""
+    sizes = stream_carry_sizes(plan)
+    if len(carry) != len(sizes) or any(
+        int(np.shape(b)[0]) != p for b, p in zip(carry, sizes)
+    ):
+        raise ValueError(
+            "carry does not match this plan's stream_carry_sizes "
+            f"({[int(np.shape(b)[0]) for b in carry]} vs {list(sizes)})"
+        )
+
+
+def _stream_sharded(x, carry, plan, engine, qscale, mesh, ch_axis):
+    """:func:`cascade_decimate_stream` over the column shards of
+    ``mesh``'s ``ch_axis``: one step (one devprof launch, one span)
+    whose shards are all launched before the output is gathered."""
+    from tpudas_torch.parallel.sharding import (
+        ShardedTensor,
+        channel_pad,
+        gather_columns,
+        gather_leaves,
+        place_block,
+        place_carry_leaves,
+    )
+
+    quantized = qscale is not None
+    if quantized and _dtype_of(x) != torch.int16:
+        raise ValueError(f"qscale given but data dtype is {x.dtype}")
+    T, C = int(np.shape(x)[0]), int(np.shape(x)[1])
+    if T % plan.ratio:
+        raise ValueError(
+            f"stream block length {T} is not a multiple of the "
+            f"decimation ratio {plan.ratio}"
+        )
+    _check_rows(carry, plan)
+    devices = mesh.axis_devices(ch_axis)
+    nc = len(devices)
+    Cp = C + channel_pad(C, mesh, ch_axis)
+    if any(int(np.shape(b)[1]) not in (C, Cp) for b in carry):
+        raise ValueError(
+            f"stream carry channel width {[tuple(np.shape(b)) for b in carry]} "
+            f"matches neither the block ({C}) nor the padded shard "
+            f"layout ({Cp})"
+        )
+    # the engine is the unsharded step's, resolved at the logical width:
+    # B3 and the B1 chain differ in their last bits on the card, so a
+    # shard must run what the single-device step runs on its block
+    eng = resolve_stream_engine(engine, plan, T, C, devices[0])
+    xs = place_block(x, mesh, ch_axis, keep_dtype=quantized)
+    if not all(isinstance(b, ShardedTensor) and b.devices == devices
+               and b.shape[1] == Cp for b in carry):
+        # first step after open/resume (host leaves at the logical width),
+        # or leaves of another layout: place them once; every later step
+        # feeds back the sharded leaves this step returns
+        carry = place_carry_leaves(
+            tuple(gather_leaves((b,), C)[0] if isinstance(b, ShardedTensor)
+                  else b for b in carry), mesh, ch_axis)
+    shape_key = (T, Cp, eng, int(quantized), _plan_tag(plan), nc)
+    devprof.note_kernel("cascade", shape_key, knob_fingerprint())
+    cost = devprof.kernel_cost("cascade", shape_key, stream_step_cost,
+                               (plan, T, Cp, xs[0].element_size()))
+    name = "fir.fused" if eng.startswith("fused") else "op.cascade_stream"
+    t0 = devprof.launch_start(mesh.unique_devices())
+    with span(name, rows=T, engine=eng, shards=nc):
+        ys, bufs = _shard_steps(xs, carry, plan, eng, qscale)
+        y = gather_columns(ys, C)
+    devprof.note_launch(eng, t0, (y, bufs), cost=cost)
+    return y, bufs
+
+
+def _shard_steps(xs, carry, plan: CascadePlan, eng: str, qscale):
+    """:func:`_stream_step` on every shard of the placed block ``xs``
+    and the sharded carry leaves ``carry`` (each launched before any is
+    waited on) -> (per-shard outputs, sharded new carry)."""
+    from tpudas_torch.parallel.sharding import ShardedTensor
+
+    outs = [_stream_step(x, tuple(leaf[i] for leaf in carry), plan, eng,
+                         qscale)
+            for i, x in enumerate(xs)]
+    return ([o[0] for o in outs],
+            tuple(ShardedTensor(o[1][k] for o in outs)
+                  for k in range(len(carry))))
 
 
 def _stream_step(x, bufs, plan: CascadePlan, eng: str, qscale):
@@ -825,7 +945,8 @@ def _block_tensor(b, device):
 
 
 def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
-                                    engine, qscale=None, device=None):
+                                    engine, qscale=None, device=None,
+                                    mesh=None, ch_axis="ch"):
     """N same-plan streams' stateful steps as ONE step on the
     channel-packed block (the batched fleet's stacked launch).
 
@@ -846,7 +967,14 @@ def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
     ``qscale`` is one scale shared by every member (the batch executor
     keys on it).  ``cascade_decimate_stream_stacked.launches`` counts
     the stacked steps that ran on the card, by ``(engine, packed
-    width)``."""
+    width)``.
+
+    With ``mesh`` the packed width is pad-and-masked to the shard
+    multiple and split over the mesh's ``ch_axis`` (numpy blocks are
+    packed on the mesh's first device); each member's outputs and carry
+    leaves come back on that device, byte-identical to its solo step."""
+    if mesh is not None and device is None:
+        device = mesh.axis_devices(ch_axis)[0]
     if engine not in STACKED_ENGINES:
         raise ValueError(
             f"stacked engine must be one of {STACKED_ENGINES}, got "
@@ -909,13 +1037,27 @@ def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
     cost = devprof.kernel_cost(
         "cascade_stacked", shape_key, stream_step_cost,
         (plan, T, sum(widths), blocks[0].element_size()))
-    t0 = devprof.launch_start(dev)
+    t0 = devprof.launch_start(dev if mesh is None else mesh.unique_devices())
     x = torch.cat(blocks, dim=1) if len(blocks) > 1 else blocks[0]
     bufs = tuple(
         torch.cat([_carry_leaf(c[i], dev) for c in carries], dim=1)
         for i in range(len(sizes))
     )
-    y, new = _stream_step(x.contiguous(), bufs, plan, engine, qscale)
+    if mesh is None:
+        y, new = _stream_step(x.contiguous(), bufs, plan, engine, qscale)
+    else:
+        from tpudas_torch.parallel.sharding import (
+            gather_columns,
+            place_block,
+            place_carry_leaves,
+        )
+
+        W = sum(widths)
+        ys, new = _shard_steps(
+            place_block(x, mesh, ch_axis, keep_dtype=qscale is not None),
+            place_carry_leaves(bufs, mesh, ch_axis), plan, engine, qscale)
+        y = gather_columns(ys, W, device=dev)
+        new = tuple(gather_columns(leaf, W, device=dev) for leaf in new)
     if dev.type == "cuda":
         key = (engine, sum(widths))
         launches = cascade_decimate_stream_stacked.launches

@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from tpudas_torch.ops._build import KernelError
+
 __all__ = [
     "chunk_frames", "copy_width", "fir_decimate", "fir_decimate_plain",
     "fir_decimate_tiled_plain",
@@ -155,7 +157,7 @@ def _launch(what, fn, x, hb, R, n_out, row0, *geometry):
         rc = fn(x.data_ptr(), hb.data_ptr(), y.data_ptr(), T, C, R,
                 *geometry, n_out, row0, stream)
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"{what} kernel launch failed: cudaError {rc} "
             f"(x {tuple(x.shape)} {x.dtype}, taps {tuple(hb.shape)}, "
             f"R={R}, n_out={n_out}, row0={row0})"

@@ -49,6 +49,8 @@ import functools
 import numpy as np
 import torch
 
+from tpudas_torch.ops._build import KernelError
+
 __all__ = [
     "fused_cascade",
     "fused_cascade_one_kernel",
@@ -297,7 +299,7 @@ def _cuda_args(x, carry):
 
 
 def _raise_launch(what, rc, x, detail):
-    raise RuntimeError(
+    raise KernelError(
         f"{what} launch failed: cudaError {rc} "
         f"(x {tuple(x.shape)} {x.dtype}, {detail})"
     )

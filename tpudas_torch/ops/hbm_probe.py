@@ -34,6 +34,8 @@ import ctypes
 
 import torch
 
+from tpudas_torch.ops._build import KernelError
+
 __all__ = [
     "copy_heads",
     "copy_heads_plain",
@@ -138,7 +140,7 @@ def _launch_heads(x, P, rows, cb, k_fastest):
             stream,
         )
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"copy_heads kernel launch failed: cudaError {rc} (x {tuple(x.shape)}, "
             f"rows={rows}, cb={cb}, P={P}, k_fastest={bool(k_fastest)})"
         )
@@ -218,7 +220,7 @@ def ring_reader(x, rows: int, nbuf: int):
             nbuf, sms, stream,
         )
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"ring_reader kernel launch failed: cudaError {rc} "
             f"(x {tuple(x.shape)}, rows={rows}, nbuf={nbuf})"
         )

@@ -19,8 +19,9 @@ card).  ``amax``/``amin`` run over ``unfold`` windows; sums run a fixed
 pairwise tree over each window (:func:`_window_sum`), so a window's sum
 does not depend on where the array starts, how many windows it holds or
 the device (the detect RMS operator's chunk invariance rests on it).  Host engine (``"numpy"``/``"host"``): the float64 reference of
-the same semantics, computed with torch on CPU tensors.  The mesh
-batched rolling mean of the JAX package belongs to the multi-GPU slice.
+the same semantics, computed with torch on CPU tensors.
+:func:`rolling_mean_patches_batched` rolls a batch of same-shape patches
+over a device mesh (:mod:`tpudas_torch.parallel.batch`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 from tpudas_torch.core import units as _units
 from tpudas_torch.device import resolve_device
 
-__all__ = ["PatchRoller", "exact_sqrt", "rolling_reduce"]
+__all__ = ["PatchRoller", "exact_sqrt", "rolling_mean_patches_batched",
+           "rolling_reduce"]
 
 _HOST_ENGINES = ("numpy", "host")
 
@@ -260,3 +262,42 @@ class PatchRoller:
         out = exact_sqrt(torch.clamp_min(m2 - m**2, 0))
         coords, attrs = self._stepped_coords_attrs(p)
         return p.new(data=_host(out), coords=coords, attrs=attrs)
+
+
+def rolling_mean_patches_batched(mesh, patches, window, step):
+    """Data-parallel rolling mean of shape-uniform patches over the
+    mesh's ``ch`` axis (independent patches are the trivial parallel
+    axis).  Each patch's output is byte-identical to its own device
+    rolling mean (the same window sums).  Returns the list of result
+    patches, or ``None`` when the batch is not uniform enough to stack
+    (callers fall back to per-patch)."""
+    from tpudas_torch.parallel.batch import batched_rolling_mean
+
+    first = patches[0]
+    ax = first.axis_of("time")
+    if any(
+        p.shape != first.shape
+        or p.dims != first.dims
+        or p.get_sample_step("time") != first.get_sample_step("time")
+        for p in patches
+    ):
+        return None
+    # one PatchRoller per patch: validates and owns (w, s) and the
+    # stepped coords/attrs (uniform by the check above)
+    rollers = [p.rolling(time=window, step=step) for p in patches]
+    w, s = rollers[0].window, rollers[0].step
+    stack = np.stack(
+        [
+            np.moveaxis(p.host_data(), ax, 0) if ax != 0 else p.host_data()
+            for p in patches
+        ]
+    )
+    out = batched_rolling_mean(mesh, stack, w=w, s=s).cpu().numpy()
+    results = []
+    for i, (p, roller) in enumerate(zip(patches, rollers)):
+        data = out[i]
+        if ax != 0:
+            data = np.moveaxis(data, 0, ax)
+        coords, attrs = roller._stepped_coords_attrs(p)
+        results.append(p.new(data=data, coords=coords, attrs=attrs))
+    return results

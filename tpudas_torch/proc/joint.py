@@ -188,7 +188,21 @@ class JointProc(LFProc):
         m = (e_hi - 1 - q) // s + 1
         t_dev0 = time.perf_counter()
         x = payload[q - w + 1 : q + (m - 1) * s + 1]
-        red = _trailing_mean(x, w, s, qs).cpu().numpy()
+        mesh = self._mesh
+        if mesh is None:
+            red = _trailing_mean(x, w, s, qs).cpu().numpy()
+        else:
+            # channel sharding, no communication: the reduction runs
+            # along the whole time axis of each column block
+            from tpudas_torch.parallel.sharding import (
+                column_shards,
+                gather_columns,
+            )
+
+            red = gather_columns(
+                [_trailing_mean(xs, w, s, qs)
+                 for xs in column_shards(x, mesh)],
+                int(x.shape[1])).cpu().numpy()
         t_dev = time.perf_counter() - t_dev0
         self.timings["device_s"] += t_dev
         times = taxis[q : q + m * s : s]

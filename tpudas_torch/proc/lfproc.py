@@ -257,17 +257,23 @@ class LFProc:
     spool, ``set_output_folder``, ``update_processing_parameter``,
     ``get_last_processed_time``, ``process_time_range``,
     ``parameters``.  ``device`` (default: the CUDA card; raises when
-    there is none) is where the windows are filtered.
+    there is none) is where the windows are filtered; ``mesh`` (a
+    :class:`~tpudas_torch.parallel.mesh.DeviceMesh` of that device type)
+    spreads them over several devices (see :attr:`mesh`).
     """
 
     _ENGINES = ("auto", "fft", "cascade", "fused")
     _GAP_MODES = ("raise", "skip", "split")
 
-    def __init__(self, sp=None, device=None):
+    def __init__(self, sp=None, mesh=None, device=None):
         self._spool = sp
         self.device = resolve_device(device)
         self._para = self._default_process_parameters()
         self._output_folder = None
+        self.mesh = mesh  # validated by the setter below
+        # latches False after a window-DP batch computation fails: the
+        # rest of the run goes window by window
+        self._window_dp_ok = True
         # per-emission count of the engine that ran: "cascade-cuda" when
         # the stages ran the CUDA kernel, "cascade-torch" for the plain
         # PyTorch stages (CPU), "fft" for the FFT engine; the stream adds
@@ -321,7 +327,43 @@ class LFProc:
             # otherwise; "fft"/"cascade" force one path; "fused": the
             # cascade, with the stream run through the fused kernel
             "engine": "auto",
+            # window-level data parallelism: with a mesh whose "time"
+            # axis is longer than 1, runs of same-shape cascade windows
+            # go together, one window per time slot, channels still
+            # split over "ch"; windows that do not line up (edges, gaps,
+            # FFT grids) run one by one.  The time axis then carries
+            # windows, not the time shards of one window.
+            "window_dp": False,
         }
+
+    # mesh execution ----------------------------------------------------
+    @property
+    def mesh(self):
+        """Optional :class:`~tpudas_torch.parallel.mesh.DeviceMesh` the
+        windows run over: channels split over its ``"ch"`` axis (no
+        communication), and — when it has a ``"time"`` axis longer than
+        1 and the window is cascade-aligned — the window's time axis
+        too, with a halo copied between time neighbours
+        (:mod:`tpudas_torch.parallel.pipeline`).  The stateful stream
+        shards over a channel-only mesh with its carry kept on the
+        devices.  ``None`` (the default) runs on ``device`` alone."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh):
+        if mesh is not None and "ch" not in mesh.shape:
+            raise ValueError(
+                "LFProc mesh needs a 'ch' axis (use "
+                "tpudas_torch.parallel.mesh.make_mesh); got axes "
+                f"{tuple(mesh.shape)}"
+            )
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"LFProc on {self.device} cannot run a mesh of "
+                f"{mesh.device_type} devices ({mesh}); a mesh never moves "
+                "the work to another device type"
+            )
+        self._mesh = mesh
 
     def update_processing_parameter(self, **kwargs):
         if "data_gap_tolerance" in kwargs or "data_gap_tolorance" in kwargs:
@@ -581,6 +623,15 @@ class LFProc:
             return 0
         windows = schedule_windows(len(time_grid), patch_size, buff_size)
         corner = output_corner(dt)
+        if (
+            self._para.get("window_dp")
+            and self._window_dp_ok
+            and self._mesh is not None
+            and self._mesh.shape.get("time", 1) > 1
+        ):
+            return self._process_segment_dp(
+                time_grid, windows, on_gap, dt, corner, order
+            )
         for i, loaded, emit_times in self._iter_windows(
             time_grid, windows, on_gap, self._load_and_stage
         ):
@@ -591,6 +642,154 @@ class LFProc:
             self._process_window(
                 window_patch, emit_times, dt, corner, order, staged=staged
             )
+        return len(windows)
+
+    def _dp_window_info(self, window_patch, target_times, dt, corner, order):
+        """Batchability probe for the window-DP driver: the (plan,
+        phase, n_out, shape, dtype, qscale) key a window must share with
+        its batch — or ``None`` when the window needs the per-window
+        path (FFT grids, undersized halos, engine ``"fft"``)."""
+        if self._para.get("engine", "auto") not in (
+            "auto", "cascade", "fused"
+        ):
+            return None
+        if target_times.size == 0:
+            return None
+        from tpudas_torch.ops.fir import design_cascade, edge_support_samples
+
+        host, qs = self._time_major_payload(window_patch)
+        taxis = window_patch.coords["time"]
+        d_sec = window_patch.get_sample_step("time")
+        align = self._cascade_alignment(taxis, target_times, d_sec, dt)
+        if align is None:
+            return None
+        ratio, phase = align
+        plan = design_cascade(1.0 / d_sec, ratio, corner, int(order))
+        supp = edge_support_samples(plan, 1e-3)
+        tail = host.shape[0] - (phase + (target_times.size - 1) * ratio)
+        if supp > phase or supp >= tail:
+            return None  # edge-artifact window: the per-window path warns
+        # host budget: at flush time all nb pending windows are resident
+        # plus their stacked copy
+        nb = self._mesh.shape["time"]
+        if host.nbytes * nb * 2 > self._DP_MAX_BATCH_BYTES:
+            return None
+        key = (plan, phase, int(target_times.size), host.shape,
+               str(host.dtype), qs)
+        return {"key": key, "host": host, "plan": plan, "phase": phase,
+                "n_out": int(target_times.size), "qs": qs}
+
+    # cap on (batch windows + stack copy) host bytes before window DP
+    # runs window by window (the staging budget's counterpart)
+    _DP_MAX_BATCH_BYTES = 8 << 30
+
+    def _process_segment_dp(self, time_grid, windows, on_gap, dt, corner,
+                            order) -> int:
+        """Window-level data parallelism over the overlap-save schedule:
+        consecutive windows sharing one (plan, phase, n_out, shape,
+        dtype, scale) key go together over the mesh's "time" axis (one
+        window per slot, channels still over "ch"), bit-equal to
+        per-window execution; anything else takes the per-window path.
+
+        A batch computation that fails latches window DP off for the
+        rest of the run (``window_dp_fallback``, logged once) and the
+        batch's windows run one by one — except a kernel that failed to
+        build or launch (:class:`~tpudas_torch.ops._build.KernelError`),
+        which is re-raised: a fallback must not hide a broken kernel."""
+        from tpudas_torch.ops._build import KernelError
+
+        mesh = self._mesh
+        nb = mesh.shape["time"]
+        pending = []  # [(patch, emit_times, info)]
+        ran = ("cascade-cuda" if self.device.type == "cuda"
+               else "cascade-torch")
+
+        def run_batch():
+            """Device compute only: emission happens in flush(), so a
+            failure here cannot double-emit written windows."""
+            from tpudas_torch.parallel import batch as _batch
+
+            infos = [p[2] for p in pending]
+            stack = np.stack([i["host"] for i in infos])
+            t0 = time.perf_counter()
+            out = _batch.batched_cascade_decimate(
+                mesh, stack, infos[0]["plan"], infos[0]["phase"],
+                infos[0]["n_out"], engine="auto", batch_axis="time",
+                ch_axis="ch", qscale=infos[0]["qs"],
+            ).cpu().numpy()
+            t_dev = time.perf_counter() - t0
+            self.timings["device_s"] += t_dev
+            return out, int(stack.shape[1]), t_dev
+
+        def per_window():
+            for patch, emit_times, _ in pending:
+                self._process_window(patch, emit_times, dt, corner, order)
+            pending.clear()
+
+        def flush():
+            if not pending:
+                return
+            if len(pending) == 1:
+                per_window()
+                return
+            try:
+                out, rows, t_dev = run_batch()
+            except KernelError:
+                raise
+            except Exception as exc:
+                self._window_dp_ok = False
+                print(
+                    "Warning: window-DP batch failed "
+                    f"({str(exc)[:120]}); per-window execution for "
+                    "the rest of the run"
+                )
+                log_event("window_dp_fallback", error=str(exc)[:300])
+                per_window()
+                return
+            log_event(
+                "window_dp_batch", windows=len(pending), engine=ran,
+                rows=rows, emitted=int(pending[0][2]["n_out"]),
+            )
+            for i, (patch, emit_times, info) in enumerate(pending):
+                # joint extras before the LF write, as in _process_window
+                self._emit_window_extras(
+                    patch, info["host"], info["qs"],
+                    patch.coords["time"], emit_times, dt,
+                    patch.get_sample_step("time"),
+                )
+                self._emit_window_output(
+                    patch, emit_times, dt, out[i], ran,
+                    rows=rows, t_dev=t_dev / len(pending),
+                )
+            pending.clear()
+
+        for i, loaded, emit_times in self._iter_windows(
+            time_grid, windows, on_gap, self._load_and_stage
+        ):
+            window_patch, _staged = loaded
+            if window_patch is None:
+                flush()
+                log_event("window_skipped_gap", index=i + 1)
+                continue
+            info = (
+                self._dp_window_info(
+                    window_patch, emit_times, dt, corner, order
+                )
+                if self._window_dp_ok  # mid-segment latch flip
+                else None
+            )
+            if info is None:
+                flush()
+                self._process_window(
+                    window_patch, emit_times, dt, corner, order
+                )
+                continue
+            if pending and info["key"] != pending[0][2]["key"]:
+                flush()
+            pending.append((window_patch, emit_times, info))
+            if len(pending) == nb:
+                flush()
+        flush()
         return len(windows)
 
     def _iter_windows(self, time_grid, windows, on_gap, loader):
@@ -646,7 +845,9 @@ class LFProc:
         device tensor — raw int16 for quantized windows —, the copy's
         CUDA event or None) or None when staging does not apply.  On
         the CPU the "transfer" wraps the host array."""
-        staging = os.environ.get("TPUDAS_H2D_STAGE", "1") != "0"
+        # a mesh places each window's shards itself: no staging
+        staging = (os.environ.get("TPUDAS_H2D_STAGE", "1") != "0"
+                   and self._mesh is None)
         cuda = self._ring is not None
         alloc = self._stage_array if staging and cuda else None
         window_patch = self._load_window(bg, ed, on_gap, alloc=alloc)
@@ -784,6 +985,7 @@ class LFProc:
                 else:
                     align = None  # auto: the FFT engine takes the window
         n_out = int(target_times.size)
+        mesh = self._mesh
         t_dev0 = time.perf_counter()
         if staged is not None:
             x, ready = staged  # H2D started by the prefetch thread
@@ -794,22 +996,35 @@ class LFProc:
             self.staged_windows += 1
         else:
             # quantized windows ship the raw int16 payload: half the
-            # transfer bytes, dequantized on the device
-            payload = (host if qs is not None
-                       else host.astype(np.float32, copy=False))
-            x = torch.from_numpy(np.ascontiguousarray(payload)).to(self.device)
+            # transfer bytes, dequantized on the device; under a mesh the
+            # sharded paths place the window's shards themselves
+            x = (host if qs is not None
+                 else host.astype(np.float32, copy=False))
+            if mesh is None:
+                x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         if align is not None:
-            from tpudas_torch.ops.fir import cascade_decimate
-
-            out = cascade_decimate(x, plan, phase, n_out, "auto", qscale=qs)
+            out = self._run_cascade(x, plan, phase, n_out, qs)
             ran = ("cascade-cuda" if self.device.type == "cuda"
                    else "cascade-torch")
         else:
             from tpudas_torch.ops.resample import interp_indices_weights
 
             idx, w = interp_indices_weights(taxis, target_times)
-            out = lowpass_resample(x, d_sec, corner, idx, w, order=order,
-                                   qscale=qs)
+            if mesh is None:
+                out = lowpass_resample(x, d_sec, corner, idx, w, order=order,
+                                       qscale=qs)
+            else:
+                # channel sharding only: the FFT runs along the whole
+                # time axis of each column block
+                from tpudas_torch.parallel.sharding import (
+                    column_shards,
+                    gather_columns,
+                )
+
+                out = gather_columns(
+                    [lowpass_resample(xs, d_sec, corner, idx, w, order=order,
+                                      qscale=qs)
+                     for xs in column_shards(x, mesh)], int(host.shape[1]))
             ran = "fft"
         out = out.cpu().numpy()  # host sync
         t_dev = time.perf_counter() - t_dev0
@@ -830,11 +1045,32 @@ class LFProc:
             rows=int(host.shape[0]), t_dev=t_dev,
         )
 
+    def _run_cascade(self, x, plan, phase, n_out, qs):
+        """The window's cascade: on ``device``, or over the mesh — its
+        time axis too when the mesh has time shards and the window's
+        layout fits (:func:`~tpudas_torch.parallel.pipeline.
+        sharded_cascade_decimate`), else its channels only."""
+        from tpudas_torch.ops.fir import cascade_decimate
+
+        mesh = self._mesh
+        if mesh is not None and mesh.shape.get("time", 1) > 1:
+            from tpudas_torch.parallel.pipeline import (
+                sharded_cascade_decimate,
+            )
+
+            out = sharded_cascade_decimate(mesh, x, plan, phase, n_out,
+                                           "auto", qscale=qs)
+            if out is not None:
+                return out
+        return cascade_decimate(x, plan, phase, n_out, "auto", qscale=qs,
+                                mesh=mesh)
+
     def _emit_window_extras(self, window_patch, payload, qs, taxis,
                             target_times, dt, d_sec):
         """Hook for subclasses emitting extra per-window products.
-        ``payload`` is the time-major window already on the device (raw
-        int16 with ``qs`` for a quantized window)."""
+        ``payload`` is the time-major window: on the device, or the host
+        array under a mesh (raw int16 with ``qs`` for a quantized
+        window)."""
 
     def _emit_window_output(self, window_patch, target_times, dt, out, ran,
                             rows, t_dev=0.0):
@@ -842,9 +1078,11 @@ class LFProc:
         attrs, and the output write."""
         ax = window_patch.axis_of("time")
         self.engine_counts[ran] = self.engine_counts.get(ran, 0) + 1
+        mesh = self._mesh
         log_event(
             "window_engine", engine=ran, rows=rows,
             emitted=int(target_times.size),
+            mesh=None if mesh is None else dict(mesh.shape),
         )
         if ax != 0:
             out = np.moveaxis(out, 0, ax)

@@ -9,7 +9,13 @@ trailing rows (:func:`tpudas_torch.ops.fir.cascade_decimate_stream`),
 O(1) per channel — so each input sample is read and filtered once.
 
 The carry's leaves stay on the device between blocks and rounds as
-torch tensors; they cross to the host only in :func:`save_carry`.
+torch tensors; they cross to the host only in :func:`save_carry`.  Under
+a channel-only mesh (``LFProc(mesh=...)`` with a ``time`` axis of size
+1, see :mod:`tpudas_torch.parallel`) every leaf is a
+:class:`~tpudas_torch.parallel.sharding.ShardedTensor` on the mesh's
+devices between rounds, and :func:`save_carry` gathers and trims it to
+the logical width on the save cadence only, so the ``.npz`` is byte for
+byte the unsharded one.
 
 Crash-only property: the carry serializes to ONE ``.npz`` beside the
 output files (meta embedded as JSON, written tmp-then-rename with a
@@ -60,6 +66,7 @@ import numpy as np
 import torch
 
 from tpudas_torch.core.timeutils import quantize_step, to_datetime64
+from tpudas_torch.obs.registry import get_registry
 from tpudas_torch.obs.trace import span
 from tpudas_torch.utils.logging import log_event
 
@@ -157,32 +164,30 @@ def _opt_int(v):
     return None if v is None else int(v)
 
 
-def _host_leaf(b) -> np.ndarray:
-    if isinstance(b, torch.Tensor):
-        return b.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(b, np.float32)
-
-
 def save_carry(carry: StreamCarry, folder: str) -> str:
     """Atomically persist the carry beside the output files: one
     crc32-stamped ``.npz`` (meta embedded, unique tmp + rename, ``.crc``
     sidecar) plus a readable checksummed ``.json`` sidecar.  The
     outgoing primary survives as ``.prev`` — the middle rung of
     :func:`load_carry`'s ladder.  The only point where the device
-    leaves cross to the host.  Returns the npz path."""
+    leaves cross to the host: sharded (pad-and-masked) leaves are
+    gathered and trimmed to the logical channel width, counted as
+    ``tpudas_parallel_transfer_bytes_total{direction="gather"}`` (raise
+    the save cadence to amortize it).  Returns the npz path."""
     from tpudas_torch.integrity.checksum import (
         rotate_prev,
         write_bytes_checksummed,
         write_json_checksummed,
     )
+    from tpudas_torch.parallel.sharding import gather_leaves
     from tpudas_torch.resilience.faults import fault_point
 
     path = os.path.join(folder, CARRY_FILENAME)
     fault_point("carry.save", folder=folder)
     with span("stream.carry_save"):
         arrays = {"meta": np.asarray(json.dumps(carry._meta()))}
-        for i, b in enumerate(carry.bufs):
-            arrays[f"buf_{i}"] = _host_leaf(b)
+        for i, b in enumerate(gather_leaves(carry.bufs, carry.n_ch)):
+            arrays[f"buf_{i}"] = b
         if carry.residual is not None:
             res = np.asarray(carry.residual)
             if res.dtype != np.int16:  # raw quantized rows stay int16
@@ -194,6 +199,9 @@ def save_carry(carry: StreamCarry, folder: str) -> str:
         write_bytes_checksummed(path, buf.getvalue())
         write_json_checksummed(
             os.path.join(folder, CARRY_SIDECAR), carry._meta())
+    get_registry().counter(
+        "tpudas_stream_carry_saves_total", "stream carry persists"
+    ).inc()
     return path
 
 
@@ -750,6 +758,17 @@ def _pool_with_residual(carry: StreamCarry, new, qs):
     return np.concatenate([r, n], axis=0), None
 
 
+def _stream_mesh(lfp):
+    """The channel-sharding mesh the stream step runs under: the LFProc's
+    mesh when it is pure channel sharding (a ``time`` axis of size 1 —
+    time-sharded meshes stay on the window path, which owns the halo
+    exchange), else None."""
+    mesh = getattr(lfp, "_mesh", None)
+    if mesh is None or int(mesh.shape.get("time", 1)) > 1:
+        return None
+    return mesh
+
+
 def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
     from tpudas_torch.ops.fir import (
         cascade_decimate_stream,
@@ -767,18 +786,26 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
     # the per-stage chain
     eng_req = "fused" if carry.engine_req == "fused" else "auto"
     dev = lfp.device
+    mesh = _stream_mesh(lfp)
     off = 0
     for n_out in _pow2_blocks(usable // carry.ratio, carry.patch_out):
         blk = pool[off : off + n_out * carry.ratio]
         rows = int(blk.shape[0])
+        # under a mesh too the engine is resolved at the stream's whole
+        # width: each shard runs the unsharded step's engine
         eng = stream_stage_engines(plan, rows, carry.n_ch, eng_req, dev)[0]
         ran = eng if eng.startswith("fused") else f"cascade-{eng}"
         # dispatch now; sync and emit when the block reaches the head of
         # the pipeline (same order, same math, overlapped wall clock)
         t0 = time.perf_counter()
-        x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
         bx = getattr(lfp, "_batch_executor", None)
-        if bx is not None:
+        if mesh is not None:
+            # the sharded step places the host block's column shards
+            y_dev, bufs = cascade_decimate_stream(
+                blk, carry.bufs, plan, eng_req, qscale=pool_qs, mesh=mesh
+            )
+        elif bx is not None:
+            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             # batched fleet service: rendezvous with the group's other
             # members so co-shaped blocks run as one stacked step; the
             # engine is the one resolved above at this stream's own
@@ -787,6 +814,7 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
                 x, carry.bufs, plan, eng, qscale=pool_qs
             )
         else:
+            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             y_dev, bufs = cascade_decimate_stream(
                 x, carry.bufs, plan, eng_req, qscale=pool_qs
             )
@@ -833,6 +861,7 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
     usable = pool.shape[0] - pool.shape[0] % q
     cap_units = max(1, carry.patch_out * max(1, carry.step_ns // d) // q)
     dev = lfp.device
+    mesh = _stream_mesh(lfp)
     off = 0
     for n_units in _pow2_blocks(usable // q, cap_units):
         blk = pool[off : off + n_units * q]
@@ -842,17 +871,25 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
         # this block's host sync; the one-row lerp seam (bufs[1], host)
         # is updated at flush, before the next flush reads it (FIFO)
         t0 = time.perf_counter()
-        x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
         bx = getattr(lfp, "_batch_executor", None)
-        if bx is not None:
+        if mesh is not None:
+            # the sharded step places the host block's column shards;
+            # the overlap-save carry stays sharded on the devices
+            filt_dev, fcarry = fft_pass_filter_stream(
+                blk, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
+                qscale=pool_qs, mesh=mesh,
+            )
+        elif bx is not None:
             # batched fleet service: the step waits at the group's
             # rendezvous and runs at the member's own width (FFT steps
             # are never packed; see fft_pass_filter_stream_stacked)
+            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             filt_dev, fcarry = bx.fft_step(
                 x, carry.bufs[0], d / 1e9, corner, carry.order,
                 qscale=pool_qs,
             )
         else:
+            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             filt_dev, fcarry = fft_pass_filter_stream(
                 x, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
                 qscale=pool_qs,

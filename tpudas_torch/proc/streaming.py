@@ -26,7 +26,6 @@ import time as _time
 from tpudas_torch.fleet.config import StreamConfig, StreamSpec
 from tpudas_torch.fleet.engine import (
     build_runner,
-    check_unported,
     clamp_poll_interval,
     drive,
 )
@@ -155,10 +154,16 @@ def run_lowpass_realtime(
     durable state: its failures are counted and swallowed, and any
     number of subscribers leave the outputs as they would be without.
 
-    Not ported yet, and raising ``NotImplementedError`` when set to
-    anything but their off value (None or False), or left at None while
-    ``TPUDAS_MESH`` (above 1) turns a mesh on: ``mesh`` and
-    ``window_dp``.
+    ``mesh`` (a :class:`~tpudas_torch.parallel.mesh.DeviceMesh`, or an
+    int N: the first N devices of ``device``'s type; None reads
+    ``TPUDAS_MESH``, 0 and 1 meaning none) spreads each round over
+    several devices: a channel-only mesh keeps the stateful stream with
+    its carry sharded on the devices (gathered on the save cadence
+    only), a mesh with time shards runs the window path with a halo
+    between time neighbours.  ``window_dp=True`` with a time-sharded
+    mesh runs runs of same-shape windows as one batch over the time
+    axis (the window path).  Every layout writes the bytes of the
+    unsharded run.
 
     Every round runs inside the JAX package's fault boundary
     (:mod:`tpudas_torch.resilience`): ``fault_policy`` (a
@@ -170,7 +175,6 @@ def run_lowpass_realtime(
     ``quarantine_after`` failed reads or scans.  A fatal error, or one
     past the policy's ``max_consecutive``, propagates to the caller.
     """
-    check_unported(dict(mesh=mesh, window_dp=window_dp), "lowpass")
     gap_tol = resolve_gap_tolerance(data_gap_tolerance, data_gap_tolorance)
     config = StreamConfig(
         kind="lowpass",
@@ -263,13 +267,11 @@ def run_rolling_realtime(
     :func:`run_lowpass_realtime`; the rolling runner writes no health
     snapshot (the JAX one neither).
 
-    Not ported yet, and raising ``NotImplementedError`` when set, or
-    left at None while ``TPUDAS_MESH`` (above 1) turns it on: ``mesh``
-    (the JAX package's batched rolling over a device mesh).  The output
-    folder is audited before the first round, as in
-    :func:`run_lowpass_realtime`.
+    ``mesh`` (None reads ``TPUDAS_MESH``) rolls each chunk of fresh
+    patches as one batch over the mesh's ``ch`` axis, byte-identical to
+    the per-patch path.  The output folder is audited before the first
+    round, as in :func:`run_lowpass_realtime`.
     """
-    check_unported(dict(mesh=mesh), "rolling")
     config = StreamConfig(
         kind="rolling",
         window=window,

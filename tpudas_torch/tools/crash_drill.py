@@ -76,15 +76,20 @@ after its first round and never drained (``TPUDAS_CRASH_DRILL_SUBS``),
 so kills land while the degrade ladder sheds, and the control replays
 live-off.  The live plane holds no durable state, so the comparisons
 above are the whole claim for it.  Not with ``--streams``.
-Not ported yet: ``--mesh`` (the sharded path) raises
-``NotImplementedError``.
+
+``--mesh N`` channel-shards every drilled cycle over N devices
+(``TPUDAS_MESH=N`` in the workers: N cards, or N logical CPU shards
+with ``--device cpu``), while the control replays on a single device:
+the sharded path must survive the kills and stay byte-identical to the
+unsharded run.  Not with ``--streams``.
 
 CLI:
 
     python3 tpudas_torch/tools/crash_drill.py [--cycles 25] [--seed 0] \\
         [--engines fused,auto,fft] [--device cuda|cpu] [--streams N \\
         [--batched]] [--async-ingest] [--live [--live-subs 32]] \\
-        [--tdas-output] [--workdir DIR] [--out PATH] [--log PATH]
+        [--mesh N] [--tdas-output] [--workdir DIR] [--out PATH] \\
+        [--log PATH]
 
 ``tests/test_torch_crash_drill.py`` runs a small seeded smoke on the
 CPU in tier-1 and more cycles under ``-m slow``; ``chip_smoke.py --only
@@ -786,7 +791,7 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
               tdas_output: bool = False, feed=None,
               ready_timeout=READY_TIMEOUT_S,
               run_timeout=RUN_TIMEOUT_S, live: bool = False,
-              live_subs: int = 32) -> dict:
+              live_subs: int = 32, mesh: int = 0) -> dict:
     """One full drill for ``engine``; returns the report with ``ok``
     True when the final audit is clean, no startup audit raised, and the
     outputs, the stream carry, the pyramid and the detect state match
@@ -803,7 +808,9 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
     ``TPUDAS_INGEST_PREFETCH=2`` and the control with the synchronous
     slice loop (``0``).  ``live`` runs every drilled cycle with the live
     push plane on and ``live_subs`` never-drained subscribers
-    (``TPUDAS_LIVE=1``), the control live-off."""
+    (``TPUDAS_LIVE=1``), the control live-off.  ``mesh`` > 0 runs every
+    drilled cycle channel-sharded over that many devices
+    (``TPUDAS_MESH``), the control on a single device."""
     from tpudas_torch.integrity.audit import audit
 
     if engine not in ENGINES:
@@ -811,7 +818,7 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
     cfg = {**SMALL, **(shape or {}), "device": device,
            "tdas_output": bool(tdas_output)}
     tag = (f"crash_drill_{engine}_" + ("async_" if async_ingest else "")
-           + ("live_" if live else ""))
+           + ("live_" if live else "") + (f"mesh{mesh}_" if mesh else ""))
     workdir = workdir or tempfile.mkdtemp(prefix=tag)
     src = os.path.join(workdir, "src")
     out = os.path.join(workdir, "out")
@@ -826,6 +833,10 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         drill_env["TPUDAS_LIVE"] = "1"
         drill_env["TPUDAS_CRASH_DRILL_SUBS"] = str(int(live_subs))
         ctrl_env["TPUDAS_LIVE"] = "0"
+    if mesh:
+        # the workers' pool drops TPUDAS_MESH, so the control is the
+        # single-device run
+        drill_env["TPUDAS_MESH"] = str(int(mesh))
     limits = dict(log_path=log_path, ready_timeout=ready_timeout,
                   run_timeout=run_timeout)
 
@@ -897,6 +908,7 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         "async_ingest": bool(async_ingest),
         "live": bool(live),
         "live_subs": int(live_subs) if live else 0,
+        "mesh": int(mesh),
         "cycles": int(cycles),
         "seed": int(seed),
         "kills": sum(int(r["killed"]) for r in log),
@@ -1078,7 +1090,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tdas-output", action="store_true",
                     help="workers write tdas outputs (a host without h5py)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="not ported yet (the sharded path)")
+                    help="channel-shard the drilled cycles over N devices "
+                    "(TPUDAS_MESH=N), the control single-device; not with "
+                    "--streams")
     ap.add_argument("--live", action="store_true",
                     help="drilled cycles with the live push plane on "
                     "(TPUDAS_LIVE=1) and --live-subs never-drained "
@@ -1088,10 +1102,8 @@ def main(argv=None) -> int:
                     help="in-process subscribers per drilled cycle for "
                     "--live")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "crash_drill --mesh: the sharded path is not ported to "
-            "tpudas_torch yet (ROADMAP A10)")
+    if args.streams and args.mesh:
+        ap.error("--streams and --mesh are mutually exclusive")
     if args.batched and not args.streams:
         ap.error("--batched drills the fleet scheduler; requires --streams")
     if args.streams and args.async_ingest:
@@ -1127,9 +1139,10 @@ def main(argv=None) -> int:
         else:
             print(f"crash_drill: engine={engine} cycles={args.cycles} "
                   f"seed={args.seed} async_ingest={args.async_ingest} "
-                  f"live={args.live}", flush=True)
+                  f"live={args.live} mesh={args.mesh}", flush=True)
             rep = run_drill(async_ingest=args.async_ingest, live=args.live,
-                            live_subs=args.live_subs, **common)
+                            live_subs=args.live_subs, mesh=args.mesh,
+                            **common)
             print(f"crash_drill: {engine}: kills={rep['kills']} "
                   f"audit_clean={rep['audit_clean']} "
                   f"audit_errors={rep['audit_errors']} "
@@ -1147,7 +1160,7 @@ def main(argv=None) -> int:
     payload = {"cycles": args.cycles, "seed": args.seed,
                "streams": args.streams, "batched": args.batched,
                "async_ingest": args.async_ingest, "live": args.live,
-               "device": args.device,
+               "mesh": args.mesh, "device": args.device,
                "ok": ok, "engines": results}
     if args.out:
         with open(args.out, "w") as fh:
