@@ -203,6 +203,18 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    the round that does not save, one devprof launch a sharded step; (e)
    the ``fft`` stream over 2 shards against phase 6's (byte-equal, or
    the gap reported); each leg's wall beside its control's.
+16. the DASCore-compatible entry and the notebooks (A11): (a) one
+   subprocess of ``python -m tpudas_torch.tools.notebooks`` runs the
+   four ``notebooks/*.ipynb`` unmodified on the card at their own
+   defaults (32 channels, ``TPUDAS_NB_POLL=0.5``; the runner polls at
+   that interval, and writes the ``dasdae`` files as tdas where h5py is
+   missing): every cell runs (a cell that fails only because
+   matplotlib is missing is listed by name), ``jax`` is
+   never imported, each low-pass notebook launches B1 (the rolling
+   notebooks run no hand kernel), each notebook's wall; (b)
+   ``tpudas_torch.compat.dascore.spool`` + ``compat.lf_das.LFProc``
+   (no device given) over phase 4's spool: files byte-equal to phase
+   4's first run, 16 B1 launches.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -220,9 +232,10 @@ references from one ``JointProc`` pass), ``--only crash`` phases 1,
 2 and 10 over a fresh spool (``--cycles N``: N killed cycles for every
 engine), ``--only pyramid`` phases 1, 2 and 11, ``--only obs``
 phases 1, 2 and 12, ``--only serve`` phases 1, 2 and 13, ``--only
-backfill`` phases 1, 2 and 14 and ``--only mesh`` phases 1, 2 and 15
-(with its own single-device controls), each over a fresh spool; all
-exit 4 without the kernels line or the ``ok`` line.
+backfill`` phases 1, 2 and 14, ``--only mesh`` phases 1, 2 and 15
+(with its own single-device controls) and ``--only notebooks`` phases
+1, 2 and 16 (with one phase-4 run as 16b's control), each over a fresh
+spool; all exit 4 without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -234,6 +247,7 @@ import json
 import math
 import os
 import shutil
+import subprocess
 import sys
 import time
 from unittest import mock
@@ -5331,17 +5345,157 @@ def short_kernel_name(mangled):
     return mangled
 
 
+NOTEBOOKS = ("low_pass_tpudas.ipynb", "rolling_mean_tpudas.ipynb",
+             "low_pass_tpudas_edge.ipynb", "rolling_mean_tpudas_edge.ipynb")
+# the notebooks whose path runs a hand-written kernel (B1: the batch
+# LFProc and the auto stream); the rolling means run none
+KERNEL_NOTEBOOKS = ("low_pass_tpudas.ipynb", "low_pass_tpudas_edge.ipynb")
+
+
+def phase_notebooks(device, workdir, cls, main=None):
+    """Phase 16: (a) the four notebooks, unmodified, through the port's
+    runner in one subprocess at their own defaults on the card; (b) the
+    DASCore-compatible entry's ``LFProc`` over phase 4's spool, against
+    phase 4's first run (``main``; without it, ``--only notebooks``,
+    one run here)."""
+    from tpudas_torch.compat import dascore as dc
+    from tpudas_torch.compat.lf_das import LFProc
+    from tpudas_torch.device import default_device
+    from tpudas_torch.ops.fir_kernel import fir_decimate
+    from tpudas_torch.ops.fused_kernel import fused_cascade
+
+    cuda = device.type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    ndir = os.path.join(workdir, "notebooks")
+    shutil.rmtree(ndir, ignore_errors=True)
+    os.makedirs(ndir)
+    t_phase = time.perf_counter()
+    checks = []
+
+    # (a) one interpreter for the four notebooks
+    no_h5py = importlib.util.find_spec("h5py") is None
+    no_mpl = importlib.util.find_spec("matplotlib") is None
+    cmd = [sys.executable, "-m", "tpudas_torch.tools.notebooks",
+           *(os.path.join(root, "notebooks", n) for n in NOTEBOOKS),
+           "--workdir", ndir, "--out", os.path.join(ndir, "report.json")]
+    cmd += [] if cuda else ["--device", "cpu"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "TPUDAS_NB_NCH", "TPUDAS_NB_FS",
+                        "TPUDAS_NB_WORKDIR")}
+    env.update(PYTHONPATH=root, TPUDAS_NB_POLL="0.5")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=root, timeout=600)
+    wall_a = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n",
+              file=sys.stderr)
+        fail(f"notebooks: the runner exited {proc.returncode}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    nbs = {ln["notebook"]: ln for ln in lines if "notebook" in ln}
+    last = next(ln for ln in lines if "imports" in ln)
+    imports = last["imports"]
+    launches = {"fir_decimate": 0, "fused_cascade": 0}
+    rows = {}
+    for name in NOTEBOOKS:
+        ln = nbs.get(name)
+        if ln is None:
+            fail(f"notebooks: no line for {name}")
+        skipped = ln["cells_without_matplotlib"]
+        for k in launches:
+            launches[k] += ln["launches"][k]
+        rows[name] = {"wall_s": ln["wall_s"], "cells": ln["cells"],
+                      "cells_run": ln["cells_run"],
+                      "cells_without_matplotlib": skipped,
+                      "launches": ln["launches"],
+                      "output_files": len(ln["outputs"])}
+        checks += [
+            (ln["cells_run"] + len(skipped) == ln["cells"],
+             f"{name}: {ln['cells_run']} of {ln['cells']} cells ran"),
+            (not skipped or no_mpl,
+             f"{name}: cells skipped with matplotlib installed"),
+            (bool(ln["outputs"]), f"{name}: no output file"),
+        ]
+        if cuda and name in KERNEL_NOTEBOOKS:
+            checks.append((ln["launches"]["fir_decimate"] > 0,
+                           f"{name}: no kernel launch on the card"))
+    checks += [
+        (last["h5_format"] == ("tdas" if no_h5py else "dasdae"),
+         f"notebooks: dasdae files written as {last['h5_format']}"),
+        (imports["jax_imported"] is False, "notebooks: jax was imported"),
+        (imports["not_aliases"] == [],
+         f"notebooks: tpudas modules not the port's: "
+         f"{imports['not_aliases']}"),
+    ]
+    res = {"phase": "notebooks", "wall_s": wall_a,
+           "notebooks": rows, "launches": launches,
+           "jax_imported": imports["jax_imported"],
+           "tpudas_aliases": imports["aliases"],
+           "h5_format": last["h5_format"],
+           "matplotlib": not no_mpl}
+
+    # (b) the compat entry over phase 4's spool, no device given
+    src = os.path.join(workdir, "src")
+    single = os.path.join(workdir, "out")
+    if main is None or not os.path.isdir(single):
+        single = os.path.join(ndir, "batch_single")
+        run_lfproc(device, cls, src, single)
+    out = os.path.join(ndir, "compat")
+    compat_cls = lfproc_class(force_tdas=cls.__name__ != "LFProc",
+                              base=LFProc)
+    fir_decimate.launches = 0
+    fused_cascade.launches = 0
+    ctx = contextlib.nullcontext() if cuda else default_device(device)
+    t0 = time.perf_counter()
+    with ctx:
+        lfp = compat_cls(dc.spool(src).sort("time").update())
+        lfp.update_processing_parameter(
+            output_sample_interval=1.0, process_patch_size=60,
+            edge_buff_size=10)
+        lfp.set_output_folder(out, delete_existing=True)
+        bg = np.datetime64(T0, "ns")
+        lfp.process_time_range(
+            bg, bg + np.timedelta64(int(MAIN_PATH_SECONDS), "s"))
+    if cuda:
+        torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    differ = same_files(single, out)
+    compat = {"wall_s": wall_b, "device": str(lfp.device),
+              "windows": sum(lfp.engine_counts.values()),
+              "engine_counts": dict(lfp.engine_counts),
+              "fir_decimate_launches": fir_decimate.launches,
+              "fused_cascade_launches": fused_cascade.launches,
+              "files": len(os.listdir(out)), "differ_from_phase4": differ,
+              "single_wall_s": None if main is None else main["wall_s"]}
+    want = 16 if cuda else 0
+    checks += [
+        (not differ, f"compat: files differ from phase 4's: {differ}"),
+        (fir_decimate.launches == want,
+         f"compat: {fir_decimate.launches} B1 launches, not {want}"),
+        (lfp.device.type == device.type, f"compat: ran on {lfp.device}"),
+    ]
+    res["compat"] = compat
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    for ok, what in checks:
+        if not ok:
+            fail(f"notebooks check failed: {what}")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="dry run on the CPU at a small width; exits 3")
     ap.add_argument("--only",
                     choices=["fir", "fused", "fleet", "detect", "crash",
-                             "pyramid", "obs", "serve", "backfill", "mesh"],
+                             "pyramid", "obs", "serve", "backfill", "mesh",
+                             "notebooks"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
                     "(fleet), 9 (detect), 10 (crash), 11 (pyramid), 12 "
-                    "(obs), 13 (serve), 14 (backfill) or 15 (mesh) alone; "
-                    "exits 4")
+                    "(obs), 13 (serve), 14 (backfill), 15 (mesh) or 16 "
+                    "(notebooks) alone; exits 4")
     ap.add_argument("--cycles", type=int, default=None,
                     help="killed cycles of each engine's crash drill "
                     "(default: fused 3, auto and fft 1)")
@@ -5376,6 +5530,7 @@ def main(argv=None):
         "nvidia_smi": smi,
         "h5py": importlib.util.find_spec("h5py") is not None,
         "pandas": importlib.util.find_spec("pandas") is not None,
+        "matplotlib": importlib.util.find_spec("matplotlib") is not None,
     })
 
     from tpudas_torch.ops._build import (
@@ -5417,7 +5572,7 @@ def main(argv=None):
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
     tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
     if args.only in ("fleet", "detect", "crash", "pyramid", "obs", "serve",
-                     "backfill", "mesh"):
+                     "backfill", "mesh", "notebooks"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5439,6 +5594,8 @@ def main(argv=None):
             phase_backfill(device, workdir, cls, tdas_output)
         elif args.only == "mesh":
             phase_mesh(device, workdir, cls)
+        elif args.only == "notebooks":
+            phase_notebooks(device, workdir, cls)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -5461,6 +5618,7 @@ def main(argv=None):
     serve = phase_serve(device, workdir, cls, obs_members)
     phase_backfill(device, workdir, cls, tdas_output)
     mesh = phase_mesh(device, workdir, cls, res, fft)
+    notebooks = phase_notebooks(device, workdir, cls, res)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}
@@ -5499,6 +5657,10 @@ def main(argv=None):
         "mesh_launches_per_shard": {
             k: v["launches_per_shard"] for k, v in mesh["legs"].items()
             if "launches_per_shard" in v},
+        # phase 16: the four notebooks through the runner (16a) and the
+        # compat entry's LFProc over phase 4's spool (16b)
+        "notebook_launches": notebooks["launches"]["fir_decimate"],
+        "compat_launches": notebooks["compat"]["fir_decimate_launches"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],
@@ -5550,6 +5712,10 @@ def main(argv=None):
             "b3_steps"],
         # phase 15d: the fused stream's sharded steps (2 and 4 shards)
         "mesh_launches": mesh["b3_steps"],
+        # phase 16: the notebooks run no fused stream (their engine is
+        # the default "auto"), nor does the compat entry's batch path
+        "notebook_launches": notebooks["launches"]["fused_cascade"],
+        "compat_launches": notebooks["compat"]["fused_cascade_launches"],
         "fleet_packed_ms": fleet["packed_step"].get("b3_packed_ms"),
         "fleet_solo_sum_ms": fleet["packed_step"].get("b3_solo_sum_ms"),
         "b1_chain_ms": full["b1_chain_ms"],

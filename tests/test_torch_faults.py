@@ -435,3 +435,23 @@ def test_verify_truncate_takes_the_prev_rung(clean, tmp_path, pkg):
     assert carry is not None
     assert os.path.getsize(os.path.join(out, CARRY_FILENAME)) == 32
     assert reg.value("tpudas_integrity_fallback_total", artifact="carry") == 1
+
+
+def test_stream_prefetch_site_fires_like_jax(pool, tmp_path, clean,
+                                             monkeypatch):
+    """``stream.prefetch`` (the async ingest's producer, before each
+    slice read) fires in both drivers: the prefetch thread ships the
+    fault to the round, which retries and emits the unfaulted stream.
+    The port declared the site in ``FAULT_SITES`` and never fired it
+    (ROADMAP C13)."""
+    monkeypatch.setenv("TPUDAS_INGEST_PREFETCH", "2")
+    spec = dict(site="stream.prefetch", at=1)
+    outs = {}
+    for pkg in PACKAGES:
+        outs[pkg] = str(tmp_path / f"out-{pkg}")
+        rounds, plan = _run(pkg, pool, str(tmp_path / f"src-{pkg}"),
+                            outs[pkg], then=[5], specs=[spec], policy=FAST)
+        assert plan.fired == [("stream.prefetch", "raise", 1)], pkg
+        assert rounds == 2, pkg
+    _assert_same_stream(outs["port"], outs["jax"])
+    _assert_same_stream(outs["port"], clean)

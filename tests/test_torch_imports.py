@@ -131,6 +131,13 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.parallel.pipeline",
         "tpudas_torch.parallel.batch",
         "tpudas_torch.parallel.distributed",
+        "tpudas_torch.compat",
+        "tpudas_torch.compat.dascore",
+        "tpudas_torch.compat.dascore.units",
+        "tpudas_torch.compat.dascore.utils",
+        "tpudas_torch.compat.dascore.utils.mapping",
+        "tpudas_torch.compat.lf_das",
+        "tpudas_torch.tools.notebooks",
     ):
         assert mod in res["mods"]
     loaded = res["loaded"]
@@ -260,3 +267,53 @@ def test_pool_worker_import_path():
     assert [n for n in loaded if n.startswith("tpudas_torch.ops")] == []
     assert "tpudas_torch.serve.http" in loaded
     assert res["cuda_initialized"] is False
+
+
+_POOL_PROBE = r"""
+import json, sys
+import tpudas_torch.serve.pool  # noqa: F401
+import torch
+print(json.dumps({"loaded": sorted(sys.modules),
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_pool_module_loads_no_kernel_module():
+    """``import tpudas_torch.serve.pool`` alone, in a fresh interpreter:
+    the package's re-exports (``tpudas_torch/__init__.py`` and the
+    subpackages') must not pull a kernel wrapper or the kernel builder
+    into a pool worker, nor create a CUDA context (the invariant of
+    ``tpudas_torch/serve/pool.py``)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", _POOL_PROBE], capture_output=True,
+        text=True, env=env, cwd=REPO, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    loaded = set(res["loaded"])
+    for mod in ("tpudas_torch.ops.fir_kernel", "tpudas_torch.ops.fused_kernel",
+                "tpudas_torch.ops._build"):
+        assert mod not in loaded, mod
+    assert res["cuda_initialized"] is False
+    assert [n for n in loaded
+            if _top(n) in ("jax", "jaxlib", "tpudas", "matplotlib", "h5py")] == []
+
+
+def test_compat_and_runner_import_no_jax_no_tpudas():
+    """The DASCore-compatible entry and the notebook runner: no import
+    at any depth names JAX or the JAX package (the runner maps the
+    notebooks' ``tpudas`` imports to the port at run time)."""
+    paths = [os.path.join(REPO, "tpudas_torch", "tools", "notebooks.py")]
+    for dirpath, _dirs, files in os.walk(
+            os.path.join(REPO, "tpudas_torch", "compat")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    assert len(paths) == 7
+    for path in paths:
+        names = _imported_modules(path)
+        if not path.endswith(os.path.join("compat", "__init__.py")):
+            assert "tpudas_torch" in {_top(n) for n in names}, path
+        assert [n for n in names
+                if _top(n) in ("jax", "jaxlib", "tpudas", "dascore", "lf_das")
+                ] == [], path

@@ -10,14 +10,47 @@ PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["default_device", "resolve_device"]
+
+# the process-wide default of default_device(); None: the card
+_default = None
+_default_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def default_device(device):
+    """Make ``device`` what ``None`` means for the block, in every
+    thread of the process: the port's counterpart of
+    ``jax.default_device``.  It is process wide, not per thread or
+    context, because the runners' prefetch and member threads (and a
+    notebook's feeder threads) resolve devices too.  Outside it ``None``
+    means the card and raises without one.  The port never enters it
+    itself and no environment variable sets it: it lets code that
+    passes no device (the notebooks, ``LFProc(sp)``) run on the CPU at
+    the caller's request.  Nests; restores the previous default on
+    exit.  Yields the resolved device."""
+    global _default
+    dev = resolve_device(device)
+    with _default_lock:
+        prev, _default = _default, dev
+    try:
+        yield dev
+    finally:
+        with _default_lock:
+            _default = prev
 
 
 def resolve_device(device=None) -> torch.device:
     """``None``/``"cuda"``/``"cuda:N"`` -> a CUDA device (raises when
-    CUDA is unavailable); ``"cpu"`` -> the CPU; anything else raises."""
+    CUDA is unavailable); ``"cpu"`` -> the CPU; anything else raises.
+    Inside :func:`default_device`, ``None`` is that block's device."""
+    if device is None and _default is not None:
+        return _default
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cpu":
         return dev

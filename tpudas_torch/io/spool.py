@@ -18,12 +18,14 @@ pandas inside itself, so the processing path runs without pandas.
 from __future__ import annotations
 
 import os
+import time as _time
 
 import numpy as np
 
 from tpudas_torch.core.patch import Patch
 from tpudas_torch.core.timeutils import to_datetime64
 from tpudas_torch.io.index import DirectoryIndex
+from tpudas_torch.obs.registry import get_registry
 from tpudas_torch.utils.logging import log_event
 
 __all__ = ["spool", "BaseSpool", "MemorySpool", "DirectorySpool", "merge_patches"]
@@ -385,7 +387,16 @@ class DirectorySpool(BaseSpool):
 
     def update(self):
         """Re-scan the directory for new/changed files (incremental)."""
+        reg = get_registry()
+        t0 = _time.perf_counter()
         self._index.update(exclude=self._exclude)
+        reg.histogram(
+            "tpudas_spool_update_seconds",
+            "directory index re-scan latency",
+        ).observe(_time.perf_counter() - t0)
+        reg.counter(
+            "tpudas_spool_updates_total", "directory index re-scans"
+        ).inc()
         return self._clone()
 
     def sort(self, key="time"):
@@ -439,6 +450,8 @@ class DirectorySpool(BaseSpool):
         from tpudas_torch.io.registry import read_file
         from tpudas_torch.resilience.faults import SpoolReadError, fault_point
 
+        reg = get_registry()
+        t0 = _time.perf_counter()
         try:
             fault_point("spool.read", path=row["path"])
             patches = read_file(
@@ -450,7 +463,18 @@ class DirectorySpool(BaseSpool):
         except Exception as exc:
             # attribute the failure to the file, so the fault boundary
             # can charge the quarantine ledger
+            reg.counter(
+                "tpudas_spool_read_errors_total",
+                "file payload reads that raised",
+            ).inc()
             raise SpoolReadError(row["path"], exc) from exc
+        reg.histogram(
+            "tpudas_spool_read_seconds",
+            "per-file payload read latency (selection applied)",
+        ).observe(_time.perf_counter() - t0)
+        reg.counter(
+            "tpudas_spool_reads_total", "file payload reads"
+        ).inc()
         return patches[0]
 
     def _materialize(self):

@@ -11,6 +11,13 @@ is reported to the device telemetry as one compile of its seconds
 (:mod:`tpudas_torch.obs.devprof`), attributed to the calling thread's
 declared kernel key.  Nothing here runs at import time: the CPU-only test
 environment has no ``nvcc`` and imports every module.
+
+The build directory is the port's persistent compile cache, and it
+carries the JAX package's ``tpudas_compile_cache_*`` metrics
+(``tpudas/utils/compile_cache.py``) with this meaning: ``enabled`` is 1
+(the cache is always on), ``entries`` the libraries in the build
+directory, a hit a kernel library loaded without running nvcc, a miss
+an nvcc build.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import time
 from pathlib import Path
 
 from tpudas_torch.obs import devprof
+from tpudas_torch.obs.registry import get_registry
 
 __all__ = [
     "NVCC_FLAGS", "KernelError", "build_dir", "build_libraries",
@@ -124,8 +132,33 @@ def build_libraries(names) -> None:
             ]
             os.replace(tmp, so)
             devprof._on_compile_duration(_COMPILE_EVENT, info["seconds"])
+        _count_cache(misses=len(started) - len(failed))
         if failed:
             raise KernelError("\n".join(failed))
+
+
+def _count_cache(misses: int = 0, hits: int = 0) -> None:
+    """The compile-cache metrics of the build directory (see the module
+    docstring)."""
+    reg = get_registry()
+    reg.gauge(
+        "tpudas_compile_cache_enabled",
+        "1 when the kernel library cache (the build directory) is active",
+    ).set(1)
+    reg.gauge(
+        "tpudas_compile_cache_entries",
+        "built libraries in the kernel library cache directory",
+    ).set(len(list(build_dir().glob("lib*.so"))))
+    if hits:
+        reg.counter(
+            "tpudas_compile_cache_hits_total",
+            "kernel libraries loaded from the cache without running nvcc",
+        ).inc(hits)
+    if misses:
+        reg.counter(
+            "tpudas_compile_cache_misses_total",
+            "kernel libraries built with nvcc",
+        ).inc(misses)
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -139,6 +172,8 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = _LIBS[name] = ctypes.CDLL(str(_so_path(name)[1]))
             devprof._on_compile_duration(
                 _COMPILE_EVENT, time.perf_counter() - t0)
+            if _INFO.get(name, {}).get("cached"):
+                _count_cache(hits=1)
         return lib
 
 

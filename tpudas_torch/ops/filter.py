@@ -34,6 +34,7 @@ import torch
 from tpudas_torch.core import units as _units
 from tpudas_torch.device import resolve_device
 from tpudas_torch.obs import devprof
+from tpudas_torch.obs.trace import span
 from tpudas_torch.ops.fftlen import next_tpu_fft_len
 
 __all__ = [
@@ -214,7 +215,6 @@ def _fft_stream_sharded(block, carry, d_sec, low, high, order, qscale, mesh,
     """:func:`fft_pass_filter_stream` over the column shards of
     ``mesh``'s ``ch_axis``: one step (one devprof launch, one span)
     whose shards are all launched before the output is gathered."""
-    from tpudas_torch.obs.trace import span
 
     T, C = int(np.shape(block)[0]), int(np.shape(block)[1])
     rows_carry = int(np.shape(carry)[0])
@@ -420,11 +420,13 @@ def patch_pass_filter(patch, order=4, engine=None, device=None, **kwargs):
     if ax != 0:
         host = np.moveaxis(host, ax, 0)
     if engine in ("numpy", "scipy", "host"):
-        out = _host_sosfiltfilt(host, d, low, high, order)
-        out = out.astype(patch.host_data().dtype, copy=False)
+        with span("op.pass_filter", engine="host"):
+            out = _host_sosfiltfilt(host, d, low, high, order)
+            out = out.astype(patch.host_data().dtype, copy=False)
     else:
-        out = fft_pass_filter(host, d, low=low, high=high, order=order,
-                              device=device).cpu().numpy()
+        with span("op.pass_filter", engine="fft"):
+            out = fft_pass_filter(host, d, low=low, high=high, order=order,
+                                  device=device).cpu().numpy()
     if ax != 0:
         out = np.moveaxis(out, 0, ax)
     return patch.new(data=out)

@@ -516,6 +516,13 @@ def cascade_decimate(
         x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     eng = resolve_cascade_engine(engine, dev)
     _check_quantized(x, qscale)
+    with span("op.cascade", rows=int(x.shape[0]), engine=engine):
+        return _cascade_chain(x, plan, phase, n_out, eng, qscale, dev)
+
+
+def _cascade_chain(x, plan, phase, n_out, eng, qscale, dev):
+    """The stages of :func:`cascade_decimate` on the tensor ``x`` with
+    the resolved engine ``eng``."""
     from tpudas_torch.ops.fir_kernel import fir_decimate, fir_decimate_plain
 
     layout, _rows = chain_layout(plan, n_out, eng, dev)
@@ -701,6 +708,26 @@ def fused_intermediate_bytes(plan: CascadePlan, T: int, n_ch: int) -> int:
     return total
 
 
+def _count_fused(plan: CascadePlan, T: int, n_ch: int,
+                 variant: str) -> None:
+    """Per-step fused-path observability: steps by variant, and the
+    bytes of the per-stage intermediates the chain would have written
+    for the block (:func:`fused_intermediate_bytes`)."""
+    from tpudas_torch.obs.registry import get_registry
+
+    reg = get_registry()
+    reg.counter(
+        "tpudas_fir_fused_rounds_total",
+        "fused cascade stream steps dispatched",
+        labelnames=("engine",),
+    ).inc(engine=variant)
+    reg.counter(
+        "tpudas_fir_fused_intermediate_bytes_saved_total",
+        "per-stage full-rate HBM intermediate bytes the fused kernel "
+        "did not materialize",
+    ).inc(fused_intermediate_bytes(plan, T, n_ch))
+
+
 def resolve_stream_engine(engine: str, plan: CascadePlan = None,
                           T: int = 0, n_ch: int = 0, device=None) -> str:
     """The engine a stream block runs: ``auto``/``cuda``/``torch`` ->
@@ -809,9 +836,15 @@ def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
     devprof.note_kernel("cascade", shape_key, knob_fingerprint())
     cost = devprof.kernel_cost("cascade", shape_key, stream_step_cost,
                                (plan, T, n_ch, x.element_size()))
+    fused = eng.startswith("fused")
+    sp = (span("fir.fused", rows=T, engine=eng) if fused
+          else span("op.cascade_stream", rows=T, engine=eng))
     t0 = devprof.launch_start(dev)
-    out = _stream_step(x, bufs, plan, eng, qscale)
+    with sp:
+        out = _stream_step(x, bufs, plan, eng, qscale)
     devprof.note_launch(eng, t0, out, cost=cost)
+    if fused:
+        _count_fused(plan, T, n_ch, eng)
     return out
 
 
@@ -883,12 +916,16 @@ def _stream_sharded(x, carry, plan, engine, qscale, mesh, ch_axis):
     devprof.note_kernel("cascade", shape_key, knob_fingerprint())
     cost = devprof.kernel_cost("cascade", shape_key, stream_step_cost,
                                (plan, T, Cp, xs[0].element_size()))
-    name = "fir.fused" if eng.startswith("fused") else "op.cascade_stream"
+    fused = eng.startswith("fused")
+    sp = (span("fir.fused", rows=T, engine=eng, shards=nc) if fused
+          else span("op.cascade_stream", rows=T, engine=eng, shards=nc))
     t0 = devprof.launch_start(mesh.unique_devices())
-    with span(name, rows=T, engine=eng, shards=nc):
+    with sp:
         ys, bufs = _shard_steps(xs, carry, plan, eng, qscale)
         y = gather_columns(ys, C)
     devprof.note_launch(eng, t0, (y, bufs), cost=cost)
+    if fused:
+        _count_fused(plan, T, C, eng)
     return y, bufs
 
 
@@ -1071,6 +1108,9 @@ def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
         ))
         o += w
     devprof.note_launch(engine, t0, out, cost=cost, stacked=True)
+    if engine.startswith("fused"):
+        for w in widths:
+            _count_fused(plan, T, w, engine)
     return out
 
 

@@ -33,6 +33,8 @@ from collections import deque
 
 import numpy as np
 
+from tpudas_torch.obs.trace import span
+from tpudas_torch.resilience.faults import fault_point
 from tpudas_torch.utils.logging import log_event
 
 __all__ = ["SlicePrefetcher", "decode_payload", "ingest_depth"]
@@ -130,13 +132,15 @@ class SlicePrefetcher:
                 self._loading = True
             patch = payload = error = None
             try:
-                patch = self._lfp._load_window(
-                    np.datetime64(int(t_lo_ns), "ns"),
-                    np.datetime64(int(t_hi_ns), "ns"),
-                    self._on_gap,
+                t_lo = np.datetime64(int(t_lo_ns), "ns")
+                t_hi = np.datetime64(int(t_hi_ns), "ns")
+                fault_point(
+                    "stream.prefetch", t_lo=str(t_lo), t_hi=str(t_hi)
                 )
-                if patch is not None:
-                    payload = decode_payload(self._lfp, patch)
+                with span("stream.prefetch", t_lo=str(t_lo)):
+                    patch = self._lfp._load_window(t_lo, t_hi, self._on_gap)
+                    if patch is not None:
+                        payload = decode_payload(self._lfp, patch)
             except BaseException as exc:  # shipped to the consumer:
                 # an interrupt must cross the thread too
                 error = exc

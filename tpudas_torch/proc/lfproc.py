@@ -448,7 +448,29 @@ class LFProc:
             raise Exception("Please setup output folder first")
         from tpudas_torch.proc.stream import process_increment
 
-        return process_increment(self, carry, edtime)
+        before = dict(self.timings)
+        try:
+            return process_increment(self, carry, edtime)
+        finally:
+            self._mirror_timings(before)
+
+    def _mirror_timings(self, before: dict) -> None:
+        """Mirror this run's phase-timing deltas (``self.timings`` is
+        cumulative per LFProc) into the obs registry: one call per
+        driver entry point keeps the per-window paths free of registry
+        traffic."""
+        reg = get_registry()
+        for key, metric, help_ in (
+            ("assemble_s", "tpudas_window_assemble_seconds_total",
+             "wall seconds waiting on window read + H2D staging"),
+            ("device_s", "tpudas_window_device_seconds_total",
+             "wall seconds in kernel dispatch through host sync"),
+            ("write_s", "tpudas_window_write_seconds_total",
+             "wall seconds writing HDF5 outputs"),
+        ):
+            delta = self.timings.get(key, 0.0) - before.get(key, 0.0)
+            if delta > 0:
+                reg.counter(metric, help_).inc(delta)
 
     def _count_block(self, ran: str) -> None:
         self.stream_blocks[ran] = self.stream_blocks.get(ran, 0) + 1
@@ -484,25 +506,28 @@ class LFProc:
                     native=native,
                 )
                 out = None if alloc is None else alloc(*window_array_spec(plan))
-                patch = assemble_window_patch(plan, out=out)
+                with span("lfproc.load_window", native=native,
+                          files=len(plan["segments"])):
+                    patch = assemble_window_patch(plan, out=out)
                 if native:
                     self.native_windows += 1
                 return patch
-        selected = self._spool.select(time=(t_lo, t_hi))
-        plist = make_spool(selected).chunk(
-            time=None,
-            max_fill=float(self._para["data_gap_tolorance"]),
-        )
-        if len(plist) == 0:
-            if on_gap == "raise":
-                raise Exception("patch merge failed! Gap in data exists")
-            return None
-        try:
-            return check_merge(plist)
-        except Exception:
-            if on_gap == "raise":
-                raise
-            return None
+        with span("lfproc.load_window", native=False):
+            selected = self._spool.select(time=(t_lo, t_hi))
+            plist = make_spool(selected).chunk(
+                time=None,
+                max_fill=float(self._para["data_gap_tolorance"]),
+            )
+            if len(plist) == 0:
+                if on_gap == "raise":
+                    raise Exception("patch merge failed! Gap in data exists")
+                return None
+            try:
+                return check_merge(plist)
+            except Exception:
+                if on_gap == "raise":
+                    raise
+                return None
 
     def _split_grid_at_gaps(self, time_grid):
         """[(g_lo, g_hi), ...] index ranges of ``time_grid`` covered by
@@ -583,6 +608,7 @@ class LFProc:
         else:
             trace_cm = contextlib.nullcontext()
         total_windows = 0
+        before = dict(self.timings)
         try:
             with trace_cm, span("lfproc.process_time_range",
                                 grid_points=len(time_grid),
@@ -602,6 +628,7 @@ class LFProc:
             # origin)
             self._run_origin_ns = None
             self._first_window_of_run = True
+            self._mirror_timings(before)
         log_event(
             "process_time_range_done",
             windows=total_windows,
@@ -1078,6 +1105,11 @@ class LFProc:
         attrs, and the output write."""
         ax = window_patch.axis_of("time")
         self.engine_counts[ran] = self.engine_counts.get(ran, 0) + 1
+        get_registry().counter(
+            "tpudas_windows_total",
+            "processed windows by the engine that actually ran",
+            labelnames=("engine",),
+        ).inc(engine=ran)
         mesh = self._mesh
         log_event(
             "window_engine", engine=ran, rows=rows,

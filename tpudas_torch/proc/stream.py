@@ -225,6 +225,10 @@ def discard_carry(folder: str) -> bool:
                 removed = True
     if removed:
         log_event("stream_carry_discarded", folder=folder)
+        get_registry().counter(
+            "tpudas_stream_carry_discards_total",
+            "persisted carries invalidated by a non-stateful write",
+        ).inc()
     return removed
 
 
@@ -296,10 +300,18 @@ def load_carry(folder: str) -> StreamCarry | None:
                 "stream_carry_unreadable", path=cand,
                 error=f"{type(exc).__name__}: {str(exc)[:200]}",
             )
+            get_registry().counter(
+                "tpudas_stream_carry_unreadable_total",
+                "corrupt/unreadable carries degraded to .prev or "
+                "rewind mode",
+            ).inc()
             count_fallback(
                 "carry", f"{type(exc).__name__}: {str(exc)[:120]}", cand
             )
             continue
+        get_registry().counter(
+            "tpudas_stream_carry_loads_total", "stream carries loaded"
+        ).inc()
         return carry
     return None
 
@@ -330,6 +342,10 @@ def reconcile_outputs(folder: str, carry: StreamCarry) -> int:
                 removed += 1
     if removed:
         log_event("stream_reconcile_removed", files=removed)
+        get_registry().counter(
+            "tpudas_stream_reconcile_removed_total",
+            "crashed-round output files removed on carry resume",
+        ).inc(removed)
     return removed
 
 
@@ -458,6 +474,7 @@ def process_increment(lfp, carry: StreamCarry, edtime) -> int:
     t2_ns = _ns(edtime)
     emitted0 = carry.emitted
     slice_ns = max(carry.patch_out, 4) * carry.step_ns
+    reg = get_registry()
     depth = ingest_depth()
     pipe = _EmitPipeline(depth)
     prefetcher = None
@@ -508,6 +525,10 @@ def process_increment(lfp, carry: StreamCarry, edtime) -> int:
                     pipe.flush()
                     log_event("stream_gap_skipped", t_lo=str(t_lo),
                               t_hi=str(t_hi))
+                    reg.counter(
+                        "tpudas_stream_gap_skips_total",
+                        "stream slices skipped over unmergeable gaps",
+                    ).inc()
                     _reset_engine(carry)
                     carry.next_ingest_ns = t_hi_ns + 1
                     if missed:
@@ -532,7 +553,12 @@ def process_increment(lfp, carry: StreamCarry, edtime) -> int:
     finally:
         if prefetcher is not None:
             prefetcher.close()
-    return carry.emitted - emitted0
+    emitted = carry.emitted - emitted0
+    reg.counter(
+        "tpudas_stream_samples_emitted_total",
+        "output samples emitted by the stateful stream",
+    ).inc(emitted)
+    return emitted
 
 
 def _reset_engine(carry: StreamCarry) -> None:
@@ -583,6 +609,10 @@ def _feed_patch(lfp, carry: StreamCarry, patch, on_gap, pipe,
                 expected=str(np.datetime64(int(carry.next_ingest_ns), "ns")),
                 got=str(np.datetime64(int(t_ns[i0]), "ns")),
             )
+            get_registry().counter(
+                "tpudas_stream_gaps_detected_total",
+                "full-rate gaps that cold-restarted the stream engine",
+            ).inc()
             if on_gap == "raise":
                 raise Exception("patch merge failed! Gap in data exists")
             # pending blocks carry the pre-gap emission grid
@@ -717,6 +747,28 @@ def _emit(lfp, carry: StreamCarry, patch, out, rows, ran, t_dev) -> None:
     )
 
 
+def _count_block(rows: int, engine: str, t_dev: float) -> None:
+    """Per-dispatched-block observability shared by both stream
+    engines: block count and consumed full-rate rows by engine, and the
+    synced device latency distribution."""
+    reg = get_registry()
+    reg.counter(
+        "tpudas_stream_blocks_total",
+        "stream filter blocks dispatched",
+        labelnames=("engine",),
+    ).inc(engine=engine)
+    reg.counter(
+        "tpudas_stream_samples_consumed_total",
+        "full-rate samples fed through the carried filter state",
+        labelnames=("engine",),
+    ).inc(int(rows), engine=engine)
+    reg.histogram(
+        "tpudas_stream_block_seconds",
+        "per-block device dispatch+sync latency",
+        labelnames=("engine",),
+    ).observe(t_dev, engine=engine)
+
+
 def _pow2_blocks(n_units: int, cap: int) -> list:
     """Block sizes covering ``n_units``: whole ``cap``-sized blocks
     first, then a descending power-of-two split of the remainder, so a
@@ -747,6 +799,12 @@ def _pool_with_residual(carry: StreamCarry, new, qs):
     ):
         return np.concatenate([residual, new], axis=0), qs
     log_event("stream_ingest_host_dequant")
+    get_registry().counter(
+        "tpudas_stream_ingest_host_dequant_total",
+        "stream slices dequantized on host because the payload "
+        "dtype/scale changed mid-stream (the uniform-payload fast "
+        "path dequantizes in-kernel)",
+    ).inc()
     r = (
         residual.astype(np.float32) * np.float32(r_qs) if r_qs is not None
         else np.asarray(residual, np.float32)
@@ -827,6 +885,7 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
             y = y_dev.cpu().numpy()
             t_dev = t_disp + time.perf_counter() - t1
             lfp.timings["device_s"] += t_dev
+            _count_block(rows, ran, t_dev)
             carry.consumed += rows
             s = min(carry.skip_left, y.shape[0])
             carry.skip_left -= s
@@ -909,6 +968,7 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
             filt = filt_dev.cpu().numpy()
             t_dev = t_disp + time.perf_counter() - t1
             lfp.timings["device_s"] += t_dev
+            _count_block(blk_rows, "fft", t_dev)
             tail = carry.bufs[1]
             rows = np.concatenate([tail, filt], axis=0) if tail.size else filt
             t_row0 = t_blk0 - tail.shape[0] * d

@@ -137,6 +137,10 @@ SMALL = {
     "edge": 5.0, "patch_out": 20, "detect_ops": DETECT_OPS,
 }
 WORKER_MAX_ROUNDS = 8
+# a fresh worker interpreter's warm-up (imports, the card's context),
+# from its launch; then its task's ready marker, from the end of the
+# warm-up or the task's hand-over, whichever is later
+START_TIMEOUT_S = 300.0
 READY_TIMEOUT_S = 300.0
 RUN_TIMEOUT_S = 600.0
 STANDBY_MAX_S = 3600.0  # a started worker's longest wait for its task
@@ -213,7 +217,7 @@ def _warm_up(cfg: dict, engine: str, state: dict):
     import tpudas_torch.proc.streaming  # noqa: F401
     from tpudas_torch.device import resolve_device
     from tpudas_torch.fleet import engine as fleet_engine
-    from tpudas_torch.integrity import audit as audit_mod
+    audit_mod = importlib.import_module("tpudas_torch.integrity.audit")
 
     if importlib.util.find_spec("h5py") is not None:
         import h5py  # noqa: F401  (the dasdae reader and writer)
@@ -403,6 +407,12 @@ class _WorkerPool:
                            os.path.join(os.path.dirname(logs), "pycache"))
         self.env = env
 
+    def prewarm(self) -> None:
+        """Start ``PREWARM`` workers now, so their warm-up overlaps the
+        caller's set-up (the first feed)."""
+        while len(self.waiting) < PREWARM:
+            self._start()
+
     def _start(self) -> None:
         slot = os.path.join(self.logs, f"worker-{self.count:04d}")
         self.count += 1
@@ -446,8 +456,11 @@ def _run_cycle(pool, src, out, kill_after, streams=0, env_extra=None,
                run_timeout=RUN_TIMEOUT_S) -> dict:
     """One cycle on the pool's next worker; ``kill_after`` seconds after
     it is ready send SIGKILL (None: let it finish, within
-    ``run_timeout``).  ``streams`` > 0 runs the fleet (``src`` is then
-    the root holding one spool per stream).  ``env_extra`` overlays the
+    ``run_timeout``).  The worker must end its warm-up within
+    :data:`START_TIMEOUT_S` of its launch, then be ready within
+    ``ready_timeout`` (a fresh interpreter's imports are slow on a
+    loaded host, not hung).  ``streams`` > 0 runs the fleet (``src``
+    is then the root holding one spool per stream).  ``env_extra`` overlays the
     worker's environment; ``upcoming`` counts the cycles still to come,
     when known.  Returns {killed, start, wall, work, lines}:
     the seconds from the worker's start to the end of its warm-up, from
@@ -464,14 +477,23 @@ def _run_cycle(pool, src, out, kill_after, streams=0, env_extra=None,
     os.replace(go + ".tmp", go)
     killed = False
     try:
-        t0 = time.time()
         ready = out + ".ready"
+        warm = os.path.join(worker["slot"], "warm")
+        t_warm = None  # when this wait saw the warm-up end
         while not os.path.isfile(ready):
             if proc.poll() is not None:
                 raise RuntimeError(
                     f"crash-drill worker exited rc={proc.returncode} "
                     f"before becoming ready (see {log_file})")
-            if time.time() - t0 > ready_timeout:
+            now = time.time()
+            if t_warm is None and os.path.isfile(warm):
+                t_warm = now
+            if t_warm is None:
+                if now - worker["started"] > START_TIMEOUT_S:
+                    raise RuntimeError(
+                        f"crash-drill worker not warm {START_TIMEOUT_S} s "
+                        f"after its launch (see {log_file})")
+            elif now - t_warm > ready_timeout:
                 raise RuntimeError(
                     f"crash-drill worker not ready in {ready_timeout} s "
                     f"(see {log_file})")
@@ -849,7 +871,7 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
     feed = feed or (lambda where, first, n: _feed(where, first, n, cfg))
     t_start = time.time()
     # epochs: every feed event's file names, replayed for the control
-    epochs = [feed(src, 0, files_init)]
+    epochs = []
     n_files = [files_init]
 
     def feed_next():
@@ -857,6 +879,8 @@ def run_drill(engine: str = "fused", cycles: int = 25, seed: int = 0,
         n_files[0] += files_per_cycle
 
     try:
+        pool.prewarm()  # the first workers warm up during the first feed
+        epochs.append(feed(src, 0, files_init))
         cold = cycle(None)  # seeds the carry
         feed_next()
         warm = cycle(None)  # the estimate the kill times are drawn from
@@ -994,6 +1018,7 @@ def run_fleet_drill(engine: str = "fused", streams: int = 4,
 
     t_start = time.time()
     try:
+        pool.prewarm()  # the first workers warm up during the first feed
         feed(files_init)
         cold = fleet_cycle(None)
         feed(files_per_cycle)
