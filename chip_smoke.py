@@ -86,8 +86,8 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    4's, B1 launched; (d) ``Patch.median_filter`` (5 x 5, and 9 along
    time) on phase 4's output bit-equal to ``scipy.ndimage``;
 10. the SIGKILL crash drill (``tpudas_torch/tools/crash_drill.py``) at
-   10,000 channels under ``engine="fused"`` (3 killed cycles),
-   ``"auto"`` and ``"fft"`` (1 each): fresh worker interpreters on the
+   10,000 channels under ``engine="fused"``, ``"auto"`` and ``"fft"``
+   (1 killed cycle each): fresh worker interpreters on the
    card with the stateful carry, phase 9's detection and the tile
    pyramid on, killed at seeded points after they are ready; the
    drained folder audits clean, no worker's startup audit raised, no
@@ -215,6 +215,24 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    ``tpudas_torch.compat.dascore.spool`` + ``compat.lf_das.LFProc``
    (no device given) over phase 4's spool: files byte-equal to phase
    4's first run, 16 B1 launches.
+17. the mesh across ``torch.distributed`` ranks (A10b), over the first
+   60 s file of phase 4's spool (10,000 ch int16, read by every rank
+   through a memory map, so each reads its own time shard's rows): (a)
+   two rank interpreters in a ``gloo`` group, both on cuda:0 (the host
+   has one card, and NCCL refuses two ranks on one device), build the
+   global ``(time=2, ch=1)`` mesh from ``global_mesh_devices`` and run
+   ``sharded_cascade_decimate`` with ``qscale``: each rank runs B1 on
+   its own time shard (4 launches), its look-ahead halo crosses ranks
+   point to point through host memory (the ``gloo-host`` transport) and
+   ``process_allgather`` gathers the output; (b) a one-rank NCCL group
+   runs the same step over a process-local ``(time=2, ch=1)`` mesh and
+   gathers on the card through NCCL.  The interpreters start together,
+   but the legs' timed runs take the card one at a time (the reference,
+   then (a), then (b)), so each wall is its leg's own.  Every gathered
+   output is byte-equal to the single-process ``cascade_decimate`` of
+   the window on the card; each rank's wall, B1 launches, halo and
+   gather bytes and transports (read from
+   ``tpudas_parallel_transfer_bytes_total``) are on the phase's line.
 
 Per-channel relative errors are held to 1e-5 (same f32 products, other
 order) and zeros must be exact; times come from CUDA events, each with
@@ -233,9 +251,10 @@ references from one ``JointProc`` pass), ``--only crash`` phases 1,
 engine), ``--only pyramid`` phases 1, 2 and 11, ``--only obs``
 phases 1, 2 and 12, ``--only serve`` phases 1, 2 and 13, ``--only
 backfill`` phases 1, 2 and 14, ``--only mesh`` phases 1, 2 and 15
-(with its own single-device controls) and ``--only notebooks`` phases
-1, 2 and 16 (with one phase-4 run as 16b's control), each over a fresh
-spool; all exit 4 without the kernels line or the ``ok`` line.
+(with its own single-device controls), ``--only notebooks`` phases
+1, 2 and 16 (with one phase-4 run as 16b's control) and ``--only dcn``
+phases 1, 2 and 17, each over a fresh spool; all exit 4 without the
+kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -502,7 +521,7 @@ def phase_kernels(device, widths, timer):
     # (process_patch_size=60, edge_buff_size=10): 60,001 rows, emit
     # phase 10 s, 40 outputs
     T, phase, n_out = 60001, 10000, 40
-    layout, _rows = chain_layout(plan, n_out, "torch", "cpu")
+    layout, _rows = chain_layout(plan, n_out, engine="torch", device="cpu")
     main, paths = {}, {}
     for C in widths:
         for quantized in (True, False):
@@ -2596,9 +2615,10 @@ def batch_references(device, workdir, jcls):
 # phase 10: the SIGKILL crash drill (tpudas_torch/tools/crash_drill.py)
 # at the flagship's width and parameters, with phase 9's detection; the
 # drilled cycles of each engine (each cycle one SIGKILLed worker)
-# killed cycles per engine (4 / 2 / 2 before phase 13 was added; cut
-# for its time)
-CRASH_CYCLES = {"fused": 3, "auto": 1, "fft": 1}
+# killed cycles per engine (4 / 2 / 2 before phase 13 was added, 3 / 1
+# / 1 before phase 17, 2 / 1 / 1 until the script neared 1,020 s; cut
+# for their time)
+CRASH_CYCLES = {"fused": 1, "auto": 1, "fft": 1}
 # files the drill's stream starts with: the fft leg starts from one
 # (each of its worker rounds saves an 800 MB carry at 10,000 ch), which
 # keeps the whole script inside its time limit with phase 15
@@ -3620,7 +3640,7 @@ SERVE_ROUNDS = 4  # 13a: the live fused stream and its live-off control
 SERVE_POOL_ROUNDS = 2  # 13c: the same stream, resumed, feeds the pool
 SERVE_READERS = 8  # 13a's /live subscribers, levels 0-2 in turn
 SERVE_REPS = 11  # 13b: the first request (cold), then 10 warm ones
-SERVE_LOAD_S = 10.0
+SERVE_LOAD_S = 5.0  # 10 s before phase 17 (cut for its time)
 SERVE_LOAD_THREADS = 16
 SERVE_INFLIGHT = 8
 # 64-row bitshuffle-deflate tiles, so the stream completes .tpt tiles
@@ -5484,6 +5504,227 @@ def phase_notebooks(device, workdir, cls, main=None):
     return res
 
 
+# phase 17's rank interpreter: one rank of a torch.distributed group
+# (DCN_CONFIG: the device, the backend, the window file, the output
+# folder, the leg's tag, the file whose arrival starts the timed run and
+# the guard); prints one JSON line and writes the gathered output as
+# <tag><rank>.npy
+_DCN_RANK = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+cfg = json.loads(os.environ["DCN_CONFIG"])
+from tpudas_torch.io.tdas import _DTYPES, _HEADER_SIZE, read_tdas_header
+from tpudas_torch.obs.registry import MetricsRegistry, use_registry
+from tpudas_torch.ops.fir import design_cascade
+from tpudas_torch.ops.fir_kernel import fir_decimate
+from tpudas_torch.parallel.distributed import (
+    global_mesh_devices, initialize_multihost, process_allgather)
+from tpudas_torch.parallel.mesh import DeviceMesh
+from tpudas_torch.parallel.pipeline import sharded_cascade_decimate
+
+device = torch.device(cfg["device"])
+if device.type == "cuda":
+    torch.cuda.set_device(device)
+# gloo takes the CPU as its device, NCCL the card
+assert initialize_multihost(
+    device="cpu" if cfg["backend"] == "gloo" else device) is True
+rank, world = dist.get_rank(), dist.get_world_size()
+hdr = read_tdas_header(cfg["path"])
+x = np.memmap(cfg["path"], dtype=_DTYPES[hdr["dtype_code"]], mode="r",
+              offset=_HEADER_SIZE, shape=(hdr["n_time"], hdr["n_ch"]))
+plan = design_cascade(*cfg["plan"])
+if world > 1:  # the time axis across the ranks
+    devs = global_mesh_devices(device=device)
+    mesh = DeviceMesh([[d] for d in devs], ("time", "ch"))
+    assert mesh.spans_ranks
+else:  # both time shards on this rank
+    mesh = DeviceMesh([[device], [device]], ("time", "ch"))
+# the timed run starts when the parent says so: one leg on the card at a
+# time
+give_up = time.monotonic() + cfg["guard_s"]
+while not os.path.exists(cfg["go"]):
+    if time.monotonic() > give_up:
+        sys.exit(f"rank {rank}: no start signal within {cfg['guard_s']} s")
+    time.sleep(0.02)
+dist.barrier()
+fir_decimate.launches = 0
+reg = MetricsRegistry()
+with use_registry(reg):
+    t0 = time.perf_counter()
+    y = sharded_cascade_decimate(mesh, x, plan, plan.delay, cfg["n_out"],
+                                 "auto", qscale=float(hdr["scale"]))
+    t_run = time.perf_counter()
+    out = process_allgather(y, tiled=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+np.save(os.path.join(cfg["out"], f"{cfg['tag']}{rank}.npy"),
+        out.cpu().numpy())
+# the cross-rank directions of the transfer counter (kind:transport)
+series = reg.snapshot().get("tpudas_parallel_transfer_bytes_total",
+                            {}).get("series", [])
+traffic = {lab["direction"]: v for lab, v in series
+           if ":" in lab["direction"]}
+print(json.dumps({
+    "rank": rank, "world": world, "backend": dist.get_backend(),
+    "wall_s": t1 - t0, "cascade_s": t_run - t0, "gather_s": t1 - t_run,
+    "b1_launches": fir_decimate.launches,
+    "local_shards": len(mesh.local_coords()),
+    "spans_ranks": mesh.spans_ranks, "traffic": traffic,
+    "shape": list(out.shape), "jax_imported": "jax" in sys.modules,
+}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+# phase 17's hang guard for each rank interpreter, in seconds
+DCN_GUARD_S = 120
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dcn(device, workdir):
+    """Phase 17: the mesh across ``torch.distributed`` ranks over the
+    first 60 s file of phase 4's spool (see the module docstring): (a)
+    two gloo ranks on the one card, the time axis across them; (b) one
+    NCCL rank (gloo in a CPU rehearsal).  All three interpreters start
+    together, but their timed runs take the card one leg at a time: the
+    single-process reference first, then the gloo pair, then the NCCL
+    rank, each started by a file the parent writes, so each wall is its
+    leg's alone.  Each gathered output must be byte-equal to the
+    single-process cascade of the window on the card."""
+    from tpudas_torch.io.tdas import _DTYPES, _HEADER_SIZE, read_tdas_header
+    from tpudas_torch.ops.fir import cascade_decimate, design_cascade
+    from tpudas_torch.proc.lfproc import output_corner
+
+    cuda = device.type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(workdir, "src")
+    path = os.path.join(src, sorted(n for n in os.listdir(src)
+                                    if n.endswith(".tdas"))[0])
+    ddir = os.path.join(workdir, "dcn")
+    shutil.rmtree(ddir, ignore_errors=True)
+    os.makedirs(ddir)
+    t_phase = time.perf_counter()
+    plan_args = [1000.0, 1000, output_corner(1.0)]
+    hdr = read_tdas_header(path)
+    n_out = int(hdr["n_time"]) // 1000
+    dev = "cuda:0" if cuda else "cpu"
+    legs = {"gloo": ("gloo", 2), "one": ("nccl" if cuda else "gloo", 1)}
+    procs = {}
+    try:
+        for tag, (backend, world) in legs.items():
+            port = _free_port()
+            for rank in range(world):
+                env = {k: v for k, v in os.environ.items()
+                       if k not in ("PYTHONPATH", "COORDINATOR_ADDRESS",
+                                    "NUM_PROCESSES", "PROCESS_ID")}
+                env.update(
+                    PYTHONPATH=root, COORDINATOR_ADDRESS=f"localhost:{port}",
+                    NUM_PROCESSES=str(world), PROCESS_ID=str(rank),
+                    DCN_CONFIG=json.dumps({
+                        "device": dev, "backend": backend, "path": path,
+                        "out": ddir, "tag": tag, "plan": plan_args,
+                        "n_out": n_out, "guard_s": DCN_GUARD_S,
+                        "go": os.path.join(ddir, f"go-{tag}")}))
+                procs[(tag, rank)] = subprocess.Popen(
+                    [sys.executable, "-c", _DCN_RANK], env=env, cwd=root,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+        # the single-process reference, while the ranks start and before
+        # any of their timed runs
+        x = np.fromfile(path, dtype=_DTYPES[hdr["dtype_code"]],
+                        offset=_HEADER_SIZE).reshape(hdr["n_time"],
+                                                     hdr["n_ch"])
+        plan = design_cascade(*plan_args)
+        t0 = time.perf_counter()
+        ref = cascade_decimate(torch.from_numpy(x).to(dev), plan, plan.delay,
+                               n_out, "auto", qscale=float(hdr["scale"]))
+        ref = ref.cpu().numpy()
+        single_wall = time.perf_counter() - t0
+        lines = {}
+        deadline = time.monotonic() + DCN_GUARD_S
+        for tag in legs:  # one leg's timed run at a time
+            with open(os.path.join(ddir, f"go-{tag}"), "w"):
+                pass
+            for key, p in procs.items():
+                if key[0] != tag:
+                    continue
+                try:
+                    out, err = p.communicate(
+                        timeout=max(deadline - time.monotonic(), 1.0))
+                except subprocess.TimeoutExpired:
+                    fail(f"dcn: rank {key} hung past its {DCN_GUARD_S} s "
+                         "guard")
+                if p.returncode != 0:
+                    print(out[-2000:], err[-6000:], sep="\n",
+                          file=sys.stderr)
+                    fail(f"dcn: rank {key} exited {p.returncode}")
+                lines[key] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    checks, ranks = [], {}
+    for (tag, rank), ln in lines.items():
+        got = np.load(os.path.join(ddir, f"{tag}{rank}.npy"))
+        equal = got.shape == ref.shape and np.array_equal(got, ref)
+        halo = {k: v for k, v in ln["traffic"].items()
+                if k.startswith("halo:")}
+        gather = {k: v for k, v in ln["traffic"].items()
+                  if k.startswith("allgather:")}
+        ranks[f"{tag}_rank{rank}"] = {
+            **{k: ln[k] for k in ("backend", "world", "wall_s", "cascade_s",
+                                  "gather_s", "b1_launches", "local_shards",
+                                  "spans_ranks")},
+            "halo_bytes": halo, "gather_bytes": gather,
+            "byte_equal": equal,
+            "max_abs_err": float(np.abs(got - ref).max())
+            if got.shape == ref.shape else None}
+        want = 4 * ln["local_shards"] if cuda else 0
+        checks += [
+            (equal, f"dcn {tag} rank {rank}: gathered output differs from "
+                    "the single-process cascade"),
+            (ln["b1_launches"] == want,
+             f"dcn {tag} rank {rank}: {ln['b1_launches']} B1 launches, "
+             f"not {want}"),
+            (not ln["jax_imported"], f"dcn {tag} rank {rank}: jax imported"),
+        ]
+    g0, g1 = ranks["gloo_rank0"], ranks["gloo_rank1"]
+    host = "gloo-host" if cuda else "gloo"
+    checks += [
+        (g0["spans_ranks"] and g1["spans_ranks"],
+         "dcn: the gloo mesh does not span the ranks"),
+        (set(g0["halo_bytes"]) == {f"halo:{host}"}
+         and not g1["halo_bytes"],
+         f"dcn: halo traffic {g0['halo_bytes']} / {g1['halo_bytes']}"),
+        (set(ranks["one_rank0"]["gather_bytes"]) <= {
+            f"allgather:{'nccl' if cuda else 'gloo'}"},
+         f"dcn: the one-rank gather {ranks['one_rank0']['gather_bytes']}"),
+    ]
+    res = {"phase": "dcn", "window": os.path.basename(path),
+           "shape": [int(hdr["n_time"]), int(hdr["n_ch"])],
+           "n_out": n_out, "single_wall_s": single_wall, "ranks": ranks,
+           "b1_launches": {k: v["b1_launches"] for k, v in ranks.items()},
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    shutil.rmtree(ddir, ignore_errors=True)
+    for ok, what in checks:
+        if not ok:
+            fail(f"dcn check failed: {what}")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -5491,14 +5732,14 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=["fir", "fused", "fleet", "detect", "crash",
                              "pyramid", "obs", "serve", "backfill", "mesh",
-                             "notebooks"],
+                             "notebooks", "dcn"],
                     help="run phases 1, 2 and 3 (fir), 3b (fused), 8 "
                     "(fleet), 9 (detect), 10 (crash), 11 (pyramid), 12 "
-                    "(obs), 13 (serve), 14 (backfill), 15 (mesh) or 16 "
-                    "(notebooks) alone; exits 4")
+                    "(obs), 13 (serve), 14 (backfill), 15 (mesh), 16 "
+                    "(notebooks) or 17 (dcn) alone; exits 4")
     ap.add_argument("--cycles", type=int, default=None,
                     help="killed cycles of each engine's crash drill "
-                    "(default: fused 3, auto and fft 1)")
+                    "(default: 1 each)")
     args = ap.parse_args(argv)
     if args.rehearse:
         device = torch.device("cpu")
@@ -5572,7 +5813,7 @@ def main(argv=None):
     jcls = lfproc_class(force_tdas=args.rehearse, base=JointProc)
     tdas_output = args.rehearse or importlib.util.find_spec("h5py") is None
     if args.only in ("fleet", "detect", "crash", "pyramid", "obs", "serve",
-                     "backfill", "mesh", "notebooks"):
+                     "backfill", "mesh", "notebooks", "dcn"):
         from tpudas_torch.testing import make_synthetic_spool
 
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5596,6 +5837,8 @@ def main(argv=None):
             phase_mesh(device, workdir, cls)
         elif args.only == "notebooks":
             phase_notebooks(device, workdir, cls)
+        elif args.only == "dcn":
+            phase_dcn(device, workdir)
         else:
             batch_references(device, workdir, jcls)
             phase_detect(device, workdir, timer, cls, jcls)
@@ -5619,6 +5862,7 @@ def main(argv=None):
     phase_backfill(device, workdir, cls, tdas_output)
     mesh = phase_mesh(device, workdir, cls, res, fft)
     notebooks = phase_notebooks(device, workdir, cls, res)
+    dcn = phase_dcn(device, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
     fleet_counts = {leg: fleet["legs"][leg]["batched"]["kernel_counts"]
                     for leg in ("fused", "auto")}
@@ -5661,6 +5905,9 @@ def main(argv=None):
         # compat entry's LFProc over phase 4's spool (16b)
         "notebook_launches": notebooks["launches"]["fir_decimate"],
         "compat_launches": notebooks["compat"]["fir_decimate_launches"],
+        # phase 17: each rank's B1 launches on its own time shard (two
+        # gloo ranks, the time axis across them) and the one NCCL rank's
+        "dcn_launches": dcn["b1_launches"],
         "launches_by_width": res["fir_decimate_launches_by_width"],
         "ms_by_stage": [r["ms"] for r in recs],
         "cold_ms_by_stage": [r["cold_ms"] for r in recs],

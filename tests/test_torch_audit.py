@@ -888,3 +888,102 @@ def test_kill_at_a_sidecar_write_keeps_the_pair(tmp_path, sidecar):
     assert _carry_state(a) == _carry_state(b)
     assert _pyramid_tree(a) == _pyramid_tree(b)
     assert _detect_state(a) == _detect_state(b)
+
+
+def _sidecar_vouches(text, payload):
+    import zlib
+
+    return text.split() == ["crc32", format(zlib.crc32(payload), "08x"),
+                            str(len(payload))]
+
+
+@pytest.mark.parametrize("vouches", [True, False])
+def test_kill_between_a_pairs_renames_rolls_forward(tmp_path, monkeypatch,
+                                                    vouches):
+    """ROADMAP C15: a kill between the two renames of
+    ``atomic_write_pair`` (the payload's landed, the sidecar's not) on
+    ``.tiles/tails.npy``, here a KeyboardInterrupt raised by the second
+    ``_commit``.  The new tails file then stands beside its old ``.crc``
+    and the sidecar's tmp, which vouches for it.  The audit renames that
+    tmp onto the sidecar (``rolled_forward``) before it sweeps tmp
+    files, so the pyramid keeps ``generation`` 0 and, once the run
+    resumes, every artifact equals an uninterrupted control's,
+    ``.tiles/manifest.json`` included.  A sidecar tmp that does not
+    vouch for the payload is swept as before and the pyramid rebuilt."""
+    from tpudas_torch.tools.crash_drill import (
+        _carry_state,
+        _content_hash,
+        _pyramid_tree,
+    )
+    from tpudas_torch.utils import atomicio
+
+    pool = str(tmp_path / "pool")
+    make_synthetic_spool(pool, n_files=4, file_duration=20.0, fs=50.0,
+                         n_ch=4, noise=0.01)
+    names = sorted(n for n in os.listdir(pool) if n.endswith(".h5"))
+    side = os.path.join(".tiles", "tails.npy" + SIDECAR_SUFFIX)
+
+    def link(src, upto):
+        os.makedirs(src, exist_ok=True)
+        for name in names[:upto]:
+            if not os.path.exists(os.path.join(src, name)):
+                os.link(os.path.join(pool, name), os.path.join(src, name))
+
+    real = atomicio._commit
+
+    def killed(tmp, path, durable):
+        if path.endswith(side):
+            raise KeyboardInterrupt("killed between the pair's renames")
+        real(tmp, path, durable)
+
+    runs = {}
+    for name in ("ctrl", "killed"):
+        src, out = str(tmp_path / f"src-{name}"), str(tmp_path / name)
+        link(src, 2)
+        _drive("port", src, out, pyramid=True)
+        link(src, 4)
+        if name == "killed":
+            monkeypatch.setattr(atomicio, "_commit", killed)
+            with pytest.raises(KeyboardInterrupt):
+                _drive("port", src, out, pyramid=True)
+            monkeypatch.setattr(atomicio, "_commit", real)
+            tails = os.path.join(out, ".tiles", "tails.npy")
+            tmps = [n for n in os.listdir(os.path.dirname(tails))
+                    if n.startswith("tails.npy.crc.tmp.")]
+            assert len(tmps) == 1
+            tmp = os.path.join(out, ".tiles", tmps[0])
+            with open(tails, "rb") as fh:
+                payload = fh.read()
+            with open(tails + SIDECAR_SUFFIX) as fh:
+                assert not _sidecar_vouches(fh.read(), payload)  # parted
+            with open(tmp) as fh:
+                assert _sidecar_vouches(fh.read(), payload)
+            if not vouches:
+                with open(tmp, "w") as fh:
+                    fh.write(f"crc32 00000000 {len(payload)}\n")
+            rep = taudit.audit(out)
+            assert rep["clean"]
+            actions = {(i["status"], i["action"]) for i in rep["issues"]}
+            assert not os.path.exists(tmp)
+            generation = json.load(open(os.path.join(
+                out, ".tiles", "manifest.json"))).get("generation", 0)
+            if vouches:
+                assert actions == {("parted_pair", "rolled_forward")}
+                assert generation == 0
+                with open(tails + SIDECAR_SUFFIX) as fh:
+                    assert _sidecar_vouches(fh.read(), payload)
+            else:
+                assert ("stale_tmp", "removed") in actions
+                assert any(a == "rebuilt_pyramid" for _s, a in actions)
+                assert generation == 1
+            assert taudit.audit(out)["issues"] == []
+        _drive("port", src, out, pyramid=True)
+        runs[name] = out
+    a, b = runs["killed"], runs["ctrl"]
+    assert _content_hash(a) == _content_hash(b)
+    assert _carry_state(a) == _carry_state(b)
+    got, want = _pyramid_tree(a), _pyramid_tree(b)
+    if not vouches:  # the rebuild's generation 1 rides the manifest
+        got.pop("manifest.json")
+        want.pop("manifest.json")
+    assert got == want

@@ -54,6 +54,9 @@ def test_port_imports_no_jax_no_tpudas_no_h5py_no_pandas():
         "tpudas_torch.ops.rolling",
         "tpudas_torch.native",
         "tpudas_torch.io.index",
+        "tpudas_torch.io.registry",
+        "tpudas_torch.io.spool",
+        "tpudas_torch.testing",
         "tpudas_torch.io.tdas",
         "tpudas_torch.tools",
         "tpudas_torch.tools.harness",

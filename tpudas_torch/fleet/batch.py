@@ -137,6 +137,9 @@ class BatchGroupFormer:
     def invalidate(self, stream_id: str) -> None:
         self._memo.pop(str(stream_id), None)
 
+    def clear(self) -> None:
+        self._memo.clear()
+
 
 class _Pending:
     __slots__ = ("key", "payload", "result", "error", "done")

@@ -21,7 +21,60 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass
 
-__all__ = ["StreamConfig", "StreamSpec"]
+__all__ = [
+    "COMMON_FIELDS",
+    "LOWPASS_FIELDS",
+    "LOWPASS_ONLY_FIELDS",
+    "ROLLING_FIELDS",
+    "ROLLING_ONLY_FIELDS",
+    "StreamConfig",
+    "StreamSpec",
+]
+
+# configuration knobs shared by BOTH drivers (and the round engine)
+COMMON_FIELDS = (
+    "distance",
+    "poll_interval",
+    "file_duration",
+    "engine",
+    "mesh",
+    "fault_policy",
+    "quarantine",
+    "pyramid",
+    "detect",
+    "detect_operators",
+    "poll_jitter",
+    "flight",
+    "live",
+)
+
+# knobs only the low-pass (stateful/joint) driver understands
+LOWPASS_ONLY_FIELDS = (
+    "start_time",
+    "output_sample_interval",
+    "edge_buffer",
+    "process_patch_size",
+    "on_gap",
+    "filter_order",
+    "data_gap_tolerance",
+    "window_dp",
+    "rolling_output_folder",
+    "rolling_window",
+    "rolling_step",
+    "stateful",
+    "carry_save_every",
+    "health",
+)
+
+# knobs only the stateless rolling driver understands
+ROLLING_ONLY_FIELDS = (
+    "window",
+    "step",
+    "scale",
+)
+
+LOWPASS_FIELDS = COMMON_FIELDS + LOWPASS_ONLY_FIELDS
+ROLLING_FIELDS = COMMON_FIELDS + ROLLING_ONLY_FIELDS
 
 _KINDS = ("lowpass", "rolling")
 
@@ -108,6 +161,10 @@ class StreamConfig:
                 raise ValueError(
                     "rolling StreamConfig requires window and step"
                 )
+
+    def fields_for_kind(self) -> tuple:
+        """The configuration fields this ``kind``'s driver reads."""
+        return LOWPASS_FIELDS if self.kind == "lowpass" else ROLLING_FIELDS
 
 
 @dataclass

@@ -42,7 +42,11 @@ bit rot), ``corrupt`` (does not parse, or is inconsistent),
 fails verification).  With ``repair=True`` (the default) it then fixes
 what it can:
 
-- stale tmp files are **removed** (regenerable by construction);
+- stale tmp files are **removed** (regenerable by construction), but
+  a checksum sidecar's tmp that vouches for its landed payload — a pair
+  parted by a kill between its two renames — is renamed onto the
+  sidecar (**rolled forward**, issue status ``parted_pair``; the JAX
+  audit sweeps it and rebuilds what the payload fed);
 - unstamped but parseable artifacts are **restamped** in place;
 - a bad primary with a good ``.prev`` is **promoted** (the readers'
   runtime fallback, made durable);
@@ -103,6 +107,8 @@ import time
 import numpy as np
 
 from tpudas_torch.integrity.checksum import (
+    SIDECAR_SUFFIX,
+    crc32_hex,
     read_json_verified,
     sidecar_path,
     verify_file_checksum,
@@ -123,6 +129,9 @@ __all__ = [
 ]
 
 _TILE_NAME_RE = re.compile(r"^(\d{8})\.npy$")
+# a checksum sidecar's tmp: what a writer killed between the two renames
+# of utils.atomicio.atomic_write_pair leaves beside its landed payload
+_SIDE_TMP_RE = re.compile(r"^(.+\.crc)\.tmp(\.\d+)?$")
 # compressed pyramid tiles (tpudas_torch.codec blobs): the crc is
 # embedded in the container, so verification reads the file alone
 _TILE_BLOB_NAME_RE = re.compile(r"^(\d{8})\.tpt$")
@@ -165,12 +174,76 @@ def _remove_all(*paths) -> None:
 # ---------------------------------------------------------------------------
 # per-artifact checks
 
+def _vouches(text: str, payload: bytes) -> bool:
+    """True when the sidecar ``text`` (``crc32 <digest> <size>``)
+    verifies ``payload``."""
+    tokens = text.split()
+    return (len(tokens) == 3 and tokens[0] == "crc32"
+            and tokens[2].isdigit() and int(tokens[2]) == len(payload)
+            and tokens[1] == crc32_hex(payload))
+
+
+def _read_or_none(path: str, mode: str = "r"):
+    try:
+        with open(path, mode) as fh:
+            return fh.read()
+    except (OSError, UnicodeDecodeError):
+        return None
+
+
+def _roll_forward_pairs(folder: str, issues: list, repair: bool) -> set:
+    """Finish checksummed pairs a kill parted (ROADMAP C15): a sidecar
+    tmp (``<payload>.crc.tmp.<pid>``) whose payload exists, whose
+    current ``.crc`` does not verify that payload, and whose own text
+    does, is the second rename of
+    :func:`~tpudas_torch.utils.atomicio.atomic_write_pair` that the kill
+    cut off.  With ``repair`` it is renamed onto the sidecar
+    (``rolled_forward``) instead of being swept, so the newer payload
+    keeps its stamp and nothing derived from it is rebuilt.  (The JAX
+    audit sweeps the tmp and rebuilds; the files left are the same.)
+    Returns the tmp paths handled, which the sweep then skips."""
+    handled = set()
+    for dirpath, _dirnames, filenames in os.walk(folder):
+        for name in sorted(filenames):
+            m = _SIDE_TMP_RE.match(name)
+            if m is None:
+                continue
+            tmp = os.path.join(dirpath, name)
+            side = os.path.join(dirpath, m.group(1))
+            payload = _read_or_none(side[: -len(SIDECAR_SUFFIX)], "rb")
+            if payload is None:
+                continue
+            current = _read_or_none(side)
+            if current is not None and _vouches(current, payload):
+                continue
+            text = _read_or_none(tmp)
+            if text is None or not _vouches(text, payload):
+                continue
+            if repair:
+                try:
+                    os.replace(tmp, side)
+                except OSError as exc:
+                    _issue(issues, "tmp", tmp, "parted_pair", "failed", exc)
+                    handled.add(tmp)
+                    continue
+            _issue(
+                issues, "tmp", tmp, "parted_pair",
+                _repair_action(repair, "rolled_forward"),
+                f"sidecar of {os.path.basename(side)[: -len(SIDECAR_SUFFIX)]}",
+            )
+            handled.add(tmp)
+    return handled
+
+
 def _sweep_tmp(folder: str, issues: list, repair: bool) -> None:
+    handled = _roll_forward_pairs(folder, issues, repair)
     for dirpath, _dirnames, filenames in os.walk(folder):
         for name in sorted(filenames):
             if not is_tmp_name(name):
                 continue
             path = os.path.join(dirpath, name)
+            if path in handled:
+                continue
             if repair:
                 try:
                     os.remove(path)
@@ -1006,6 +1079,8 @@ _REPAIRED_ACTIONS = (
     "truncated",
     "adopted_commit",
     "aborted",
+    # the port's own: a pair parted by a kill, finished (ROADMAP C15)
+    "rolled_forward",
 )
 
 

@@ -21,6 +21,22 @@ INDEX_FILENAME = ".tpudas_index.json"
 _SUFFIXES = (".h5", ".hdf5", ".tdas")
 _FORMAT_BY_SUFFIX = {".h5": "dasdae", ".hdf5": "dasdae", ".tdas": "tdas"}
 
+# the frame's columns (:meth:`DirectoryIndex.to_dataframe`)
+_COLUMNS = [
+    "path",
+    "mtime",
+    "size",
+    "time_min",
+    "time_max",
+    "time_step",
+    "distance_min",
+    "distance_max",
+    "ntime",
+    "ndistance",
+    "format",
+    "dims",
+]
+
 
 def _record_to_json(rec: dict) -> dict:
     out = {}
@@ -200,6 +216,20 @@ class DirectoryIndex:
     def records(self) -> list:
         """Copies of every record, in file-name order."""
         return [dict(self._records[k]) for k in sorted(self._records)]
+
+    def to_dataframe(self):
+        """The records as a pandas DataFrame (every :data:`_COLUMNS`
+        column present), as the JAX index gives it.  Imports pandas here
+        only."""
+        import pandas as pd
+
+        if not self._records:
+            return pd.DataFrame(columns=_COLUMNS)
+        df = pd.DataFrame(list(self._records.values()))
+        for col in _COLUMNS:
+            if col not in df.columns:
+                df[col] = None
+        return df
 
     def time_range_records(self, t_lo=None, t_hi=None) -> list:
         """Copies of the records whose time span overlaps ``[t_lo,

@@ -4,7 +4,9 @@ The port's copy of :mod:`tpudas.io.registry`: the reference's
 format-dispatched write call (``patch.io.write(path, "dasdae")`` —
 lf_das.py:232) and DASCore's format-agnostic read (``dc.spool(path)``
 accepts any supported file, lf_das.py:215): when no format is given,
-reads sniff the file's magic bytes.
+reads sniff the file's magic bytes.  New formats register a (read,
+write, scan) triple plus a ``sniff`` predicate over the file's first
+bytes (:func:`register_format`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,18 @@ _SNIFFERS = [
     ("tdas", lambda head: head[:4] == b"TDAS"),
     ("dasdae", lambda head: head[: len(_HDF5_MAGIC)] == _HDF5_MAGIC),
 ]
+
+
+def register_format(name, read, write, scan, sniff=None):
+    """Register an IO format. ``sniff``, when given, is a predicate over
+    the first bytes of a file (>= 16 are provided) used by
+    :func:`sniff_format` for format-agnostic reads. Re-registering a
+    name replaces both its IO triple and its sniffer."""
+    name = name.lower()
+    _FORMATS[name] = (read, write, scan)
+    if sniff is not None:
+        _SNIFFERS[:] = [(n, p) for n, p in _SNIFFERS if n != name]
+        _SNIFFERS.append((name, sniff))
 
 
 def _resolve(name):

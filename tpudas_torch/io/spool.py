@@ -244,12 +244,15 @@ class BaseSpool:
     def select(self, time=None, distance=None):
         raise NotImplementedError
 
-    def chunk(self, time="__required__", tolerance=1.5, max_fill=None):
+    def chunk(self, time="__required__", overlap=None, tolerance=1.5,
+              max_fill=None):
         """``chunk(time=None)`` merges contiguous patches along time;
         ``chunk(time=seconds)`` merges then re-splits into fixed-length
         segments (an extension the reference leaves to DASCore).
         ``max_fill`` (seconds) bridges on-grid holes up to that long by
-        linear interpolation — see :func:`merge_patches`."""
+        linear interpolation — see :func:`merge_patches`.  ``overlap``
+        (DASCore's keyword) is accepted and ignored, as in the JAX
+        package."""
         if time == "__required__":
             raise TypeError("chunk() requires the time keyword, e.g. time=None")
         merged = merge_patches(
@@ -491,6 +494,11 @@ class DirectorySpool(BaseSpool):
                 raise IndexError(f"spool index {item} out of range ({n} patches)")
             return self._read_row(rows[idx])
         return [self._read_row(row) for row in rows[item]]
+
+    def native_window_plan(self, t_lo, t_hi):
+        """The JAX package's name for :meth:`window_plan`: the same plan,
+        or None where it does not apply."""
+        return self.window_plan(t_lo, t_hi)
 
     def window_plan(self, t_lo, t_hi):
         """A :func:`tpudas_torch.io.tdas.plan_window_from_records` plan

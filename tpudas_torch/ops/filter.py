@@ -158,8 +158,8 @@ def _carry_tensor(carry, dev):
 
 
 def fft_pass_filter_stream(block, carry, d_sec, low=None, high=None,
-                           order=4, qscale=None, device=None, mesh=None,
-                           ch_axis="ch"):
+                           order=4, mesh=None, ch_axis="ch", qscale=None,
+                           device=None):
     """One streaming step of the zero-phase FFT band filter.
 
     block: (T, C) new input samples (a tensor, or numpy moved to
@@ -302,8 +302,8 @@ def fft_step_cost(T: int, rows_carry: int, C: int, in_bytes: int) -> dict:
 
 
 def fft_pass_filter_stream_stacked(blocks, carries, d_sec, low=None,
-                                   high=None, order=4, qscale=None,
-                                   device=None, mesh=None, ch_axis="ch"):
+                                   high=None, order=4, mesh=None,
+                                   ch_axis="ch", qscale=None, device=None):
     """N streams' overlap-save FFT filter steps in one call, validated
     as one wave as the JAX package's stacked step is.  ``blocks`` share
     T and the filter parameters; each keeps its own channel width.

@@ -400,15 +400,17 @@ def resolve_cascade_engine(engine: str, device) -> str:
     return engine
 
 
-def chain_layout(plan: CascadePlan, n_out: int, engine: str = "auto",
-                 device=None):
+def chain_layout(plan: CascadePlan, n_out: int, n_ch: int | None = None,
+                 engine: str = "auto", *, device=None):
     """Per-stage execution layout: ``(((engine_i, k_i), ...), rows)``.
 
     ``k_i`` is the output count stage ``i`` emits and ``engine_i`` the
     stage it runs ('cuda' kernel or 'torch' plain); ``rows`` is the
     exact input length the first stage consumes.  Sized back to front
     so every stage's input is exactly what its predecessor emits:
-    ``k_{i-1} = (k_i + B_i) * R_i``."""
+    ``k_{i-1} = (k_i + B_i) * R_i``.  Every stage of the port consumes
+    that whatever the width, so ``n_ch`` only keeps the JAX signature
+    (the JAX Pallas stages round their inputs to a grid)."""
     eng = resolve_cascade_engine(engine, resolve_device(device))
     counts = _stage_counts(plan, int(n_out))
     return (
@@ -417,11 +419,13 @@ def chain_layout(plan: CascadePlan, n_out: int, engine: str = "auto",
     )
 
 
-def stage_engines(plan: CascadePlan, n_out: int, engine: str = "auto",
-                  device=None) -> list[str]:
+def stage_engines(plan: CascadePlan, n_out: int, n_ch: int | None = None,
+                  engine: str = "auto", *, device=None) -> list[str]:
     """Which engine each stage runs under (the same decision
-    :func:`cascade_decimate` makes)."""
-    return [e for e, _ in chain_layout(plan, n_out, engine, device)[0]]
+    :func:`cascade_decimate` makes); ``n_ch`` as in
+    :func:`chain_layout`."""
+    return [e for e, _ in chain_layout(plan, n_out, n_ch, engine,
+                                       device=device)[0]]
 
 
 def _check_quantized(x, qscale):
@@ -430,17 +434,20 @@ def _check_quantized(x, qscale):
         raise ValueError(f"qscale given but data dtype is {x.dtype}")
 
 
-def shift_to_phase(x, phase: int, delay: int):
-    """Align a (T, C) tensor so causal cascade output ``k`` lands on
-    zero-phase full-rate index ``phase + k*ratio``: drop
-    ``phase - delay`` leading rows, or left-pad with zeros when the
-    requested phase precedes the filter delay.  The plain path's step;
-    the kernel path passes ``phase - delay`` to stage 0 as its first
-    row instead."""
+def shift_to_phase(x, phase: int, delay: int, axis: int = 0):
+    """Align a tensor so causal cascade output ``k`` lands on zero-phase
+    full-rate index ``phase + k*ratio``: drop ``phase - delay`` leading
+    rows of ``axis``, or left-pad it with zeros when the requested phase
+    precedes the filter delay.  The plain path's step; the kernel path
+    passes ``phase - delay`` to stage 0 as its first row instead."""
     shift = int(phase) - int(delay)
     if shift >= 0:
-        return x[shift:]
-    return torch.nn.functional.pad(x, (0, 0, -shift, 0))
+        index = [slice(None)] * x.dim()
+        index[axis] = slice(shift, None)
+        return x[tuple(index)]
+    pad = list(x.shape)
+    pad[axis] = -shift
+    return torch.cat([x.new_zeros(pad), x], dim=axis)
 
 
 @functools.lru_cache(maxsize=64)
@@ -475,7 +482,7 @@ def blocked_taps(plan: CascadePlan, device) -> list:
 
 def cascade_decimate(
     x, plan: CascadePlan, phase: int, n_out: int, engine="auto",
-    qscale=None, device=None, mesh=None, ch_axis="ch",
+    mesh=None, ch_axis="ch", qscale=None, device=None,
 ):
     """Zero-phase filtered + decimated samples of ``x`` (T, C).
 
@@ -525,7 +532,7 @@ def _cascade_chain(x, plan, phase, n_out, eng, qscale, dev):
     the resolved engine ``eng``."""
     from tpudas_torch.ops.fir_kernel import fir_decimate, fir_decimate_plain
 
-    layout, _rows = chain_layout(plan, n_out, eng, dev)
+    layout, _rows = chain_layout(plan, n_out, engine=eng, device=dev)
     taps = blocked_taps(plan, dev)
     if eng != "cuda":
         if qscale is not None:
@@ -773,7 +780,7 @@ def _carry_leaf(b, dev):
 
 
 def cascade_decimate_stream(x, carry, plan: CascadePlan, engine="auto",
-                            qscale=None, device=None, mesh=None, ch_axis="ch"):
+                            mesh=None, ch_axis="ch", qscale=None, device=None):
     """One stateful streaming step of the cascade.
 
     ``x`` is a (T, C) block, T a multiple of ``plan.ratio`` (a tensor,
@@ -982,8 +989,8 @@ def _block_tensor(b, device):
 
 
 def cascade_decimate_stream_stacked(blocks, carries, plan: CascadePlan,
-                                    engine, qscale=None, device=None,
-                                    mesh=None, ch_axis="ch"):
+                                    engine, mesh=None, ch_axis="ch",
+                                    qscale=None, device=None):
     """N same-plan streams' stateful steps as ONE step on the
     channel-packed block (the batched fleet's stacked launch).
 

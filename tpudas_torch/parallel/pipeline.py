@@ -18,6 +18,16 @@ of ``halo`` rows per shard.
 
 Every shard's work is launched before any result is gathered, so shards
 on different cards run concurrently.
+
+Over a mesh that spans ``torch.distributed`` ranks (built from
+:func:`~tpudas_torch.parallel.distributed.global_mesh_devices`), every
+rank calls the function with the same arguments, cuts its own blocks,
+receives its halos across ranks and runs its own shards only (B1 on the
+card), as each JAX process runs its shards of a global mesh.  The
+result is then a :class:`~tpudas_torch.parallel.sharding.ShardedTensor`
+of this rank's output shards with their grid coordinates;
+:func:`~tpudas_torch.parallel.distributed.process_allgather` gathers it
+into the single-process result.
 """
 
 from __future__ import annotations
@@ -26,11 +36,7 @@ import numpy as np
 import torch
 
 from tpudas_torch.parallel.halo import exchange_halo_time
-from tpudas_torch.parallel.sharding import (
-    gather_columns,
-    to_device,
-    zero_block,
-)
+from tpudas_torch.parallel.sharding import ShardedTensor, to_device, zero_block
 
 __all__ = [
     "sharded_lowpass_decimate",
@@ -39,25 +45,36 @@ __all__ = [
 ]
 
 
-def _grid_blocks(x, mesh, time_axis, ch_axis, r_first, t_local):
-    """``blocks[t][c]``: time shard ``t`` (input rows ``r_first + t *
-    t_local`` on) of column shard ``c``, on its mesh device."""
-    nt, nc = int(mesh.shape[time_axis]), int(mesh.shape[ch_axis])
-    C = int(x.shape[1])
-    w = -(-C // nc)
+def _local_blocks(x, mesh, time_axis, ch_axis, r_first, t_local):
+    """This rank's ``(coords, blocks)``: the block of grid entry ``(t,
+    c)`` is time shard ``t`` (input rows ``r_first + t * t_local`` on) of
+    column shard ``c``, on its device (every entry of a process-local
+    mesh)."""
+    if mesh.devices.ndim != 2:
+        raise ValueError(
+            f"the sharded pipeline runs a 2-D ({time_axis}, {ch_axis}) "
+            f"mesh, got {mesh}")
     it, ic = mesh.axis_names.index(time_axis), mesh.axis_names.index(ch_axis)
+    w = -(-int(x.shape[1]) // int(mesh.shape[ch_axis]))
+    coords = mesh.local_coords()
     blocks = []
-    for t in range(nt):
-        row = []
-        for c in range(nc):
-            index = [0] * mesh.devices.ndim
-            index[it], index[ic] = t, c
-            dev = mesh.devices[tuple(index)]
-            r0 = r_first + t * t_local
-            row.append(to_device(
-                zero_block(x, r0, r0 + t_local, c * w, (c + 1) * w), dev))
-        blocks.append(row)
-    return blocks
+    for coord in coords:
+        r0, c = r_first + coord[it] * t_local, coord[ic]
+        blocks.append(to_device(
+            zero_block(x, r0, r0 + t_local, c * w, (c + 1) * w),
+            mesh.devices[coord]))
+    return coords, blocks
+
+
+def _result(mesh, outs, coords, spec, global_shape):
+    """The output shards as the caller takes them: this rank's
+    :class:`~tpudas_torch.parallel.sharding.ShardedTensor` over a mesh
+    that spans ranks, else the global tensor on the first shard's
+    device."""
+    out = ShardedTensor(outs, coords=coords, spec=spec,
+                        global_shape=global_shape, mesh=mesh,
+                        dtype=torch.float32)
+    return out if mesh.spans_ranks else out.assemble()
 
 
 def _as_2d(data):
@@ -75,7 +92,8 @@ def sharded_lowpass_decimate(
     ``data``: (T, C) float32 (numpy or tensor).  Returns a (T // ratio,
     C) float32 tensor on the mesh's first device: the single-device
     result up to halo truncation (callers discard ``halo`` input samples
-    at each stream end)."""
+    at each stream end).  Over a mesh that spans ranks it returns this
+    rank's output shards (see the module docstring)."""
     from tpudas_torch.ops.filter import _filter_rows
 
     x = _as_2d(data)
@@ -97,17 +115,12 @@ def sharded_lowpass_decimate(
         x = x.to(torch.float32)
     else:
         x = x.astype(np.float32, copy=False)
-    blocks = _grid_blocks(x, mesh, time_axis, ch_axis, 0, t_local)
-    outs = [[None] * nc for _ in range(nt)]
-    for c in range(nc):
-        ext = exchange_halo_time([blocks[t][c] for t in range(nt)], halo,
-                                 n_shards=nt)
-        for t in range(nt):
-            filt = _filter_rows(ext[t], d_sec, None, corner, order)
-            outs[t][c] = filt[halo : halo + t_local : ratio]
-    dev0 = outs[0][0].device
-    return torch.cat([gather_columns(outs[t], device=dev0)
-                      for t in range(nt)], dim=0)
+    coords, blocks = _local_blocks(x, mesh, time_axis, ch_axis, 0, t_local)
+    ext = exchange_halo_time(blocks, halo, time_axis, n_shards=nt,
+                             mesh=mesh, coords=coords)
+    outs = [_filter_rows(e, d_sec, None, corner, order)[
+        halo : halo + t_local : ratio] for e in ext]
+    return _result(mesh, outs, coords, (time_axis, ch_axis), (T // ratio, C))
 
 
 def sharded_cascade_layout(mesh, plan, phase, n_out, T,
@@ -151,7 +164,10 @@ def sharded_cascade_decimate(
     ``None`` when the layout does not fit
     (:func:`sharded_cascade_layout`); the caller then shards channels
     only.  Each shard's chain starts at its own first row: the phase
-    shift is applied when the window is cut into time blocks."""
+    shift is applied when the window is cut into time blocks.  Over a
+    mesh that spans ranks it returns this rank's output shards, which
+    :func:`~tpudas_torch.parallel.distributed.process_allgather` gathers
+    bit-equal to the single-device cascade."""
     from tpudas_torch.ops.fir import _dtype_of, cascade_decimate
 
     x = _as_2d(x)
@@ -173,16 +189,11 @@ def sharded_cascade_decimate(
         x = x.astype(np.float32, copy=False)
     C = int(x.shape[1])
     shift = int(phase) - int(plan.delay)
-    blocks = _grid_blocks(x, mesh, time_axis, ch_axis, shift, t_local)
-    outs = [[None] * nc for _ in range(nt)]
-    for c in range(nc):
-        ext = exchange_halo_time([blocks[t][c] for t in range(nt)], halo,
-                                 n_shards=nt, left=False)
-        for t in range(nt):
-            outs[t][c] = cascade_decimate(ext[t], plan, plan.delay, n_loc,
-                                          engine, qscale=qscale)
-    dev0 = outs[0][0].device
-    out = torch.cat([gather_columns(outs[t], device=dev0)
-                     for t in range(nt)], dim=0)
-    return out[: int(n_out), :C].contiguous()
-
+    coords, blocks = _local_blocks(x, mesh, time_axis, ch_axis, shift,
+                                   t_local)
+    ext = exchange_halo_time(blocks, halo, time_axis, n_shards=nt,
+                             left=False, mesh=mesh, coords=coords)
+    outs = [cascade_decimate(e, plan, plan.delay, n_loc, engine,
+                             qscale=qscale) for e in ext]
+    return _result(mesh, outs, coords, (time_axis, ch_axis),
+                   (int(n_out), C))

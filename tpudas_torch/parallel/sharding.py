@@ -17,7 +17,17 @@ so padded carry state trims back to the bytes of an unsharded run.
 
 Host <-> device traffic of the sharded stream path is counted in
 ``tpudas_parallel_transfer_bytes_total{direction="place"|"gather"}`` and
-timed under the ``parallel.place`` / ``parallel.gather`` spans.
+timed under the ``parallel.place`` / ``parallel.gather`` spans; bytes
+received from other ranks land in the same counter, ``direction`` then
+naming the kind and the transport (``halo:gloo-host``).
+
+Over a mesh that spans ``torch.distributed`` ranks a
+:class:`ShardedTensor` holds this rank's shards only, each with its grid
+coordinates; :func:`shards_from_callback` (the counterpart of
+``jax.make_array_from_callback``) cuts them from a host array every
+rank holds, and
+:func:`~tpudas_torch.parallel.distributed.process_allgather` puts the
+global array back together.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from tpudas_torch.obs.trace import span
 __all__ = [
     "ChannelLayout",
     "ShardedTensor",
+    "shards_from_callback",
     "channel_sharding",
     "shard_channels",
     "column_shards",
@@ -51,18 +62,35 @@ __all__ = [
 
 class ShardedTensor(tuple):
     """A ``(rows, C)`` array split over channels: a tuple of per-shard
-    ``(rows, C / n)`` tensors, each on its shard's device."""
+    ``(rows, C / n)`` tensors, each on its shard's device.
 
-    __slots__ = ()
+    Placed on a mesh by grid position, it also carries ``coords`` (one
+    grid index per shard), ``spec`` (the mesh axis each array dimension
+    is split over, None where it is whole, as JAX's ``PartitionSpec``),
+    ``global_shape`` and ``mesh``; over a mesh that spans ranks it holds
+    this rank's shards only (possibly none, ``dtype`` then given)."""
+
+    def __new__(cls, parts=(), coords=None, spec=None, global_shape=None,
+                mesh=None, dtype=None):
+        self = super().__new__(cls, parts)
+        self.coords = None if coords is None else [tuple(c) for c in coords]
+        self.spec = None if spec is None else tuple(spec)
+        self.global_shape = (None if global_shape is None
+                             else tuple(int(n) for n in global_shape))
+        self.mesh = mesh
+        self._dtype = dtype
+        return self
 
     @property
     def shape(self) -> tuple:
+        if self.global_shape is not None:
+            return self.global_shape
         return (int(self[0].shape[0]),
                 sum(int(s.shape[1]) for s in self))
 
     @property
     def dtype(self):
-        return self[0].dtype
+        return self[0].dtype if len(self) else self._dtype
 
     @property
     def devices(self) -> list:
@@ -70,6 +98,39 @@ class ShardedTensor(tuple):
 
     def numel(self) -> int:
         return sum(s.numel() for s in self)
+
+    def block_offsets(self) -> list:
+        """Each shard's offset along every array dimension: its grid
+        index along the dimension's mesh axis (``spec``) times its
+        extent there."""
+        out = []
+        for part, coord in zip(self, self.coords):
+            out.append([
+                (0 if axis is None
+                 else coord[self.mesh.axis_names.index(axis)])
+                * int(part.shape[d]) for d, axis in enumerate(self.spec)])
+        return out
+
+    def assemble(self, device=None):
+        """The global array of a placed tensor whose shards all lie in
+        this process (every shard in its grid place, trimmed to
+        ``global_shape``), on ``device`` (default the first shard's)."""
+        dev = self[0].device if device is None else torch.device(device)
+        return _assemble(self.global_shape,
+                         list(zip(self, self.block_offsets())), dev,
+                         self.dtype)
+
+
+def _assemble(global_shape, pieces, dev, dtype):
+    """The global array from ``(block, offsets)`` pieces, trimmed to
+    ``global_shape`` (pad-and-mask blocks reach past it)."""
+    extent = [max(o[d] + int(p.shape[d]) for p, o in pieces)
+              for d in range(len(global_shape))]
+    out = torch.zeros(extent, dtype=dtype, device=dev)
+    for p, o in pieces:
+        out[tuple(slice(a, a + int(n)) for a, n in zip(o, p.shape))] = \
+            p.to(dev)
+    return out[tuple(slice(0, int(n)) for n in global_shape)].contiguous()
 
 
 @dataclass(frozen=True)
@@ -88,9 +149,50 @@ class ChannelLayout:
         return (None, self.ch_axis)
 
 
+def shards_from_callback(shape, mesh, spec, callback) -> ShardedTensor:
+    """The counterpart of ``jax.make_array_from_callback(shape,
+    NamedSharding(mesh, P(*spec)), callback)``: this rank's shards of a
+    ``shape`` array laid out by ``spec`` (one mesh axis name or None per
+    dimension, each split dimension a multiple of its axis), each cut by
+    ``callback(index)`` (``index`` a tuple of slices into the global
+    array; a numpy array or tensor back) and placed on its device.  Every
+    rank calls it with the same arguments and cuts only its own shards;
+    the bytes placed are counted as ``place`` traffic."""
+    shape = tuple(int(n) for n in shape)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    step = []
+    for n, axis in zip(shape, spec):
+        k = 1 if axis is None else int(mesh.shape[axis])
+        if n % k:
+            raise ValueError(
+                f"dimension {n} does not split evenly over {k} shards of "
+                f"mesh axis {axis!r}")
+        step.append(n // k)
+    coords = mesh.local_coords()
+    parts = []
+    with span("parallel.place", shards=len(coords)):
+        for coord in coords:
+            index = tuple(
+                slice(None) if axis is None else slice(
+                    coord[mesh.axis_names.index(axis)] * w,
+                    (coord[mesh.axis_names.index(axis)] + 1) * w)
+                for axis, w in zip(spec, step))
+            block = callback(index)
+            _count_transfer("place", int(np.asarray(block).nbytes)
+                            if not isinstance(block, torch.Tensor)
+                            else block.numel() * block.element_size())
+            parts.append(to_device(block, mesh.devices[coord]))
+    return ShardedTensor(parts, coords=coords, spec=spec, global_shape=shape,
+                         mesh=mesh)
+
+
 def _count_transfer(direction: str, nbytes: int) -> None:
-    """Host<->device traffic of the sharded stream path: the proof that
-    a steady round no longer round-trips the carry through the host."""
+    """Host<->device traffic of the sharded stream path (``place``,
+    ``gather``): the proof that a steady round no longer round-trips the
+    carry through the host.  Bytes a rank receives from other ranks are
+    counted here too, as ``<kind>:<transport>`` (``halo:nccl``,
+    ``allgather:gloo-host``, ...; see
+    :func:`~tpudas_torch.parallel.distributed.transport_for`)."""
     get_registry().counter(
         "tpudas_parallel_transfer_bytes_total",
         "bytes explicitly moved between host and the mesh by the "

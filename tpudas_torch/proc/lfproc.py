@@ -351,6 +351,8 @@ class LFProc:
 
     @mesh.setter
     def mesh(self, mesh):
+        if getattr(mesh, "spans_ranks", False):
+            mesh.require_local(type(self).__name__)
         if mesh is not None and "ch" not in mesh.shape:
             raise ValueError(
                 "LFProc mesh needs a 'ch' axis (use "

@@ -1,11 +1,20 @@
-"""Synthetic DAS data for tests, examples and the on-card smoke run.
+"""Synthetic DAS data and the fault-injection harness for tests,
+examples and the on-card smoke run.
 
-The port's counterpart of :mod:`tpudas.testing` (the data half; the
-fault-injection harness belongs to a later slice): a deterministic
+The port's counterpart of :mod:`tpudas.testing`: a deterministic
 interrogator simulator writing contiguous dasdae or tdas files of a
 (time x distance) strain-rate stream with a known low-frequency
-component (recoverable after low-pass + decimate), high-frequency
-interference (must be rejected), and noise.
+component (recoverable after low-pass + decimate, :func:`lowfreq_truth`),
+high-frequency interference (must be rejected), and noise.
+
+Fault injection is re-exported from
+:mod:`tpudas_torch.resilience.faults` (the hooks live there so
+production IO modules never import this module): a :class:`FaultPlan`
+of :class:`FaultSpec` entries at the named :data:`FAULT_SITES`, scoped
+with :func:`install_fault_plan`.  :func:`write_corrupt_file` fabricates
+a file with valid HDF5 magic and garbage after it (a truncated
+interrogator flush); :func:`enospc_error` is the ready-made full-disk
+``OSError`` for the ``fs.write_enospc`` site.
 
 The signal is generated in blocks of rows, so a full-width file
 (1 kHz x 10,000 channels x 60 s) never holds more than a few
@@ -15,6 +24,7 @@ float64 blocks beside its float32 payload; the values equal those of
 
 from __future__ import annotations
 
+import errno
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -23,10 +33,32 @@ import numpy as np
 from tpudas_torch.core.patch import Patch
 from tpudas_torch.core.timeutils import to_datetime64
 from tpudas_torch.io.registry import write_patch
+from tpudas_torch.resilience.faults import (  # noqa: F401 - re-exported
+    FAULT_SITES,
+    FaultPlan,
+    FaultSpec,
+    TransientFaultError,
+    install_fault_plan,
+)
 
-__all__ = ["synthetic_patch", "make_synthetic_spool"]
+__all__ = [
+    "synthetic_patch",
+    "make_synthetic_spool",
+    "lowfreq_truth",
+    "write_corrupt_file",
+    "enospc_error",
+    "FAULT_SITES",
+    "FaultPlan",
+    "FaultSpec",
+    "TransientFaultError",
+    "install_fault_plan",
+]
 
 DEFAULT_T0 = "2023-03-22T00:00:00"
+
+# the HDF5 signature: a half-written interrogator file usually has a
+# valid header and garbage (or nothing) after it
+_HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
 
 _BLOCK_ELEMS = 1 << 23  # float64 elements per generated row block
 
@@ -51,6 +83,35 @@ def _signal(t_sec, dists, lf_freq, hf_freq, noise, rng):
             blk = blk + noise * rng.standard_normal(blk.shape)
         out[r0 : r0 + rows] = blk
     return out
+
+
+def enospc_error(msg: str = "injected: no space left on device") -> OSError:
+    """An ``OSError`` carrying ``errno.ENOSPC``: pass as
+    ``FaultSpec("fs.write_enospc", exc=enospc_error())`` to simulate a
+    full disk at any atomic state write."""
+    return OSError(errno.ENOSPC, msg)
+
+
+def write_corrupt_file(path, nbytes=512, seed=0) -> str:
+    """A deterministic un-decodable DAS file: valid HDF5 magic (so the
+    suffix and the sniffer both say "dasdae") and a seeded garbage
+    payload (so the scan fails).  Returns ``path``."""
+    rng = np.random.default_rng(seed)
+    body = rng.integers(0, 256, size=max(int(nbytes) - 8, 0), dtype=np.uint8)
+    with open(path, "wb") as fh:
+        fh.write(_HDF5_MAGIC)
+        fh.write(body.tobytes())
+    return str(path)
+
+
+def lowfreq_truth(times, dists, lf_freq=0.05):
+    """The recoverable low-frequency component at the given datetimes:
+    the channel-ramped LF sine the simulator writes."""
+    t_sec = (
+        times.astype("datetime64[ns]") - times[0].astype("datetime64[ns]")
+    ).astype(np.int64) / 1e9
+    amp = 1.0 + np.asarray(dists) / (np.asarray(dists).max() + 1.0)
+    return np.sin(2 * np.pi * lf_freq * t_sec)[:, None] * amp[None, :]
 
 
 def synthetic_patch(

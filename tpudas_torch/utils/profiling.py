@@ -86,6 +86,17 @@ class Counters:
         self._mirror(int(channel_samples), float(data_seconds),
                      self.last_wall)
 
+    def add_measured(self, channel_samples: int, data_seconds: float,
+                     wall_seconds: float) -> None:
+        """Absorb a measurement timed elsewhere (a kernel loop, say), so
+        its headline numbers come from the registry too."""
+        self.last_wall = float(wall_seconds)
+        self.wall_seconds += self.last_wall
+        self.channel_samples += int(channel_samples)
+        self.data_seconds += float(data_seconds)
+        self._mirror(int(channel_samples), float(data_seconds),
+                     self.last_wall)
+
     def add_redundant(self, channel_samples: int) -> None:
         """Record channel-samples that were re-read only to rebuild
         filter state (rewind-mode overlap)."""
