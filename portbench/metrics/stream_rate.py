@@ -1,0 +1,9 @@
+"""Input channel-samples that the window's real-time rounds consumed
+and committed, restarts included, over the wall of the whole window,
+in millions a second (the harness's clock)."""
+
+
+def read(ctx):
+    if not ctx["window_s"]:
+        return None
+    return ctx["work_samples"] / ctx["window_s"] / 1e6
