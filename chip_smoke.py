@@ -115,7 +115,7 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    the flight ring at its default, detection and the pyramid, in two
    calls (the second resumes from the carry): each round's ten phases,
    its body seconds and the part of the body no phase covers, and
-   ``timings["device_s"]`` beside ``host_wait``; ``health.json``
+   ``timings["compute_s"]`` beside ``host_wait``; ``health.json``
    validated every round, ``metrics.prom`` holding every phase's
    count, the ring's round records each after its ``stream.round``
    span, no health write error, no flight drop, B3 2 kernels a block;
@@ -128,7 +128,7 @@ at the shapes those paths give it.  Phases, each printing JSON lines:
    ring holding only its own spans and rounds; (e) the device
    telemetry (``tpudas_torch.obs.devprof``): every round of (a)-(b)
    carries one launch a stream step, and every warm round device
-   seconds in (0, 1.05 x ``device_s``]; each leg's device busy and idle
+   seconds in (0, 1.05 x ``compute_s``]; each leg's device busy and idle
    share; the snapshot's calibration and each leg's utilization and
    bound, with the probes and with the peaks pinned to phase 3c's read
    rate and 67 TFLOP/s; a turn pair with ``TPUDAS_DEVPROF=0`` against
@@ -1187,6 +1187,7 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
                 "mode": mode, "out": out_i, "wall_s": wall,
                 "assemble_wait_s": lfp.timings["assemble_s"],
                 "load_s": load_s[0], "device_s": lfp.timings["device_s"],
+                "compute_s": lfp.timings["compute_s"],
                 "write_s": lfp.timings["write_s"],
                 "realtime_factor": n_files * file_sec / wall,
                 "windows": windows, "native_windows": lfp.native_windows,
@@ -1236,13 +1237,15 @@ def phase_main_path(device, n_ch, seconds, workdir, cls):
         "wall_s": first["wall_s"],
         "s_per_window": first["wall_s"] / max(windows, 1),
         "timings": {"assemble_s": first["assemble_wait_s"],
+                    "compute_s": first["compute_s"],
                     "device_s": first["device_s"],
                     "write_s": first["write_s"]},
         "realtime_factor": first["realtime_factor"],
         "runs": [{k: v for k, v in r.items() if k != "out"} for r in runs],
         "mean": {m: {k: mean(m, k) for k in
-                     ("wall_s", "assemble_wait_s", "load_s", "device_s",
-                      "write_s", "realtime_factor")} for m in INGEST_MODES},
+                     ("wall_s", "assemble_wait_s", "load_s", "compute_s",
+                      "device_s", "write_s", "realtime_factor")}
+                 for m in INGEST_MODES},
         "outputs_differing_from_first_run": differ,
         "outputs": len(names), "output_rows": int(p.host_data().shape[0]),
         "lf_fit_max_resid": resid, "lf_amp_max_rel_err": amp_err,
@@ -3227,7 +3230,7 @@ def obs_leg(device, link, ldir, engine, calls, obs=True, detect=True,
                              is snap and snap["rounds"] == rnd)
         per_round.append({
             "round": rnd, "wall_s": wall, "body_sum_s": body,
-            "device_s": float(lfp.timings.get("device_s", 0.0)),
+            "compute_s": float(lfp.timings.get("compute_s", 0.0)),
             "blocks": dict(lfp.stream_blocks)})
         mark[0] = time.perf_counter()
 
@@ -3293,7 +3296,7 @@ def obs_leg(device, link, ldir, engine, calls, obs=True, detect=True,
     rounds, ordered, ring = ring_checks(out)
     # the device telemetry of each round: one launch a stream step, and
     # in a warm round (not a call's first) device seconds inside the
-    # round's device_s (lfp.timings: the steps' dispatch and host sync)
+    # round's compute_s (lfp.timings: the steps' dispatch and host sync)
     firsts = {sum(len(c) for c in calls[:k]) for k in range(len(calls))}
     for i, (r, rec) in enumerate(zip(per_round, rounds)):
         ph = rec["phases"]
@@ -3308,10 +3311,10 @@ def obs_leg(device, link, ldir, engine, calls, obs=True, detect=True,
                        f"{dp['launches']} != steps {steps}"))
         if r["warm"]:
             checks.append((
-                0 < dp["device_execute_s"] <= 1.05 * r["device_s"],
+                0 < dp["device_execute_s"] <= 1.05 * r["compute_s"],
                 f"{engine} round {i + 1}: device_execute_s "
-                f"{dp['device_execute_s']} outside (0, 1.05 x device_s "
-                f"{r['device_s']}]"))
+                f"{dp['device_execute_s']} outside (0, 1.05 x compute_s "
+                f"{r['compute_s']}]"))
     warm = [r for r in per_round if r.get("warm")]
     for key, rs in (("", per_round), ("warm_", warm)):
         body = sum(r["body_s"] for r in rs)
@@ -3501,7 +3504,7 @@ def phase_obs(device, workdir, cls, members):
     flagship width.  (a) ``fused`` with health, the flight ring (its
     default), detection and the pyramid: 4 files, one a round, in 2
     calls (the second resumes from the carry); each round's ten phases,
-    body seconds and the body no phase covers, ``timings["device_s"]``
+    body seconds and the body no phase covers, ``timings["compute_s"]``
     beside ``host_wait``; ``health.json`` validated every round,
     ``metrics.prom`` holding every phase, the ring's round records each
     after its ``stream.round`` span, no health write error and no
@@ -3611,7 +3614,7 @@ def phase_obs(device, workdir, cls, members):
         "fused_rounds": [
             {"round": r["round"], "phases": r["phases"],
              "body_s": r["body_s"], "unphased_s": r["unphased_s"],
-             "device_s": r["device_s"],
+             "compute_s": r["compute_s"],
              "host_wait_s": r["phases"]["host_wait"]}
             for r in fused["per_round"]],
         "b3": fused["kernel_counts"], "b3_blocks": fused["blocks"],

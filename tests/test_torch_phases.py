@@ -189,13 +189,17 @@ def test_phase_and_record_keys_equal_between_packages(three_rounds):
         assert p["phases"]["host_wait"] > 0.0
         assert (p["round"], p["mode"], p["data_seconds"], p["head_lag"]) \
             == (j["round"], j["mode"], j["data_seconds"], j["head_lag"])
-    # the span names the port flushes are among the JAX driver's
+    # the span names the port flushes are among the JAX driver's, the
+    # port-only telemetry of its host steps aside
+    from test_torch_obs_names import SPAN_EXCEPTIONS
+
     names = {r["name"] for r in read_flight(three_rounds["port"][1],
                                             kind="span")}
     jnames = {r["name"] for r in read_flight(three_rounds["jax"][1],
                                              kind="span")}
     assert {"stream.round", "stream.increment",
-            "stream.carry_save", "parallel.gather"} <= names <= jnames
+            "stream.carry_save", "parallel.gather"} <= names
+    assert names - set(SPAN_EXCEPTIONS) <= jnames
 
 
 @pytest.mark.parametrize("pkg", sorted(PKGS))

@@ -904,63 +904,64 @@ class LowpassStreamRunner(StreamRunner):
             ph = self._round_phases = RoundPhases()
         t_body = _time.perf_counter()
         t_prep0 = t_body  # host prep until the processing call
-        joint_extra = {}
-        if self.rolling_output_folder is not None:
-            lfp = JointProc(sub, mesh=self.mesh, device=self.device)
-            joint_extra = {
-                k: v
-                for k, v in (
-                    ("rolling_window", self.rolling_window),
-                    ("rolling_step", self.rolling_step),
-                )
-                if v is not None
-            }
-        else:
-            lfp = LFProc(sub, mesh=self.mesh, device=self.device)
-        # the processor is rebuilt every round: re-install the handoff
-        lfp._batch_executor = self._batch_executor
-        lfp.update_processing_parameter(
-            output_sample_interval=self.d_t,
-            process_patch_size=self.process_patch_size,
-            edge_buff_size=self.buff_out,
-            **self.extra,
-            **joint_extra,
-        )
-        lfp.set_output_folder(self.output_folder, delete_existing=False)
-        emitted = []
-        if self.pyramid or self.detect or self.live:
-            # the round's output patches, captured at their write site
-            # for the pyramid append, the detect operators and the live
-            # push frame (one capture serves all three)
-            lfp.add_emit_listener(emitted.append)
-        if self.rolling_output_folder is not None:
-            lfp.set_rolling_output_folder(
-                self.rolling_output_folder, delete_existing=False
-            )
-        rnd = self.rounds + 1
-        log_event("round_start", round=rnd, stream=self.stream_id)
-        if self.stateful and not self.carry_checked:
-            self._resolve_carry(lfp, reg)
-        # the newest timestamp from the index — no file data is read
-        rows = sub.contents()
-        t2 = max(np.datetime64(r["time_max"], "ns") for r in rows)
-        # drain-mode clamps (tpudas_torch.backfill): never ingest past
-        # the slice cap, and never more than ingest_limit_sec of data in
-        # one round (bounded rounds keep the shard lease renewable)
-        self._more_to_drain = False
-        if self.time_range is not None and self.time_range[1] is not None:
-            hi = np.datetime64(self.time_range[1], "ns")
-            t2 = min(t2, hi)
-        if self.ingest_limit_sec is not None and self.stateful:
-            if (self.carry is not None
-                    and self.carry.next_ingest_ns is not None):
-                base = np.datetime64(int(self.carry.next_ingest_ns), "ns")
+        with span("stream.prep"):
+            joint_extra = {}
+            if self.rolling_output_folder is not None:
+                lfp = JointProc(sub, mesh=self.mesh, device=self.device)
+                joint_extra = {
+                    k: v
+                    for k, v in (
+                        ("rolling_window", self.rolling_window),
+                        ("rolling_step", self.rolling_step),
+                    )
+                    if v is not None
+                }
             else:
-                base = np.datetime64(self.start_time, "ns")
-            cap2 = base + to_timedelta64(float(self.ingest_limit_sec))
-            if cap2 < t2:
-                t2 = cap2
-                self._more_to_drain = True
+                lfp = LFProc(sub, mesh=self.mesh, device=self.device)
+            # the processor is rebuilt every round: re-install the handoff
+            lfp._batch_executor = self._batch_executor
+            lfp.update_processing_parameter(
+                output_sample_interval=self.d_t,
+                process_patch_size=self.process_patch_size,
+                edge_buff_size=self.buff_out,
+                **self.extra,
+                **joint_extra,
+            )
+            lfp.set_output_folder(self.output_folder, delete_existing=False)
+            emitted = []
+            if self.pyramid or self.detect or self.live:
+                # the round's output patches, captured at their write site
+                # for the pyramid append, the detect operators and the live
+                # push frame (one capture serves all three)
+                lfp.add_emit_listener(emitted.append)
+            if self.rolling_output_folder is not None:
+                lfp.set_rolling_output_folder(
+                    self.rolling_output_folder, delete_existing=False
+                )
+            rnd = self.rounds + 1
+            log_event("round_start", round=rnd, stream=self.stream_id)
+            if self.stateful and not self.carry_checked:
+                self._resolve_carry(lfp, reg)
+            # the newest timestamp from the index — no file data is read
+            rows = sub.contents()
+            t2 = max(np.datetime64(r["time_max"], "ns") for r in rows)
+            # drain-mode clamps (tpudas_torch.backfill): never ingest past
+            # the slice cap, and never more than ingest_limit_sec of data in
+            # one round (bounded rounds keep the shard lease renewable)
+            self._more_to_drain = False
+            if self.time_range is not None and self.time_range[1] is not None:
+                hi = np.datetime64(self.time_range[1], "ns")
+                t2 = min(t2, hi)
+            if self.ingest_limit_sec is not None and self.stateful:
+                if (self.carry is not None
+                        and self.carry.next_ingest_ns is not None):
+                    base = np.datetime64(int(self.carry.next_ingest_ns), "ns")
+                else:
+                    base = np.datetime64(self.start_time, "ns")
+                cap2 = base + to_timedelta64(float(self.ingest_limit_sec))
+                if cap2 < t2:
+                    t2 = cap2
+                    self._more_to_drain = True
         # host prep so far (LFProc build, carry resolution, index
         # metadata) charges the read_decode phase; the in-call read and
         # decode wait is mirrored out of lfp.timings below

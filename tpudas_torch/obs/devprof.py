@@ -916,12 +916,19 @@ def profile_status() -> dict | None:
 def _capture(target: str, seconds: float, started, failed: list) -> None:
     """The capture thread: start ``torch.profiler``, wait ``seconds``,
     stop it and write a Chrome trace into ``target`` — start and stop
-    on this one thread."""
+    on this one thread — with every thread's spans finished meanwhile
+    appended to it (the profiler records none of the other threads)."""
     import torch
     from torch.profiler import profile
 
-    from tpudas_torch.utils.profiling import profiler_activities, trace_path
+    from tpudas_torch.utils.profiling import (
+        SpanCapture,
+        append_spans,
+        profiler_activities,
+        trace_path,
+    )
 
+    spans = SpanCapture()
     try:
         # the card's activity when this process runs on it
         prof = profile(activities=profiler_activities(
@@ -935,9 +942,12 @@ def _capture(target: str, seconds: float, started, failed: list) -> None:
         return
     started.set()
     try:
-        time.sleep(seconds)
+        with spans:
+            time.sleep(seconds)
         prof.stop()
-        prof.export_chrome_trace(trace_path(target))
+        path = trace_path(target)
+        prof.export_chrome_trace(path)
+        append_spans(path, spans.recs)
     except Exception as exc:
         log_event(
             "devprof_profile_stop_failed",

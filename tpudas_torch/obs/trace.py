@@ -10,6 +10,19 @@ histogram, are handed to every registered span sink
 :mod:`tpudas_torch.obs.flight`), and export one ``log_event("span",
 ...)`` line each when a log handler is installed.
 
+Each finished record carries ``start_ns`` / ``end_ns`` from
+:func:`time.time_ns`, the clock ``torch.profiler``'s Chrome trace maps
+to (``baseTimeNanoseconds`` + ``ts``), so a span lines up with the
+card's kernels and copies; ``duration_s`` is derived from the two
+stamps and ``start`` is ``start_ns`` in seconds.  ``thread`` is the
+recording thread's ``(native id, name)`` (the profiler's ``tid``), and
+``trace`` the id of the root span of the request: a span's parent is
+the innermost open span of its thread, or the span passed as
+``parent=`` for work handed to another thread, so one pass or one
+round shares one ``trace`` across threads.
+:func:`tpudas_torch.utils.profiling.device_trace` and the ``/profile``
+capture append every thread's spans to the trace they write.
+
 ``TPUDAS_TRACE_ANNOTATE=1`` additionally wraps each span in
 ``torch.profiler.record_function`` (and, on a CUDA build of torch, an
 NVTX range), so spans line up with the ``device_trace`` /
@@ -36,6 +49,7 @@ __all__ = [
     "add_span_sink",
     "remove_span_sink",
     "span",
+    "current_span",
     "get_spans",
     "clear_spans",
     "span_ring_capacity",
@@ -133,6 +147,22 @@ def _span_stack():
     return st
 
 
+def _thread():
+    """This thread's ``(native id, name)``, looked up once a thread."""
+    th = getattr(_local, "thread", None)
+    if th is None:
+        th = _local.thread = (threading.get_native_id(),
+                              threading.current_thread().name)
+    return th
+
+
+def current_span():
+    """The innermost open span record of this thread, or None: pass it
+    as ``parent=`` to a span opened on another thread for this work."""
+    stack = _span_stack()
+    return stack[-1] if stack else None
+
+
 def _span_metrics(reg):
     """(histogram, eviction_counter, dropped_counter) handles, memoized
     on the registry instance — the per-span cost must not include
@@ -168,11 +198,12 @@ class _Span:
     """Hand-rolled context manager (no ``@contextmanager`` generator
     machinery) for the hot path.  Yields the mutable span record."""
 
-    __slots__ = ("name", "attrs", "rec", "_cm", "_t0", "_reg")
+    __slots__ = ("name", "attrs", "parent", "rec", "_cm", "_reg")
 
-    def __init__(self, name, attrs):
+    def __init__(self, name, attrs, parent=None):
         self.name = name
         self.attrs = attrs
+        self.parent = parent
         self.rec = None
 
     def __enter__(self):
@@ -183,7 +214,9 @@ class _Span:
             return None
         global _next_id
         stack = _span_stack()
-        parent = stack[-1] if stack else None
+        parent = self.parent
+        if parent is None and stack:
+            parent = stack[-1]
         with _lock:
             _next_id += 1
             sid = _next_id
@@ -191,7 +224,9 @@ class _Span:
             "name": str(self.name),
             "id": sid,
             "parent": None if parent is None else parent["id"],
-            "depth": len(stack),
+            "trace": sid if parent is None else parent["trace"],
+            "depth": 0 if parent is None else parent["depth"] + 1,
+            "thread": _thread(),
             "attrs": self.attrs,
         }
         stack.append(rec)
@@ -200,15 +235,16 @@ class _Span:
         self._cm = ann(rec["name"]) if ann else None
         if self._cm is not None:
             self._cm.__enter__()
-        rec["start"] = time.time()
-        self._t0 = time.perf_counter()
+        rec["start_ns"] = time.time_ns()
+        rec["start"] = rec["start_ns"] / 1e9
         return rec
 
     def __exit__(self, exc_type, exc, tb):
         rec = self.rec
         if rec is None:
             return False
-        dur = time.perf_counter() - self._t0
+        rec["end_ns"] = time.time_ns()
+        dur = (rec["end_ns"] - rec["start_ns"]) / 1e9
         if self._cm is not None:
             self._cm.__exit__(None, None, None)
         if exc is not None:
@@ -247,12 +283,15 @@ class _Span:
         return False  # never swallow the body's exception
 
 
-def span(name: str, **attrs) -> _Span:
+def span(name: str, parent=None, **attrs) -> _Span:
     """Record a named, attributed, nested timed span around the block.
 
-    Exceptions propagate; the span is still recorded with
-    ``error=<repr prefix>`` so a crashed round leaves its trace."""
-    return _Span(name, attrs)
+    ``parent`` (a span record, :func:`current_span` of the thread that
+    handed the work over) parents a span opened on a thread with no
+    open span of its own.  Exceptions propagate; the span is still
+    recorded with ``error=<repr prefix>`` so a crashed round leaves its
+    trace."""
+    return _Span(name, attrs, parent)
 
 
 def get_spans(name: str | None = None) -> list:

@@ -33,7 +33,7 @@ from collections import deque
 
 import numpy as np
 
-from tpudas_torch.obs.trace import span
+from tpudas_torch.obs.trace import current_span, span
 from tpudas_torch.resilience.faults import fault_point
 from tpudas_torch.utils.logging import log_event
 
@@ -100,6 +100,8 @@ class SlicePrefetcher:
         self._d_hint = None if d_ns_hint is None else int(d_ns_hint)
         self._loading = False
         self._gen = 0  # resync generation: stale loads are dropped
+        # the producer's spans join the round's trace
+        self._parent = current_span()
         self.stats = {
             "prefetched": 0, "hits": 0, "misses": 0,
             "stall_s": 0.0, "max_ahead": 0,
@@ -137,7 +139,8 @@ class SlicePrefetcher:
                 fault_point(
                     "stream.prefetch", t_lo=str(t_lo), t_hi=str(t_hi)
                 )
-                with span("stream.prefetch", t_lo=str(t_lo)):
+                with span("stream.prefetch", parent=self._parent,
+                          t_lo=str(t_lo)):
                     patch = self._lfp._load_window(t_lo, t_hi, self._on_gap)
                     if patch is not None:
                         payload = decode_payload(self._lfp, patch)

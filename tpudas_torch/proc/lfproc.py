@@ -58,9 +58,10 @@ from tpudas_torch.core.timeutils import (
 from tpudas_torch.device import resolve_device
 from tpudas_torch.io.spool import spool as make_spool
 from tpudas_torch.obs.registry import get_registry
-from tpudas_torch.obs.trace import span
+from tpudas_torch.obs.trace import current_span, span
 from tpudas_torch.proc.naming import get_filename
 from tpudas_torch.utils.logging import log_event
+from tpudas_torch.utils.profiling import EventTimer
 
 __all__ = ["LFProc", "check_merge", "lowpass_resample", "output_corner",
            "resolve_gap_tolerance", "schedule_windows"]
@@ -187,6 +188,15 @@ def lowpass_resample(data, d_sec, corner, idx, w, order=4, qscale=None,
     return gather_lerp(_filter_rows(x, d_sec, None, corner, order), idx, w)
 
 
+def _count_read(patch) -> None:
+    """Payload bytes of one window or slice read
+    (``tpudas_window_read_bytes_total``)."""
+    get_registry().counter(
+        "tpudas_window_read_bytes_total",
+        "payload bytes the window and slice reads returned",
+    ).inc(int(patch.data.nbytes))
+
+
 class _PinnedRing:
     """The prefetch thread's two page-locked host buffers and its copy
     stream, on the card.
@@ -235,6 +245,11 @@ class _PinnedRing:
             or host.ctypes.data != buf.data_ptr()
             or not host.flags.c_contiguous
         ):
+            get_registry().counter(
+                "tpudas_window_stage_copies_total",
+                "windows copied into a pinned staging buffer because "
+                "the read did not land in one",
+            ).inc()
             dst = self.array(host.shape, host.dtype)
             dst[...] = host
             host, i = dst, self._next ^ 1
@@ -288,10 +303,14 @@ class LFProc:
         # device payload the prefetch thread staged
         self.native_windows = 0
         self.staged_windows = 0
-        # cumulative per-phase wall seconds: assemble = the consumer's
-        # wait on the prefetch thread's window read, device = (the rest
-        # of the) H2D + kernels + D2H, write = output file write
-        self.timings = {"assemble_s": 0.0, "device_s": 0.0, "write_s": 0.0}
+        # cumulative per-phase seconds: assemble = the consumer's wait
+        # on the prefetch thread's window read, compute = the host
+        # bracket from dispatch through the output's sync (the rest of
+        # the H2D, the kernels, the D2H), device = the card's time on
+        # the kernels (CUDA events; the compute bracket off the card),
+        # write = output file write
+        self.timings = {"assemble_s": 0.0, "compute_s": 0.0,
+                        "device_s": 0.0, "write_s": 0.0}
         self._ring = (_PinnedRing(self.device) if self.device.type == "cuda"
                       else None)
         # the run's anchor for joint products phased in input samples
@@ -465,8 +484,11 @@ class LFProc:
         for key, metric, help_ in (
             ("assemble_s", "tpudas_window_assemble_seconds_total",
              "wall seconds waiting on window read + H2D staging"),
-            ("device_s", "tpudas_window_device_seconds_total",
+            ("compute_s", "tpudas_window_compute_seconds_total",
              "wall seconds in kernel dispatch through host sync"),
+            ("device_s", "tpudas_window_device_seconds_total",
+             "device seconds of the windows' and stream blocks' "
+             "kernels (CUDA events; the host bracket off the card)"),
             ("write_s", "tpudas_window_write_seconds_total",
              "wall seconds writing HDF5 outputs"),
         ):
@@ -500,19 +522,13 @@ class LFProc:
                 from tpudas_torch.native import native_enabled
 
                 native = native_enabled()
-                log_event(
-                    "planned_window",
-                    files=len(plan["segments"]),
-                    rows=plan["total_rows"],
-                    payload=plan["payload"],
-                    native=native,
-                )
                 out = None if alloc is None else alloc(*window_array_spec(plan))
                 with span("lfproc.load_window", native=native,
                           files=len(plan["segments"])):
                     patch = assemble_window_patch(plan, out=out)
                 if native:
                     self.native_windows += 1
+                _count_read(patch)
                 return patch
         with span("lfproc.load_window", native=False):
             selected = self._spool.select(time=(t_lo, t_hi))
@@ -525,11 +541,13 @@ class LFProc:
                     raise Exception("patch merge failed! Gap in data exists")
                 return None
             try:
-                return check_merge(plist)
+                patch = check_merge(plist)
             except Exception:
                 if on_gap == "raise":
                     raise
                 return None
+        _count_read(patch)
+        return patch
 
     def _split_grid_at_gaps(self, time_grid):
         """[(g_lo, g_hi), ...] index ranges of ``time_grid`` covered by
@@ -668,9 +686,11 @@ class LFProc:
             if window_patch is None:
                 log_event("window_skipped_gap", index=i + 1)
                 continue
-            self._process_window(
-                window_patch, emit_times, dt, corner, order, staged=staged
-            )
+            with span("lfproc.window"):
+                self._process_window(
+                    window_patch, emit_times, dt, corner, order,
+                    staged=staged,
+                )
         return len(windows)
 
     def _dp_window_info(self, window_patch, target_times, dt, corner, order):
@@ -740,19 +760,26 @@ class LFProc:
 
             infos = [p[2] for p in pending]
             stack = np.stack([i["host"] for i in infos])
-            t0 = time.perf_counter()
-            out = _batch.batched_cascade_decimate(
-                mesh, stack, infos[0]["plan"], infos[0]["phase"],
-                infos[0]["n_out"], engine="auto", batch_axis="time",
-                ch_axis="ch", qscale=infos[0]["qs"],
-            ).cpu().numpy()
-            t_dev = time.perf_counter() - t0
-            self.timings["device_s"] += t_dev
-            return out, int(stack.shape[1]), t_dev
+            with span("lfproc.compute", windows=len(pending)):
+                t0 = time.perf_counter()
+                clock = EventTimer(self.device).start()
+                out = _batch.batched_cascade_decimate(
+                    mesh, stack, infos[0]["plan"], infos[0]["phase"],
+                    infos[0]["n_out"], engine="auto", batch_axis="time",
+                    ch_axis="ch", qscale=infos[0]["qs"],
+                )
+                clock.stop()
+                out = out.cpu().numpy()
+                t_dev = time.perf_counter() - t0
+            self.timings["compute_s"] += t_dev
+            self.timings["device_s"] += clock.seconds(t_dev)
+            return out, int(stack.shape[1])
 
         def per_window():
             for patch, emit_times, _ in pending:
-                self._process_window(patch, emit_times, dt, corner, order)
+                with span("lfproc.window"):
+                    self._process_window(patch, emit_times, dt, corner,
+                                         order)
             pending.clear()
 
         def flush():
@@ -762,7 +789,7 @@ class LFProc:
                 per_window()
                 return
             try:
-                out, rows, t_dev = run_batch()
+                out, rows = run_batch()
             except KernelError:
                 raise
             except Exception as exc:
@@ -787,8 +814,7 @@ class LFProc:
                     patch.get_sample_step("time"),
                 )
                 self._emit_window_output(
-                    patch, emit_times, dt, out[i], ran,
-                    rows=rows, t_dev=t_dev / len(pending),
+                    patch, emit_times, dt, out[i], ran, rows=rows,
                 )
             pending.clear()
 
@@ -809,9 +835,10 @@ class LFProc:
             )
             if info is None:
                 flush()
-                self._process_window(
-                    window_patch, emit_times, dt, corner, order
-                )
+                with span("lfproc.window"):
+                    self._process_window(
+                        window_patch, emit_times, dt, corner, order
+                    )
                 continue
             if pending and info["key"] != pending[0][2]["key"]:
                 flush()
@@ -826,25 +853,34 @@ class LFProc:
         one window ahead on a worker thread; yields ``(i, loaded,
         emit_times)`` with the consumer's wait counted as assemble
         time.  Window N+2 is asked for only after window N has been
-        processed, which is what lets two staging buffers suffice."""
+        processed, which is what lets two staging buffers suffice.  The
+        worker's ``lfproc.prefetch`` spans are parented to the span open
+        here (the pass)."""
+        parent = current_span()
+
+        def prefetch(bg, ed):
+            with span("lfproc.prefetch", parent=parent):
+                return loader(bg, ed, on_gap)
+
         with ThreadPoolExecutor(max_workers=1) as pool:
             future = None
             if windows:
                 w0 = windows[0]
                 future = pool.submit(
-                    loader, time_grid[w0[0]], time_grid[w0[1]], on_gap
+                    prefetch, time_grid[w0[0]], time_grid[w0[1]]
                 )
             try:
                 for i, (sel_lo, sel_hi, emit_lo, emit_hi) in enumerate(windows):
                     print("Processing patch ", str(i + 1))
                     t_wait = time.perf_counter()
-                    loaded = future.result()
+                    with span("lfproc.read_wait"):
+                        loaded = future.result()
                     future = None
                     self.timings["assemble_s"] += time.perf_counter() - t_wait
                     if i + 1 < len(windows):
                         nxt = windows[i + 1]
                         future = pool.submit(
-                            loader, time_grid[nxt[0]], time_grid[nxt[1]], on_gap
+                            prefetch, time_grid[nxt[0]], time_grid[nxt[1]]
                         )
                     yield i, loaded, time_grid[emit_lo:emit_hi]
             finally:
@@ -865,7 +901,8 @@ class LFProc:
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
         if nbytes > self._STAGE_MAX_BYTES:
             return np.empty(shape, dtype)
-        return self._ring.array(shape, dtype)
+        with span("lfproc.ring_wait"):
+            return self._ring.array(shape, dtype)
 
     def _load_and_stage(self, bg, ed, on_gap):
         """Prefetch-thread body: assemble the window, then START its
@@ -882,16 +919,17 @@ class LFProc:
         window_patch = self._load_window(bg, ed, on_gap, alloc=alloc)
         if window_patch is None or not staging:
             return window_patch, None
-        host, qscale = self._time_major_payload(window_patch)
-        es = 2 if qscale is not None else 4
-        if host.size * es > self._STAGE_MAX_BYTES:
-            return window_patch, None
-        host = np.ascontiguousarray(
-            host, dtype=host.dtype if qscale is not None else np.float32
-        )
-        if not cuda:
-            return window_patch, (torch.from_numpy(host), None)
-        return window_patch, self._ring.to_device(host)
+        with span("lfproc.stage"):
+            host, qscale = self._time_major_payload(window_patch)
+            es = 2 if qscale is not None else 4
+            if host.size * es > self._STAGE_MAX_BYTES:
+                return window_patch, None
+            host = np.ascontiguousarray(
+                host, dtype=host.dtype if qscale is not None else np.float32
+            )
+            if not cuda:
+                return window_patch, (torch.from_numpy(host), None)
+            return window_patch, self._ring.to_device(host)
 
     @staticmethod
     def _time_major_payload(window_patch):
@@ -1015,49 +1053,55 @@ class LFProc:
                     align = None  # auto: the FFT engine takes the window
         n_out = int(target_times.size)
         mesh = self._mesh
-        t_dev0 = time.perf_counter()
-        if staged is not None:
-            x, ready = staged  # H2D started by the prefetch thread
-            if ready is not None:
-                compute = torch.cuda.current_stream(self.device)
-                compute.wait_event(ready)
-                x.record_stream(compute)
-            self.staged_windows += 1
-        else:
-            # quantized windows ship the raw int16 payload: half the
-            # transfer bytes, dequantized on the device; under a mesh the
-            # sharded paths place the window's shards themselves
-            x = (host if qs is not None
-                 else host.astype(np.float32, copy=False))
-            if mesh is None:
-                x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        if align is not None:
-            out = self._run_cascade(x, plan, phase, n_out, qs)
-            ran = ("cascade-cuda" if self.device.type == "cuda"
-                   else "cascade-torch")
-        else:
-            from tpudas_torch.ops.resample import interp_indices_weights
-
-            idx, w = interp_indices_weights(taxis, target_times)
-            if mesh is None:
-                out = lowpass_resample(x, d_sec, corner, idx, w, order=order,
-                                       qscale=qs)
+        dev = self.device
+        with span("lfproc.compute"):
+            t_dev0 = time.perf_counter()
+            if staged is not None:
+                x, ready = staged  # H2D started by the prefetch thread
+                if ready is not None:
+                    compute = torch.cuda.current_stream(dev)
+                    compute.wait_event(ready)
+                    x.record_stream(compute)
+                self.staged_windows += 1
             else:
-                # channel sharding only: the FFT runs along the whole
-                # time axis of each column block
-                from tpudas_torch.parallel.sharding import (
-                    column_shards,
-                    gather_columns,
-                )
+                # quantized windows ship the raw int16 payload: half the
+                # transfer bytes, dequantized on the device; under a mesh
+                # the sharded paths place the window's shards themselves
+                x = (host if qs is not None
+                     else host.astype(np.float32, copy=False))
+                if mesh is None:
+                    x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            clock = EventTimer(dev).start()
+            if align is not None:
+                out = self._run_cascade(x, plan, phase, n_out, qs)
+                ran = ("cascade-cuda" if dev.type == "cuda"
+                       else "cascade-torch")
+            else:
+                from tpudas_torch.ops.resample import interp_indices_weights
 
-                out = gather_columns(
-                    [lowpass_resample(xs, d_sec, corner, idx, w, order=order,
-                                      qscale=qs)
-                     for xs in column_shards(x, mesh)], int(host.shape[1]))
-            ran = "fft"
-        out = out.cpu().numpy()  # host sync
-        t_dev = time.perf_counter() - t_dev0
-        self.timings["device_s"] += t_dev
+                idx, w = interp_indices_weights(taxis, target_times)
+                if mesh is None:
+                    out = lowpass_resample(x, d_sec, corner, idx, w,
+                                           order=order, qscale=qs)
+                else:
+                    # channel sharding only: the FFT runs along the whole
+                    # time axis of each column block
+                    from tpudas_torch.parallel.sharding import (
+                        column_shards,
+                        gather_columns,
+                    )
+
+                    out = gather_columns(
+                        [lowpass_resample(xs, d_sec, corner, idx, w,
+                                          order=order, qscale=qs)
+                         for xs in column_shards(x, mesh)],
+                        int(host.shape[1]))
+                ran = "fft"
+            clock.stop()
+            out = out.cpu().numpy()  # host sync
+            t_dev = time.perf_counter() - t_dev0
+        self.timings["compute_s"] += t_dev
+        self.timings["device_s"] += clock.seconds(t_dev)
         if qs is not None:
             self.quantized_windows += 1
         # joint products (tpudas_torch.proc.joint.JointProc) read the
@@ -1071,7 +1115,7 @@ class LFProc:
         )
         self._emit_window_output(
             window_patch, target_times, dt, out, ran,
-            rows=int(host.shape[0]), t_dev=t_dev,
+            rows=int(host.shape[0]),
         )
 
     def _run_cascade(self, x, plan, phase, n_out, qs):
@@ -1102,7 +1146,7 @@ class LFProc:
         window)."""
 
     def _emit_window_output(self, window_patch, target_times, dt, out, ran,
-                            rows, t_dev=0.0):
+                            rows):
         """Shared tail of window processing: observability, coords,
         attrs, and the output write."""
         ax = window_patch.axis_of("time")
@@ -1132,9 +1176,10 @@ class LFProc:
             result.attrs["time_min"], result.attrs["time_max"]
         )
         t_w0 = time.perf_counter()
-        self._write_output(result, os.path.join(self._output_folder, filename))
-        t_write = time.perf_counter() - t_w0
-        self.timings["write_s"] += t_write
+        with span("lfproc.write_output"):
+            self._write_output(result,
+                               os.path.join(self._output_folder, filename))
+        self.timings["write_s"] += time.perf_counter() - t_w0
         for listener in self._emit_listeners:
             if id(listener) in self._failed_listeners:
                 continue  # raised earlier this round: skip, don't re-fail
@@ -1152,10 +1197,6 @@ class LFProc:
                     "emit_listener_failed",
                     error=f"{type(exc).__name__}: {str(exc)[:200]}",
                 )
-        log_event(
-            "window_timing", device_s=round(t_dev, 5),
-            write_s=round(t_write, 5), engine=ran,
-        )
 
     def _write_output(self, patch, path):
         """Write one output patch — dasdae HDF5 at the ``LFDAS_*.h5``

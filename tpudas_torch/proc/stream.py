@@ -69,6 +69,7 @@ from tpudas_torch.core.timeutils import quantize_step, to_datetime64
 from tpudas_torch.obs.registry import get_registry
 from tpudas_torch.obs.trace import span
 from tpudas_torch.utils.logging import log_event
+from tpudas_torch.utils.profiling import EventTimer
 
 __all__ = [
     "StreamCarry",
@@ -731,7 +732,7 @@ def _open_cascade(lfp, carry, host, t0, g_e, d_ns, ratio, qs) -> int:
     return int((t_feed0 - t0) // d_ns)
 
 
-def _emit(lfp, carry: StreamCarry, patch, out, rows, ran, t_dev) -> None:
+def _emit(lfp, carry: StreamCarry, patch, out, rows, ran) -> None:
     """Write ``out`` (n, C) at the carry's emission cursor."""
     n = int(out.shape[0])
     if n == 0:
@@ -742,9 +743,7 @@ def _emit(lfp, carry: StreamCarry, patch, out, rows, ran, t_dev) -> None:
     carry.next_emit_ns = int(carry.next_emit_ns + n * carry.step_ns)
     carry.last_emit_ns = int(times[-1].astype(np.int64))
     carry.emitted += n
-    lfp._emit_window_output(
-        patch, times, carry.dt_out, out, ran, rows=rows, t_dev=t_dev
-    )
+    lfp._emit_window_output(patch, times, carry.dt_out, out, ran, rows=rows)
 
 
 def _count_block(rows: int, engine: str, t_dev: float) -> None:
@@ -816,6 +815,20 @@ def _pool_with_residual(carry: StreamCarry, new, qs):
     return np.concatenate([r, n], axis=0), None
 
 
+def _to_device(blk, dev):
+    """One stream block on ``dev``: made contiguous (``stream.pool``),
+    then copied (``stream.h2d``, ``tpudas_stream_h2d_bytes_total``)."""
+    with span("stream.pool"):
+        blk = np.ascontiguousarray(blk)
+    with span("stream.h2d"):
+        x = torch.from_numpy(blk).to(dev)
+    get_registry().counter(
+        "tpudas_stream_h2d_bytes_total",
+        "stream block bytes copied from the host to the device",
+    ).inc(int(blk.nbytes))
+    return x
+
+
 def _stream_mesh(lfp):
     """The channel-sharding mesh the stream step runs under: the LFProc's
     mesh when it is pure channel sharding (a ``time`` axis of size 1 —
@@ -837,7 +850,8 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
     plan = design_cascade(
         1e9 / carry.d_ns, carry.ratio, _corner(carry.dt_out), carry.order
     )
-    pool, pool_qs = _pool_with_residual(carry, new, qs)
+    with span("stream.pool"):
+        pool, pool_qs = _pool_with_residual(carry, new, qs)
     usable = pool.shape[0] - pool.shape[0] % carry.ratio
     # "fused" resolves per block (the fused kernel on the card, the
     # per-stage chain below the size threshold); anything else runs
@@ -857,13 +871,15 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
         # the pipeline (same order, same math, overlapped wall clock)
         t0 = time.perf_counter()
         bx = getattr(lfp, "_batch_executor", None)
+        if mesh is None:
+            x = _to_device(blk, dev)
+        clock = EventTimer(dev).start()
         if mesh is not None:
             # the sharded step places the host block's column shards
             y_dev, bufs = cascade_decimate_stream(
                 blk, carry.bufs, plan, eng_req, qscale=pool_qs, mesh=mesh
             )
         elif bx is not None:
-            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             # batched fleet service: rendezvous with the group's other
             # members so co-shaped blocks run as one stacked step; the
             # engine is the one resolved above at this stream's own
@@ -872,24 +888,28 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
                 x, carry.bufs, plan, eng, qscale=pool_qs
             )
         else:
-            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             y_dev, bufs = cascade_decimate_stream(
                 x, carry.bufs, plan, eng_req, qscale=pool_qs
             )
+        clock.stop()
         t_disp = time.perf_counter() - t0
         carry.bufs = bufs
         lfp._count_block(ran)
 
-        def _flush(y_dev=y_dev, rows=rows, ran=ran, t_disp=t_disp):
+        def _flush(y_dev=y_dev, rows=rows, ran=ran, t_disp=t_disp,
+                   clock=clock):
             t1 = time.perf_counter()
-            y = y_dev.cpu().numpy()
+            with span("stream.fetch"):
+                y = y_dev.cpu().numpy()
             t_dev = t_disp + time.perf_counter() - t1
-            lfp.timings["device_s"] += t_dev
-            _count_block(rows, ran, t_dev)
-            carry.consumed += rows
-            s = min(carry.skip_left, y.shape[0])
-            carry.skip_left -= s
-            _emit(lfp, carry, patch, y[s:], rows=rows, ran=ran, t_dev=t_dev)
+            lfp.timings["compute_s"] += t_dev
+            lfp.timings["device_s"] += clock.seconds(t_dev)
+            with span("stream.emit"):
+                _count_block(rows, ran, t_dev)
+                carry.consumed += rows
+                s = min(carry.skip_left, y.shape[0])
+                carry.skip_left -= s
+                _emit(lfp, carry, patch, y[s:], rows=rows, ran=ran)
 
         pipe.push(_flush)
         off += rows
@@ -915,7 +935,8 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
     d = carry.d_ns
     corner = _corner(carry.dt_out)
     q = _FFT_QUANTUM
-    pool, pool_qs = _pool_with_residual(carry, new, qs)
+    with span("stream.pool"):
+        pool, pool_qs = _pool_with_residual(carry, new, qs)
     t_pool0_ns = t_new0_ns - (pool.shape[0] - new.shape[0]) * d
     usable = pool.shape[0] - pool.shape[0] % q
     cap_units = max(1, carry.patch_out * max(1, carry.step_ns // d) // q)
@@ -931,6 +952,9 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
         # is updated at flush, before the next flush reads it (FIFO)
         t0 = time.perf_counter()
         bx = getattr(lfp, "_batch_executor", None)
+        if mesh is None:
+            x = _to_device(blk, dev)
+        clock = EventTimer(dev).start()
         if mesh is not None:
             # the sharded step places the host block's column shards;
             # the overlap-save carry stays sharded on the devices
@@ -942,17 +966,16 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
             # batched fleet service: the step waits at the group's
             # rendezvous and runs at the member's own width (FFT steps
             # are never packed; see fft_pass_filter_stream_stacked)
-            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             filt_dev, fcarry = bx.fft_step(
                 x, carry.bufs[0], d / 1e9, corner, carry.order,
                 qscale=pool_qs,
             )
         else:
-            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
             filt_dev, fcarry = fft_pass_filter_stream(
                 x, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
                 qscale=pool_qs,
             )
+        clock.stop()
         t_disp = time.perf_counter() - t0
         carry.bufs = (fcarry, carry.bufs[1])
         lfp._count_block("fft")
@@ -963,35 +986,41 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
         off += blk_rows
 
         def _flush(filt_dev=filt_dev, blk_rows=blk_rows, t_blk0=t_blk0,
-                   t_disp=t_disp):
+                   t_disp=t_disp, clock=clock):
             t1 = time.perf_counter()
-            filt = filt_dev.cpu().numpy()
+            with span("stream.fetch"):
+                filt = filt_dev.cpu().numpy()
             t_dev = t_disp + time.perf_counter() - t1
-            lfp.timings["device_s"] += t_dev
-            _count_block(blk_rows, "fft", t_dev)
-            tail = carry.bufs[1]
-            rows = np.concatenate([tail, filt], axis=0) if tail.size else filt
-            t_row0 = t_blk0 - tail.shape[0] * d
-            t_last = t_row0 + (rows.shape[0] - 1) * d
-            carry.bufs = (carry.bufs[0], rows[-1:].copy())
-            carry.consumed += blk_rows
-            if t_last < carry.next_emit_ns or rows.shape[0] < 2:
-                return
-            n = int((t_last - carry.next_emit_ns) // carry.step_ns) + 1
-            g = carry.next_emit_ns + carry.step_ns * np.arange(n, dtype=np.int64)
-            offs = g - t_row0
-            idx = offs // d
-            w = (offs - idx * d) / float(d)
-            sel = idx >= rows.shape[0] - 1
-            idx[sel] = rows.shape[0] - 2
-            w[sel] = 1.0
-            out = rows[idx] * (1.0 - w[:, None]).astype(np.float32) + rows[
-                idx + 1
-            ] * w[:, None].astype(np.float32)
-            s = min(carry.skip_left, out.shape[0])
-            carry.skip_left -= s
-            _emit(lfp, carry, patch, out[s:].astype(np.float32, copy=False),
-                  rows=blk_rows, ran="fft", t_dev=t_dev)
+            lfp.timings["compute_s"] += t_dev
+            lfp.timings["device_s"] += clock.seconds(t_dev)
+            with span("stream.emit"):
+                _count_block(blk_rows, "fft", t_dev)
+                tail = carry.bufs[1]
+                rows = (np.concatenate([tail, filt], axis=0) if tail.size
+                        else filt)
+                t_row0 = t_blk0 - tail.shape[0] * d
+                t_last = t_row0 + (rows.shape[0] - 1) * d
+                carry.bufs = (carry.bufs[0], rows[-1:].copy())
+                carry.consumed += blk_rows
+                if t_last < carry.next_emit_ns or rows.shape[0] < 2:
+                    return
+                n = int((t_last - carry.next_emit_ns) // carry.step_ns) + 1
+                g = carry.next_emit_ns + carry.step_ns * np.arange(
+                    n, dtype=np.int64)
+                offs = g - t_row0
+                idx = offs // d
+                w = (offs - idx * d) / float(d)
+                sel = idx >= rows.shape[0] - 1
+                idx[sel] = rows.shape[0] - 2
+                w[sel] = 1.0
+                out = rows[idx] * (1.0 - w[:, None]).astype(np.float32) + rows[
+                    idx + 1
+                ] * w[:, None].astype(np.float32)
+                s = min(carry.skip_left, out.shape[0])
+                carry.skip_left -= s
+                _emit(lfp, carry, patch,
+                      out[s:].astype(np.float32, copy=False),
+                      rows=blk_rows, ran="fft")
 
         pipe.push(_flush)
     carry.residual = np.ascontiguousarray(pool[usable:])

@@ -29,6 +29,7 @@ from tpudas_torch.fleet.engine import (
     clamp_poll_interval,
     drive,
 )
+from tpudas_torch.obs.trace import span
 from tpudas_torch.proc.lfproc import resolve_gap_tolerance
 
 __all__ = ["clamp_poll_interval", "run_lowpass_realtime",
@@ -212,9 +213,12 @@ def run_lowpass_realtime(
         config=config,
         output_folder=str(output_folder),
     )
-    runner = build_runner(
-        spec, counters=counters, on_round=on_round, device=device
-    )
+    # the runner's start: its output folder's startup audit, its carry
+    # and ledger folders, its flight ring
+    with span("stream.runner_start"):
+        runner = build_runner(
+            spec, counters=counters, on_round=on_round, device=device
+        )
     return drive(runner, max_rounds=max_rounds, sleep_fn=sleep_fn)
 
 

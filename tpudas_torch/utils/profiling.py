@@ -16,17 +16,27 @@ when CUDA is available) and writes a Chrome trace
 package writes a TensorBoard profile.  The capture starts and stops on
 the calling thread: ``torch.profiler`` records the host ranges of the
 thread that started it only, while the card's activity is process
-wide.
+wide.  So the capture also takes every thread's finished spans
+(:mod:`tpudas_torch.obs.trace`) and appends them to the written trace
+as complete events of category ``tpudas_span`` (:func:`append_spans`),
+each on its thread's row: the prefetch thread's reads sit under the
+device timeline too.
+
+:class:`EventTimer` times a window's or a stream block's kernels with a
+CUDA event pair on the compute stream, read after the sync the caller
+already makes (``LFProc.timings["device_s"]``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import socket
 import time
 from contextlib import contextmanager
 
 from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.obs.trace import add_span_sink, remove_span_sink
 from tpudas_torch.utils.logging import log_event
 
 __all__ = ["Timer", "Counters", "device_trace"]
@@ -132,6 +142,98 @@ class Counters:
         )
 
 
+class EventTimer:
+    """Device seconds of the work enqueued between :meth:`start` and
+    :meth:`stop` on ``device``'s current stream: a CUDA event pair,
+    read by :meth:`seconds` once the caller has synced past the second
+    event (no sync of its own).  Off the card it has no events and
+    :meth:`seconds` returns the caller's host bracket."""
+
+    __slots__ = ("_stream", "_t0", "_t1")
+
+    def __init__(self, device):
+        self._stream = self._t0 = self._t1 = None
+        if device.type == "cuda":
+            import torch
+
+            self._stream = torch.cuda.current_stream(device)
+            self._t0 = torch.cuda.Event(enable_timing=True)
+            self._t1 = torch.cuda.Event(enable_timing=True)
+
+    def start(self) -> "EventTimer":
+        if self._t0 is not None:
+            self._t0.record(self._stream)
+        return self
+
+    def stop(self) -> None:
+        if self._t1 is not None:
+            self._t1.record(self._stream)
+
+    def seconds(self, host_s: float) -> float:
+        if self._t0 is None:
+            return host_s
+        return self._t0.elapsed_time(self._t1) / 1e3
+
+
+class SpanCapture:
+    """A span sink that keeps every thread's finished spans while it is
+    registered (``with SpanCapture() as cap: ...; cap.recs``)."""
+
+    def __init__(self):
+        self.recs = []
+
+    def __call__(self, rec) -> None:
+        self.recs.append(rec)
+
+    def __enter__(self):
+        add_span_sink(self)
+        return self
+
+    def __exit__(self, *exc):
+        remove_span_sink(self)
+        return False
+
+
+def _arg(v):
+    return v if v is None or isinstance(v, (bool, int, float, str)) \
+        else str(v)
+
+
+def append_spans(path, recs) -> None:
+    """Append finished span records to the Chrome trace at ``path`` as
+    complete (``"ph": "X"``) events of category ``tpudas_span``: ``tid``
+    the recording thread's native id (the profiler's own), ``ts`` /
+    ``dur`` in microseconds on the file's ``baseTimeNanoseconds``, the
+    span's id, parent, trace id and depth in ``args``."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    events = doc.setdefault("traceEvents", [])
+    pid = os.getpid()
+    named = {ev.get("tid") for ev in events
+             if ev.get("ph") == "M" and ev.get("name") == "thread_name"}
+    for rec in recs:
+        tid, tname = rec["thread"]
+        if tid not in named:
+            named.add(tid)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {"name": tname}})
+        args = {k: _arg(v) for k, v in rec["attrs"].items()}
+        args.update(id=rec["id"], parent=rec["parent"],
+                    trace=rec["trace"], depth=rec["depth"])
+        if "error" in rec:
+            args["error"] = rec["error"]
+        events.append({
+            "ph": "X", "cat": "tpudas_span", "name": rec["name"],
+            "pid": pid, "tid": tid,
+            "ts": (rec["start_ns"] - base) / 1e3,
+            "dur": (rec["end_ns"] - rec["start_ns"]) / 1e3,
+            "args": args,
+        })
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+
+
 def profiler_activities(cuda: bool) -> list:
     """``torch.profiler`` activities: the host's, plus the card's when
     ``cuda``."""
@@ -159,10 +261,11 @@ def device_trace(logdir=None):
 
     ``logdir=None`` reads ``TPUDAS_TRACE_DIR`` (operators enable
     tracing by environment alone; a ``ValueError`` if neither is set).
-    The card's activity is recorded when CUDA is available.  Robust by
-    design: a profiler that fails to start logs a ``trace_failed``
-    event and the block still runs; a written trace logs
-    ``trace_written``."""
+    The card's activity is recorded when CUDA is available, and every
+    thread's spans finished during the capture are appended to the
+    file (:func:`append_spans`).  Robust by design: a profiler that
+    fails to start logs a ``trace_failed`` event and the block still
+    runs; a written trace logs ``trace_written``."""
     if logdir is None:
         logdir = os.environ.get("TPUDAS_TRACE_DIR")
         if not logdir:
@@ -171,6 +274,7 @@ def device_trace(logdir=None):
                 "TPUDAS_TRACE_DIR)"
             )
     prof = None
+    spans = SpanCapture()
     try:
         import torch
         from torch.profiler import profile
@@ -183,13 +287,16 @@ def device_trace(logdir=None):
         prof = None
         log_event("trace_failed", error=str(exc)[:200])
     try:
-        yield
+        with spans:
+            yield
     finally:
         if prof is not None:
             try:
                 prof.stop()
                 os.makedirs(str(logdir), exist_ok=True)
-                prof.export_chrome_trace(trace_path(logdir))
+                path = trace_path(logdir)
+                prof.export_chrome_trace(path)
+                append_spans(path, spans.recs)
                 log_event("trace_written", logdir=str(logdir))
             except Exception as exc:
                 log_event("trace_failed", error=str(exc)[:200])
