@@ -117,7 +117,7 @@ class StreamCarry:
     bufs: tuple = ()
     residual: np.ndarray | None = None  # read-but-unconsumed rows
     # dequant scale of the rows held in ``residual`` (None = float32
-    # rows): raw int16 payloads stay int16 from the host pool to the
+    # rows): raw int16 payloads stay int16 from the host payload to the
     # first device read, so the residual must remember its scale
     residual_scale: float | None = None
     skip_left: int = 0  # outputs still to discard (warm-up + cold edge)
@@ -783,20 +783,55 @@ def _pow2_blocks(n_units: int, cap: int) -> list:
     return out
 
 
-def _pool_with_residual(carry: StreamCarry, new, qs):
-    """(pool, pool_qscale): the residual rows prepended to the fresh
-    payload.  Same dtype and scale concatenate raw (a quantized pool
-    goes to the device as int16).  A mid-stream dtype/scale change
-    dequantizes that one seam on the host so the pool stays uniform."""
-    residual = carry.residual
-    if residual is None or residual.size == 0:
-        return new, qs
+class _Pool:
+    """A stream feed's rows: the carried residual (``head``) in front of
+    the new payload (``body``), never joined into a host array.  A block
+    of rows ``[off, off + n)`` is one host piece, or two where it crosses
+    the seam; :func:`_to_device` joins two in one device tensor.  ``qs``
+    is the pool's dequant scale."""
+
+    __slots__ = ("head", "body", "qs", "rows")
+
+    def __init__(self, head, body, qs):
+        self.head, self.body, self.qs = head, body, qs
+        self.rows = int(head.shape[0] + body.shape[0])
+
+    def pieces(self, off: int, n: int) -> list:
+        """The host pieces covering rows ``[off, off + n)``, in order."""
+        h = int(self.head.shape[0])
+        end = off + n
+        out = []
+        if off < h:
+            out.append(self.head[off : min(end, h)])
+        if end > h:
+            out.append(self.body[max(off - h, 0) : end - h])
+        return [np.ascontiguousarray(p) for p in out]
+
+    def tail(self, start: int):
+        """A copy of rows ``[start:]``: the next feed's residual."""
+        return np.concatenate(self.pieces(start, self.rows - start), axis=0)
+
+
+def _count_join(where: str) -> None:
+    get_registry().counter(
+        "tpudas_stream_pool_joins_total",
+        "stream feeds whose new rows had a carried residual in front of "
+        "them, by where the two were joined",
+        labelnames=("where",),
+    ).inc(where=where)
+
+
+def _same_payload(carry: StreamCarry, new, qs) -> bool:
     r_qs = carry.residual_scale
-    if residual.dtype == new.dtype and (
+    return carry.residual.dtype == new.dtype and (
         (r_qs is None and qs is None)
         or (r_qs is not None and qs is not None and float(r_qs) == float(qs))
-    ):
-        return np.concatenate([residual, new], axis=0), qs
+    )
+
+
+def _dequant_pool(carry: StreamCarry, new, qs) -> _Pool:
+    """A mid-stream dtype/scale change: that one seam is dequantized and
+    joined on the host, so the pool stays uniform."""
     log_event("stream_ingest_host_dequant")
     get_registry().counter(
         "tpudas_stream_ingest_host_dequant_total",
@@ -804,6 +839,8 @@ def _pool_with_residual(carry: StreamCarry, new, qs):
         "dtype/scale changed mid-stream (the uniform-payload fast "
         "path dequantizes in-kernel)",
     ).inc()
+    _count_join("host")
+    residual, r_qs = carry.residual, carry.residual_scale
     r = (
         residual.astype(np.float32) * np.float32(r_qs) if r_qs is not None
         else np.asarray(residual, np.float32)
@@ -812,20 +849,56 @@ def _pool_with_residual(carry: StreamCarry, new, qs):
         new.astype(np.float32) * np.float32(qs) if qs is not None
         else np.asarray(new, np.float32)
     )
-    return np.concatenate([r, n], axis=0), None
+    joined = np.concatenate([r, n], axis=0)
+    return _Pool(joined[:0], joined, None)
 
 
-def _to_device(blk, dev):
-    """One stream block on ``dev``: made contiguous (``stream.pool``),
-    then copied (``stream.h2d``, ``tpudas_stream_h2d_bytes_total``)."""
-    with span("stream.pool"):
-        blk = np.ascontiguousarray(blk)
+def _pool(carry: StreamCarry, new, qs) -> _Pool:
+    """The feed's pool over the residual and the fresh payload.  Same
+    dtype and scale stay two pieces, joined block by block on the device
+    (a quantized pool goes to the device as int16)."""
+    residual = carry.residual
+    if residual is None or residual.size == 0:
+        return _Pool(new[:0], new, qs)
+    if not _same_payload(carry, new, qs):
+        return _dequant_pool(carry, new, qs)
+    _count_join("device")
+    return _Pool(residual, new, qs)
+
+
+def _host_pool(carry: StreamCarry, new, qs) -> _Pool:
+    """The mesh path's pool: the sharded step takes a host block and
+    places its column shards itself, so the residual is joined to the
+    new rows on the host, and every block is one piece."""
+    residual = carry.residual
+    if residual is None or residual.size == 0:
+        return _Pool(new[:0], new, qs)
+    if not _same_payload(carry, new, qs):
+        return _dequant_pool(carry, new, qs)
+    _count_join("host")
+    joined = np.concatenate([residual, new], axis=0)
+    return _Pool(joined[:0], joined, qs)
+
+
+def _to_device(pieces, dev):
+    """One stream block on ``dev`` (``stream.h2d``,
+    ``tpudas_stream_h2d_bytes_total``): one host piece is copied as it
+    is; two (the residual and the new rows across the seam) are copied
+    into the row slices of one device tensor."""
     with span("stream.h2d"):
-        x = torch.from_numpy(blk).to(dev)
+        if len(pieces) == 1:
+            x = torch.from_numpy(pieces[0]).to(dev)
+        else:
+            head, body = (torch.from_numpy(p) for p in pieces)
+            h = head.shape[0]
+            x = torch.empty((h + body.shape[0], *head.shape[1:]),
+                            dtype=head.dtype, device=dev)
+            x[:h].copy_(head)
+            x[h:].copy_(body)
     get_registry().counter(
         "tpudas_stream_h2d_bytes_total",
         "stream block bytes copied from the host to the device",
-    ).inc(int(blk.nbytes))
+    ).inc(sum(int(p.nbytes) for p in pieces))
     return x
 
 
@@ -850,19 +923,21 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
     plan = design_cascade(
         1e9 / carry.d_ns, carry.ratio, _corner(carry.dt_out), carry.order
     )
+    dev = lfp.device
+    mesh = _stream_mesh(lfp)
     with span("stream.pool"):
-        pool, pool_qs = _pool_with_residual(carry, new, qs)
-    usable = pool.shape[0] - pool.shape[0] % carry.ratio
+        pool = (_pool if mesh is None else _host_pool)(carry, new, qs)
+    pool_qs = pool.qs
+    usable = pool.rows - pool.rows % carry.ratio
     # "fused" resolves per block (the fused kernel on the card, the
     # per-stage chain below the size threshold); anything else runs
     # the per-stage chain
     eng_req = "fused" if carry.engine_req == "fused" else "auto"
-    dev = lfp.device
-    mesh = _stream_mesh(lfp)
     off = 0
     for n_out in _pow2_blocks(usable // carry.ratio, carry.patch_out):
-        blk = pool[off : off + n_out * carry.ratio]
-        rows = int(blk.shape[0])
+        rows = n_out * carry.ratio
+        with span("stream.pool"):
+            pieces = pool.pieces(off, rows)
         # under a mesh too the engine is resolved at the stream's whole
         # width: each shard runs the unsharded step's engine
         eng = stream_stage_engines(plan, rows, carry.n_ch, eng_req, dev)[0]
@@ -872,10 +947,11 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
         t0 = time.perf_counter()
         bx = getattr(lfp, "_batch_executor", None)
         if mesh is None:
-            x = _to_device(blk, dev)
+            x = _to_device(pieces, dev)
         clock = EventTimer(dev).start()
         if mesh is not None:
             # the sharded step places the host block's column shards
+            (blk,) = pieces
             y_dev, bufs = cascade_decimate_stream(
                 blk, carry.bufs, plan, eng_req, qscale=pool_qs, mesh=mesh
             )
@@ -913,7 +989,8 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
 
         pipe.push(_flush)
         off += rows
-    carry.residual = np.ascontiguousarray(pool[usable:])
+    with span("stream.pool"):
+        carry.residual = pool.tail(usable)
     carry.residual_scale = pool_qs
 
 
@@ -935,17 +1012,19 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
     d = carry.d_ns
     corner = _corner(carry.dt_out)
     q = _FFT_QUANTUM
-    with span("stream.pool"):
-        pool, pool_qs = _pool_with_residual(carry, new, qs)
-    t_pool0_ns = t_new0_ns - (pool.shape[0] - new.shape[0]) * d
-    usable = pool.shape[0] - pool.shape[0] % q
-    cap_units = max(1, carry.patch_out * max(1, carry.step_ns // d) // q)
     dev = lfp.device
     mesh = _stream_mesh(lfp)
+    with span("stream.pool"):
+        pool = (_pool if mesh is None else _host_pool)(carry, new, qs)
+    pool_qs = pool.qs
+    t_pool0_ns = t_new0_ns - (pool.rows - new.shape[0]) * d
+    usable = pool.rows - pool.rows % q
+    cap_units = max(1, carry.patch_out * max(1, carry.step_ns // d) // q)
     off = 0
     for n_units in _pow2_blocks(usable // q, cap_units):
-        blk = pool[off : off + n_units * q]
-        blk_rows = int(blk.shape[0])
+        blk_rows = n_units * q
+        with span("stream.pool"):
+            pieces = pool.pieces(off, blk_rows)
         # dispatch the filter now: the overlap-save carry chains on the
         # device (bufs[0]), so the next block's dispatch never waits on
         # this block's host sync; the one-row lerp seam (bufs[1], host)
@@ -953,11 +1032,12 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
         t0 = time.perf_counter()
         bx = getattr(lfp, "_batch_executor", None)
         if mesh is None:
-            x = _to_device(blk, dev)
+            x = _to_device(pieces, dev)
         clock = EventTimer(dev).start()
         if mesh is not None:
             # the sharded step places the host block's column shards;
             # the overlap-save carry stays sharded on the devices
+            (blk,) = pieces
             filt_dev, fcarry = fft_pass_filter_stream(
                 blk, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
                 qscale=pool_qs, mesh=mesh,
@@ -1023,5 +1103,6 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
                       rows=blk_rows, ran="fft")
 
         pipe.push(_flush)
-    carry.residual = np.ascontiguousarray(pool[usable:])
+    with span("stream.pool"):
+        carry.residual = pool.tail(usable)
     carry.residual_scale = pool_qs
