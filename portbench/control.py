@@ -34,7 +34,7 @@ def control_reading(workload, seed, device, root=None,
     import torch
 
     from portbench.harness import cell as cell_mod
-    from portbench.harness.drivers import DRIVERS
+    from portbench.harness.drivers import load_driver
     from portbench.yardstick import datagen
     from portbench.run import verdict
     from portbench.yardstick import reference as ref_mod
@@ -44,8 +44,9 @@ def control_reading(workload, seed, device, root=None,
     dev = torch.device(device)
     pool = datagen.describe(cfg, seed)
     x = datagen.pool_samples(cfg, seed, dev)
-    segments = DRIVERS[cell["traffic"]["driver"]].due(cfg, pool,
-                                                      cell["pb_dir"])
+    traffic = cell["traffic"]
+    segments = load_driver(traffic["driver"], cell["pb_dir"]).due(
+        cfg, pool, traffic, cell["pb_dir"])
     times, M = ref_mod.operator(cfg, pool, segments, cell["pb_dir"])
     ref = ref_mod.apply(M, x, pool["scale"], dev)
     ctl = ref_mod.apply(M, x, pool["scale"], dev, precision="tf32")

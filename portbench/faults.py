@@ -5,8 +5,9 @@ is made, so a run with one shows ``correct`` false.
         result, checks = run_cell("edge10k.catchup", ...)
 
 ``FAULTS`` lists, for each cell, the program's function each fault
-wraps: the batch cascade (B1's caller), the FFT engine's window, or the
-stream's stateful step (B3's caller).
+wraps: the batch cascade (B1's caller), the FFT engine's window, the
+stream's stateful step (B3's caller), or the FFT stream's overlap-save
+step and its emit.
 """
 
 from __future__ import annotations
@@ -37,6 +38,19 @@ def one_altered(fn):
     return planted
 
 
+def one_emitted_altered(fn):
+    """One output sample moved by 1e-4 of its channel's peak as the
+    stream hands its block's outputs to the writer (the FFT stream
+    filters every full-rate row and emits one in a thousand, so a row
+    altered in the filter's answer would mostly go unseen)."""
+    def planted(lfp, carry, patch, out, *a, **k):
+        if out.shape[0]:
+            out = out.copy()
+            out[out.shape[0] // 2, 3] += 1e-4 * float(abs(out[:, 3]).max())
+        return fn(lfp, carry, patch, out, *a, **k)
+    return planted
+
+
 def state_unchanged(fn):
     """A stream step that hands back the state it was given."""
     def planted(x, bufs, *a, **k):
@@ -48,6 +62,8 @@ def state_unchanged(fn):
 _BATCH = ("tpudas_torch.ops.fir", "cascade_decimate")
 _FFT = ("tpudas_torch.proc.lfproc", "lowpass_resample")
 _STREAM = ("tpudas_torch.ops.fir", "cascade_decimate_stream")
+_FFT_STREAM = ("tpudas_torch.ops.filter", "fft_pass_filter_stream")
+_STREAM_EMIT = ("tpudas_torch.proc.stream", "_emit")
 
 # (cell, fault, (module, function it wraps))
 FAULTS = [
@@ -58,6 +74,9 @@ FAULTS = [
     ("edge10k.catchup", state_unchanged, _STREAM),
     ("edge10k.catchup", half_left_out, _STREAM),
     ("edge10k.catchup", one_altered, _STREAM),
+    ("edge10k-fft.catchup", state_unchanged, _FFT_STREAM),
+    ("edge10k-fft.catchup", half_left_out, _FFT_STREAM),
+    ("edge10k-fft.catchup", one_emitted_altered, _STREAM_EMIT),
 ]
 
 

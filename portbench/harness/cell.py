@@ -6,16 +6,17 @@ cell's limits or one metric is a file of its own, found by the name
 
 - the configuration: the ``file`` its entry names;
 - the traffic mix: ``portbench/traffic/<traffic>.json``, read by the
-  general driver its ``driver`` key names (:mod:`portbench.harness.
-  drivers`);
+  driver its ``driver`` key names: a general one of
+  :mod:`portbench.harness.drivers`, or a ``Driver`` class of its own in
+  ``portbench/drivers/<driver>.py``, loaded by its file;
 - the limits of the check that decides ``correct``:
   ``portbench/limits/<workload>.json``;
 - each metric: a reader ``portbench/metrics/<name>.py`` whose
   ``read(ctx)`` returns the number, or None where it finds nothing to
   read.
 
-A later cell or metric is new files and new entries, with no existing
-file edited.
+A later cell, metric or driver is new files and new entries, with no
+existing file edited.
 """
 
 from __future__ import annotations

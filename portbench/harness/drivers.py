@@ -1,6 +1,9 @@
 """The general traffic drivers.  A traffic file names one by its
 ``driver`` key and gives its parameters; the driver runs the program
 over the cell's pool, closed loop, and says which outputs are due.
+``archive`` and ``catchup`` are built in; any other name is the file
+``portbench/drivers/<driver>.py``, whose ``Driver`` class has the
+interface of :class:`_Driver` (:func:`load_driver`).
 
 ``archive``: batch reprocessing.  One ``LFProc`` job, as a user's
 archive job holds one; each pass is ``process_time_range`` over the
@@ -17,7 +20,9 @@ when the spool stops growing; the next replay restarts it.
 
 from __future__ import annotations
 
+import importlib.util
 import os
+import shutil
 import time
 
 import numpy as np
@@ -26,6 +31,9 @@ import torch
 from portbench.harness.program import lfproc_class
 from portbench.harness.trace import annotate
 from portbench.yardstick import plan as P
+
+PB_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CARRY = ".stream_carry.npz"  # the stream's committed carry, by its name
 
 
 def _sync(device):
@@ -39,6 +47,12 @@ def _buff(cfg) -> int:
 
 
 class _Driver:
+    """``setup`` builds the program and runs the warm jobs; ``window``
+    runs jobs closed loop for a number of seconds; ``timings``,
+    ``segments`` and the static ``due(cfg, pool, traffic, pb_dir)``
+    (the outputs a job makes due, as (r0, r1, grid indices) segments)
+    feed the metrics and the check; ``close`` undoes the set-up."""
+
     def __init__(self, cfg, traffic, pool, device, workdir, probe):
         self.cfg, self.traffic, self.pool = cfg, traffic, pool
         self.device, self.workdir, self.probe = device, workdir, probe
@@ -102,10 +116,10 @@ class Archive(_Driver):
                 for k, v in self.lfp.timings.items()}
 
     def segments(self, pb_dir=None) -> list:
-        return self.due(self.cfg, self.pool, pb_dir)
+        return self.due(self.cfg, self.pool, self.traffic, pb_dir)
 
     @staticmethod
-    def due(cfg, pool, pb_dir=None) -> list:
+    def due(cfg, pool, traffic, pb_dir=None) -> list:
         """[(r0, r1, grid indices)]: each scheduled window's rows and
         the grid points it emits."""
         n_rows = pool["rows_file"] * pool["n_files"]
@@ -185,6 +199,7 @@ class Catchup(_Driver):
             raise RuntimeError(f"replay {tag}: {rounds} rounds, "
                                f"{len(walls)} round callbacks")
         self.probe.check(mark, out)
+        check_carry(out)
         return out, walls
 
     def window(self, seconds, tracing):
@@ -201,17 +216,22 @@ class Catchup(_Driver):
         return {}
 
     def segments(self, pb_dir=None) -> list:
-        return self.due(self.cfg, self.pool, pb_dir)
+        return self.due(self.cfg, self.pool, self.traffic, pb_dir)
 
     @staticmethod
-    def due(cfg, pool, pb_dir=None) -> list:
-        """One segment: the stream holds every row from its start; it
-        emits from the edge buffer on as far as whole steps arrived."""
+    def due(cfg, pool, traffic, pb_dir=None) -> list:
+        """The configuration's reference's own ``stream_segments`` of
+        the traffic, where it has one (a stream that filters block by
+        block); else one segment: the stream holds every row from its
+        start and emits from the edge buffer on as far as whole steps
+        arrived."""
         from portbench.yardstick import reference
 
-        n_rows = pool["rows_file"] * pool["n_files"]
         ref = reference.load_engine_reference(
             cfg["reference"], pb_dir or reference.PB_DIR)
+        if hasattr(ref, "stream_segments"):
+            return ref.stream_segments(cfg, pool, traffic)
+        n_rows = pool["rows_file"] * pool["n_files"]
         first, last = ref.stream_emits(cfg, n_rows)
         return [(0, n_rows, list(range(first, last + 1)))]
 
@@ -219,4 +239,41 @@ class Catchup(_Driver):
         self._engine_mod.LFProc = self._saved_cls
 
 
+def check_carry(folder):
+    """Raise unless ``folder`` holds the stream's carry, last written at
+    or after its newest ``LFDAS_`` output; then remove everything in it
+    but those outputs."""
+    names = os.listdir(folder)
+    outputs = [os.stat(os.path.join(folder, n)).st_mtime_ns
+               for n in names if n.startswith("LFDAS_")]
+    carry = (os.stat(os.path.join(folder, CARRY)).st_mtime_ns
+             if CARRY in names else None)
+    if carry is None or (outputs and carry < max(outputs)):
+        raise RuntimeError(
+            f"the stream broke its commit order in {folder}: carry "
+            f"{'missing' if carry is None else f'written at {carry} ns'}"
+            f", newest of {len(outputs)} outputs at "
+            f"{max(outputs, default=None)} ns")
+    for n in names:
+        if not n.startswith("LFDAS_"):
+            path = os.path.join(folder, n)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.unlink(path)
+
+
 DRIVERS = {"archive": Archive, "catchup": Catchup}
+
+
+def load_driver(name: str, pb_dir: str = PB_DIR):
+    """The driver class a traffic file names: a built-in one, else the
+    ``Driver`` of ``drivers/<name>.py``, loaded by its file."""
+    if name in DRIVERS:
+        return DRIVERS[name]
+    path = os.path.join(pb_dir, "drivers", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        "pb_driver_" + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.Driver

@@ -7,7 +7,8 @@ as ``chip_smoke.py``'s phase 4 does.  ``LFProc._write_output`` is the
 output write: the harness writes each output patch with the program's
 tdas writer under the program's ``LFDAS_`` stem, because the card's
 host has no h5py for the default dasdae file, and so the reference
-reads the same format on every host.
+reads the same format on every host.  :func:`span_ms_per_round` reads
+the program's own spans of a real-time round.
 """
 
 from __future__ import annotations
@@ -89,3 +90,20 @@ def lfproc_class(probe: Probe):
             probe.add_write(t0_ns)
 
     return BenchLFProc
+
+
+def span_ms_per_round(ctx, name: str):
+    """Milliseconds of the program's ``name`` spans a real-time round:
+    their sum over the window's rounds (the count of
+    ``tpudas_stream_round_phase_seconds{phase="host_wait"}``); None
+    where the program recorded neither."""
+    reg = ctx["registry"]
+    spans = reg.get("tpudas_span_seconds")
+    phases = reg.get("tpudas_stream_round_phase_seconds")
+    if spans is None or phases is None:
+        return None
+    rounds = phases.snapshot(phase="host_wait")["count"]
+    snap = spans.snapshot(name=name)
+    if not rounds or not snap["count"]:
+        return None
+    return 1000.0 * snap["sum"] / rounds

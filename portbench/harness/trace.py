@@ -30,20 +30,24 @@ def annotate(name: str, on: bool):
 
 
 @contextlib.contextmanager
-def traced(on: bool, device_type: str):
+def traced(on: bool, device_type: str, host: bool = True):
     """Profile the block when ``on``; yields a holder whose ``prof`` is
-    the finished profiler (None when off)."""
+    the finished profiler (None when off).  ``host`` False records the
+    card's work alone, with no host activity and no ``pb.*`` range: a
+    run whose end-to-end metrics read the device's trace; on a host
+    with no card there is then nothing to record."""
     holder = type("Holder", (), {"prof": None})()
-    if not on:
+    cuda = device_type == "cuda"
+    if not on or not (host or cuda):
         yield holder
         return
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU]
-    if device_type == "cuda":
+    acts = [ProfilerActivity.CPU] if host else []
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        with annotate(WINDOW, True):
+        with annotate(WINDOW, host):
             yield holder
     holder.prof = prof
 
@@ -106,9 +110,14 @@ def summarize(prof, scratch, host_spans=()) -> dict:
 
 def summarize_events(events, host_spans=()) -> dict:
     """{"window_s", "busy_s", "kernels": {short name: seconds},
-    "device_ops": [[name, s]], "idle_gaps": [[label, s]]} of the
-    window from ``(name, kind, start_ns, end_ns)`` events and the
-    harness's ``(name, start_ns, end_ns)`` host spans."""
+    "copies": {name: seconds}, "device_ops": [[name, s]],
+    "idle_gaps": [[label, s]]} of the window from ``(name, kind,
+    start_ns, end_ns)`` events and the harness's ``(name, start_ns,
+    end_ns)`` host spans.  Without a ``pb.window`` range the window
+    runs from the first event to the last."""
+    if not events:
+        return {"window_s": 0.0, "busy_s": 0.0, "kernels": {},
+                "copies": {}, "device_ops": [], "idle_gaps": []}
     marks = [ev for ev in events if ev[0] == WINDOW]
     if marks:
         w0, w1 = marks[0][2], marks[0][3]
@@ -120,12 +129,12 @@ def summarize_events(events, host_spans=()) -> dict:
                if e > w0 and s < w1]
     busy = _union(clipped)
     busy_ns = sum(e - s for s, e in busy)
-    kernels, ops = {}, {}
+    kernels, copies, ops = {}, {}, {}
     for name, kind, s, e in dev:
         key = short_name(name) if kind == "kernel" else name
         ops[key] = ops.get(key, 0.0) + (e - s) / 1e9
-        if kind == "kernel":
-            kernels[key] = kernels.get(key, 0.0) + (e - s) / 1e9
+        part = kernels if kind == "kernel" else copies
+        part[key] = part.get(key, 0.0) + (e - s) / 1e9
     spans = [ev for ev in events
              if ev[0].startswith("pb.") and ev[0] != WINDOW]
     spans += [(name, "host", t0, t1) for name, t0, t1 in host_spans]
@@ -142,6 +151,7 @@ def summarize_events(events, host_spans=()) -> dict:
         "window_s": (w1 - w0) / 1e9,
         "busy_s": busy_ns / 1e9,
         "kernels": kernels,
+        "copies": copies,
         "device_ops": sorted(([k, v] for k, v in ops.items()),
                              key=lambda kv: -kv[1])[:10],
         "idle_gaps": sorted(([k, v] for k, v in gaps.items()),

@@ -10,7 +10,9 @@ card), builds the program's job or runner and runs one warm pass or
 replay: every kernel is built and loaded before the window.  The window
 then runs the traffic's driver closed loop for ``--seconds``.  With
 ``--trace 1`` the window runs under ``torch.profiler`` and the line
-carries the cell's per-layer metrics, with ``0`` its end-to-end ones.
+carries the cell's per-layer metrics, with ``0`` its end-to-end ones;
+a cell with an end-to-end metric read from the device's trace has the
+card's work (and no host activity) recorded with ``0`` too.
 Once the window has closed and the program's state is freed, the
 outputs the window wrote are read back and compared with the plain
 float64 reference (:mod:`portbench.yardstick.reference`); the numbers
@@ -100,7 +102,7 @@ def run_cell(workload, seed, seconds, trace, device=None, root=None,
     import torch
 
     from portbench.harness import cell as cell_mod
-    from portbench.harness.drivers import DRIVERS
+    from portbench.harness.drivers import load_driver
     from portbench.harness.program import Probe
     from portbench.harness.trace import summarize, traced
     from portbench.yardstick import datagen
@@ -123,8 +125,8 @@ def run_cell(workload, seed, seconds, trace, device=None, root=None,
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
         t_pool = time.perf_counter() - t_pool
-        driver = DRIVERS[traffic["driver"]](cfg, traffic, pool, device,
-                                            workdir, probe)
+        driver = load_driver(traffic["driver"], cell["pb_dir"])(
+            cfg, traffic, pool, device, workdir, probe)
         driver.setup()
         setup_s = time.perf_counter() - _T_START
 
@@ -132,7 +134,13 @@ def run_cell(workload, seed, seconds, trace, device=None, root=None,
 
         registry = MetricsRegistry()
         probe.reset()
-        with use_registry(registry), traced(bool(trace), device.type) as tr:
+        # an end-to-end metric read from the device's trace has the
+        # card's work recorded in every run, the host's only with --trace
+        on_device = any(m["source"] == "device_trace"
+                        for m in cell["end_to_end"])
+        with use_registry(registry), traced(bool(trace) or on_device,
+                                            device.type,
+                                            host=bool(trace)) as tr:
             probe.tracing = bool(trace)
             window_s = driver.window(seconds, bool(trace))
             probe.tracing = False
@@ -192,7 +200,7 @@ def run_cell(workload, seed, seconds, trace, device=None, root=None,
             "metrics": metrics,
             "device": _device_info(torch, device, cell["chips"], peak),
         }
-        if ctx["trace"] is not None:
+        if trace and ctx["trace"] is not None:
             result["device"]["busy_s"] = ctx["trace"]["busy_s"]
             result["device"]["window_s"] = ctx["trace"]["window_s"]
             result["breakdown"] = {

@@ -1,9 +1,10 @@
 """The harness rehearsed on the CPU at a small width: every cell runs
 end to end on the plain paths and proves correct; no module of JAX or
-of the JAX package is loaded; a new configuration, traffic mix and
-metric are taken as files; the TF32 control and the faults a cell can
-have come out not correct; and, on a card, a short run of every cell
-proves correct."""
+of the JAX package is loaded; a new configuration, traffic mix, driver
+and metric are taken as files; the TF32 control and the faults a cell
+can have come out not correct; a stream's carry is checked and cleared
+each replay; and, on a card, a short run of every cell proves
+correct."""
 
 import hashlib
 import json
@@ -19,9 +20,12 @@ from portbench import control
 from portbench import faults
 from portbench import run as pb_run
 from portbench.harness import cell as cell_mod
+from portbench.harness.drivers import DRIVERS, Catchup, load_driver
+from portbench.yardstick import reference as ref_mod
 
 ROOT = cell_mod.ROOT
-CELLS = ("edge10k.archive", "edge10k-fft.archive", "edge10k.catchup")
+CELLS = ("edge10k.archive", "edge10k-fft.archive", "edge10k.catchup",
+         "edge10k-fft.catchup")
 SMALL = {"n_ch": 16}
 SEED = 2**31 + 17
 
@@ -46,7 +50,11 @@ def test_rehearsal_proves_correct(workload, trace):
         assert "breakdown" in result
         assert result["device"]["window_s"] > 0
     else:
-        assert {"setup_s"} < set(result["metrics"])
+        # on the CPU every end-to-end metric but the device trace's
+        on_host = {m["name"] for m in wanted if m["source"] != "device_trace"}
+        assert "setup_s" in on_host
+        assert set(result["metrics"]) == on_host
+        assert "busy_s" not in result["device"] and "breakdown" not in result
     assert list(result)[-1] == "checks"
 
 
@@ -118,21 +126,36 @@ def test_a_new_cell_and_metric_are_new_files_only(tmp_path):
         {"missing_outputs": 0, "max_rel_err": 1e-5}))
     (pb / "metrics" / "passes_done.py").write_text(
         "def read(ctx):\n    return float(ctx['jobs'])\n")
+    (pb / "drivers").mkdir(exist_ok=True)
+    (pb / "drivers" / "halfpool.py").write_text(
+        "from portbench.harness.drivers import Archive\n\n\n"
+        "class Driver(Archive):\n"
+        "    \"\"\"Passes over the pool's first file only.\"\"\"\n\n"
+        "    def setup(self):\n"
+        "        self.pool = dict(self.pool, n_files=1)\n"
+        "        self.n_rows = self.pool['rows_file']\n"
+        "        super().setup()\n")
+    (pb / "traffic" / "halfpool.json").write_text(json.dumps(
+        {"driver": "halfpool", "warm_passes": 0}))
+    (pb / "limits" / "edge8.halfpool.json").write_text(json.dumps(
+        {"missing_outputs": 0, "max_rel_err": 1e-5}))
     bench = json.loads((root / "BENCHMARK.json").read_text())
     bench["configs"].append({"name": "edge8", "source": "x",
                              "file": "portbench/configs/edge8.json",
                              "reduced": [], "why": "x"})
-    bench["workloads"].append({"name": "edge8.archive3", "config": "edge8",
-                               "traffic": "archive3", "chips": 1,
-                               "why": "x"})
+    new_cells = ["edge8.archive3", "edge8.halfpool"]
+    for name in new_cells:
+        bench["workloads"].append({"name": name, "config": "edge8",
+                                   "traffic": name.split(".")[1],
+                                   "chips": 1, "why": "x"})
     bench["per_layer"].append({"name": "passes_done", "unit": "passes",
                                "better": "higher", "source": "host_clock",
                                "layer": "batch driver",
                                "moves": "archive_rate",
-                               "workloads": ["edge8.archive3"]})
+                               "workloads": new_cells})
     for m in bench["end_to_end"]:
         if "workloads" in m and m["name"] == "archive_rate":
-            m["workloads"].append("edge8.archive3")
+            m["workloads"].extend(new_cells)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
 
     cell = cell_mod.resolve("edge8.archive3", str(root))
@@ -142,6 +165,14 @@ def test_a_new_cell_and_metric_are_new_files_only(tmp_path):
     result, _ = pb_run.run_cell("edge8.archive3", 3, 0.2, 1, device="cpu",
                                 root=str(root))
     assert result["correct"]
+    assert result["metrics"]["passes_done"]["value"] >= 1
+    cell = cell_mod.resolve("edge8.halfpool", str(root))
+    assert cell["traffic"]["driver"] == "halfpool"
+    driver = load_driver("halfpool", cell["pb_dir"])
+    assert driver.__module__ == "pb_driver_halfpool"
+    result, checks = pb_run.run_cell("edge8.halfpool", 3, 0.2, 1,
+                                     device="cpu", root=str(root))
+    assert result["correct"], checks
     assert result["metrics"]["passes_done"]["value"] >= 1
     after = _digest(pb)
     assert {k: v for k, v in after.items() if k in before} == before
@@ -202,6 +233,79 @@ def test_a_missing_output_is_not_correct(monkeypatch):
     assert checks["missing_outputs"]["value"] > 0
 
 
+def test_the_fft_stream_is_checked_block_by_block(monkeypatch):
+    """The FFT stream filters block by block, so one window over the
+    whole span is not what it computes.  With a 5 s edge buffer, where
+    the response's tail past the buffer is large, the whole-span
+    reference fails the stream's outputs and the block schedule
+    (``stream_segments``) passes them."""
+    small = dict(SMALL, edge_buffer=5.0)
+    result, checks = pb_run.run_cell("edge10k-fft.catchup", SEED, 0.2, 0,
+                                     device="cpu", config_overrides=small)
+    assert result["correct"], checks
+    real = ref_mod.load_engine_reference
+
+    def whole_span(name, pb_dir=ref_mod.PB_DIR):
+        mod = real(name, pb_dir)
+        del mod.stream_segments
+        return mod
+
+    monkeypatch.setattr(ref_mod, "load_engine_reference", whole_span)
+    result, whole = pb_run.run_cell("edge10k-fft.catchup", SEED, 0.2, 0,
+                                    device="cpu", config_overrides=small)
+    assert not result["correct"]
+    assert whole["missing_outputs"]["value"] == 0
+    assert whole["max_rel_err"]["value"] > 10 * whole["max_rel_err"]["limit"]
+
+
+@pytest.mark.parametrize("workload", ["edge10k.catchup",
+                                      "edge10k-fft.catchup"])
+def test_a_sound_replay_keeps_only_its_outputs(tmp_path, workload):
+    import torch
+
+    from portbench.harness.program import Probe
+    from portbench.yardstick import datagen
+
+    cell = cell_mod.resolve(workload)
+    cfg = dict(cell["config"], **SMALL)
+    cpu = torch.device("cpu")
+    pool = datagen.make_pool(cfg, SEED, str(tmp_path / "pool"), cpu)
+    driver = Catchup(cfg, cell["traffic"], pool, cpu, str(tmp_path),
+                     Probe())
+    try:
+        driver.setup()
+        driver.window(0.0, False)
+    finally:
+        driver.close()
+    assert len(driver.folders) == 1
+    for folder in [str(tmp_path / "out_warm0")] + driver.folders:
+        names = os.listdir(folder)
+        assert names and all(n.startswith("LFDAS_") for n in names), names
+
+
+@pytest.mark.parametrize("fault", ["missing", "older"])
+def test_a_replay_that_breaks_the_commit_order_ends_the_run(monkeypatch,
+                                                            fault):
+    """A replay whose folder lacks the stream's carry, or holds one last
+    written before its newest output, ends the run with no result."""
+    from tpudas_torch.proc import stream
+
+    orig = stream.save_carry
+
+    def save_carry(carry, folder):
+        path = os.path.join(folder, stream.CARRY_FILENAME)
+        if fault == "older":
+            orig(carry, folder)
+            st = os.stat(path)
+            os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns - 10**10))
+        return path
+
+    monkeypatch.setattr(stream, "save_carry", save_carry)
+    with pytest.raises(RuntimeError, match="commit order"):
+        pb_run.run_cell("edge10k-fft.catchup", SEED, 0.2, 0, device="cpu",
+                        config_overrides=SMALL)
+
+
 @pytest.fixture
 def card():
     import torch
@@ -217,6 +321,8 @@ def test_each_cell_proves_correct_on_the_card(card, workload):
     result, checks = pb_run.run_cell(workload, 77, 3.0, 0, device=card)
     assert result["correct"], checks
     assert result["device"]["platform"] == "gpu"
+    assert set(result["metrics"]) == {
+        m["name"] for m in cell_mod.resolve(workload)["end_to_end"]}
 
 
 def test_benchmark_file_names_its_files():
@@ -225,7 +331,10 @@ def test_benchmark_file_names_its_files():
         assert os.path.isfile(os.path.join(ROOT, c["file"]))
     for w in bench["workloads"]:
         cell = cell_mod.resolve(w["name"])
-        assert cell["traffic"]["driver"] in ("archive", "catchup")
+        name = cell["traffic"]["driver"]
+        assert name in DRIVERS or os.path.isfile(os.path.join(
+            ROOT, "portbench", "drivers", f"{name}.py"))
+        assert hasattr(load_driver(name), "due")
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert hasattr(cell_mod.load_reader(m["name"]), "read")
     np.testing.assert_equal(sorted(os.listdir(os.path.join(

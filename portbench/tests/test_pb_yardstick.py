@@ -171,3 +171,18 @@ def test_pool_is_a_function_of_the_seed(tmp_path):
     assert (b != c).any()
     assert sorted(os.listdir(tmp_path / "a")) == ["raw_0000.tdas",
                                                   "raw_0001.tdas"]
+
+
+def test_fft_stream_schedule_equals_the_port():
+    """The FFT stream reference's quantum and block split are the
+    stream's own (``tpudas_torch.proc.stream``)."""
+    from tpudas_torch.proc import stream
+
+    from portbench.yardstick import reference
+
+    fft = reference.load_engine_reference("fft")
+    assert fft.QUANTUM == stream._FFT_QUANTUM
+    for n_units, cap in [(0, 468), (468, 468), (469, 468), (1000, 7),
+                         (5, 1), (937, 468)]:
+        assert fft._pow2_blocks(n_units, cap) == stream._pow2_blocks(
+            n_units, cap)

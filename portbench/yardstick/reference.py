@@ -48,7 +48,8 @@ def operator(cfg, pool, segments, pb_dir: str = PB_DIR):
     """(times_ns, M): the due output times in order and their float64
     rows over the pool.  ``segments`` is a list of (r0, r1, grid
     indices): a stretch of rows [r0, r1) the program filtered as one
-    piece, and the output grid points it emits."""
+    piece, and the output grid points it emits; rows before the pool
+    (r0 < 0) are the zeros a stream starts from."""
     ref = load_engine_reference(cfg["reference"], pb_dir)
     dt_ns, t0_ns = pool["dt_ns"], pool["t0_ns"]
     n_rows = pool["rows_file"] * pool["n_files"]
@@ -59,7 +60,7 @@ def operator(cfg, pool, segments, pb_dir: str = PB_DIR):
         centre = (tns - t0_ns) // dt_ns
         block = ref.window_rows(cfg, r0, r1, centre, tns, t0_ns, dt_ns)
         full = np.zeros((len(tns), n_rows))
-        full[:, r0:r1] = block
+        full[:, max(r0, 0):r1] = block[:, max(-r0, 0):]
         times.append(tns)
         rows.append(full)
     times = np.concatenate(times)
