@@ -44,6 +44,7 @@ SPAN_EXCEPTIONS: dict = {
         "stream.fetch",
         "stream.emit",
         "stream.runner_start",
+        "fleet.rendezvous",
     )
 }
 

@@ -47,7 +47,11 @@ ordered after them, and each member's flush copies its output to the
 host, which waits for the stacked step.  Each stacked step runs under
 the device telemetry's ``wave_scope`` of its members (a launch counted
 1/N to each, labelled stacked), each solo step under its own member's,
-since the dispatching thread runs the steps of other members.
+since the dispatching thread runs the steps of other members.  Each
+member's wait for its peers, from its submission until its wave starts
+to run, is one ``fleet.rendezvous`` span on its own thread (attrs
+``stream``, ``members``): the price of stacking, since every member
+waits for the slowest member's read and copy.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ import threading
 
 from tpudas_torch.obs.devprof import wave_scope
 from tpudas_torch.obs.registry import get_registry
+from tpudas_torch.obs.trace import span
 
 __all__ = ["BatchGroupFormer", "BatchStepExecutor"]
 
@@ -142,13 +147,14 @@ class BatchGroupFormer:
 
 
 class _Pending:
-    __slots__ = ("key", "payload", "result", "error", "done")
+    __slots__ = ("key", "payload", "result", "error", "started", "done")
 
     def __init__(self, key, payload):
         self.key = key
         self.payload = payload
         self.result = None
         self.error = None
+        self.started = False
         self.done = False
 
 
@@ -217,20 +223,21 @@ class BatchStepExecutor:
         me = self._tls.member
         p = _Pending(key, payload)
         dispatch_batch = None
-        with self._cv:
-            self._pending[me] = p
-            self._cv.notify_all()
-            while True:
-                if p.done:
-                    break
-                if not self._dispatching and self._ready():
-                    self._dispatching = True
-                    dispatch_batch = self._pending
-                    self._pending = {}
-                    break
-                # the timeout is a lost-wakeup safety net only; every
-                # state change notifies
-                self._cv.wait(0.1)
+        # the member's wait for its peers: from its submission until its
+        # wave starts to run (the dispatching member's until _dispatch)
+        with span("fleet.rendezvous", stream=me, members=len(self._active)):
+            with self._cv:
+                self._pending[me] = p
+                self._cv.notify_all()
+                while not (p.started or p.done):
+                    if not self._dispatching and self._ready():
+                        self._dispatching = True
+                        dispatch_batch = self._pending
+                        self._pending = {}
+                        break
+                    # the timeout is a lost-wakeup safety net only;
+                    # every state change notifies
+                    self._cv.wait(0.1)
         if dispatch_batch is not None:
             try:
                 self._dispatch(dispatch_batch)
@@ -238,9 +245,20 @@ class BatchStepExecutor:
                 with self._cv:
                     self._dispatching = False
                     self._cv.notify_all()
+        else:
+            with self._cv:
+                while not p.done:
+                    self._cv.wait(0.1)
         if p.error is not None:
             raise p.error
         return p.result
+
+    def _start(self, pend) -> None:
+        """Mark a wave's members as running, ending their rendezvous."""
+        with self._cv:
+            for p in pend:
+                p.started = True
+            self._cv.notify_all()
 
     def _dispatch(self, batch: dict) -> None:
         """Partition the snapshot into exact-key waves and run each: a
@@ -263,6 +281,7 @@ class BatchStepExecutor:
                     "tpudas_fleet_batch_stacked_members_total",
                     "stream steps served by a stacked launch",
                 ).inc(len(pend))
+                self._start(pend)
                 # the wave's launches run on this one thread: the
                 # member list, not its stream scope, is the truth
                 with wave_scope(members):
@@ -274,11 +293,11 @@ class BatchStepExecutor:
                     "stream steps the batch executor ran alone (no "
                     "co-shaped peer in the rendezvous, or an FFT step)",
                 ).inc()
+                self._start([p])
                 with wave_scope([m]):
                     _settle([p], lambda p=p: [self._run_solo(key, p)])
 
     def _run_stacked(self, key, pend):
-        from tpudas_torch.obs.trace import span
         from tpudas_torch.ops.fir import cascade_decimate_stream_stacked
 
         _kind, plan, t, engine, _dt, _dev, qscale = key
