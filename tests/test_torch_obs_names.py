@@ -27,6 +27,7 @@ METRIC_EXCEPTIONS: dict = {
         "tpudas_window_stage_copies_total",
         "tpudas_stream_h2d_bytes_total",
         "tpudas_stream_pool_joins_total",
+        "tpudas_stream_fetch_rows_total",
     )
 }
 SPAN_EXCEPTIONS: dict = {

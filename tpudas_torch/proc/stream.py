@@ -47,8 +47,9 @@ decimation ratio with a prime factor above 8), or ``engine="fft"``,
 opens the FFT stream engine instead: an overlap-save carry of the last
 ``2 * edge_in`` raw input rows on the device
 (:func:`tpudas_torch.ops.filter.fft_pass_filter_stream`) plus a one-row
-lerp seam on the host, emitted onto the output grid by a host lerp —
-the JAX package's ``_consume_fft``, with the same ``edge_in``,
+lerp seam on the host, emitted onto the output grid by a host lerp
+over the few filtered rows it reads, gathered on the device — the JAX
+package's ``_consume_fft``, with the same ``edge_in``,
 ``skip_left`` and emit schedule and the same ``.npz`` carry, so an FFT
 carry also resumes across the packages.  A kernel fault raises; there
 is no fallback engine.
@@ -56,6 +57,7 @@ is no fallback engine.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -1005,8 +1007,9 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
                  pipe) -> None:
     """Feed ``new`` rows through the overlap-save FFT filter and emit
     every output grid point the filtered rows now cover (a host lerp
-    between the two rows around it; the last filtered row of each block
-    is kept as the next block's left seam)."""
+    between the two rows around it, over only the rows it reads, fetched
+    from the device by :func:`_fft_flush`; the last filtered row of each
+    block is kept as the next block's left seam)."""
     from tpudas_torch.ops.filter import fft_pass_filter_stream
 
     d = carry.d_ns
@@ -1065,44 +1068,87 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
         t_blk0 = t_pool0_ns + off * d - carry.edge_in * d
         off += blk_rows
 
-        def _flush(filt_dev=filt_dev, blk_rows=blk_rows, t_blk0=t_blk0,
-                   t_disp=t_disp, clock=clock):
-            t1 = time.perf_counter()
-            with span("stream.fetch"):
-                filt = filt_dev.cpu().numpy()
-            t_dev = t_disp + time.perf_counter() - t1
-            lfp.timings["compute_s"] += t_dev
-            lfp.timings["device_s"] += clock.seconds(t_dev)
-            with span("stream.emit"):
-                _count_block(blk_rows, "fft", t_dev)
-                tail = carry.bufs[1]
-                rows = (np.concatenate([tail, filt], axis=0) if tail.size
-                        else filt)
-                t_row0 = t_blk0 - tail.shape[0] * d
-                t_last = t_row0 + (rows.shape[0] - 1) * d
-                carry.bufs = (carry.bufs[0], rows[-1:].copy())
-                carry.consumed += blk_rows
-                if t_last < carry.next_emit_ns or rows.shape[0] < 2:
-                    return
-                n = int((t_last - carry.next_emit_ns) // carry.step_ns) + 1
-                g = carry.next_emit_ns + carry.step_ns * np.arange(
-                    n, dtype=np.int64)
-                offs = g - t_row0
-                idx = offs // d
-                w = (offs - idx * d) / float(d)
-                sel = idx >= rows.shape[0] - 1
-                idx[sel] = rows.shape[0] - 2
-                w[sel] = 1.0
-                out = rows[idx] * (1.0 - w[:, None]).astype(np.float32) + rows[
-                    idx + 1
-                ] * w[:, None].astype(np.float32)
-                s = min(carry.skip_left, out.shape[0])
-                carry.skip_left -= s
-                _emit(lfp, carry, patch,
-                      out[s:].astype(np.float32, copy=False),
-                      rows=blk_rows, ran="fft")
-
-        pipe.push(_flush)
+        pipe.push(functools.partial(_fft_flush, lfp, carry, patch,
+                                    filt_dev, blk_rows, t_blk0, t_disp,
+                                    clock))
     with span("stream.pool"):
         carry.residual = pool.tail(usable)
     carry.residual_scale = pool_qs
+
+
+def _fft_lerp_plan(carry: StreamCarry, n_tail: int, n_filt: int, t_blk0):
+    """The FFT block's emission plan over ``rows = [seam; filtered]``
+    (``n_tail`` seam rows, then the block's ``n_filt``), made before the
+    block leaves the device.  Returns ``(need, idx, w)``: the sorted
+    distinct rows the flush reads (the lerp's pairs and the last row,
+    the next seam), and each due output's lower row and weight (None
+    when no output is due)."""
+    d = carry.d_ns
+    n_rows = n_tail + n_filt
+    t_row0 = t_blk0 - n_tail * d
+    t_last = t_row0 + (n_rows - 1) * d
+    last = np.asarray([n_rows - 1], np.int64)
+    if t_last < carry.next_emit_ns or n_rows < 2:
+        return last, None, None
+    n = int((t_last - carry.next_emit_ns) // carry.step_ns) + 1
+    g = carry.next_emit_ns + carry.step_ns * np.arange(n, dtype=np.int64)
+    offs = g - t_row0
+    idx = offs // d
+    w = (offs - idx * d) / float(d)
+    sel = idx >= n_rows - 1
+    idx[sel] = n_rows - 2
+    w[sel] = 1.0
+    return np.unique(np.concatenate([idx, idx + 1, last])), idx, w
+
+
+def _fetch_rows(filt_dev, tail, need):
+    """Rows ``need`` (sorted, distinct) of ``[tail; filt_dev]`` on the
+    host, in order: the seam's from ``tail``, the block's gathered on its
+    device and copied in one D2H (the whole block when every row is
+    needed), counted in ``tpudas_stream_fetch_rows_total``."""
+    n_tail = int(tail.shape[0])
+    fi = need[need >= n_tail] - n_tail
+    if fi.size < filt_dev.shape[0]:
+        filt_dev = filt_dev.index_select(
+            0, torch.from_numpy(fi).to(filt_dev.device))
+    got = filt_dev.cpu().numpy()
+    get_registry().counter(
+        "tpudas_stream_fetch_rows_total",
+        "filtered stream rows copied from the device to the host",
+        labelnames=("engine",),
+    ).inc(int(fi.size), engine="fft")
+    if not n_tail:
+        return got
+    return np.concatenate([tail[need[need < n_tail]], got], axis=0)
+
+
+def _fft_flush(lfp, carry: StreamCarry, patch, filt_dev, blk_rows, t_blk0,
+               t_disp, clock) -> None:
+    """Sync one FFT block and emit its due outputs: only the filtered
+    rows the lerp and the next seam read cross to the host
+    (``stream.fetch``), and each output is the lerp between the two rows
+    around it (``stream.emit``)."""
+    tail = carry.bufs[1]
+    t1 = time.perf_counter()
+    with span("stream.fetch"):
+        need, idx, w = _fft_lerp_plan(carry, tail.shape[0],
+                                      int(filt_dev.shape[0]), t_blk0)
+        rows = _fetch_rows(filt_dev, tail, need)
+    t_dev = t_disp + time.perf_counter() - t1
+    lfp.timings["compute_s"] += t_dev
+    lfp.timings["device_s"] += clock.seconds(t_dev)
+    with span("stream.emit"):
+        _count_block(blk_rows, "fft", t_dev)
+        carry.bufs = (carry.bufs[0], rows[-1:].copy())
+        carry.consumed += blk_rows
+        if idx is None:
+            return
+        # idx and idx + 1 are both in need, so idx + 1 sits at lo + 1
+        lo = np.searchsorted(need, idx)
+        out = rows[lo] * (1.0 - w[:, None]).astype(np.float32) + rows[
+            lo + 1
+        ] * w[:, None].astype(np.float32)
+        s = min(carry.skip_left, out.shape[0])
+        carry.skip_left -= s
+        _emit(lfp, carry, patch, out[s:].astype(np.float32, copy=False),
+              rows=blk_rows, ran="fft")
