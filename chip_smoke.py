@@ -274,8 +274,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32, non-tensor (NVIDIA data sheet)
+from tpudas_torch.device import F32_FLOPS_PER_S, HBM_BYTES_PER_S
+
 REL_TOL = 1e-5
 LF_FREQ = 0.05
 NOISE = 0.02

@@ -49,7 +49,7 @@ CASES = {
                                        [0, 300, 44]),
 }
 INJECTED_ROWS = 300
-_DEVICE_POOL = tstream._pool
+_POOL = tstream._pool
 
 
 def _spool(directory, scale, n_files=4):
@@ -85,13 +85,13 @@ class _TdasOutputs(LFProc):
         write_tdas(patch, os.path.splitext(path)[0] + ".tdas")
 
 
-def _host_join(carry, new, qs):
+def _host_join(carry, new, qs, mesh):
     """The oracle: the residual and the new rows joined into one host
     array, every block a slice of it."""
     res = carry.residual
     if res is None or res.size == 0 or not tstream._same_payload(
             carry, new, qs):
-        return _DEVICE_POOL(carry, new, qs)
+        return _POOL(carry, new, qs, mesh)
     joined = np.concatenate([res, new], axis=0)
     return tstream._Pool(joined[:0], joined, qs)
 
@@ -107,19 +107,16 @@ def _run(src, out, engine, ends, inject=None, device="cpu", mesh=None):
     lfp.set_output_folder(out, delete_existing=True)
     carry = lfp.open_stream(T0)
     heads = []
-    builders = {"_pool": tstream._pool, "_host_pool": tstream._host_pool}
+    builder = tstream._pool
 
-    def spy(name):
-        def build(carry, new, qs):
-            heads.append(0 if carry.residual is None
-                         else int(carry.residual.shape[0]))
-            return builders[name](carry, new, qs)
-        return build
+    def spy(carry, new, qs, mesh):
+        heads.append(0 if carry.residual is None
+                     else int(carry.residual.shape[0]))
+        return builder(carry, new, qs, mesh)
 
     mp = pytest.MonkeyPatch()
     try:
-        for name in builders:
-            mp.setattr(tstream, name, spy(name))
+        mp.setattr(tstream, "_pool", spy)
         for i, end in enumerate(ends):
             if i == inject:
                 rows = np.arange(INJECTED_ROWS * NCH) % 997 - 498

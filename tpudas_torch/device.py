@@ -15,7 +15,14 @@ import threading
 
 import torch
 
-__all__ = ["default_device", "resolve_device"]
+__all__ = [
+    "HBM_BYTES_PER_S", "F32_FLOPS_PER_S", "default_device", "resolve_device",
+]
+
+# The card's data-sheet peaks, the port's one copy (NVIDIA H100 SXM data
+# sheet): HBM3 bandwidth, and float32 FLOP/s without the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 # the process-wide default of default_device(); None: the card
 _default = None

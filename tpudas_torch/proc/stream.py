@@ -855,28 +855,20 @@ def _dequant_pool(carry: StreamCarry, new, qs) -> _Pool:
     return _Pool(joined[:0], joined, None)
 
 
-def _pool(carry: StreamCarry, new, qs) -> _Pool:
+def _pool(carry: StreamCarry, new, qs, mesh) -> _Pool:
     """The feed's pool over the residual and the fresh payload.  Same
     dtype and scale stay two pieces, joined block by block on the device
-    (a quantized pool goes to the device as int16)."""
+    (a quantized pool goes to the device as int16); under a ``mesh`` the
+    sharded step takes a host block and places its column shards itself,
+    so the two are joined on the host and every block is one piece."""
     residual = carry.residual
     if residual is None or residual.size == 0:
         return _Pool(new[:0], new, qs)
     if not _same_payload(carry, new, qs):
         return _dequant_pool(carry, new, qs)
-    _count_join("device")
-    return _Pool(residual, new, qs)
-
-
-def _host_pool(carry: StreamCarry, new, qs) -> _Pool:
-    """The mesh path's pool: the sharded step takes a host block and
-    places its column shards itself, so the residual is joined to the
-    new rows on the host, and every block is one piece."""
-    residual = carry.residual
-    if residual is None or residual.size == 0:
-        return _Pool(new[:0], new, qs)
-    if not _same_payload(carry, new, qs):
-        return _dequant_pool(carry, new, qs)
+    if mesh is None:
+        _count_join("device")
+        return _Pool(residual, new, qs)
     _count_join("host")
     joined = np.concatenate([residual, new], axis=0)
     return _Pool(joined[:0], joined, qs)
@@ -915,6 +907,56 @@ def _stream_mesh(lfp):
     return mesh
 
 
+def _feed(lfp, carry: StreamCarry, patch, new, qs, pipe, quantum, cap,
+          block, flush) -> None:
+    """The stream's one block feed, for both engines: the carried
+    residual and ``new`` pooled (:func:`_pool`) and cut into
+    :func:`_pow2_blocks` of ``quantum`` rows (at most ``cap`` quanta);
+    each block dispatched now, and its ``flush(lfp, carry, patch, y_dev,
+    rows, arg, t_disp, clock)`` pushed onto ``pipe`` to sync and emit it
+    when it reaches the pipeline's head (same order, same math,
+    overlapped wall clock); the rows short of a quantum kept as the next
+    residual.  The engine's ``block(pool, off, rows)`` gives ``(ran, op,
+    batched, arg)``: the engine run, its ``op(x, mesh)`` and its batched
+    fleet step ``batched(bx, x)``, each returning the block's output on
+    the device and the new ``carry.bufs``, and the flush's ``arg``."""
+    dev = lfp.device
+    mesh = _stream_mesh(lfp)
+    with span("stream.pool"):
+        pool = _pool(carry, new, qs, mesh)
+    usable = pool.rows - pool.rows % quantum
+    off = 0
+    for n_units in _pow2_blocks(usable // quantum, cap):
+        rows = n_units * quantum
+        with span("stream.pool"):
+            pieces = pool.pieces(off, rows)
+        ran, op, batched, arg = block(pool, off, rows)
+        t0 = time.perf_counter()
+        bx = getattr(lfp, "_batch_executor", None)
+        if mesh is not None:
+            # the sharded step places the host block's column shards
+            (x,) = pieces
+        else:
+            x = _to_device(pieces, dev)
+        clock = EventTimer(dev).start()
+        if mesh is None and bx is not None:
+            # batched fleet service: rendezvous with the group's other
+            # members so co-shaped blocks run as one stacked step
+            y_dev, bufs = batched(bx, x)
+        else:
+            y_dev, bufs = op(x, mesh)
+        clock.stop()
+        t_disp = time.perf_counter() - t0
+        carry.bufs = bufs
+        lfp._count_block(ran)
+        pipe.push(functools.partial(flush, lfp, carry, patch, y_dev, rows,
+                                    arg, t_disp, clock))
+        off += rows
+    with span("stream.pool"):
+        carry.residual = pool.tail(usable)
+    carry.residual_scale = pool.qs
+
+
 def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
     from tpudas_torch.ops.fir import (
         cascade_decimate_stream,
@@ -925,75 +967,48 @@ def _consume_cascade(lfp, carry: StreamCarry, patch, new, qs, pipe) -> None:
     plan = design_cascade(
         1e9 / carry.d_ns, carry.ratio, _corner(carry.dt_out), carry.order
     )
-    dev = lfp.device
-    mesh = _stream_mesh(lfp)
-    with span("stream.pool"):
-        pool = (_pool if mesh is None else _host_pool)(carry, new, qs)
-    pool_qs = pool.qs
-    usable = pool.rows - pool.rows % carry.ratio
     # "fused" resolves per block (the fused kernel on the card, the
     # per-stage chain below the size threshold); anything else runs
     # the per-stage chain
     eng_req = "fused" if carry.engine_req == "fused" else "auto"
-    off = 0
-    for n_out in _pow2_blocks(usable // carry.ratio, carry.patch_out):
-        rows = n_out * carry.ratio
-        with span("stream.pool"):
-            pieces = pool.pieces(off, rows)
-        # under a mesh too the engine is resolved at the stream's whole
-        # width: each shard runs the unsharded step's engine
-        eng = stream_stage_engines(plan, rows, carry.n_ch, eng_req, dev)[0]
+
+    def block(pool, off, rows):
+        # the engine is resolved at the stream's whole width: under a
+        # mesh each shard runs the unsharded step's engine, and a batched
+        # fleet's stacked step runs this stream's own, so stacking never
+        # flips a threshold
+        eng = stream_stage_engines(plan, rows, carry.n_ch, eng_req,
+                                   lfp.device)[0]
         ran = eng if eng.startswith("fused") else f"cascade-{eng}"
-        # dispatch now; sync and emit when the block reaches the head of
-        # the pipeline (same order, same math, overlapped wall clock)
-        t0 = time.perf_counter()
-        bx = getattr(lfp, "_batch_executor", None)
-        if mesh is None:
-            x = _to_device(pieces, dev)
-        clock = EventTimer(dev).start()
-        if mesh is not None:
-            # the sharded step places the host block's column shards
-            (blk,) = pieces
-            y_dev, bufs = cascade_decimate_stream(
-                blk, carry.bufs, plan, eng_req, qscale=pool_qs, mesh=mesh
-            )
-        elif bx is not None:
-            # batched fleet service: rendezvous with the group's other
-            # members so co-shaped blocks run as one stacked step; the
-            # engine is the one resolved above at this stream's own
-            # width, so stacking never flips a threshold
-            y_dev, bufs = bx.cascade_step(
-                x, carry.bufs, plan, eng, qscale=pool_qs
-            )
-        else:
-            y_dev, bufs = cascade_decimate_stream(
-                x, carry.bufs, plan, eng_req, qscale=pool_qs
-            )
-        clock.stop()
-        t_disp = time.perf_counter() - t0
-        carry.bufs = bufs
-        lfp._count_block(ran)
+        return (
+            ran,
+            lambda x, mesh: cascade_decimate_stream(
+                x, carry.bufs, plan, eng_req, qscale=pool.qs, mesh=mesh),
+            lambda bx, x: bx.cascade_step(x, carry.bufs, plan, eng,
+                                          qscale=pool.qs),
+            ran,
+        )
 
-        def _flush(y_dev=y_dev, rows=rows, ran=ran, t_disp=t_disp,
-                   clock=clock):
-            t1 = time.perf_counter()
-            with span("stream.fetch"):
-                y = y_dev.cpu().numpy()
-            t_dev = t_disp + time.perf_counter() - t1
-            lfp.timings["compute_s"] += t_dev
-            lfp.timings["device_s"] += clock.seconds(t_dev)
-            with span("stream.emit"):
-                _count_block(rows, ran, t_dev)
-                carry.consumed += rows
-                s = min(carry.skip_left, y.shape[0])
-                carry.skip_left -= s
-                _emit(lfp, carry, patch, y[s:], rows=rows, ran=ran)
+    _feed(lfp, carry, patch, new, qs, pipe, carry.ratio, carry.patch_out,
+          block, _cascade_flush)
 
-        pipe.push(_flush)
-        off += rows
-    with span("stream.pool"):
-        carry.residual = pool.tail(usable)
-    carry.residual_scale = pool_qs
+
+def _cascade_flush(lfp, carry: StreamCarry, patch, y_dev, rows, ran, t_disp,
+                   clock) -> None:
+    """Sync one cascade block (``stream.fetch``) and emit its outputs
+    past the carry's skip (``stream.emit``)."""
+    t1 = time.perf_counter()
+    with span("stream.fetch"):
+        y = y_dev.cpu().numpy()
+    t_dev = t_disp + time.perf_counter() - t1
+    lfp.timings["compute_s"] += t_dev
+    lfp.timings["device_s"] += clock.seconds(t_dev)
+    with span("stream.emit"):
+        _count_block(rows, ran, t_dev)
+        carry.consumed += rows
+        s = min(carry.skip_left, y.shape[0])
+        carry.skip_left -= s
+        _emit(lfp, carry, patch, y[s:], rows=rows, ran=ran)
 
 
 # FFT stream feed quantum (input samples): block sizes are multiples of
@@ -1015,65 +1030,39 @@ def _consume_fft(lfp, carry: StreamCarry, patch, new, t_new0_ns, qs,
     d = carry.d_ns
     corner = _corner(carry.dt_out)
     q = _FFT_QUANTUM
-    dev = lfp.device
-    mesh = _stream_mesh(lfp)
-    with span("stream.pool"):
-        pool = (_pool if mesh is None else _host_pool)(carry, new, qs)
-    pool_qs = pool.qs
-    t_pool0_ns = t_new0_ns - (pool.rows - new.shape[0]) * d
-    usable = pool.rows - pool.rows % q
-    cap_units = max(1, carry.patch_out * max(1, carry.step_ns // d) // q)
-    off = 0
-    for n_units in _pow2_blocks(usable // q, cap_units):
-        blk_rows = n_units * q
-        with span("stream.pool"):
-            pieces = pool.pieces(off, blk_rows)
-        # dispatch the filter now: the overlap-save carry chains on the
-        # device (bufs[0]), so the next block's dispatch never waits on
-        # this block's host sync; the one-row lerp seam (bufs[1], host)
-        # is updated at flush, before the next flush reads it (FIFO)
-        t0 = time.perf_counter()
-        bx = getattr(lfp, "_batch_executor", None)
-        if mesh is None:
-            x = _to_device(pieces, dev)
-        clock = EventTimer(dev).start()
-        if mesh is not None:
-            # the sharded step places the host block's column shards;
-            # the overlap-save carry stays sharded on the devices
-            (blk,) = pieces
-            filt_dev, fcarry = fft_pass_filter_stream(
-                blk, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
-                qscale=pool_qs, mesh=mesh,
-            )
-        elif bx is not None:
-            # batched fleet service: the step waits at the group's
-            # rendezvous and runs at the member's own width (FFT steps
-            # are never packed; see fft_pass_filter_stream_stacked)
-            filt_dev, fcarry = bx.fft_step(
-                x, carry.bufs[0], d / 1e9, corner, carry.order,
-                qscale=pool_qs,
-            )
-        else:
-            filt_dev, fcarry = fft_pass_filter_stream(
-                x, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
-                qscale=pool_qs,
-            )
-        clock.stop()
-        t_disp = time.perf_counter() - t0
-        carry.bufs = (fcarry, carry.bufs[1])
-        lfp._count_block("fft")
+
+    def keep_seam(step):
+        # the overlap-save carry chains on the device (bufs[0]), so the
+        # next block's dispatch never waits on this block's host sync;
+        # the one-row lerp seam (bufs[1], host) is updated at flush,
+        # before the next flush reads it (FIFO)
+        filt_dev, fcarry = step
+        return filt_dev, (fcarry, carry.bufs[1])
+
+    def block(pool, off, rows):
         # row j of the flushed block is the filtered stream edge_in
         # samples behind its input; the stored tail row extends the seam
         # left
+        t_pool0_ns = t_new0_ns - (pool.rows - new.shape[0]) * d
         t_blk0 = t_pool0_ns + off * d - carry.edge_in * d
-        off += blk_rows
+        return (
+            "fft",
+            lambda x, mesh: keep_seam(fft_pass_filter_stream(
+                x, carry.bufs[0], d / 1e9, high=corner, order=carry.order,
+                qscale=pool.qs, mesh=mesh,
+            )),
+            # the batched fleet's step waits at the group's rendezvous
+            # and runs at the member's own width (FFT steps are never
+            # packed; see fft_pass_filter_stream_stacked)
+            lambda bx, x: keep_seam(bx.fft_step(
+                x, carry.bufs[0], d / 1e9, corner, carry.order,
+                qscale=pool.qs,
+            )),
+            t_blk0,
+        )
 
-        pipe.push(functools.partial(_fft_flush, lfp, carry, patch,
-                                    filt_dev, blk_rows, t_blk0, t_disp,
-                                    clock))
-    with span("stream.pool"):
-        carry.residual = pool.tail(usable)
-    carry.residual_scale = pool_qs
+    cap_units = max(1, carry.patch_out * max(1, carry.step_ns // d) // q)
+    _feed(lfp, carry, patch, new, qs, pipe, q, cap_units, block, _fft_flush)
 
 
 def _fft_lerp_plan(carry: StreamCarry, n_tail: int, n_filt: int, t_blk0):

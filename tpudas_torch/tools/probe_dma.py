@@ -11,7 +11,8 @@ flight.  Beside it, two PyTorch calls over the same array: ``torch.sum``
 (it reads every byte: the counterpart of the XLA reduce the TPU probe
 was compared with) and a device-to-device ``copy_`` (reads and writes
 every byte).  Each line gives ms per call, the read rate and its share
-of the H100's 3.35 TB/s data-sheet rate; times come from
+of the H100's data-sheet rate
+(:data:`~tpudas_torch.device.HBM_BYTES_PER_S`); times come from
 :func:`tpudas_torch.tools.harness.measure` (CUDA events).
 """
 
@@ -21,9 +22,10 @@ import argparse
 
 import torch
 
+from tpudas_torch.device import HBM_BYTES_PER_S
 from tpudas_torch.ops.hbm_probe import ring_reader
 from tpudas_torch.tools.harness import measure
-from tpudas_torch.tools.probe_pipeline import C, HBM_BYTES_PER_S, T, card_line
+from tpudas_torch.tools.probe_pipeline import C, T, card_line
 
 __all__ = ["P3_GEOMETRIES", "library_records", "p3_records", "main"]
 
@@ -42,7 +44,7 @@ P3_GEOMETRIES = (
 
 def p3_records(T=T, C=C, device=None, iters=96):
     """One record per P3 geometry: ms, bytes read (whole chunks), read
-    rate, share of 3.35 TB/s and the bound."""
+    rate, share of the data-sheet rate and the bound."""
     recs = []
     for rows, nbuf in P3_GEOMETRIES:
         dt = measure(lambda x, r=rows, n=nbuf: ring_reader(x, r, n),
@@ -94,7 +96,8 @@ def _line(rec):
     extra = (f", {rec['moved_bytes_per_s'] / 1e9:.1f} GB/s read + written"
              if "moved_bytes_per_s" in rec else "")
     return (f"{geom}  {rec['ms']:7.3f} ms  {gbps:7.1f} GB/s read "
-            f"({rec['share_of_peak'] * 100:4.1f}% of 3.35 TB/s{extra})")
+            f"({rec['share_of_peak'] * 100:4.1f}% of "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s{extra})")
 
 
 def main(argv=None):

@@ -9,7 +9,8 @@ reads every (rows, cb) tile — ``cb*4`` contiguous bytes per row — in
 the default or the ``k_fastest`` block order; P2
 (:func:`~tpudas_torch.ops.hbm_probe.copy_heads_pstream`) keeps P tiles
 in flight per block.  Each line gives ms per call, the read rate and its
-share of the H100's 3.35 TB/s data-sheet rate, with the bytes actually
+share of the H100's data-sheet rate
+(:data:`~tpudas_torch.device.HBM_BYTES_PER_S`), with the bytes actually
 read as the numerator (``t_eff`` rows for P2, which can be fewer than
 T).  Times come from :func:`tpudas_torch.tools.harness.measure` (CUDA
 events); the card's name and power limit head the output.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 
+from tpudas_torch.device import HBM_BYTES_PER_S
 from tpudas_torch.ops.hbm_probe import copy_heads, copy_heads_pstream, heads_rows
 from tpudas_torch.tools.harness import measure
 
@@ -30,7 +32,6 @@ __all__ = [
 
 C = 2048
 T = 129024  # 16128 * 8
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 # (rows, cb, k_fastest), as tools/probe_pipeline.py:120-130
 P1_GEOMETRIES = (
@@ -82,7 +83,7 @@ def _record(label, t_eff, C, dt, **geom):
 
 def p1_records(T=T, C=C, device=None, iters=96):
     """One record per P1 geometry: ms, bytes read, read rate, share of
-    3.35 TB/s and the bound (bytes read + written over 3.35 TB/s)."""
+    the data-sheet rate and the bound (bytes read + written over it)."""
     recs = []
     for rows, cb, kf in P1_GEOMETRIES:
         dt = measure(lambda x, r=rows, c=cb, k=kf: copy_heads(x, r, c, k),
@@ -112,7 +113,8 @@ def _line(rec):
             f"kfast={int(rec['k_fastest'])}")
     gbps = rec["read_bytes_per_s"] / 1e9
     return (f"{geom}  {rec['ms']:7.3f} ms  {gbps:7.1f} GB/s "
-            f"({rec['share_of_peak'] * 100:4.1f}% of 3.35 TB/s)")
+            f"({rec['share_of_peak'] * 100:4.1f}% of "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
 
 
 def main(argv=None):
