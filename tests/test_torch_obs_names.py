@@ -28,6 +28,7 @@ METRIC_EXCEPTIONS: dict = {
         "tpudas_stream_h2d_bytes_total",
         "tpudas_stream_pool_joins_total",
         "tpudas_stream_fetch_rows_total",
+        "tpudas_stream_carry_staged_bytes_total",
     )
 }
 SPAN_EXCEPTIONS: dict = {
@@ -44,6 +45,8 @@ SPAN_EXCEPTIONS: dict = {
         "stream.h2d",
         "stream.fetch",
         "stream.emit",
+        "stream.carry_gather",
+        "stream.carry_write",
         "stream.runner_start",
         "fleet.rendezvous",
     )

@@ -12,6 +12,12 @@ other wrote:
   ``crc32 <8-hex-digest> <size>\\n``, written after the payload's
   rename, so a crash between the two reads as a mismatch.
 
+:func:`write_npz_checksummed` streams an ``.npz`` (the stream carry,
+hundreds of MB on the FFT engine) straight into its tmp file, the bytes
+of ``np.savez`` with each member's data written once from a view of its
+array and read once for its crc; the whole file's crc is joined from
+the members' with :func:`crc32_combine`, not taken over the file again.
+
 Writes go through :mod:`tpudas_torch.utils.atomicio` (a per-process tmp
 name, ``os.replace`` and the ``fs.write_enospc`` fault site); readers
 never see a partial file.  Verified reads pass the ``integrity.verify``
@@ -31,10 +37,18 @@ from __future__ import annotations
 import io
 import json
 import os
+import zipfile
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 from tpudas_torch.obs.registry import get_registry
-from tpudas_torch.utils.atomicio import atomic_write_pair, atomic_write_text
+from tpudas_torch.utils.atomicio import (
+    atomic_fill_pair,
+    atomic_write_pair,
+    atomic_write_text,
+)
 from tpudas_torch.utils.logging import log_event
 
 __all__ = [
@@ -42,6 +56,7 @@ __all__ = [
     "SIDECAR_SUFFIX",
     "count_fallback",
     "count_unstamped",
+    "crc32_combine",
     "crc32_hex",
     "fallback_count",
     "read_json_verified",
@@ -54,6 +69,7 @@ __all__ = [
     "write_bytes_checksummed",
     "write_json_checksummed",
     "write_npy_checksummed",
+    "write_npz_checksummed",
     "write_sidecar_for",
 ]
 
@@ -182,11 +198,158 @@ def write_npy_checksummed(path: str, array,
                           durable: bool | None = None) -> None:
     """Checksummed atomic raw ``.npy`` write (serialized in memory, so
     the sidecar digests exactly the bytes on disk)."""
-    import numpy as np
-
     buf = io.BytesIO()
     np.save(buf, np.ascontiguousarray(array))
     write_bytes_checksummed(path, buf.getvalue(), durable=durable)
+
+
+def write_npz_checksummed(path: str, arrays: dict,
+                          durable: bool | None = None) -> None:
+    """Checksummed atomic ``.npz`` write of ``arrays`` (name -> array),
+    byte for byte what ``np.savez`` writes, streamed into the tmp file
+    (:func:`~tpudas_torch.utils.atomicio.atomic_fill_pair`): no
+    in-memory archive, and one crc pass over each member's data, which
+    runs on a few threads while the data is written.  The sidecar is
+    :func:`write_bytes_checksummed`'s."""
+
+    def fill(fh):
+        crc, size = _write_npz(fh, arrays)
+        return f"crc32 {crc:08x} {size}\n"
+
+    atomic_fill_pair(path, fill, sidecar_path(path), durable=durable)
+
+
+# a member's data is crc'd in chunks of this size on _CRC_THREADS threads
+# (zlib releases the GIL) while the writing thread writes it
+_CRC_CHUNK = 32 << 20
+_CRC_THREADS = 3
+_CRC_POLY = 0xEDB88320  # zlib's crc32, reflected
+
+
+def _multmodp(a: int, b: int) -> int:
+    """``a(x) * b(x)`` modulo the crc32 polynomial (reflected bits)."""
+    m, p = 1 << 31, 0
+    while True:
+        if a & m:
+            p ^= b
+            if not a & (m - 1):
+                return p
+        m >>= 1
+        b = (b >> 1) ^ _CRC_POLY if b & 1 else b >> 1
+
+
+def _x2n_table() -> tuple:
+    t = [1 << 30]  # x^1
+    for _ in range(31):
+        t.append(_multmodp(t[-1], t[-1]))
+    return tuple(t)  # t[k] = x^(2^k)
+
+
+_X2N = _x2n_table()
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The crc32 of ``A + B`` from ``crc1 = crc32(A)``, ``crc2 =
+    crc32(B)`` and ``len2 = len(B)`` (zlib's ``crc32_combine``, which
+    Python's ``zlib`` lacks): ``crc1`` times ``x^(8 len2)`` modulo the
+    polynomial, plus ``crc2``; microseconds at any length."""
+    p, k, n = 1 << 31, 3, int(len2)  # x^0, and x^(8 n) = x^(n 2^3)
+    while n:
+        if n & 1:
+            p = _multmodp(_X2N[k & 31], p)
+        n >>= 1
+        k += 1
+    return _multmodp(p, crc1 & 0xFFFFFFFF) ^ (crc2 & 0xFFFFFFFF)
+
+
+def _npy_parts(array: np.ndarray) -> tuple:
+    """The ``.npy`` 1.0 header ``np.save`` writes for ``array`` and a
+    flat byte view of the data it writes after it: C order, or the
+    transpose's for an array that is Fortran-contiguous only (the
+    header then says ``fortran_order``); a copy only for an array that
+    is neither."""
+    from numpy.lib import format as npy_format
+
+    head = io.BytesIO()
+    npy_format.write_array_header_1_0(
+        head, npy_format.header_data_from_array_1_0(array))
+    if array.flags.c_contiguous:
+        flat = array
+    elif array.flags.f_contiguous:
+        flat = array.T
+    else:
+        flat = np.ascontiguousarray(array)
+    return head.getvalue(), memoryview(flat.reshape(-1).view(np.uint8))
+
+
+class _DirectorySink:
+    """Where :class:`zipfile.ZipFile` writes the archive's central
+    directory and end records: kept in memory, at the file offset that
+    follows the members, so its bytes are written and crc'd as one."""
+
+    def __init__(self, offset: int):
+        self.offset = offset
+        self.data = bytearray()
+
+    def tell(self) -> int:
+        return self.offset + len(self.data)
+
+    def seek(self, pos: int, whence: int = 0) -> int:
+        if whence or pos != self.tell():
+            raise io.UnsupportedOperation("the directory is written in order")
+        return pos
+
+    def write(self, b) -> int:
+        self.data += b
+        return len(b)
+
+    def flush(self) -> None:
+        pass
+
+
+def _write_npz(fh, arrays: dict) -> tuple:
+    """Write ``arrays`` into the binary file ``fh`` as ``np.savez``
+    does: one stored member ``<name>.npy`` each (zipfile's own
+    :class:`~zipfile.ZipInfo`, its forced zip64 local header and its
+    central directory), each member's data written from a view of its
+    array.  Its crc is taken in chunks on a few threads while the data
+    is written, then the local header is written again with it, as
+    zipfile's own writer does.  Returns the crc32 of the whole file and
+    its size, joined from the members' crcs and the headers' bytes."""
+    infos, crc, pos = [], 0, 0
+    with ThreadPoolExecutor(_CRC_THREADS) as pool:
+        for name, value in arrays.items():
+            head, data = _npy_parts(np.asanyarray(value))
+            chunks = [data[i:i + _CRC_CHUNK]
+                      for i in range(0, data.nbytes, _CRC_CHUNK)]
+            parts = [pool.submit(zlib.crc32, c) for c in chunks]
+            zinfo = zipfile.ZipInfo(name + ".npy")  # as ZipFile.open("w")
+            zinfo.external_attr = 0o600 << 16
+            zinfo.header_offset = pos
+            zinfo.file_size = zinfo.compress_size = len(head) + data.nbytes
+            zinfo.CRC = 0
+            fh.write(zinfo.FileHeader(True))
+            fh.write(head)
+            fh.write(data)
+            member = zlib.crc32(head)
+            for c, part in zip(chunks, parts):
+                member = crc32_combine(member, part.result(), c.nbytes)
+            zinfo.CRC = member
+            local = zinfo.FileHeader(True)
+            end = fh.tell()
+            fh.seek(pos)
+            fh.write(local)
+            fh.seek(end)
+            crc = crc32_combine(zlib.crc32(local, crc), member,
+                                zinfo.file_size)
+            infos.append(zinfo)
+            pos = end
+    sink = _DirectorySink(pos)
+    directory = zipfile.ZipFile(sink, "w")
+    directory.filelist.extend(infos)
+    directory.close()
+    fh.write(sink.data)
+    return zlib.crc32(sink.data, crc), pos + len(sink.data)
 
 
 def write_sidecar_for(path: str, durable: bool | None = None) -> str:

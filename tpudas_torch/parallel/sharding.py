@@ -32,6 +32,8 @@ global array back together.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,6 +56,7 @@ __all__ = [
     "place_carry_leaves",
     "gather_leaves",
     "gather_columns",
+    "staged_leaves",
     "is_device_resident",
     "to_device",
     "zero_block",
@@ -359,6 +362,14 @@ def _to_host(b) -> np.ndarray:
     return np.asarray(b, np.float32)
 
 
+def _host_leaf(b, n_ch: int | None) -> np.ndarray:
+    """One leaf as host float32, its channel axis trimmed to ``n_ch``."""
+    arr = _to_host(b)
+    if n_ch is not None and arr.ndim == 2 and arr.shape[1] > n_ch:
+        arr = np.ascontiguousarray(arr[:, : int(n_ch)])
+    return arr
+
+
 def gather_leaves(bufs, n_ch: int | None = None) -> tuple:
     """Gather a tuple of (possibly sharded, possibly pad-and-masked)
     carry leaves to host numpy float32, trimming the channel axis to the
@@ -369,13 +380,114 @@ def gather_leaves(bufs, n_ch: int | None = None) -> tuple:
     with span("parallel.gather", leaves=len(bufs)):
         if moved:
             _count_transfer("gather", moved)
-        out = []
-        for b in bufs:
-            arr = _to_host(b)
-            if n_ch is not None and arr.ndim == 2 and arr.shape[1] > n_ch:
-                arr = np.ascontiguousarray(arr[:, : int(n_ch)])
-            out.append(arr)
-        return tuple(out)
+        return tuple(_host_leaf(b, n_ch) for b in bufs)
+
+
+class _PinnedPool:
+    """Page-locked host buffers for :func:`staged_leaves`, shared by
+    every carry save of the process.  A save takes a buffer at least as
+    large as its card leaves and gives it back once its file is
+    written, so saves running at once (a fleet's members, each on its
+    own thread) never share one.  A buffer is allocated the first time
+    a size is needed and replaced by a larger one when a save needs
+    more, never shrunk: page-locking an 800 MB carry's bytes anew for
+    every save would cost more than the copy saves."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._idle = []
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        with self._lock:
+            sizes = [b.numel() for b in self._idle]
+            fits = [i for i, n in enumerate(sizes) if n >= nbytes]
+            if fits:
+                return self._idle.pop(min(fits, key=sizes.__getitem__))
+            if self._idle:  # grown: the largest idle buffer is let go
+                self._idle.pop(max(range(len(sizes)),
+                                   key=sizes.__getitem__))
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def give(self, buf: torch.Tensor) -> None:
+        with self._lock:
+            self._idle.append(buf)
+
+
+_PINNED = _PinnedPool()
+_STAGE_ALIGN = 4096  # each leaf's offset in the staging buffer
+
+
+def _card_source(b, n_ch: int | None):
+    """A leaf on CUDA cards as one tensor on its card, trimmed to
+    ``n_ch`` columns (a sharded leaf's shards joined on the first
+    shard's card, so its D2H is one contiguous copy); None for a leaf
+    on the host."""
+    if isinstance(b, ShardedTensor):
+        if not len(b) or any(s.device.type != "cuda" for s in b):
+            return None
+        return gather_columns(b, n_ch)
+    if not (isinstance(b, torch.Tensor) and b.device.type == "cuda"):
+        return None
+    if n_ch is not None and b.ndim == 2 and b.shape[1] > n_ch:
+        b = b[:, : int(n_ch)]
+    return b.detach()
+
+
+@contextmanager
+def staged_leaves(bufs, n_ch: int | None = None):
+    """:func:`gather_leaves` through page-locked memory, for the carry
+    save: yields the same host float32 arrays, byte for byte.  Each leaf
+    on a CUDA card (a tensor, or a :class:`ShardedTensor` of card
+    shards) is copied with ``non_blocking`` into a staging buffer from
+    a process-wide pool, one sync for them all, and its array is a view
+    of that buffer, valid until the block exits and the buffer goes
+    back to the pool.  Host leaves (numpy after a load, tensors on the
+    CPU) are used as they are.  Counted as :func:`gather_leaves` counts
+    (``gather`` traffic; the caller spans it), and by path in
+    ``tpudas_stream_carry_staged_bytes_total``: ``pinned`` for the card
+    leaves' bytes, ``direct`` for the host leaves'."""
+    moved = sum(int(b.numel()) * 4 for b in bufs if is_device_resident(b))
+    if moved:
+        _count_transfer("gather", moved)
+    buf, out, streams = None, [], set()
+    nbytes = {"pinned": 0, "direct": 0}
+    try:
+        srcs = [_card_source(b, n_ch) for b in bufs]
+        sizes = [0 if s is None else -(-s.numel() * 4 // _STAGE_ALIGN)
+                 * _STAGE_ALIGN for s in srcs]
+        if any(sizes):
+            buf = _PINNED.take(sum(sizes))
+        try:
+            off = 0
+            for b, src, size in zip(bufs, srcs, sizes):
+                if src is None:
+                    out.append(_host_leaf(b, n_ch))
+                    nbytes["direct"] += out[-1].nbytes
+                    continue
+                view = buf[off : off + src.numel() * 4].view(
+                    torch.float32).view(src.shape)
+                view.copy_(src, non_blocking=True)
+                streams.add(torch.cuda.current_stream(src.device))
+                out.append(view.numpy())
+                nbytes["pinned"] += src.numel() * 4
+                off += size
+        finally:  # no copy into the buffer outlives this block
+            for stream in streams:
+                stream.synchronize()
+        counter = get_registry().counter(
+            "tpudas_stream_carry_staged_bytes_total",
+            "carry leaf bytes a save wrote, by path: pinned (a card "
+            "leaf's D2H through a page-locked staging buffer) or direct "
+            "(a host leaf written as it is)",
+            labelnames=("path",),
+        )
+        for path, n in nbytes.items():
+            if n:
+                counter.inc(n, path=path)
+        yield tuple(out)
+    finally:
+        if buf is not None:
+            _PINNED.give(buf)
 
 
 def gather_columns(parts, n_ch: int | None = None, device=None):

@@ -58,10 +58,10 @@ is no fallback engine.
 from __future__ import annotations
 
 import functools
-import io
 import json
 import os
 import time
+from contextlib import ExitStack
 from dataclasses import dataclass
 
 import numpy as np
@@ -173,35 +173,44 @@ def save_carry(carry: StreamCarry, folder: str) -> str:
     sidecar) plus a readable checksummed ``.json`` sidecar.  The
     outgoing primary survives as ``.prev`` — the middle rung of
     :func:`load_carry`'s ladder.  The only point where the device
-    leaves cross to the host: sharded (pad-and-masked) leaves are
-    gathered and trimmed to the logical channel width, counted as
-    ``tpudas_parallel_transfer_bytes_total{direction="gather"}`` (raise
-    the save cadence to amortize it).  Returns the npz path."""
+    leaves cross to the host (``stream.carry_gather``): card leaves are
+    copied into a page-locked staging buffer, sharded (pad-and-masked)
+    leaves joined and trimmed to the logical channel width first,
+    counted as ``tpudas_parallel_transfer_bytes_total{direction=
+    "gather"}`` (raise the save cadence to amortize it).  The ``.npz``
+    (``np.savez``'s bytes) is then streamed from those arrays into its
+    tmp file under one crc pass, and renamed with its sidecars
+    (``stream.carry_write``).  Returns the npz path."""
     from tpudas_torch.integrity.checksum import (
         rotate_prev,
-        write_bytes_checksummed,
         write_json_checksummed,
+        write_npz_checksummed,
     )
-    from tpudas_torch.parallel.sharding import gather_leaves
+    from tpudas_torch.parallel.sharding import staged_leaves
     from tpudas_torch.resilience.faults import fault_point
 
     path = os.path.join(folder, CARRY_FILENAME)
     fault_point("carry.save", folder=folder)
-    with span("stream.carry_save"):
-        arrays = {"meta": np.asarray(json.dumps(carry._meta()))}
-        for i, b in enumerate(gather_leaves(carry.bufs, carry.n_ch)):
-            arrays[f"buf_{i}"] = b
-        if carry.residual is not None:
-            res = np.asarray(carry.residual)
-            if res.dtype != np.int16:  # raw quantized rows stay int16
-                res = res.astype(np.float32, copy=False)
-            arrays["residual"] = res
-        buf = io.BytesIO()
-        np.savez(buf, **arrays)
-        rotate_prev(path)
-        write_bytes_checksummed(path, buf.getvalue())
-        write_json_checksummed(
-            os.path.join(folder, CARRY_SIDECAR), carry._meta())
+    with span("stream.carry_save"), ExitStack() as stack:
+        # parallel.gather stays a child of the save, as the JAX
+        # package's gather is (the flight ring records two levels)
+        with span("parallel.gather", leaves=len(carry.bufs)), \
+                span("stream.carry_gather"):
+            leaves = stack.enter_context(
+                staged_leaves(carry.bufs, carry.n_ch))
+        with span("stream.carry_write"):
+            arrays = {"meta": np.asarray(json.dumps(carry._meta()))}
+            for i, b in enumerate(leaves):
+                arrays[f"buf_{i}"] = b
+            if carry.residual is not None:
+                res = np.asarray(carry.residual)
+                if res.dtype != np.int16:  # raw quantized rows stay int16
+                    res = res.astype(np.float32, copy=False)
+                arrays["residual"] = res
+            rotate_prev(path)
+            write_npz_checksummed(path, arrays)
+            write_json_checksummed(
+                os.path.join(folder, CARRY_SIDECAR), carry._meta())
     get_registry().counter(
         "tpudas_stream_carry_saves_total", "stream carry persists"
     ).inc()

@@ -27,6 +27,7 @@ import os
 import re
 
 __all__ = [
+    "atomic_fill_pair",
     "atomic_write_bytes",
     "atomic_write_pair",
     "atomic_write_text",
@@ -108,10 +109,30 @@ def atomic_write_pair(path: str, payload: bytes, side: str, text: str,
     written in full before either rename, so a crash can part the pair
     only between two adjacent renames, never across a data write that
     may block on the disk.  A failure before the renames removes the
-    payload's tmp and leaves the old pair."""
+    tmps and leaves the old pair."""
+
+    def fill(fh):
+        fh.write(payload)
+        return text
+
+    atomic_fill_pair(path, fill, side, durable=durable)
+
+
+def atomic_fill_pair(path: str, fill, side: str,
+                     durable: bool | None = None) -> None:
+    """:func:`atomic_write_pair` for a payload written by ``fill(fh)``
+    straight into ``path``'s tmp file (open for binary writing), which
+    returns the text of ``side``: a large payload streams to the file
+    once, and its sidecar digests what was written."""
     durable = durable_default() if durable is None else bool(durable)
-    tmp = _stage(path, payload, "wb", durable)
+    _fault_point(path)
+    tmp = tmp_path_for(path)
     try:
+        with open(tmp, "wb") as fh:
+            text = fill(fh)
+            if durable:
+                fh.flush()
+                os.fsync(fh.fileno())
         tmp_side = _stage(side, text, "w", durable)
     except BaseException:
         try:
